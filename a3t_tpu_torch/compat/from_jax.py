@@ -1,0 +1,157 @@
+"""Carry weights from the JAX package's flax trees into the port.
+
+The inverse of ``a3t_tpu/compat/torch_import.py`` and
+``a3t_tpu/models/pwg.py::convert_pwg_state``: a flax Dense kernel (in, out)
+becomes a Linear weight (out, in), a Conv kernel (k, in, out) a Conv1d weight
+(out, in, k), LayerNorm/BatchNorm ``scale`` a ``weight`` and ``batch_stats``
+the running statistics.  Inputs are trees of array-likes (numpy, or anything
+``np.asarray`` takes); outputs are ``{state_dict name: np.ndarray}`` with
+ESPnet's names.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x).astype(np.float32)
+
+
+def dense(p, prefix: str) -> dict:
+    out = {f"{prefix}.weight": _np(p["kernel"]).T.copy()}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _np(p["bias"])
+    return out
+
+
+def conv(p, prefix: str) -> dict:
+    out = {f"{prefix}.weight": _np(p["kernel"]).transpose(2, 1, 0).copy()}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _np(p["bias"])
+    return out
+
+
+def layer_norm(p, prefix: str) -> dict:
+    return {f"{prefix}.weight": _np(p["scale"]), f"{prefix}.bias": _np(p["bias"])}
+
+
+def batch_norm(p, stats, prefix: str) -> dict:
+    return {f"{prefix}.weight": _np(p["scale"]), f"{prefix}.bias": _np(p["bias"]),
+            f"{prefix}.running_mean": _np(stats["mean"]),
+            f"{prefix}.running_var": _np(stats["var"]),
+            f"{prefix}.num_batches_tracked": np.zeros((), np.int64)}
+
+
+def positionwise(p, prefix: str) -> dict:
+    if "Conv_0" in p:
+        return {**conv(p["Conv_0"], f"{prefix}.w_1"),
+                **conv(p["Conv_1"], f"{prefix}.w_2")}
+    return {**dense(p["Dense_0"], f"{prefix}.w_1"),
+            **dense(p["Dense_1"], f"{prefix}.w_2")}
+
+
+def attention(p, prefix: str) -> dict:
+    out = {}
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+        out.update(dense(p[name], f"{prefix}.{name}"))
+    out[f"{prefix}.pos_bias_u"] = _np(p["pos_bias_u"])
+    out[f"{prefix}.pos_bias_v"] = _np(p["pos_bias_v"])
+    return out
+
+
+def conv_module(p, stats, prefix: str) -> dict:
+    return {**conv(p["Conv_0"], f"{prefix}.pointwise_conv1"),
+            **conv(p["Conv_1"], f"{prefix}.depthwise_conv"),
+            **conv(p["Conv_2"], f"{prefix}.pointwise_conv2"),
+            **batch_norm(p["BatchNorm_0"], stats["BatchNorm_0"],
+                         f"{prefix}.norm")}
+
+
+def block(p, stats, prefix: str) -> dict:
+    out = {**attention(p["self_attn"], f"{prefix}.self_attn"),
+           **layer_norm(p["norm_mha"], f"{prefix}.norm_mha"),
+           **positionwise(p["feed_forward"], f"{prefix}.feed_forward"),
+           **layer_norm(p["norm_ff"], f"{prefix}.norm_ff")}
+    if "feed_forward_macaron" in p:
+        out.update(positionwise(p["feed_forward_macaron"],
+                                f"{prefix}.feed_forward_macaron"))
+        out.update(layer_norm(p["norm_ff_macaron"], f"{prefix}.norm_ff_macaron"))
+    if "conv_module" in p:
+        out.update(conv_module(p["conv_module"], stats["conv_module"],
+                               f"{prefix}.conv_module"))
+        out.update(layer_norm(p["norm_conv"], f"{prefix}.norm_conv"))
+        out.update(layer_norm(p["norm_final"], f"{prefix}.norm_final"))
+    return out
+
+
+def stack(p, stats, prefix: str) -> dict:
+    out = {}
+    i = 0
+    while f"block_{i}" in p:
+        out.update(block(p[f"block_{i}"], stats.get(f"block_{i}", {}),
+                         f"{prefix}.encoders.{i}"))
+        i += 1
+    if "after_norm" in p:
+        out.update(layer_norm(p["after_norm"], f"{prefix}.after_norm"))
+    return out
+
+
+def mlm_state(variables) -> dict:
+    """A3TMLMModel variables ``{"params", "batch_stats"}`` -> port state."""
+    p, s = variables["params"], variables["batch_stats"]
+    out = {"encoder.speech_embed.0.mask_feature":
+           _np(p["speech_masked_input"]["mask_feature"]),
+           **dense(p["speech_proj"], "encoder.speech_embed.1"),
+           **layer_norm(p["speech_norm"], "encoder.speech_embed.2"),
+           "encoder.text_embed.0.weight": _np(p["text_embed"]["embedding"]),
+           **stack(p["encoder"], s.get("encoder", {}), "encoder"),
+           **dense(p["sfc"], "sfc")}
+    if "segment_emb" in p:
+        out["encoder.segment_emb.weight"] = _np(p["segment_emb"]["embedding"])
+    if "decoder" in p:
+        out.update(stack(p["decoder"], s.get("decoder", {}), "decoder"))
+    if "postnet" in p:
+        pn, pns = p["postnet"], s["postnet"]
+        i = 0
+        while f"Conv_{i}" in pn:
+            out.update(conv(pn[f"Conv_{i}"], f"postnet.postnet.{i}.0"))
+            out.update(batch_norm(pn[f"BatchNorm_{i}"], pns[f"BatchNorm_{i}"],
+                                  f"postnet.postnet.{i}.1"))
+            i += 1
+    return out
+
+
+def pwg_state(variables) -> dict:
+    """ParallelWaveGANGenerator variables ``{"params"}`` -> port state."""
+    p = variables["params"]
+    up = p["upsample_net"]
+    out = {**conv(p["first_conv"], "first_conv"),
+           **conv(p["last_conv_1"], "last_conv_layers.1"),
+           **conv(p["last_conv_2"], "last_conv_layers.3"),
+           **conv(up["conv_in"], "upsample_net.conv_in")}
+    i = 0
+    while f"up_conv_{i}" in up:
+        # flax (k, 1, 1) -> torch Conv2d (1, 1, 1, k)
+        out[f"upsample_net.upsample.up_layers.{2 * i + 1}.weight"] = \
+            _np(up[f"up_conv_{i}"]["kernel"]).reshape(1, 1, 1, -1)
+        i += 1
+    i = 0
+    while f"block_{i}" in p:
+        blk = p[f"block_{i}"]
+        for name in ("conv", "conv1x1_aux", "conv1x1_out"):
+            out.update(conv(blk[name], f"conv_layers.{i}.{name}"))
+        i += 1
+    return out
+
+
+def load_state(module: torch.nn.Module, state: dict) -> torch.nn.Module:
+    """Load a ``{name: array}`` state strictly into ``module``, keeping each
+    parameter's device and dtype."""
+    own = module.state_dict()
+    module.load_state_dict({
+        k: torch.tensor(np.asarray(v)).to(own[k].dtype) if k in own
+        else torch.tensor(np.asarray(v)) for k, v in state.items()},
+        strict=True)
+    return module

@@ -1,0 +1,109 @@
+"""Multi-head attention with (legacy) relative positional encoding
+(``a3t_tpu/models/attention.py``).
+
+scores = ((q + u) k^T + rel_shift((q + v) p^T)) / sqrt(d_k); masked columns
+get the dtype minimum before the softmax and are re-zeroed after.  The flash
+branch hands the rel-shifted positional scores to the fused kernel
+(``ops/fused_attention.py``) as an additive bias; the plain branch is the
+JAX package's XLA branch (attention.py:179-194).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from a3t_tpu_torch.ops.fused_attention import fused_attention
+
+
+def legacy_rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """Transformer-XL relative shift of (B, H, T1, T2) scores."""
+    b, h, t1, t2 = x.shape
+    xp = torch.cat([x.new_zeros(b, h, t1, 1), x], dim=-1)
+    return xp.view(b, h, t2 + 1, t1)[:, :, 1:].reshape(b, h, t1, t2)
+
+
+def latest_rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """New-style shift of a (B, H, T, 2T-1) score matrix."""
+    b, h, t1, t2 = x.shape
+    xp = torch.cat([x.new_zeros(b, h, t1, 1), x], dim=-1)
+    xp = xp.view(b, h, t2 + 1, t1)[:, :, 1:].reshape(b, h, t1, t2)
+    return xp[..., : t2 // 2 + 1]
+
+
+def apply_attn_mask(scores: torch.Tensor, mask) -> torch.Tensor:
+    """Softmax with masked columns forced to zero probability.
+
+    mask: (B, 1, T2) or (B, T1, T2); 0 = masked out.
+    """
+    if mask is None:
+        return torch.softmax(scores, dim=-1)
+    m = (mask != 0)[:, None] if mask.dim() == 3 else (mask != 0)
+    scores = scores.masked_fill(~m, torch.finfo(scores.dtype).min)
+    return torch.softmax(scores, dim=-1).masked_fill(~m, 0.0)
+
+
+class RelPositionMultiHeadedAttention(nn.Module):
+    """Self-attention with relative positional encoding.
+
+    ``legacy=True``: pos_emb of length T over reversed positions;
+    ``legacy=False``: the 2T-1 "latest" variant.  ``use_flash`` routes the
+    softmax and P.V through the fused kernel when the mask is per key.
+    """
+
+    def __init__(self, d_model: int, n_head: int, legacy: bool = True,
+                 use_flash: bool = True):
+        super().__init__()
+        self.h = n_head
+        self.d_k = d_model // n_head
+        self.legacy = legacy
+        self.use_flash = use_flash
+        self.linear_q = nn.Linear(d_model, d_model)
+        self.linear_k = nn.Linear(d_model, d_model)
+        self.linear_v = nn.Linear(d_model, d_model)
+        self.linear_out = nn.Linear(d_model, d_model)
+        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
+        self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
+
+    def forward(self, x, pos_emb, mask=None):
+        b, t, d_model = x.shape
+
+        def heads(y):
+            return y.view(*y.shape[:-1], self.h, self.d_k)
+
+        q = heads(self.linear_q(x))
+        k = heads(self.linear_k(x))
+        v = heads(self.linear_v(x))
+        p = heads(self.linear_pos(pos_emb))  # (1, P, H, d_k)
+        q_u = q + self.pos_bias_u
+        q_v = q + self.pos_bias_v
+
+        matrix_bd = torch.einsum("bthd,bshd->bhts", q_v,
+                                 p.expand(b, *p.shape[1:]))
+        matrix_bd = (legacy_rel_shift(matrix_bd) if self.legacy
+                     else latest_rel_shift(matrix_bd))
+
+        flat_mask = None
+        if mask is not None:
+            m3 = mask if mask.dim() == 3 else mask[:, None, :]
+            if m3.shape[1] == 1:
+                flat_mask = m3[:, 0] != 0
+
+        if self.use_flash and (mask is None or flat_mask is not None):
+            if flat_mask is None:
+                flat_mask = torch.ones(b, t, dtype=torch.bool, device=x.device)
+            out = fused_attention(
+                q_u.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), matrix_bd.contiguous(),
+                flat_mask)
+            out = out.transpose(1, 2).reshape(b, t, d_model)
+            return self.linear_out(out)
+
+        matrix_ac = torch.einsum("bthd,bshd->bhts", q_u, k)
+        attn = apply_attn_mask((matrix_ac + matrix_bd) / math.sqrt(self.d_k),
+                               mask)
+        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, d_model)
+        return self.linear_out(out)

@@ -1,0 +1,137 @@
+"""Building-block layers of the Conformer stacks (``a3t_tpu/models/layers.py``).
+
+Public shapes are (batch, time, channels), as in the JAX package; the
+convolutions transpose to PyTorch's (batch, channels, time) inside.
+Parameter names are ESPnet's (``a3t_tpu/compat/torch_import.py``), so a
+``state_dict`` of these modules maps onto the flax tree and back.
+
+The port serves inference: BatchNorm always normalises with its running
+statistics (the JAX package's ``use_running_average=True``) and dropout is
+the identity.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+ACTIVATIONS = {"swish": swish}
+
+
+@functools.lru_cache(maxsize=4)
+def sinusoidal_table(length: int, d_model: int, reverse: bool = False) -> np.ndarray:
+    """Sinusoidal positional table (length, d_model); ``reverse=True`` runs
+    positions length-1 .. 0 (LegacyRelPositionalEncoding).  Cached: callers
+    must not write to the returned array."""
+    if reverse:
+        position = np.arange(length - 1, -1, -1.0, dtype=np.float64)[:, None]
+    else:
+        position = np.arange(length, dtype=np.float64)[:, None]
+    div_term = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float64) * -(np.log(10000.0) / d_model)
+    )
+    pe = np.zeros((length, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    pe.flags.writeable = False
+    return pe
+
+
+def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm from running statistics, whatever the module's mode."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                        training=False, eps=bn.eps)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Linear -> activation -> Linear."""
+
+    def __init__(self, d: int, hidden: int, activation: str = "swish"):
+        super().__init__()
+        self.w_1 = nn.Linear(d, hidden)
+        self.w_2 = nn.Linear(hidden, d)
+        self.act = ACTIVATIONS[activation]
+
+    def forward(self, x):
+        return self.w_2(self.act(self.w_1(x)))
+
+
+class MultiLayeredConv1d(nn.Module):
+    """Two same-padded Conv1d with ReLU between (FastSpeech position-wise
+    layer, espnet multi_layer_conv.py)."""
+
+    def __init__(self, d: int, hidden: int, kernel_size: int):
+        super().__init__()
+        pad = (kernel_size - 1) // 2
+        self.w_1 = nn.Conv1d(d, hidden, kernel_size, padding=pad)
+        self.w_2 = nn.Conv1d(hidden, d, kernel_size, padding=pad)
+
+    def forward(self, x):
+        h = F.relu(self.w_1(x.transpose(1, 2)))
+        return self.w_2(h).transpose(1, 2)
+
+
+class ConvolutionModule(nn.Module):
+    """Conformer convolution module: pointwise(2d) + GLU -> depthwise ->
+    BatchNorm (running stats, eps 1e-5) -> activation -> pointwise."""
+
+    def __init__(self, d: int, kernel_size: int, activation: str = "swish"):
+        super().__init__()
+        self.pointwise_conv1 = nn.Conv1d(d, 2 * d, 1)
+        self.depthwise_conv = nn.Conv1d(d, d, kernel_size,
+                                        padding=(kernel_size - 1) // 2, groups=d)
+        self.norm = nn.BatchNorm1d(d, eps=1e-5)
+        self.pointwise_conv2 = nn.Conv1d(d, d, 1)
+        self.act = ACTIVATIONS[activation]
+
+    def forward(self, x):
+        h = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
+        h = batch_norm_eval(self.norm, self.depthwise_conv(h))
+        return self.pointwise_conv2(self.act(h)).transpose(1, 2)
+
+
+class Postnet(nn.Module):
+    """Tacotron2 postnet: (n_layers-1) x [Conv(no bias) -> BN -> tanh] +
+    [Conv -> BN]; the caller adds the residual."""
+
+    def __init__(self, odim: int, n_layers: int = 5, n_chans: int = 256,
+                 n_filts: int = 5):
+        super().__init__()
+        pad = (n_filts - 1) // 2
+        layers = []
+        for i in range(n_layers):
+            c_in = odim if i == 0 else n_chans
+            c_out = odim if i == n_layers - 1 else n_chans
+            layers.append(nn.Sequential(
+                nn.Conv1d(c_in, c_out, n_filts, padding=pad, bias=False),
+                nn.BatchNorm1d(c_out, eps=1e-5)))
+        self.postnet = nn.ModuleList(layers)
+
+    def forward(self, x):
+        h = x.transpose(1, 2)
+        for i, (conv, bn) in enumerate(self.postnet):
+            h = batch_norm_eval(bn, conv(h))
+            if i < len(self.postnet) - 1:
+                h = torch.tanh(h)
+        return h.transpose(1, 2)
+
+
+class MaskedInput(nn.Module):
+    """``where(masked, mask_feature, x)`` (NewMaskInputLayer)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.mask_feature = nn.Parameter(torch.zeros(1, 1, features))
+
+    def forward(self, x, masked_position):
+        return torch.where(masked_position[..., None],
+                           self.mask_feature.to(x.dtype), x)

@@ -1,0 +1,155 @@
+"""The A3T masked-reconstruction model at inference (``a3t_tpu/models/mlm.py``).
+
+A dual-embed Conformer encoder consumes [masked mel frames ; phone tokens]
+with a shared segment embedding aligning the two modalities; a second
+Conformer stack ("decoder") refines the concatenated states; the speech slice
+goes through the linear ``sfc`` head and a Tacotron2 postnet.  Parameter names
+are ESPnet's ``ESPnetMLMEncAsDecoderModel`` names, which
+``a3t_tpu/compat/torch_import.py::convert_model_state`` maps onto the flax
+tree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from a3t_tpu_torch.device import resolve_device
+from a3t_tpu_torch.models.conformer import (
+    ConformerStack,
+    EncoderConfig,
+    RelPosEncoding,
+)
+from a3t_tpu_torch.models.layers import MaskedInput, Postnet
+
+
+@dataclasses.dataclass(frozen=True)
+class A3TModelConfig:
+    """Model hyperparameters (conf/fsp2_conformer.yaml:26-75 defaults)."""
+
+    odim: int = 80
+    vocab_size: int = 100
+    encoder: EncoderConfig = EncoderConfig(cnn_module_kernel=7)
+    decoder: Optional[EncoderConfig] = EncoderConfig(cnn_module_kernel=31)
+    use_segment_emb: bool = True
+    segment_vocab: int = 500
+    postnet_layers: int = 5
+    postnet_chans: int = 256
+    postnet_filts: int = 5
+    duration_predictor_layers: int = 0
+    spemb_dim: int = 0
+
+
+class MLMEncoder(ConformerStack):
+    """The encoder stack with the modality embeddings it owns in ESPnet's
+    MLMEncoder: speech_embed = [MaskedInput, Linear, LayerNorm] (+ ReLU),
+    text_embed = [Embedding], segment_emb."""
+
+    def __init__(self, c: A3TModelConfig):
+        super().__init__(c.encoder)
+        d = c.encoder.attention_dim
+        self.speech_embed = nn.ModuleList([
+            MaskedInput(c.odim), nn.Linear(c.odim, d), nn.LayerNorm(d, eps=1e-5)])
+        self.text_embed = nn.ModuleList([nn.Embedding(c.vocab_size, d)])
+        if c.use_segment_emb:
+            self.segment_emb = nn.Embedding(c.segment_vocab, d)
+
+
+class A3TMLMModel(nn.Module):
+    """Encoder-as-decoder A3T model.
+
+    forward inputs, padded to static shapes:
+        speech (B, F, odim) mel; text (B, T) phone ids;
+        masked_position, speech_mask (B, F) bool; text_mask (B, T) bool;
+        speech_segment_pos (B, F), text_segment_pos (B, T) int.
+    Returns ``(before_outs, after_outs)``, each (B, F, odim) float32
+    (``after_outs`` is None without a postnet).
+    """
+
+    def __init__(self, config: A3TModelConfig):
+        super().__init__()
+        c = config
+        if c.spemb_dim:
+            raise NotImplementedError(
+                "speaker-conditioned A3T (spemb_dim > 0) is not ported")
+        if c.duration_predictor_layers:
+            raise NotImplementedError("the duration-aware variant is not ported")
+        self.config = c
+        d = c.encoder.attention_dim
+        self.encoder = MLMEncoder(c)
+        self.posenc = RelPosEncoding(d)
+        if c.decoder is not None:
+            self.decoder = ConformerStack(c.decoder)
+        self.sfc = nn.Linear(d, c.odim)
+        if c.postnet_layers > 0:
+            self.postnet = Postnet(c.odim, c.postnet_layers, c.postnet_chans,
+                                   c.postnet_filts)
+
+    def encode(self, speech, text, masked_position, speech_mask, text_mask,
+               speech_segment_pos, text_segment_pos):
+        """((B, F + T, d) encoder states, (B, 1, F + T) mask)."""
+        enc = self.encoder
+        masked_input, proj, norm = enc.speech_embed
+        h_speech = F.relu(norm(proj(masked_input(speech, masked_position))))
+        h_speech, pos_speech = self.posenc(h_speech)
+        h_text, pos_text = self.posenc(enc.text_embed[0](text))
+        if self.config.use_segment_emb:
+            h_speech = h_speech + enc.segment_emb(speech_segment_pos)
+            h_text = h_text + enc.segment_emb(text_segment_pos)
+        x = torch.cat([h_speech, h_text], dim=1)
+        pos_emb = torch.cat([pos_speech, pos_text], dim=1)
+        mask = torch.cat([speech_mask, text_mask], dim=1)[:, None, :]
+        return enc(x, pos_emb, mask), mask
+
+    def decode(self, x, mask):
+        """The refinement stack re-scales and takes a fresh positional table
+        over the full concatenated length (conformer/encoder.py:568-614)."""
+        x, pos_full = self.posenc(x)
+        return self.decoder(x, pos_full, mask)
+
+    def forward(self, speech, text, masked_position, speech_mask, text_mask,
+                speech_segment_pos, text_segment_pos, spemb=None):
+        if spemb is not None:
+            raise NotImplementedError("spemb conditioning is not ported")
+        n_frames = speech.shape[1]
+        hidden, mask = self.encode(
+            speech, text, masked_position, speech_mask, text_mask,
+            speech_segment_pos, text_segment_pos)
+        if self.config.decoder is not None:
+            hidden = self.decode(hidden, mask)
+        before_outs = self.sfc(hidden[:, :n_frames]).float()
+        after_outs = None
+        if self.config.postnet_layers > 0:
+            after_outs = before_outs + self.postnet(before_outs)
+        return before_outs, after_outs
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights with the JAX package's initialisers: xavier
+    uniform for dense, conv and positional-bias weights, zero biases,
+    standard normal embeddings and mask feature, identity BatchNorm."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "bias" or (p.dim() == 1 and leaf == "weight"):
+                # LayerNorm / BatchNorm scale is one, every bias zero
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "mask_feature" or isinstance(
+                    model.get_submodule(name.rsplit(".", 1)[0]), nn.Embedding):
+                p.normal_(generator=generator)
+            else:
+                nn.init.xavier_uniform_(p, generator=generator)
+    return model
+
+
+def build_model(config: A3TModelConfig, device=None, seed: int = 0) -> A3TMLMModel:
+    """An A3TMLMModel with seeded random weights, in eval mode on ``device``
+    (cuda unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    model = A3TMLMModel(config)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

@@ -1,0 +1,36 @@
+"""The shipped configurations as Python constants.
+
+The JAX package reads its configs through ``yaml`` (a3t_tpu/tasks/config.py);
+the port's serving path needs no YAML reader: ``configs/a3t_conformer_24k.yaml``
+is written out here as dataclasses.
+"""
+
+from __future__ import annotations
+
+from a3t_tpu_torch.dsp.frontend import LogMelConfig
+from a3t_tpu_torch.models.conformer import EncoderConfig
+from a3t_tpu_torch.models.mlm import A3TModelConfig
+from a3t_tpu_torch.models.pwg import PWGConfig
+
+# configs/a3t_conformer_24k.yaml: front-end
+FRONTEND_24K = LogMelConfig(fs=24000, n_fft=2048, hop_length=300,
+                            win_length=1200, n_mels=80, fmin=80.0, fmax=7600.0)
+
+
+def a3t_conformer_24k(vocab_size: int = 80) -> A3TModelConfig:
+    """configs/a3t_conformer_24k.yaml: model.  The vocabulary is the
+    token list's length (80 in the JAX package's RTF bench)."""
+    stack = dict(attention_dim=384, attention_heads=2, linear_units=1536,
+                 num_blocks=4, macaron_style=True, use_cnn_module=True,
+                 positionwise_layer_type="conv1d",
+                 positionwise_conv_kernel_size=3, activation_type="swish",
+                 selfattention_layer_type="legacy_rel_selfattn")
+    return A3TModelConfig(
+        odim=FRONTEND_24K.n_mels, vocab_size=vocab_size,
+        encoder=EncoderConfig(cnn_module_kernel=7, **stack),
+        decoder=EncoderConfig(cnn_module_kernel=31, **stack),
+        postnet_layers=5, postnet_chans=256, postnet_filts=5)
+
+
+# ParallelWaveGAN at the 24 kHz recipe size (upsample 4*5*3*5 = hop 300)
+PWG_24K = PWGConfig()

@@ -6,7 +6,10 @@ becomes a Linear weight (out, in), a Conv kernel (k, in, out) a Conv1d weight
 (out, in, k), LayerNorm/BatchNorm ``scale`` a ``weight`` and ``batch_stats``
 the running statistics.  Inputs are trees of array-likes (numpy, or anything
 ``np.asarray`` takes); outputs are ``{state_dict name: np.ndarray}`` with
-ESPnet's names.  Nothing here imports JAX.
+ESPnet's names.  :func:`load_train_state` carries a whole JAX train state
+(parameters, ``batch_stats``, the optax state and the step) into the port's
+``TrainState``, so a run started in JAX goes on in the port.  Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -155,3 +158,47 @@ def load_state(module: torch.nn.Module, state: dict) -> torch.nn.Module:
         else torch.tensor(np.asarray(v)) for k, v in state.items()},
         strict=True)
     return module
+
+
+def _inner_states(opt_state):
+    """(Adam's state, the schedule's state) of ``make_optimizer``'s
+    ``apply_if_finite(chain(...))`` state, found by their fields."""
+    fields = [(s, getattr(s, "_fields", ())) for s in opt_state.inner_state]
+    adam = [s for s, f in fields if "mu" in f]
+    sched = [s for s, f in fields if f == ("count",)]
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError("not the optax state of a3t_tpu's make_optimizer "
+                         "(without grad noise or accum_grad)")
+    return adam[0], sched[0]
+
+
+def load_train_state(state, jax_state):
+    """Carry a JAX ``TrainState`` (step, params, batch_stats, opt_state of
+    ``make_optimizer``) into the port's ``TrainState`` ``state``, in place:
+    weights and running statistics into the model, Adam's ``mu``/``nu``
+    mapped by the same names as the parameters, the chain's count and
+    apply_if_finite's counters.  Returns ``state``."""
+    model = state.model
+    stats = jax_state.batch_stats
+    load_state(model, mlm_state({"params": jax_state.params,
+                                 "batch_stats": stats}))
+    adam, sched = _inner_states(jax_state.opt_state)
+    if int(np.asarray(adam.count)) != int(np.asarray(sched.count)):
+        raise ValueError("Adam's and the schedule's counts differ")
+    names = [n for n, _ in model.named_parameters()]
+    os_ = state.opt_state
+    for field, tree in (("mu", adam.mu), ("nu", adam.nu)):
+        mapped = mlm_state({"params": tree, "batch_stats": stats})
+        flat = np.concatenate([mapped[n].reshape(-1) for n in names])
+        setattr(os_, field, torch.tensor(flat, dtype=torch.float32,
+                                         device=os_.mu.device))
+    jo = jax_state.opt_state
+    for field, value in (("count", adam.count),
+                         ("notfinite_count", jo.notfinite_count),
+                         ("last_finite", jo.last_finite),
+                         ("total_notfinite", jo.total_notfinite)):
+        old = getattr(os_, field)
+        setattr(os_, field, torch.tensor(np.asarray(value), dtype=old.dtype,
+                                         device=old.device))
+    state.step = int(np.asarray(jax_state.step))
+    return state

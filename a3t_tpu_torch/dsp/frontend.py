@@ -12,9 +12,9 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
+from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.dsp.mel import mel_filterbank
 from a3t_tpu_torch.dsp.stft import num_frames, padded_window, stft
 
@@ -43,12 +43,13 @@ class LogMelConfig:
 
 
 class LogMelFrontend:
-    """Stateless callable computing log10-mel features on ``device``."""
+    """Stateless callable computing log10-mel features on ``device`` (cuda
+    unless the caller asks for the CPU)."""
 
-    def __init__(self, config: LogMelConfig = LogMelConfig(), device="cpu"):
+    def __init__(self, config: LogMelConfig = LogMelConfig(), device=None):
         self.config = config
         c = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.melmat = torch.as_tensor(
             mel_filterbank(c.fs, c.n_fft, c.n_mels, c.fmin, c.fmax).T,
             device=self.device)  # (n_freqs, n_mels)
@@ -68,7 +69,7 @@ class LogMelFrontend:
         n_f = feats.shape[1]
         if sample_lengths is not None:
             flens = self.frame_lengths(torch.as_tensor(
-                np.asarray(sample_lengths), device=self.device))
+                sample_lengths, device=self.device))
             valid = torch.arange(n_f, device=self.device)[None] < flens[:, None]
             feats = torch.where(valid[..., None], feats,
                                 torch.zeros_like(feats))

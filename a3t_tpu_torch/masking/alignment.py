@@ -1,8 +1,10 @@
 """Alignment-aware masking and segment positions, host-side numpy.
 
-A copy of ``a3t_tpu/masking/alignment.py:31-104`` (the two functions that
-inference uses), kept here so that the port imports nothing of the JAX
-package.  Semantics follow espnet2/train/collate_fn.py:290-385: frames
+A copy of ``a3t_tpu/masking/alignment.py:28-102`` (the functions that
+inference and the synthetic training batches use), kept here so that the
+port imports nothing of the JAX package.  Semantics follow
+espnet2/train/collate_fn.py:290-385: ``phones_masking`` picks masked phones
+with T5 span statistics and expands them to their aligned frames; frames
 aligned to phone j and the j-th text token both get segment id j+1
 (0 = unaligned / padding).
 """
@@ -10,6 +12,12 @@ aligned to phone j and the j-th text token both get segment id j+1
 from __future__ import annotations
 
 import numpy as np
+
+from a3t_tpu_torch.masking.spans import random_spans_noise_mask
+
+# Mean frame-span cap for speech-only (alignment-free) masking,
+# mirroring espnet2/train/collate_fn.py:359 and sedit_model.py:96 (max_span).
+MAX_FRAME_SPAN = 50
 
 
 def masked_positions_from_boundary(
@@ -20,6 +28,46 @@ def masked_positions_from_boundary(
     sb = np.asarray(span_boundary).reshape(-1)
     for s, e in zip(sb[::2], sb[1::2]):
         mask[int(s) : int(e)] = True
+    return mask
+
+
+def phones_masking(
+    n_frames: int,
+    align_start: np.ndarray,
+    align_end: np.ndarray,
+    n_phones: int,
+    mlm_prob: float,
+    mean_phn_span: float,
+    rng: np.random.Generator,
+    span_boundary: np.ndarray | None = None,
+) -> np.ndarray:
+    """Boolean (n_frames,) mask of frames to reconstruct for one utterance.
+
+    Args:
+        align_start/align_end: (>= n_phones,) frame indices per phone.
+        n_phones: number of valid alignment entries.
+        mlm_prob: fraction of phones (or frames) to mask.
+        mean_phn_span: mean masked-span length in phones; 0 switches to
+            alignment-free frame-span masking.
+        span_boundary: optional explicit frame spans (inference editing).
+    """
+    if span_boundary is not None:
+        return masked_positions_from_boundary(n_frames, span_boundary)
+    if mlm_prob >= 1.0:
+        return np.ones(n_frames, dtype=bool)
+    if mean_phn_span == 0:
+        mean_span = min(n_frames * mlm_prob // 3, MAX_FRAME_SPAN)
+        return np.asarray(
+            random_spans_noise_mask(n_frames, mlm_prob, max(mean_span, 1), rng)
+        )
+    mask = np.zeros(n_frames, dtype=bool)
+    if n_phones < 2:
+        return mask
+    phn_mask = random_spans_noise_mask(n_phones, mlm_prob, mean_phn_span, rng)
+    for j in np.nonzero(phn_mask)[0]:
+        s = int(align_start[j])
+        e = int(align_end[j])
+        mask[s:e] = True
     return mask
 
 

@@ -3,9 +3,11 @@
 
 scores = ((q + u) k^T + rel_shift((q + v) p^T)) / sqrt(d_k); masked columns
 get the dtype minimum before the softmax and are re-zeroed after.  The flash
-branch hands the rel-shifted positional scores to the fused kernel
-(``ops/fused_attention.py``) as an additive bias; the plain branch is the
-JAX package's XLA branch (attention.py:179-194).
+branch hands the rel-shifted positional scores to the fused kernels
+(``ops/fused_attention.py``: K1 forward, K2 backward) as an additive bias,
+with the attention dropout drawn inside the kernels; the plain branch is the
+JAX package's XLA branch (attention.py:179-194), which drops the
+probabilities with :class:`SeededDropout`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 import torch
 from torch import nn
 
+from a3t_tpu_torch.models.dropout import SeededDropout, draw_seed
 from a3t_tpu_torch.ops.fused_attention import fused_attention
 
 
@@ -50,11 +53,13 @@ class RelPositionMultiHeadedAttention(nn.Module):
 
     ``legacy=True``: pos_emb of length T over reversed positions;
     ``legacy=False``: the 2T-1 "latest" variant.  ``use_flash`` routes the
-    softmax and P.V through the fused kernel when the mask is per key.
+    softmax and P.V through the fused kernels when the mask is per key.
+    In training mode the attention probabilities are dropped at
+    ``dropout_rate``, with seeds from the ``generator`` given to forward.
     """
 
     def __init__(self, d_model: int, n_head: int, legacy: bool = True,
-                 use_flash: bool = True):
+                 use_flash: bool = True, dropout_rate: float = 0.0):
         super().__init__()
         self.h = n_head
         self.d_k = d_model // n_head
@@ -67,8 +72,9 @@ class RelPositionMultiHeadedAttention(nn.Module):
         self.linear_pos = nn.Linear(d_model, d_model, bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
+        self.dropout = SeededDropout(dropout_rate)
 
-    def forward(self, x, pos_emb, mask=None):
+    def forward(self, x, pos_emb, mask=None, generator=None):
         b, t, d_model = x.shape
 
         def heads(y):
@@ -95,15 +101,23 @@ class RelPositionMultiHeadedAttention(nn.Module):
         if self.use_flash and (mask is None or flat_mask is not None):
             if flat_mask is None:
                 flat_mask = torch.ones(b, t, dtype=torch.bool, device=x.device)
+            rate = self.dropout.rate if self.training else 0.0
+            seed = 0
+            if rate > 0.0:
+                if generator is None:
+                    raise ValueError(
+                        "attention dropout in training mode needs a generator")
+                seed = draw_seed(generator)
             out = fused_attention(
                 q_u.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous(), matrix_bd.contiguous(),
-                flat_mask)
+                flat_mask, dropout_rate=rate, seed=seed)
             out = out.transpose(1, 2).reshape(b, t, d_model)
             return self.linear_out(out)
 
         matrix_ac = torch.einsum("bthd,bshd->bhts", q_u, k)
         attn = apply_attn_mask((matrix_ac + matrix_bd) / math.sqrt(self.d_k),
                                mask)
+        attn = self.dropout(attn, generator)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, d_model)
         return self.linear_out(out)

@@ -1,0 +1,93 @@
+"""Recompute-in-backward dropout with an 8-bit Bernoulli mask
+(``a3t_tpu/models/dropout.py``).
+
+The rule is the JAX package's:
+
+* keep iff a uniform byte ``< _threshold(rate) = clamp(round((1 - rate) *
+  256), 1, 255)``, so the keep probability is quantised to n / 256;
+* kept values are scaled by 1 / ``realized_keep_prob(rate)``, the keep
+  probability the byte rule realises, so E[dropout(x)] == x exactly;
+* the backward saves only the seed and regenerates the mask;
+* rates at or below 1/512 are the identity (they would round to the
+  threshold's floor and drop 1/256 of the elements).
+
+The bytes come from a ``torch.Generator`` seeded per call, so they differ
+from JAX's bits: this module is held to its rule and its statistics, not to
+JAX's masks.  Seeds are drawn on the host from the step's CPU generator
+(:func:`draw_seed`), so no dropout site waits for the card.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def _threshold(rate: float) -> int:
+    """Keep-threshold in [1, 255]: keep iff byte < threshold."""
+    return min(max(int(round((1.0 - rate) * 256.0)), 1), 255)
+
+
+def realized_keep_prob(rate: float) -> float:
+    """The exact keep probability the byte mask realises for ``rate``."""
+    return _threshold(rate) / 256.0
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One int seed in [0, 2^31 - 1) from a CPU generator, without touching
+    the card."""
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
+def keep_mask(shape, seed: int, rate: float, device) -> torch.Tensor:
+    """Bool keep-mask of ``shape`` drawn from a generator seeded with
+    ``seed`` on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(0, 256, tuple(shape), generator=gen, device=device,
+                         dtype=torch.uint8)
+    return bits < _threshold(rate)
+
+
+def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    keep = keep_mask(x.shape, seed, rate, x.device)
+    return torch.where(keep, x * (1.0 / realized_keep_prob(rate)),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _SeededDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed: int, rate: float):
+        ctx.seed, ctx.rate = seed, rate
+        return _apply(x, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _apply(g, ctx.seed, ctx.rate), None, None
+
+
+def seeded_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Unbiased byte dropout; identity when the rate is below the byte
+    grain (``rate <= 1/512``)."""
+    if rate <= 1.0 / 512.0:
+        return x
+    return _SeededDropout.apply(x, seed, rate)
+
+
+class SeededDropout(nn.Module):
+    """Dropout with the recompute-in-backward rule, active in training mode.
+
+    ``forward(x, generator)`` draws this call's seed from ``generator`` (the
+    step's CPU generator); a module in training mode with a rate above the
+    byte grain needs one, as the JAX module needs a "dropout" rng.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate <= 1.0 / 512.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode needs a generator")
+        return seeded_dropout(x, draw_seed(generator), self.rate)

@@ -5,9 +5,11 @@ convolutions transpose to PyTorch's (batch, channels, time) inside.
 Parameter names are ESPnet's (``a3t_tpu/compat/torch_import.py``), so a
 ``state_dict`` of these modules maps onto the flax tree and back.
 
-The port serves inference: BatchNorm always normalises with its running
-statistics (the JAX package's ``use_running_average=True``) and dropout is
-the identity.
+Train mode is the module's ``training`` flag (``model.train()``): dropout
+draws its seeds from the ``generator`` passed to ``forward``, and BatchNorm
+normalises with batch statistics and updates its running statistics by
+flax's rule.  In eval mode dropout is the identity and BatchNorm uses its
+running statistics (the JAX package's ``use_running_average=True``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from a3t_tpu_torch.models.dropout import SeededDropout
+
+# flax BatchNorm(momentum=0.9) keeps 0.9 of the running statistics per step
+# (torch's momentum=0.1 convention is the other way round)
+BN_MOMENTUM = 0.9
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -52,37 +60,62 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
                         training=False, eps=bn.eps)
 
 
-class PositionwiseFeedForward(nn.Module):
-    """Linear -> activation -> Linear."""
+def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False, momentum=0.9)`` over
+    (B, C, T): batch statistics over (B, T), padding included, with flax's
+    variance E[x^2] - E[x]^2 (clipped at 0, biased); the running statistics
+    move by ``ra = 0.9 * ra + 0.1 * batch`` with that biased variance, where
+    torch's own BatchNorm would use the unbiased one."""
+    x = x.float()
+    mean = x.mean(dim=(0, 2))
+    var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+        bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None]) * mul[:, None] + bn.bias[:, None]
 
-    def __init__(self, d: int, hidden: int, activation: str = "swish"):
+
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm by the module's mode: batch statistics in training."""
+    return batch_norm_train(bn, x) if bn.training else batch_norm_eval(bn, x)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Linear -> activation -> dropout -> Linear."""
+
+    def __init__(self, d: int, hidden: int, activation: str = "swish",
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.w_1 = nn.Linear(d, hidden)
         self.w_2 = nn.Linear(hidden, d)
         self.act = ACTIVATIONS[activation]
+        self.dropout = SeededDropout(dropout_rate)
 
-    def forward(self, x):
-        return self.w_2(self.act(self.w_1(x)))
+    def forward(self, x, generator=None):
+        return self.w_2(self.dropout(self.act(self.w_1(x)), generator))
 
 
 class MultiLayeredConv1d(nn.Module):
-    """Two same-padded Conv1d with ReLU between (FastSpeech position-wise
-    layer, espnet multi_layer_conv.py)."""
+    """Two same-padded Conv1d with ReLU and dropout between (FastSpeech
+    position-wise layer, espnet multi_layer_conv.py)."""
 
-    def __init__(self, d: int, hidden: int, kernel_size: int):
+    def __init__(self, d: int, hidden: int, kernel_size: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         pad = (kernel_size - 1) // 2
         self.w_1 = nn.Conv1d(d, hidden, kernel_size, padding=pad)
         self.w_2 = nn.Conv1d(hidden, d, kernel_size, padding=pad)
+        self.dropout = SeededDropout(dropout_rate)
 
-    def forward(self, x):
-        h = F.relu(self.w_1(x.transpose(1, 2)))
+    def forward(self, x, generator=None):
+        h = self.dropout(F.relu(self.w_1(x.transpose(1, 2))), generator)
         return self.w_2(h).transpose(1, 2)
 
 
 class ConvolutionModule(nn.Module):
     """Conformer convolution module: pointwise(2d) + GLU -> depthwise ->
-    BatchNorm (running stats, eps 1e-5) -> activation -> pointwise."""
+    BatchNorm (eps 1e-5) -> activation -> pointwise."""
 
     def __init__(self, d: int, kernel_size: int, activation: str = "swish"):
         super().__init__()
@@ -95,16 +128,16 @@ class ConvolutionModule(nn.Module):
 
     def forward(self, x):
         h = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
-        h = batch_norm_eval(self.norm, self.depthwise_conv(h))
+        h = batch_norm(self.norm, self.depthwise_conv(h))
         return self.pointwise_conv2(self.act(h)).transpose(1, 2)
 
 
 class Postnet(nn.Module):
-    """Tacotron2 postnet: (n_layers-1) x [Conv(no bias) -> BN -> tanh] +
-    [Conv -> BN]; the caller adds the residual."""
+    """Tacotron2 postnet: (n_layers-1) x [Conv(no bias) -> BN -> tanh ->
+    dropout] + [Conv -> BN -> dropout]; the caller adds the residual."""
 
     def __init__(self, odim: int, n_layers: int = 5, n_chans: int = 256,
-                 n_filts: int = 5):
+                 n_filts: int = 5, dropout_rate: float = 0.5):
         super().__init__()
         pad = (n_filts - 1) // 2
         layers = []
@@ -115,13 +148,15 @@ class Postnet(nn.Module):
                 nn.Conv1d(c_in, c_out, n_filts, padding=pad, bias=False),
                 nn.BatchNorm1d(c_out, eps=1e-5)))
         self.postnet = nn.ModuleList(layers)
+        self.dropout = SeededDropout(dropout_rate)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = x.transpose(1, 2)
         for i, (conv, bn) in enumerate(self.postnet):
-            h = batch_norm_eval(bn, conv(h))
+            h = batch_norm(bn, conv(h))
             if i < len(self.postnet) - 1:
                 h = torch.tanh(h)
+            h = self.dropout(h, generator)
         return h.transpose(1, 2)
 
 

@@ -1,4 +1,4 @@
-"""The A3T masked-reconstruction model at inference (``a3t_tpu/models/mlm.py``).
+"""The A3T masked-reconstruction model (``a3t_tpu/models/mlm.py``).
 
 A dual-embed Conformer encoder consumes [masked mel frames ; phone tokens]
 with a shared segment embedding aligning the two modalities; a second
@@ -6,7 +6,9 @@ Conformer stack ("decoder") refines the concatenated states; the speech slice
 goes through the linear ``sfc`` head and a Tacotron2 postnet.  Parameter names
 are ESPnet's ``ESPnetMLMEncAsDecoderModel`` names, which
 ``a3t_tpu/compat/torch_import.py::convert_model_state`` maps onto the flax
-tree.
+tree.  ``model.train()`` turns on dropout (seeds from the ``generator``
+given to ``forward``) and batch-statistics BatchNorm; :func:`mlm_loss` is the
+masked L1 training loss.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ class A3TModelConfig:
     postnet_filts: int = 5
     duration_predictor_layers: int = 0
     spemb_dim: int = 0
+    # loss settings (sedit_model.py:105-108)
+    use_mse_loss: bool = False
 
 
 class MLMEncoder(ConformerStack):
@@ -67,7 +71,9 @@ class A3TMLMModel(nn.Module):
         masked_position, speech_mask (B, F) bool; text_mask (B, T) bool;
         speech_segment_pos (B, F), text_segment_pos (B, T) int.
     Returns ``(before_outs, after_outs)``, each (B, F, odim) float32
-    (``after_outs`` is None without a postnet).
+    (``after_outs`` is None without a postnet).  In training mode
+    ``generator`` (a CPU ``torch.Generator``) seeds every dropout site, the
+    JAX model's ``rngs={"dropout": ...}``.
     """
 
     def __init__(self, config: A3TModelConfig):
@@ -81,8 +87,10 @@ class A3TMLMModel(nn.Module):
         self.config = c
         d = c.encoder.attention_dim
         self.encoder = MLMEncoder(c)
-        self.posenc = RelPosEncoding(d)
+        self.posenc = RelPosEncoding(d, c.encoder.positional_dropout_rate)
         if c.decoder is not None:
+            self.decoder_posenc = RelPosEncoding(
+                d, c.decoder.positional_dropout_rate)
             self.decoder = ConformerStack(c.decoder)
         self.sfc = nn.Linear(d, c.odim)
         if c.postnet_layers > 0:
@@ -90,42 +98,59 @@ class A3TMLMModel(nn.Module):
                                    c.postnet_filts)
 
     def encode(self, speech, text, masked_position, speech_mask, text_mask,
-               speech_segment_pos, text_segment_pos):
+               speech_segment_pos, text_segment_pos, generator=None):
         """((B, F + T, d) encoder states, (B, 1, F + T) mask)."""
         enc = self.encoder
         masked_input, proj, norm = enc.speech_embed
         h_speech = F.relu(norm(proj(masked_input(speech, masked_position))))
-        h_speech, pos_speech = self.posenc(h_speech)
-        h_text, pos_text = self.posenc(enc.text_embed[0](text))
+        h_speech, pos_speech = self.posenc(h_speech, generator)
+        h_text, pos_text = self.posenc(enc.text_embed[0](text), generator)
         if self.config.use_segment_emb:
             h_speech = h_speech + enc.segment_emb(speech_segment_pos)
             h_text = h_text + enc.segment_emb(text_segment_pos)
         x = torch.cat([h_speech, h_text], dim=1)
         pos_emb = torch.cat([pos_speech, pos_text], dim=1)
         mask = torch.cat([speech_mask, text_mask], dim=1)[:, None, :]
-        return enc(x, pos_emb, mask), mask
+        return enc(x, pos_emb, mask, generator), mask
 
-    def decode(self, x, mask):
+    def decode(self, x, mask, generator=None):
         """The refinement stack re-scales and takes a fresh positional table
         over the full concatenated length (conformer/encoder.py:568-614)."""
-        x, pos_full = self.posenc(x)
-        return self.decoder(x, pos_full, mask)
+        x, pos_full = self.decoder_posenc(x, generator)
+        return self.decoder(x, pos_full, mask, generator)
 
     def forward(self, speech, text, masked_position, speech_mask, text_mask,
-                speech_segment_pos, text_segment_pos, spemb=None):
+                speech_segment_pos, text_segment_pos, spemb=None,
+                generator=None):
         if spemb is not None:
             raise NotImplementedError("spemb conditioning is not ported")
         n_frames = speech.shape[1]
         hidden, mask = self.encode(
             speech, text, masked_position, speech_mask, text_mask,
-            speech_segment_pos, text_segment_pos)
+            speech_segment_pos, text_segment_pos, generator)
         if self.config.decoder is not None:
-            hidden = self.decode(hidden, mask)
+            hidden = self.decode(hidden, mask, generator)
         before_outs = self.sfc(hidden[:, :n_frames]).float()
         after_outs = None
         if self.config.postnet_layers > 0:
-            after_outs = before_outs + self.postnet(before_outs)
+            after_outs = before_outs + self.postnet(before_outs, generator)
         return before_outs, after_outs
+
+
+def mlm_loss(before_outs, after_outs, target, masked_position,
+             use_mse: bool = False):
+    """Masked reconstruction loss (sedit_model.py:320-340): per-frame L1
+    (or MSE) summed over the mel bins, before plus after the postnet,
+    averaged over the masked frames."""
+    def err(out):
+        d = out - target
+        return (d * d if use_mse else d.abs()).sum(dim=-1)
+
+    loss = err(before_outs)
+    if after_outs is not None:
+        loss = loss + err(after_outs)
+    w = masked_position.to(loss.dtype)
+    return (loss * w).sum() / (w.sum() + 1e-10)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,28 +1,37 @@
-"""Fused full-attention forward: the port of the TPU kernel
-``a3t_tpu/ops/fused_attention.py::_fwd_call``.
+"""Fused full attention, forward and backward: the port of the TPU kernels
+``a3t_tpu/ops/fused_attention.py::_fwd_call`` (K1) and ``::_bwd_call`` (K2).
 
-Computes, per (batch, head),
+Forward, per (batch, head):
 
     s    = (q_u @ k^T + bias) / sqrt(d)      bias = rel-shifted pos scores
     p    = softmax(s) over valid keys (fp32), masked columns re-zeroed
     out  = (p * keep / (1 - rate)) @ v,      lse = one logsumexp per row
 
-Two versions of the same function live here:
+Backward recomputes p from lse and regenerates the keep-mask:
 
-* :func:`fused_attention_reference` — plain PyTorch, the CPU path and the
-  kernel's oracle on the card;
-* the CUDA kernel ``csrc/fused_attention_fwd.cu``, launched by
-  :func:`fused_attention_fwd` for CUDA tensors.
+    dv = (p * keep / (1 - rate))^T @ g,   dp = g @ v^T * keep / (1 - rate)
+    ds = p * (dp - delta) / sqrt(d),      delta = sum(g * out) per row
+    dq = ds @ k,  dk = ds^T @ q_u,  dbias = ds
 
-The wrapper picks the plain version only because its tensors lie on the CPU;
-on a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts
-kernel launches, so a run can show that its path went through the kernel.
+Each half has two versions of the same function:
+
+* plain PyTorch (:func:`fused_attention_reference`,
+  :func:`fused_attention_bwd_reference`), the CPU path and the kernels'
+  oracle on the card;
+* a CUDA kernel (``csrc/fused_attention_fwd.cu``,
+  ``csrc/fused_attention_bwd.cu``), launched for CUDA tensors.
+
+:class:`FusedAttention` binds the two halves into one autograd function.
+The wrappers pick the plain version only because their tensors lie on the
+CPU; on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` and
+``LAUNCHES_BWD`` count kernel launches, so a run can show that its path went
+through the kernels.
 
 Dropout follows the TPU kernel's interpret-mode rule (fused_attention.py
 :69-80): keep iff ``hash(row * L + col, seed, lane) >= uint32(rate *
 0xFFFFFFFF)`` with lane ``b * 4096 + h``; kept probabilities are scaled by
-1 / (1 - rate) and the softmax denominator stays undropped.  Serving runs
-at rate 0; the backward kernel comes with training.
+1 / (1 - rate) and the softmax denominator stays undropped.  Both kernels
+draw the same bits, so the backward regenerates the forward's mask.
 """
 
 from __future__ import annotations
@@ -37,15 +46,20 @@ from a3t_tpu_torch.ops import native
 
 NEG = -1e30
 _M32 = 0xFFFFFFFF
-_SOURCES = ("fused_attention_fwd.cu",)
+# the kernels' libraries, {name: sources in csrc/}
+LIBRARIES = {"fused_attention": ("fused_attention_fwd.cu",),
+             "fused_attention_bwd": ("fused_attention_bwd.cu",)}
 
-# kernel launches since the last reset (launches only, not plain-version calls)
+# kernel launches since the last reset (launches only, not plain-version
+# calls): K1 forward, K2 backward
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BWD
     LAUNCHES = 0
+    LAUNCHES_BWD = 0
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -109,72 +123,188 @@ def fused_attention_reference(q_u, k, v, bias, mask, seed: int = 0,
     return out, lse
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    """The kernel's C entry point, built and loaded on first use."""
-    fn = native.load("fused_attention", _SOURCES).a3t_fused_attention_fwd
+def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
+                                  lse, g):
+    """Plain PyTorch version of the backward: (dq, dk, dv, dbias), each in
+    its input's dtype, from the forward's inputs, ``out``, ``lse`` and the
+    output gradient ``g`` (``_bwd_call``, fused_attention.py:135-191)."""
+    b, h, l, d = q_u.shape
+    scale = float(np.float32(1.0 / np.sqrt(d)))
+    qf, kf, vf, gf = (t.float() for t in (q_u, k, v, g))
+    delta = (gf * out.float()).sum(-1, keepdim=True)  # (B, H, L, 1)
+    s = (torch.einsum("bhld,bhmd->bhlm", qf, kf) + bias.float()) * scale
+    valid = (_flat_mask(mask, b, l) > 0).view(b, 1, 1, l)
+    s = torch.where(valid, s, torch.full_like(s, NEG))
+    p = torch.exp(s - lse[:, :, 0, :, None])
+    p = torch.where(valid, p, torch.zeros_like(p))
+    dp = torch.einsum("bhld,bhmd->bhlm", gf, vf)
+    p_d = p
+    if rate > 0.0:
+        keep = keep_mask(b, h, l, seed, rate, device=q_u.device).float() \
+            * float(np.float32(1.0 / (1.0 - rate)))
+        p_d = p * keep
+        dp = dp * keep
+    ds = p * (dp - delta) * scale
+    dv = torch.einsum("bhlm,bhld->bhmd", p_d, gf)
+    dq = torch.einsum("bhlm,bhmd->bhld", ds, kf)
+    dk = torch.einsum("bhlm,bhld->bhmd", ds, qf)
+    return (dq.to(q_u.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            ds.to(bias.dtype))
+
+
+def _bind(library: str, symbol: str, n_ptr: int, n_int: int):
+    fn = getattr(native.load(library, LIBRARIES[library]), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
-def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float):
-    global LAUNCHES
-    b, h, l, d = q_u.shape
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """K1's C entry point, built and loaded on first use."""
+    return _bind("fused_attention", "a3t_fused_attention_fwd", 7, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_bwd():
+    """K2's C entry point, built and loaded on first use."""
+    return _bind("fused_attention_bwd", "a3t_fused_attention_bwd", 12, 5)
+
+
+def _check(q_u, named):
+    """Raise unless the kernels take ``q_u`` and ``named`` ((name, tensor,
+    shape) with q_u's dtype) as they are."""
     if q_u.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_attention kernel takes float32 or bfloat16, "
                         f"not {q_u.dtype}")
-    for name, t, shape in (("k", k, (b, h, l, d)), ("v", v, (b, h, l, d)),
-                           ("bias", bias, (b, h, l, l))):
+    for name, t, shape in named:
         if t.dtype != q_u.dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
                              f"{shape} {q_u.dtype}")
-    if not 0 < d <= 256:
-        raise ValueError(f"head width {d} outside 1..256")
-    tensors = (q_u, k, v, bias)
-    if any(t.device != q_u.device for t in tensors) or mask.device != q_u.device:
+    if not 0 < q_u.shape[-1] <= 256:
+        raise ValueError(f"head width {q_u.shape[-1]} outside 1..256")
+    tensors = [q_u] + [t for _, t, _ in named]
+    if any(t.device != q_u.device for t in tensors):
         raise ValueError("fused_attention inputs lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_attention kernel takes contiguous tensors")
-    m = _flat_mask(mask, b, l).contiguous()
-    out = torch.empty_like(q_u)
-    lse = torch.empty((b, h, 1, l), dtype=torch.float32, device=q_u.device)
-    fn = _entry()
+
+
+def _launch(fn, ptrs, q_u, seed: int, rate: float, what: str):
+    b, h, l, d = q_u.shape
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
-        err = fn(q_u.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 m.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, l, d,
+        err = fn(*ptrs, b, h, l, d,
                  0 if q_u.dtype == torch.float32 else 1,
                  float(np.float32(1.0 / np.sqrt(d))), seed & _M32,
                  threshold(rate), float(np.float32(1.0 / (1.0 - rate))),
                  int(rate > 0.0), stream)
     if err != 0:
-        raise RuntimeError(f"fused_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float):
+    global LAUNCHES
+    b, h, l, d = q_u.shape
+    _check(q_u, (("k", k, (b, h, l, d)), ("v", v, (b, h, l, d)),
+                 ("bias", bias, (b, h, l, l))))
+    if mask.device != q_u.device:
+        raise ValueError("fused_attention inputs lie on different devices")
+    m = _flat_mask(mask, b, l).contiguous()
+    out = torch.empty_like(q_u)
+    lse = torch.empty((b, h, 1, l), dtype=torch.float32, device=q_u.device)
+    _launch(_entry(), (q_u.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       bias.data_ptr(), m.data_ptr(), out.data_ptr(),
+                       lse.data_ptr()), q_u, seed, rate, "fused_attention")
     LAUNCHES += 1
     return out, lse
 
 
-def fused_attention_fwd(q_u, k, v, bias, mask, seed: int = 0,
-                        rate: float = 0.0):
-    """(out, lse): the plain version for CPU tensors, the kernel for CUDA."""
+def _kernel_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out, lse, g):
+    global LAUNCHES_BWD
+    b, h, l, d = q_u.shape
+    mat = (b, h, l, d)
+    _check(q_u, (("k", k, mat), ("v", v, mat), ("bias", bias, (b, h, l, l)),
+                 ("out", out, mat), ("g", g, mat)))
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, 1, l)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse: {tuple(lse.shape)} {lse.dtype}, expected "
+                         f"contiguous {(b, h, 1, l)} float32")
+    if mask.device != q_u.device or lse.device != q_u.device:
+        raise ValueError("fused_attention inputs lie on different devices")
+    m = _flat_mask(mask, b, l).contiguous()
+    # delta = sum(g * out) per row stays one expression, as it stays
+    # outside the Pallas kernel (fused_attention.py:140-141)
+    delta = (g.float() * out.float()).sum(-1).contiguous()
+    dq = torch.zeros(mat, dtype=torch.float32, device=q_u.device)
+    dk, dv, dbias = (torch.empty_like(t) for t in (k, v, bias))
+    _launch(_entry_bwd(), (q_u.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           bias.data_ptr(), m.data_ptr(), g.data_ptr(),
+                           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), dbias.data_ptr()),
+            q_u, seed, rate, "fused_attention backward")
+    LAUNCHES_BWD += 1
+    return dq.to(q_u.dtype), dk, dv, dbias
+
+
+def _on_device(q_u, rate: float) -> str:
+    """"cpu" or "cuda", the wrappers' only choice; anything else raises."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
-    if q_u.device.type == "cpu":
-        return fused_attention_reference(q_u, k, v, bias, mask, seed, rate)
-    if q_u.device.type != "cuda":
+    if q_u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention runs on cuda or cpu, not "
                          f"{q_u.device}")
+    return q_u.device.type
+
+
+def fused_attention_fwd(q_u, k, v, bias, mask, seed: int = 0,
+                        rate: float = 0.0):
+    """(out, lse): the plain version for CPU tensors, K1 for CUDA."""
+    if _on_device(q_u, rate) == "cpu":
+        return fused_attention_reference(q_u, k, v, bias, mask, seed, rate)
     return _kernel_fwd(q_u, k, v, bias, mask, seed, rate)
+
+
+def fused_attention_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out,
+                        lse, g):
+    """(dq, dk, dv, dbias): the plain version for CPU tensors, K2 for CUDA."""
+    if _on_device(q_u, rate) == "cpu":
+        return fused_attention_bwd_reference(q_u, k, v, bias, mask, seed,
+                                             rate, out, lse, g)
+    return _kernel_bwd(q_u, k, v, bias, mask, seed, rate, out, lse, g)
+
+
+class FusedAttention(torch.autograd.Function):
+    """K1 forward and K2 backward (their plain versions on the CPU), as the
+    JAX package's ``custom_vjp`` binds ``_fwd_call`` and ``_bwd_call``.
+    Saves the inputs, ``out`` and ``lse``; the dropout mask is regenerated
+    from the int seed."""
+
+    @staticmethod
+    def forward(ctx, q_u, k, v, bias, mask, seed: int, rate: float):
+        out, lse = fused_attention_fwd(q_u, k, v, bias, mask, seed, rate)
+        ctx.save_for_backward(q_u, k, v, bias, mask, out, lse)
+        ctx.seed, ctx.rate = seed, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q_u, k, v, bias, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = fused_attention_bwd(
+            q_u, k, v, bias, mask, ctx.seed, ctx.rate, out, lse,
+            g.contiguous())
+        return dq, dk, dv, dbias, None, None, None
 
 
 def fused_attention(q_u, k, v, bias, mask, dropout_rate: float = 0.0,
                     seed: int = 0):
-    """Fused softmax(+dropout)+PV attention output (B, H, L, d).
+    """Fused softmax(+dropout)+PV attention output (B, H, L, d), with its
+    backward through K2.
 
     Args mirror ``a3t_tpu.ops.fused_attention.fused_attention``, except that
     dropout takes an int ``seed`` (the JAX wrapper draws it from its rng).
     """
-    return fused_attention_fwd(q_u, k, v, bias, mask, seed, dropout_rate)[0]
+    return FusedAttention.apply(q_u, k, v, bias, mask, int(seed),
+                                float(dropout_rate))

@@ -43,24 +43,45 @@ def library_path(name: str, sources: tuple[str, ...]) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build(name: str, sources: tuple[str, ...]) -> str:
-    """Compile ``sources`` (file names in csrc/) into one shared library
-    unless it is already built; returns its path."""
+def _start(name: str, sources: tuple[str, ...]):
+    """Start nvcc for one library unless it is built: (path, tmp, process),
+    the process None when there is nothing to do."""
     path = library_path(name, sources)
     if os.path.isfile(path):
-        return path
+        return path, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
            *(os.path.join(CSRC, s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{build_logs[name]}")
-    os.replace(tmp, path)
-    return path
+    return path, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+
+
+def build_all(libraries: dict[str, tuple[str, ...]]) -> dict[str, str]:
+    """Compile every library of ``{name: sources}`` (file names in csrc/)
+    that is not built yet, one nvcc each, all started together; returns
+    ``{name: path}``.  Raises if any build fails."""
+    started = {name: _start(name, srcs) for name, srcs in libraries.items()}
+    failed = []
+    for name, (path, tmp, proc) in started.items():
+        if proc is None:
+            continue
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            failed.append(f"nvcc failed for {name}:\n{build_logs[name]}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: path for name, (path, _, _) in started.items()}
+
+
+def build(name: str, sources: tuple[str, ...]) -> str:
+    """Compile ``sources`` (file names in csrc/) into one shared library
+    unless it is already built; returns its path."""
+    return build_all({name: sources})[name]
 
 
 def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:

@@ -1,8 +1,8 @@
 """The shipped configurations as Python constants.
 
 The JAX package reads its configs through ``yaml`` (a3t_tpu/tasks/config.py);
-the port's serving path needs no YAML reader: ``configs/a3t_conformer_24k.yaml``
-is written out here as dataclasses.
+the port needs no YAML reader: ``configs/a3t_conformer_24k.yaml`` is written
+out here as dataclasses (front-end, model with its dropout rates, optimizer).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from a3t_tpu_torch.dsp.frontend import LogMelConfig
 from a3t_tpu_torch.models.conformer import EncoderConfig
 from a3t_tpu_torch.models.mlm import A3TModelConfig
 from a3t_tpu_torch.models.pwg import PWGConfig
+from a3t_tpu_torch.train.optim import OptimConfig
 
 # configs/a3t_conformer_24k.yaml: front-end
 FRONTEND_24K = LogMelConfig(fs=24000, n_fft=2048, hop_length=300,
@@ -21,7 +22,9 @@ def a3t_conformer_24k(vocab_size: int = 80) -> A3TModelConfig:
     """configs/a3t_conformer_24k.yaml: model.  The vocabulary is the
     token list's length (80 in the JAX package's RTF bench)."""
     stack = dict(attention_dim=384, attention_heads=2, linear_units=1536,
-                 num_blocks=4, macaron_style=True, use_cnn_module=True,
+                 num_blocks=4, dropout_rate=0.2, positional_dropout_rate=0.2,
+                 attention_dropout_rate=0.2, macaron_style=True,
+                 use_cnn_module=True,
                  positionwise_layer_type="conv1d",
                  positionwise_conv_kernel_size=3, activation_type="swish",
                  selfattention_layer_type="legacy_rel_selfattn")
@@ -31,6 +34,10 @@ def a3t_conformer_24k(vocab_size: int = 80) -> A3TModelConfig:
         decoder=EncoderConfig(cnn_module_kernel=31, **stack),
         postnet_layers=5, postnet_chans=256, postnet_filts=5)
 
+
+# configs/a3t_conformer_24k.yaml: optim (Adam + Noam, yaml :55-59)
+OPTIM_24K = OptimConfig(lr=1.0, model_size=384, warmup_steps=4000,
+                        grad_clip=1.0)
 
 # ParallelWaveGAN at the 24 kHz recipe size (upsample 4*5*3*5 = hop 300)
 PWG_24K = PWGConfig()

@@ -1,0 +1,18 @@
+from a3t_tpu_torch.train.optim import (
+    OptimConfig,
+    Optimizer,
+    make_optimizer,
+    noam_schedule,
+    warmup_lr_schedule,
+)
+from a3t_tpu_torch.train.train_step import (
+    TrainState,
+    create_train_state,
+    featurize,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = ["OptimConfig", "Optimizer", "make_optimizer", "noam_schedule",
+           "warmup_lr_schedule", "TrainState", "create_train_state",
+           "featurize", "make_eval_step", "make_train_step"]

@@ -1,0 +1,155 @@
+"""The A3T training step (``a3t_tpu/train/train_step.py``).
+
+``create_train_state`` -> ``make_train_step(model, frontend)`` ->
+``step(state, batch, rng)``, the calls the JAX package's bench makes: raw
+audio enters the device, the log-mel front-end produces features, the
+Conformer MLM model computes the masked L1 loss, and the optimizer applies
+clip -> Adam -> Noam.  Every attention block's forward and backward run
+through the fused kernels K1 and K2 on the card.
+
+Batches are dicts of host (numpy) or torch arrays, as in the JAX package:
+
+    audio              (B, S)   float32 (or int16 PCM)  raw waveform
+    audio_lengths      (B,)     int32
+    text               (B, T)   int32     phone ids (0 = pad)
+    text_mask          (B, T)   bool
+    masked_position    (B, F)   bool      F = 1 + S // hop
+    speech_segment_pos (B, F)   int32
+    text_segment_pos   (B, T)   int32
+
+Differences from the JAX step: the state is updated in place and returned
+(the JAX step donates its state); ``rng`` is an int seed or a CPU
+``torch.Generator`` from which every dropout site draws its seed on the
+host.  Mesh sharding, ``gather_audio``, chained dispatch and the TTS step
+are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from a3t_tpu_torch.device import resolve_device
+from a3t_tpu_torch.dsp.frontend import LogMelFrontend
+from a3t_tpu_torch.models.mlm import A3TMLMModel, mlm_loss
+from a3t_tpu_torch.train.optim import Optimizer, OptState
+
+
+@dataclasses.dataclass
+class TrainState:
+    """step (host int), the model (its parameters and BatchNorm running
+    statistics) and the optimizer's state."""
+
+    step: int
+    model: A3TMLMModel
+    opt_state: OptState
+    tx: Optimizer
+
+    @property
+    def params(self) -> list:
+        return list(self.model.parameters())
+
+    def apply_gradients(self, grads) -> torch.Tensor:
+        """Update the parameters in place; returns the gradients' global
+        norm.  The step count moves even when the update is skipped."""
+        g_norm = self.tx.apply(self.params, grads, self.opt_state)
+        self.step += 1
+        return g_norm
+
+
+def create_train_state(model: A3TMLMModel, tx: Optimizer,
+                       device=None) -> TrainState:
+    """Move ``model`` (with its initial weights) to ``device`` (cuda unless
+    the caller asks for the CPU) and start the optimizer's state there."""
+    model.to(resolve_device(device))
+    return TrainState(step=0, model=model,
+                      opt_state=tx.init(model.parameters()), tx=tx)
+
+
+def featurize(frontend: LogMelFrontend, batch: dict) -> dict:
+    """Raw-audio batch -> model input batch on the front-end's device (the
+    rfft path of the JAX ``featurize``, train_step.py:94-160)."""
+    dev = frontend.device
+    audio = torch.as_tensor(batch["audio"], device=dev)
+    if audio.dtype == torch.int16:
+        # int16 PCM (data/batcher.py audio_int16); dequantize on device
+        audio = audio.to(torch.float32) * (1.0 / 32768.0)
+    feats, flens = frontend(
+        audio, torch.as_tensor(batch["audio_lengths"], device=dev))
+    n_f = feats.shape[1]
+    speech_mask = torch.arange(n_f, device=dev)[None, :] < flens[:, None]
+    # the reference multiplies the sampled mask by the non-pad mask
+    # (collate_fn.py:381-382)
+    out = {k: torch.as_tensor(batch[k], device=dev) for k in
+           ("text", "text_mask", "speech_segment_pos", "text_segment_pos")}
+    out["masked_position"] = torch.as_tensor(
+        batch["masked_position"], device=dev) & speech_mask
+    return dict(speech=feats, speech_mask=speech_mask, **out)
+
+
+def _generator(rng) -> torch.Generator:
+    if isinstance(rng, torch.Generator):
+        return rng
+    return torch.Generator().manual_seed(int(rng))
+
+
+def _check_device(frontend: LogMelFrontend, device) -> None:
+    dev = resolve_device(device)
+    if frontend.device != dev:
+        raise ValueError(f"the front-end runs on {frontend.device}, the "
+                         f"step on {dev}")
+
+
+def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
+                    device=None):
+    """Build the train step ``(state, batch, rng) -> (state, stats)`` on
+    ``device`` (cuda unless the caller asks for the CPU).
+
+    ``stats`` holds device tensors: ``loss``, ``loss_mlm``,
+    ``masked_frames``, ``grad_norm`` (before clipping) and
+    ``notfinite_count``.  BatchNorm running statistics move in the forward,
+    as the JAX step's ``batch_stats`` do, also on a skipped step.
+    """
+    _check_device(frontend, device)
+    use_mse = model.config.use_mse_loss
+
+    def step(state: TrainState, batch: dict, rng):
+        m = state.model
+        m.train()
+        mb = featurize(frontend, batch)
+        before, after = m(**mb, generator=_generator(rng))
+        loss = mlm_loss(before, after, mb["speech"], mb["masked_position"],
+                        use_mse=use_mse)
+        params = state.params
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params)]
+        grad_norm = state.apply_gradients(grads)
+        loss = loss.detach()
+        return state, {"loss_mlm": loss, "loss": loss,
+                       "masked_frames": mb["masked_position"].sum(),
+                       "grad_norm": grad_norm,
+                       "notfinite_count": state.opt_state.notfinite_count}
+
+    return step
+
+
+def make_eval_step(model: A3TMLMModel, frontend: LogMelFrontend,
+                   device=None):
+    """Validation step ``(state, batch) -> stats``: no gradients, running
+    BatchNorm statistics, no dropout."""
+    _check_device(frontend, device)
+    use_mse = model.config.use_mse_loss
+
+    def step(state: TrainState, batch: dict):
+        m = state.model
+        m.eval()
+        with torch.no_grad():
+            mb = featurize(frontend, batch)
+            before, after = m(**mb)
+            loss = mlm_loss(before, after, mb["speech"],
+                            mb["masked_position"], use_mse=use_mse)
+        return {"loss": loss, "loss_mlm": loss}
+
+    return step

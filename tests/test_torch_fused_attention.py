@@ -1,17 +1,20 @@
-"""The port's fused-attention forward (a3t_tpu_torch/ops/fused_attention.py)
-against the JAX package's Pallas kernel, run in interpret mode as
-tests/test_fused_attention.py runs it, and against the XLA branch's math.
+"""The port's fused attention (a3t_tpu_torch/ops/fused_attention.py), forward
+and backward, against the JAX package's Pallas kernels, run in interpret
+mode as tests/test_fused_attention.py runs them, and against the XLA
+branch's math.
 
-On the CPU the wrapper takes the plain PyTorch version; the CUDA kernel is
-checked against it on the card (marked ``cuda``, skipped elsewhere).
+On the CPU the wrappers take the plain PyTorch versions; the CUDA kernels
+are checked against them on the card (marked ``cuda``, skipped elsewhere).
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
-from a3t_tpu.ops.fused_attention import _fwd_call, _random_bits
+from a3t_tpu.ops.fused_attention import (_fused_attention, _fwd_call,
+                                        _random_bits)
 from a3t_tpu_torch.ops import fused_attention as fa
 
 # tests/test_fused_attention.py's shapes
@@ -132,6 +135,86 @@ def test_wrapper_refuses_other_devices_and_rates(rng):
         fa.fused_attention_fwd(q, k, v, bias, mask, rate=1.0)
 
 
+def _jax_grads(q, k, v, bias, mask, seed, rate, w):
+    """jax.grad of sum(out * w) through the Pallas custom_vjp in interpret
+    mode: (dq, dk, dv, dbias) as numpy."""
+    b, l = mask.shape
+    m = jnp.asarray(mask.astype(np.int32).reshape(b, 1, l))
+    sd = jnp.asarray([seed], jnp.int32)
+
+    def f(q, k, v, bias):
+        return (_fused_attention(q, k, v, bias, m, sd, rate, True) * w).sum()
+
+    grads = jax.grad(f, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (q, k, v, bias)))
+    return [np.asarray(g) for g in grads]
+
+
+def _port_grads(q, k, v, bias, mask, seed, rate, w):
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v, bias)]
+    out = fa.fused_attention(*ts, torch.tensor(mask), dropout_rate=rate,
+                             seed=seed)
+    return [g.numpy() for g in torch.autograd.grad(
+        (out * torch.tensor(w)).sum(), ts)]
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 12345),
+                                       (0.3, 2**31 - 7)])
+@pytest.mark.parametrize("shape", [(2, 2, 32, 16), (1, 2, 40, 24)])
+def test_grads_match_pallas_interpret(rng, rate, seed, shape):
+    """dq, dk, dv and dbias through the port's FusedAttention (the plain
+    backward on the CPU) against jax.grad through the Pallas kernels in
+    interpret mode, with a padded key tail.  The keep-masks are equal, so
+    the only difference is fp32 summation order: atol 1e-5 on gradients of
+    O(1)."""
+    b, h, l, d = shape
+    q, k, v, bias, mask = _inputs(rng, b, h, l, d, pad=6)
+    w = rng.standard_normal((b, h, l, d)).astype(np.float32)
+    for got, want in zip(_port_grads(q, k, v, bias, mask, seed, rate, w),
+                         _jax_grads(q, k, v, bias, mask, seed, rate, w)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_grads_of_a_fully_masked_row_match_pallas(rng):
+    """A batch element whose keys are all masked: lse = -1e30 + log L, p is
+    re-zeroed, so it adds nothing; equal to the Pallas gradients (atol
+    1e-5, fp32 order)."""
+    q, k, v, bias, mask = _inputs(rng, 2, 2, 24, 8, pad=0)
+    mask[1] = False
+    w = rng.standard_normal(q.shape).astype(np.float32)
+    got = _port_grads(q, k, v, bias, mask, 5, 0.2, w)
+    for g, want in zip(got, _jax_grads(q, k, v, bias, mask, 5, 0.2, w)):
+        np.testing.assert_allclose(g, want, atol=1e-5, rtol=0)
+    assert all(not g[1].any() for g in got)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_bwd_reference_matches_autograd(rng, rate):
+    """fused_attention_bwd_reference against torch autograd through
+    fused_attention_reference, same mask: atol 1e-5 (fp32 order)."""
+    q, k, v, bias, mask = _inputs(rng, 2, 2, 30, 12, pad=4)
+    w = torch.tensor(rng.standard_normal(q.shape).astype(np.float32))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v, bias)]
+    out, lse = fa.fused_attention_reference(*ts, torch.tensor(mask), 9, rate)
+    want = torch.autograd.grad((out * w).sum(), ts)
+    got = fa.fused_attention_bwd_reference(
+        *[t.detach() for t in ts], torch.tensor(mask), 9, rate,
+        out.detach(), lse.detach(), w)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, rtol=0)
+
+
+def test_backward_takes_plain_version_on_cpu(rng):
+    """Both halves of FusedAttention take the plain versions for CPU
+    tensors; no kernel launch is counted."""
+    q, k, v, bias, mask = _inputs(rng)
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    _port_grads(q, k, v, bias, mask, 3, 0.1,
+                np.ones(q.shape, np.float32))
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD) == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -156,3 +239,28 @@ def test_kernel_matches_plain_on_card(cuda_device, rng, dtype, tol, rate):
     assert fa.LAUNCHES == before + 1
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_bwd_kernel_matches_plain_on_card(cuda_device, rng, dtype, tol, rate):
+    """K2 against the plain backward on the card, relative to each
+    gradient's largest |value|: fp32 sums in another order (1e-4), bf16
+    rounds each output once (2e-2)."""
+    q, k, v, bias, mask = (t.to(cuda_device) for t in
+                           _torch(*_inputs(rng, b=2, h=2, l=70, d=20, pad=9)))
+    q, k, v, bias = (t.to(dtype) for t in (q, k, v, bias))
+    g = torch.randn(q.shape, device=cuda_device).to(dtype)
+    out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, 99, rate)
+    before = fa.LAUNCHES_BWD
+    got = fa.fused_attention_bwd(q, k, v, bias, mask, 99, rate, out, lse, g)
+    ref = fa.fused_attention_bwd_reference(q, k, v, bias, mask, 99, rate,
+                                           out, lse, g)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BWD == before + 1
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err.item() <= tol

@@ -79,11 +79,13 @@ def test_kernel_sources_use_no_torch_headers():
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from a3t_tpu_torch.device import resolve_device
-    from a3t_tpu_torch.dsp import LogMelConfig
+    from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
     from a3t_tpu_torch.inference import SpeechEditor
     from a3t_tpu_torch.models import (A3TModelConfig, EncoderConfig,
                                       PWGConfig, build_model, build_vocoder)
     from a3t_tpu_torch.text import TokenIDConverter
+    from a3t_tpu_torch.train import (create_train_state, make_eval_step,
+                                     make_optimizer, make_train_step)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     enc = EncoderConfig(attention_dim=16, attention_heads=2, linear_units=16,
@@ -93,9 +95,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     pwg = PWGConfig(layers=2, stacks=1, residual_channels=4, gate_channels=8,
                     skip_channels=4, aux_channels=8, upsample_scales=(2,))
     tokens = TokenIDConverter(["<blank>", "<unk>", "A"])
+    model = build_model(cfg, device="cpu")
+    fe = LogMelFrontend(LogMelConfig(n_mels=8), device="cpu")
     for make in (lambda **kw: build_model(cfg, **kw),
                  lambda **kw: build_vocoder(pwg, **kw),
                  lambda **kw: SpeechEditor(None, LogMelConfig(), tokens, **kw),
+                 lambda **kw: LogMelFrontend(LogMelConfig(), **kw),
+                 lambda **kw: create_train_state(model, make_optimizer(),
+                                                 **kw),
+                 lambda **kw: make_train_step(model, fe, **kw),
+                 lambda **kw: make_eval_step(model, fe, **kw),
                  lambda **kw: resolve_device(**kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

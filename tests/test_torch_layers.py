@@ -80,7 +80,7 @@ def test_convolution_module(rng, kernel_size):
     mod = tl.ConvolutionModule(8, kernel_size)
     from_jax.load_state(mod, _sub(from_jax.conv_module(
         v["params"], v["batch_stats"], "m")))
-    mod.train()  # BatchNorm still reads its running statistics
+    mod.eval()  # BatchNorm reads its running statistics
     np.testing.assert_allclose(_run(mod, x),
                                np.asarray(jmod.apply(v, jnp.asarray(x), False)),
                                atol=ATOL)
@@ -96,7 +96,7 @@ def test_postnet(rng):
         state.update(from_jax.batch_norm(
             v["params"][f"BatchNorm_{i}"], v["batch_stats"][f"BatchNorm_{i}"],
             f"postnet.{i}.1"))
-    mod = tl.Postnet(6, n_layers=3, n_chans=12, n_filts=5)
+    mod = tl.Postnet(6, n_layers=3, n_chans=12, n_filts=5).eval()
     from_jax.load_state(mod, state)
     np.testing.assert_allclose(_run(mod, x),
                                np.asarray(jmod.apply(v, jnp.asarray(x), False)),

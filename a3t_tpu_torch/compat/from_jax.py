@@ -10,6 +10,11 @@ ESPnet's names.  :func:`load_train_state` carries a whole JAX train state
 (parameters, ``batch_stats``, the optax state and the step) into the port's
 ``TrainState``, so a run started in JAX goes on in the port.  Nothing here
 imports JAX.
+
+ESPnet has no name for the longformer model's speech-only pre-encoder
+(``convert_model_state`` maps none), so it keeps the JAX tree's name:
+``pre_speech_encoders.encoders.{i}...``.  Windowed attention has the four
+projections of ESPnet's MHA and no positional ones.
 """
 
 from __future__ import annotations
@@ -56,11 +61,14 @@ def positionwise(p, prefix: str) -> dict:
 
 
 def attention(p, prefix: str) -> dict:
+    """Rel-pos MHA, or windowed attention (no positional projection)."""
     out = {}
-    for name in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
         out.update(dense(p[name], f"{prefix}.{name}"))
-    out[f"{prefix}.pos_bias_u"] = _np(p["pos_bias_u"])
-    out[f"{prefix}.pos_bias_v"] = _np(p["pos_bias_v"])
+    if "linear_pos" in p:
+        out.update(dense(p["linear_pos"], f"{prefix}.linear_pos"))
+        out[f"{prefix}.pos_bias_u"] = _np(p["pos_bias_u"])
+        out[f"{prefix}.pos_bias_v"] = _np(p["pos_bias_v"])
     return out
 
 
@@ -113,6 +121,10 @@ def mlm_state(variables) -> dict:
            **dense(p["sfc"], "sfc")}
     if "segment_emb" in p:
         out["encoder.segment_emb.weight"] = _np(p["segment_emb"]["embedding"])
+    if "pre_speech_encoders" in p:
+        out.update(stack(p["pre_speech_encoders"],
+                         s.get("pre_speech_encoders", {}),
+                         "pre_speech_encoders"))
     if "decoder" in p:
         out.update(stack(p["decoder"], s.get("decoder", {}), "decoder"))
     if "postnet" in p:

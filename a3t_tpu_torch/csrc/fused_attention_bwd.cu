@@ -52,46 +52,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int BM = 32;       // query rows per step of the query loop
 constexpr int BN = 32;       // keys per CTA
 constexpr int NT = 256;      // threads per CTA
 constexpr int PS = BN + 4;   // row stride of the p / ds tiles
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ uint32_t hash_bits(uint32_t ctr, uint32_t seed, uint32_t lane) {
-  uint32_t x = ctr * 2654435761u + seed * 2246822519u + lane * 374761393u;
-  x ^= x >> 15;
-  x *= 2246822519u;
-  x ^= x >> 13;
-  x *= 3266489917u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float w, float4 x) {
-  acc.x += w * x.x;
-  acc.y += w * x.y;
-  acc.z += w * x.z;
-  acc.w += w * x.w;
-}
-
-// Row stride (floats) of the q/k/v/g tiles: d rounded up to 4, plus padding
-// so that the stride in 16-byte units is odd (conflict-free float4 reads of
-// 8 different rows), as in the forward kernel.
-__host__ __device__ inline int padded_dim(int d) {
-  int m = (d + 3) / 4;
-  return 4 * (m + 1 + (m & 1));
-}
 
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,

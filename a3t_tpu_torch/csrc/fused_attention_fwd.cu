@@ -46,36 +46,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int BM = 64;       // query rows per CTA
 constexpr int BN = 32;       // keys per tile
 constexpr int NT = 256;      // threads per CTA: four per query row
 constexpr int PS = BN + 4;   // row stride of the bias / probability tile
-constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ uint32_t hash_bits(uint32_t ctr, uint32_t seed, uint32_t lane) {
-  uint32_t x = ctr * 2654435761u + seed * 2246822519u + lane * 374761393u;
-  x ^= x >> 15;
-  x *= 2246822519u;
-  x ^= x >> 13;
-  x *= 3266489917u;
-  x ^= x >> 16;
-  return x;
-}
-
-// Row stride (floats) of the q/k/v tiles: d rounded up to 4, plus padding so
-// that the stride in 16-byte units is odd and float4 reads of 8 rows hit
-// distinct banks.
-__host__ __device__ inline int padded_dim(int d) {
-  int m = (d + 3) / 4;
-  return 4 * (m + 1 + (m & 1));
-}
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT) fused_attention_fwd_kernel(

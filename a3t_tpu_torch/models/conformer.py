@@ -1,9 +1,15 @@
 """Conformer encoder/decoder stacks (``a3t_tpu/models/conformer.py``).
 
-The shipped A3T settings: macaron feed-forward halves, legacy rel-pos
-self-attention, conv module with BatchNorm, pre-LayerNorm everywhere and a
-final LayerNorm.  Module names follow ESPnet's EncoderLayer
-(conformer/encoder_layer.py) so state dicts map onto the JAX package's tree.
+Two block types are ported: the 24 kHz A3T block (macaron feed-forward
+halves, legacy rel-pos self-attention, conv module with BatchNorm, float32)
+and the 16 kHz longformer block (sliding-window attention with global text
+tokens, no conv module, float32 or bfloat16 compute), both pre-LayerNorm.
+Module names follow ESPnet's EncoderLayer (conformer/encoder_layer.py) so
+state dicts map onto the JAX package's tree.
+
+Mixed precision follows flax's promotion: LayerNorms keep the float32
+stream, the attention projections and feed-forward convolutions run in the
+compute dtype, and each residual sum promotes back to float32.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -22,6 +29,7 @@ from a3t_tpu_torch.models.layers import (
     PositionwiseFeedForward,
     sinusoidal_table,
 )
+from a3t_tpu_torch.models.windowed_attention import WindowedSelfAttention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,21 +51,41 @@ class EncoderConfig:
     positionwise_layer_type: str = "conv1d"  # "conv1d" | "linear"
     positionwise_conv_kernel_size: int = 3
     activation_type: str = "swish"
+    # "legacy_rel_selfattn" | "longformer" (sliding window + global text)
     selfattention_layer_type: str = "legacy_rel_selfattn"
+    attention_window: int = 0  # full window of "longformer"
+    attention_dilation: int = 1
+    # the longformer band through the banded kernels (K3-K5)
+    use_pallas_attention: bool = True
     # route the softmax and P.V through the fused CUDA kernel
     use_flash_attention: bool = True
+    # speech-only pre-encoder blocks before the text concat (A3TMLMModel)
     pre_speech_layers: int = 0
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # "float32" | "bfloat16"
+
+    @property
+    def dtype(self):
+        """The compute dtype, None for float32 (flax's convention)."""
+        return None if self.compute_dtype == "float32" else torch.bfloat16
 
     def check_supported(self) -> None:
-        if self.selfattention_layer_type != "legacy_rel_selfattn":
+        kind = self.selfattention_layer_type
+        if kind not in ("legacy_rel_selfattn", "longformer"):
+            raise NotImplementedError(f"{kind!r} attention is not ported")
+        if kind == "longformer" and self.attention_dilation != 1:
+            raise NotImplementedError("attention dilation is not ported")
+        if kind == "longformer" and not self.use_pallas_attention:
             raise NotImplementedError(
-                f"{self.selfattention_layer_type!r} attention is not ported")
-        if self.pre_speech_layers:
-            raise NotImplementedError("pre_speech_layers are not ported")
-        if self.compute_dtype != "float32":
+                "the chunked-einsum longformer path is not ported")
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r}: the port runs float32")
+                f"compute_dtype {self.compute_dtype!r} is not ported")
+        if self.dtype is not None and (
+                kind != "longformer" or self.use_cnn_module
+                or self.positionwise_layer_type != "conv1d"):
+            raise NotImplementedError(
+                "bfloat16 compute is ported for the longformer block with "
+                "conv1d feed-forwards and no conv module only")
         if not self.normalize_before:
             raise NotImplementedError("post-LayerNorm stacks are not ported")
 
@@ -86,9 +114,33 @@ class RelPosEncoding(nn.Module):
                 self.dropout(pos_emb, generator))
 
 
+class AbsPosEncoding(nn.Module):
+    """x -> (dropout(x * sqrt(d) + pe), None) (embedding.py:35-94,
+    ``scaled=False``); the None stands for the relative table that
+    :class:`RelPosEncoding` returns, as the JAX model's ``_PosEnc`` does.
+
+    As in flax, ``x * np.float32(sqrt(d))`` promotes a bfloat16 ``x`` to
+    float32, and the table is rounded to ``x``'s dtype before it is added.
+    """
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.d_model = d_model
+        self.dropout = SeededDropout(dropout_rate)
+
+    def forward(self, x, generator=None):
+        pe = torch.tensor(sinusoidal_table(x.shape[1], self.d_model),
+                          device=x.device)[None].to(x.dtype)
+        y = x.float() * float(np.float32(math.sqrt(self.d_model))) + pe
+        return self.dropout(y, generator), None
+
+
 class ConformerBlock(nn.Module):
     """x += 1/2 drop(ff_macaron(LN(x))); x += drop(attn(LN(x)));
-    x += drop(conv(LN(x))); x += 1/2 drop(ff(LN(x))); x = LN(x)."""
+    x += drop(conv(LN(x))); x += 1/2 drop(ff(LN(x))); x = LN(x).
+
+    The attention is legacy rel-pos MHA, or for ``longformer`` windowed
+    attention over ``[speech (n_frames) ; text]`` with a flat key mask."""
 
     def __init__(self, c: EncoderConfig):
         super().__init__()
@@ -99,7 +151,7 @@ class ConformerBlock(nn.Module):
             if c.positionwise_layer_type == "conv1d":
                 return MultiLayeredConv1d(d, c.linear_units,
                                           c.positionwise_conv_kernel_size,
-                                          c.dropout_rate)
+                                          c.dropout_rate, dtype=c.dtype)
             if c.positionwise_layer_type == "linear":
                 return PositionwiseFeedForward(d, c.linear_units,
                                                c.activation_type,
@@ -112,9 +164,15 @@ class ConformerBlock(nn.Module):
             self.norm_ff_macaron = nn.LayerNorm(d, eps=1e-5)
             self.feed_forward_macaron = positionwise()
         self.norm_mha = nn.LayerNorm(d, eps=1e-5)
-        self.self_attn = RelPositionMultiHeadedAttention(
-            d, c.attention_heads, use_flash=c.use_flash_attention,
-            dropout_rate=c.attention_dropout_rate)
+        self.longformer = c.selfattention_layer_type == "longformer"
+        if self.longformer:
+            self.self_attn = WindowedSelfAttention(
+                d, c.attention_heads, c.attention_window,
+                c.attention_dropout_rate, dtype=c.dtype)
+        else:
+            self.self_attn = RelPositionMultiHeadedAttention(
+                d, c.attention_heads, use_flash=c.use_flash_attention,
+                dropout_rate=c.attention_dropout_rate)
         self.use_cnn = c.use_cnn_module
         if c.use_cnn_module:
             self.norm_conv = nn.LayerNorm(d, eps=1e-5)
@@ -125,15 +183,22 @@ class ConformerBlock(nn.Module):
         self.feed_forward = positionwise()
         self.dropout = SeededDropout(c.dropout_rate)
 
-    def forward(self, x, pos_emb, mask, generator=None):
+    def forward(self, x, pos_emb, mask, generator=None, n_frames=None):
         def drop(h):
             return self.dropout(h, generator)
 
         if self.macaron:
             x = x + self.ff_scale * drop(self.feed_forward_macaron(
                 self.norm_ff_macaron(x), generator))
-        x = x + drop(self.self_attn(self.norm_mha(x), pos_emb, mask,
-                                    generator))
+        h = self.norm_mha(x)
+        if self.longformer:
+            flat_mask = mask[:, 0] if mask is not None and mask.dim() == 3 \
+                else mask
+            h = self.self_attn(h, h.shape[1] if n_frames is None else n_frames,
+                               flat_mask, generator)
+        else:
+            h = self.self_attn(h, pos_emb, mask, generator)
+        x = x + drop(h)
         if self.use_cnn:
             x = x + drop(self.conv_module(self.norm_conv(x)))
         x = x + self.ff_scale * drop(self.feed_forward(self.norm_ff(x),
@@ -144,15 +209,18 @@ class ConformerBlock(nn.Module):
 
 
 class ConformerStack(nn.Module):
-    """num_blocks ConformerBlocks + the final LayerNorm."""
+    """num_blocks ConformerBlocks + the final LayerNorm, which the
+    speech-only pre-encoder leaves out (``apply_final_norm=False``,
+    transformer/encoder.py:547-548)."""
 
-    def __init__(self, c: EncoderConfig):
+    def __init__(self, c: EncoderConfig, apply_final_norm: bool = True):
         super().__init__()
         self.encoders = nn.ModuleList(ConformerBlock(c)
                                       for _ in range(c.num_blocks))
-        self.after_norm = nn.LayerNorm(c.attention_dim, eps=1e-5)
+        self.after_norm = (nn.LayerNorm(c.attention_dim, eps=1e-5)
+                           if apply_final_norm else None)
 
-    def forward(self, x, pos_emb, mask, generator=None):
+    def forward(self, x, pos_emb, mask, generator=None, n_frames=None):
         for block in self.encoders:
-            x = block(x, pos_emb, mask, generator)
-        return self.after_norm(x)
+            x = block(x, pos_emb, mask, generator, n_frames)
+        return x if self.after_norm is None else self.after_norm(x)

@@ -54,6 +54,29 @@ def sinusoidal_table(length: int, d_model: int, reverse: bool = False) -> np.nda
     return pe
 
 
+def _compute_dtype(x: torch.Tensor, dtype) -> torch.dtype:
+    """flax's promotion: ``dtype`` when given, else the input promoted with
+    float32 parameters."""
+    return torch.promote_types(x.dtype, torch.float32) if dtype is None \
+        else dtype
+
+
+def dense(linear: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to the
+    compute dtype (the float32 parameters stay the master copy)."""
+    dt = _compute_dtype(x, dtype)
+    bias = None if linear.bias is None else linear.bias.to(dt)
+    return F.linear(x.to(dt), linear.weight.to(dt), bias)
+
+
+def conv1d(conv: nn.Conv1d, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """flax ``Conv(dtype=dtype)`` on (B, C, T): as :func:`dense`."""
+    dt = _compute_dtype(x, dtype)
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return F.conv1d(x.to(dt), conv.weight.to(dt), bias, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
+
+
 def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm from running statistics, whatever the module's mode."""
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
@@ -98,19 +121,22 @@ class PositionwiseFeedForward(nn.Module):
 
 class MultiLayeredConv1d(nn.Module):
     """Two same-padded Conv1d with ReLU and dropout between (FastSpeech
-    position-wise layer, espnet multi_layer_conv.py)."""
+    position-wise layer, espnet multi_layer_conv.py), in the compute
+    ``dtype`` (None: float32)."""
 
     def __init__(self, d: int, hidden: int, kernel_size: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype=None):
         super().__init__()
         pad = (kernel_size - 1) // 2
         self.w_1 = nn.Conv1d(d, hidden, kernel_size, padding=pad)
         self.w_2 = nn.Conv1d(hidden, d, kernel_size, padding=pad)
         self.dropout = SeededDropout(dropout_rate)
+        self.dtype = dtype
 
     def forward(self, x, generator=None):
-        h = self.dropout(F.relu(self.w_1(x.transpose(1, 2))), generator)
-        return self.w_2(h).transpose(1, 2)
+        h = F.relu(conv1d(self.w_1, x.transpose(1, 2), self.dtype))
+        h = self.dropout(h, generator)
+        return conv1d(self.w_2, h, self.dtype).transpose(1, 2)
 
 
 class ConvolutionModule(nn.Module):
@@ -134,10 +160,12 @@ class ConvolutionModule(nn.Module):
 
 class Postnet(nn.Module):
     """Tacotron2 postnet: (n_layers-1) x [Conv(no bias) -> BN -> tanh ->
-    dropout] + [Conv -> BN -> dropout]; the caller adds the residual."""
+    dropout] + [Conv -> BN -> dropout]; the caller adds the residual.  The
+    convolutions run in the compute ``dtype`` (None: float32) and each
+    BatchNorm in a float32 round trip; the output is float32."""
 
     def __init__(self, odim: int, n_layers: int = 5, n_chans: int = 256,
-                 n_filts: int = 5, dropout_rate: float = 0.5):
+                 n_filts: int = 5, dropout_rate: float = 0.5, dtype=None):
         super().__init__()
         pad = (n_filts - 1) // 2
         layers = []
@@ -149,13 +177,14 @@ class Postnet(nn.Module):
                 nn.BatchNorm1d(c_out, eps=1e-5)))
         self.postnet = nn.ModuleList(layers)
         self.dropout = SeededDropout(dropout_rate)
+        self.dtype = dtype
 
     def forward(self, x, generator=None):
         h = x.transpose(1, 2)
         for i, (conv, bn) in enumerate(self.postnet):
-            h = batch_norm(bn, conv(h))
+            h = batch_norm(bn, conv1d(conv, h, self.dtype).float())
             if i < len(self.postnet) - 1:
-                h = torch.tanh(h)
+                h = torch.tanh(h if self.dtype is None else h.to(self.dtype))
             h = self.dropout(h, generator)
         return h.transpose(1, 2)
 

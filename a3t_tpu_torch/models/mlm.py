@@ -3,10 +3,14 @@
 A dual-embed Conformer encoder consumes [masked mel frames ; phone tokens]
 with a shared segment embedding aligning the two modalities; a second
 Conformer stack ("decoder") refines the concatenated states; the speech slice
-goes through the linear ``sfc`` head and a Tacotron2 postnet.  Parameter names
-are ESPnet's ``ESPnetMLMEncAsDecoderModel`` names, which
+goes through the linear ``sfc`` head and a Tacotron2 postnet.  The longformer
+configuration has no decoder, absolute positional encodings and a speech-only
+pre-encoder (``pre_speech_encoders``) before the concat, and may compute in
+bfloat16 with the JAX model's casts (:207-218, :312, the postnet at :181).
+Parameter names are ESPnet's ``ESPnetMLMEncAsDecoderModel`` names, which
 ``a3t_tpu/compat/torch_import.py::convert_model_state`` maps onto the flax
-tree.  ``model.train()`` turns on dropout (seeds from the ``generator``
+tree; that map has no name for the pre-encoder, which takes the JAX tree's
+name.  ``model.train()`` turns on dropout (seeds from the ``generator``
 given to ``forward``) and batch-statistics BatchNorm; :func:`mlm_loss` is the
 masked L1 training loss.
 """
@@ -22,11 +26,12 @@ from torch import nn
 
 from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.models.conformer import (
+    AbsPosEncoding,
     ConformerStack,
     EncoderConfig,
     RelPosEncoding,
 )
-from a3t_tpu_torch.models.layers import MaskedInput, Postnet
+from a3t_tpu_torch.models.layers import MaskedInput, Postnet, dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,37 +92,57 @@ class A3TMLMModel(nn.Module):
         self.config = c
         d = c.encoder.attention_dim
         self.encoder = MLMEncoder(c)
-        self.posenc = RelPosEncoding(d, c.encoder.positional_dropout_rate)
+        self.posenc = _posenc(c.encoder)
+        self.pre_speech_encoders = None
+        if c.encoder.pre_speech_layers > 0:
+            self.pre_speech_encoders = ConformerStack(
+                dataclasses.replace(c.encoder,
+                                    num_blocks=c.encoder.pre_speech_layers),
+                apply_final_norm=False)
         if c.decoder is not None:
-            self.decoder_posenc = RelPosEncoding(
-                d, c.decoder.positional_dropout_rate)
+            self.decoder_posenc = _posenc(c.decoder)
             self.decoder = ConformerStack(c.decoder)
         self.sfc = nn.Linear(d, c.odim)
         if c.postnet_layers > 0:
             self.postnet = Postnet(c.odim, c.postnet_layers, c.postnet_chans,
-                                   c.postnet_filts)
+                                   c.postnet_filts, dtype=c.encoder.dtype)
 
     def encode(self, speech, text, masked_position, speech_mask, text_mask,
                speech_segment_pos, text_segment_pos, generator=None):
         """((B, F + T, d) encoder states, (B, 1, F + T) mask)."""
         enc = self.encoder
+        dt = self.config.encoder.dtype
+        n_frames = speech.shape[1]
+        if dt is not None:
+            speech = speech.to(dt)
         masked_input, proj, norm = enc.speech_embed
-        h_speech = F.relu(norm(proj(masked_input(speech, masked_position))))
+        # speech_proj, LayerNorm and Embed have no compute dtype: flax
+        # promotes their bfloat16 inputs to float32
+        h_speech = F.relu(norm(dense(proj, masked_input(speech,
+                                                        masked_position))))
+        h_text = enc.text_embed[0](text)
+        if dt is not None:
+            h_speech, h_text = h_speech.to(dt), h_text.to(dt)
         h_speech, pos_speech = self.posenc(h_speech, generator)
-        h_text, pos_text = self.posenc(enc.text_embed[0](text), generator)
+        h_text, pos_text = self.posenc(h_text, generator)
         if self.config.use_segment_emb:
             h_speech = h_speech + enc.segment_emb(speech_segment_pos)
             h_text = h_text + enc.segment_emb(text_segment_pos)
+        if self.pre_speech_encoders is not None:
+            h_speech = self.pre_speech_encoders(
+                h_speech, pos_speech, speech_mask[:, None, :], generator,
+                n_frames)
         x = torch.cat([h_speech, h_text], dim=1)
-        pos_emb = torch.cat([pos_speech, pos_text], dim=1)
+        pos_emb = None if pos_speech is None else \
+            torch.cat([pos_speech, pos_text], dim=1)
         mask = torch.cat([speech_mask, text_mask], dim=1)[:, None, :]
-        return enc(x, pos_emb, mask, generator), mask
+        return enc(x, pos_emb, mask, generator, n_frames), mask
 
-    def decode(self, x, mask, generator=None):
+    def decode(self, x, mask, generator=None, n_frames=None):
         """The refinement stack re-scales and takes a fresh positional table
         over the full concatenated length (conformer/encoder.py:568-614)."""
         x, pos_full = self.decoder_posenc(x, generator)
-        return self.decoder(x, pos_full, mask, generator)
+        return self.decoder(x, pos_full, mask, generator, n_frames)
 
     def forward(self, speech, text, masked_position, speech_mask, text_mask,
                 speech_segment_pos, text_segment_pos, spemb=None,
@@ -129,12 +154,20 @@ class A3TMLMModel(nn.Module):
             speech, text, masked_position, speech_mask, text_mask,
             speech_segment_pos, text_segment_pos, generator)
         if self.config.decoder is not None:
-            hidden = self.decode(hidden, mask, generator)
+            hidden = self.decode(hidden, mask, generator, n_frames)
         before_outs = self.sfc(hidden[:, :n_frames]).float()
         after_outs = None
         if self.config.postnet_layers > 0:
             after_outs = before_outs + self.postnet(before_outs, generator)
         return before_outs, after_outs
+
+
+def _posenc(c: EncoderConfig) -> nn.Module:
+    """Relative positions for legacy rel-pos stacks, absolute otherwise
+    (the JAX model's ``_PosEnc`` kinds)."""
+    if c.selfattention_layer_type == "legacy_rel_selfattn":
+        return RelPosEncoding(c.attention_dim, c.positional_dropout_rate)
+    return AbsPosEncoding(c.attention_dim, c.positional_dropout_rate)
 
 
 def mlm_loss(before_outs, after_outs, target, masked_position,

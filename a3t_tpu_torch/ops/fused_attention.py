@@ -36,7 +36,6 @@ draw the same bits, so the backward regenerates the forward's mask.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -152,25 +151,18 @@ def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
             ds.to(bias.dtype))
 
 
-def _bind(library: str, symbol: str, n_ptr: int, n_int: int):
-    fn = getattr(native.load(library, LIBRARIES[library]), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return fn
-
-
 @functools.lru_cache(maxsize=None)
 def _entry():
     """K1's C entry point, built and loaded on first use."""
-    return _bind("fused_attention", "a3t_fused_attention_fwd", 7, 5)
+    return native.bind("fused_attention", LIBRARIES["fused_attention"],
+                       "a3t_fused_attention_fwd", 7, 5)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry_bwd():
     """K2's C entry point, built and loaded on first use."""
-    return _bind("fused_attention_bwd", "a3t_fused_attention_bwd", 12, 5)
+    return native.bind("fused_attention_bwd", LIBRARIES["fused_attention_bwd"],
+                       "a3t_fused_attention_bwd", 12, 5)
 
 
 def _check(q_u, named):

@@ -2,14 +2,15 @@
 
 Each library is compiled at first use from the sources in ``csrc/`` into
 ``a3t_tpu_torch/_build/`` (ignored by git), under a name keyed by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one is
-reused.  The sources expose plain C entry points: no PyTorch headers, no
-ninja.  A failed build raises; nothing falls back.
+the sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  The sources
+expose plain C entry points: no PyTorch headers, no ninja.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -37,8 +38,9 @@ def find_nvcc() -> str:
 
 def library_path(name: str, sources: tuple[str, ...]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(os.path.join(CSRC, src), "rb") as f:
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [os.path.join(CSRC, s) for s in sources] + headers:
+        with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
@@ -89,3 +91,17 @@ def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(build(name, sources))
     return _loaded[name]
+
+
+def bind(name: str, sources: tuple[str, ...], symbol: str, n_ptr: int,
+         n_int: int):
+    """The C entry point ``symbol`` of library ``name`` with the attention
+    kernels' signature: ``n_ptr`` pointers, ``n_int`` ints, then scale,
+    seed, threshold, keep_scale, dropout and the stream; it returns the
+    CUDA error code."""
+    fn = getattr(load(name, sources), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn

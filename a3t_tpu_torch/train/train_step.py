@@ -4,8 +4,11 @@
 ``step(state, batch, rng)``, the calls the JAX package's bench makes: raw
 audio enters the device, the log-mel front-end produces features, the
 Conformer MLM model computes the masked L1 loss, and the optimizer applies
-clip -> Adam -> Noam.  Every attention block's forward and backward run
-through the fused kernels K1 and K2 on the card.
+clip -> Adam -> Noam.  On the card every attention block's forward and
+backward run through hand-written kernels: K1 and K2 for rel-pos attention
+(the 24 kHz config), K3, K4 and K5 for windowed attention (the 16 kHz
+longformer config, whose frame buckets must be multiples of the half-window,
+as ``a3t_tpu/tasks/mlm.py:338-347`` requires).
 
 Batches are dicts of host (numpy) or torch arrays, as in the JAX package:
 
@@ -88,6 +91,19 @@ def featurize(frontend: LogMelFrontend, batch: dict) -> dict:
     return dict(speech=feats, speech_mask=speech_mask, **out)
 
 
+def check_bucket(model: A3TMLMModel, n_frames: int) -> None:
+    """Raise unless ``n_frames`` suits the model: a longformer model needs a
+    multiple of its half-window (the pad_to_longformer_att_window rule,
+    collate_fn.py:241-247)."""
+    enc = model.config.encoder
+    if enc.selfattention_layer_type == "longformer":
+        c = (enc.attention_window // 2) * max(enc.attention_dilation, 1)
+        if n_frames % c != 0:
+            raise ValueError(f"{n_frames} frames is not a multiple of "
+                             f"half-window x dilation {c} (required by "
+                             f"longformer attention)")
+
+
 def _generator(rng) -> torch.Generator:
     if isinstance(rng, torch.Generator):
         return rng
@@ -118,6 +134,7 @@ def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
         m = state.model
         m.train()
         mb = featurize(frontend, batch)
+        check_bucket(m, mb["speech"].shape[1])
         before, after = m(**mb, generator=_generator(rng))
         loss = mlm_loss(before, after, mb["speech"], mb["masked_position"],
                         use_mse=use_mse)

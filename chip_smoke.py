@@ -2,13 +2,14 @@
 """Drive the PyTorch port (a3t_tpu_torch) end to end on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --chunked-step   # the measurement of PERF.md §7
 
 Phases, each printing its elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the fused-attention kernels K1 (forward) and K2 (backward),
-   compiled from csrc/ with one nvcc each, started together; their ptxas
-   registers and spills;
+2. build: the fused-attention kernels K1 (forward) and K2 (backward) and
+   the banded-attention kernels K3, K4 and K5, compiled from csrc/ with one
+   nvcc each, all started together; their ptxas registers and spills;
 3. kernel: K1 (through its wrapper) against its plain PyTorch version on
    the card, at the slice's shapes, in float32 and bfloat16, with and
    without a padded key tail, out and logsumexp; at dropout rate 0.1 the
@@ -22,14 +23,23 @@ Phases, each printing its elapsed seconds:
    without a padded key tail; kernel, plain and library (autograd through
    scaled_dot_product_attention with a float mask that takes a gradient)
    times and K2's bound;
-5. slice: the 24 kHz A3T model (d=384, 4+4 Conformer blocks) and the 24 kHz
+5. kernel-banded: the banded-attention kernels K3 (forward), K4 (dq and the
+   text keys' gradients) and K5 (dk, dv) against their plain versions at the
+   longformer training shape (4, 2, 8192, 192) with window 512, as the
+   encoder calls them (64 text keys) and as the speech-only pre-encoder does
+   (ragged lengths, so fully masked rows), at a smaller speech-only shape and
+   a small ragged one, float32 and bfloat16, dropout 0 and 0.2, the errors on
+   fully masked rows and padded keys bounded apart from the others; K3's
+   keep-masks read back through one-hot values; kernel, plain and library
+   (SDPA over a dense boolean band mask) times and the bounds;
+6. slice: the 24 kHz A3T model (d=384, 4+4 Conformer blocks) and the 24 kHz
    ParallelWaveGAN with seeded random weights serve four requests through
    SpeechEditor: the RTF bench's 6 s, 40-phone [MASK] edit of phones 13-27,
    the same at 3 s and 10 s, and one prompt TTS with uniform durations.
    Each is served once to warm up and then 5 times timed; each must give
    finite outputs of the right lengths, launch K1 8 times (one per
    attention block) per request and match the plain-attention forward;
-6. train: the same model at full width trains through create_train_state ->
+7. train: the same model at full width trains through create_train_state ->
    make_train_step -> step on the JAX bench's batch (88 utterances of 432
    frames, 64 phones, vocabulary 80, make_synthetic_batch(default_rng(0)))
    with the yaml's optimizer.  One step at dropout 0 through K1/K2 must
@@ -37,7 +47,17 @@ Phases, each printing its elapsed seconds:
    yaml's dropout rates, 2 warm-up and 5 timed steps, each with a finite
    loss and grad_norm, no skipped update, and 8 launches of K1 and of K2;
    the median step time, mel-frames/s, peak memory and a CUDA-event split
-   into forward, backward and optimizer.
+   into forward, backward and optimizer;
+8. train-longformer: configs/a3t_longformer_16k.yaml at full width and depth
+   (2 pre-encoder + 4 encoder blocks, bf16) through make_train_step on its
+   largest bucket, 4 utterances of 8192 frames at 16 kHz with 64 phones.
+   One step at dropout 0 through K3/K4/K5 must match the same step through
+   their plain versions, and so must the gradients of the dropout-0 loss,
+   leaf by leaf, on this batch and on full-length utterances (no padded
+   rows), in bf16 and float32; then, with the yaml's dropout rates, 2
+   warm-up and 5 timed steps, each finite, not skipped, with 6 launches of
+   each of K3, K4 and K5; the median step time, mel-frames/s, peak memory, a
+   CUDA-event split and one step under torch.profiler.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -99,10 +119,33 @@ TOL_BWD_BF16 = 2e-2
 # moves by +-lr_0 = 384^-0.5 * 4000^-1.5 = 2.0e-7 whatever its gradient's
 # size, so a gradient that is rounding noise in both (e.g. the key bias,
 # which softmax ignores) can move one way in one and the other way in the
-# other: the parameters are held within 5 lr_0.
+# other: the parameters are held within 5 lr_0.  Two first steps differ by
+# at most 2 lr_0 = 4.0e-7, so this check cannot fail; it is kept as a
+# readout, and the gradients themselves are what is held (grad_norm here,
+# leaf by leaf for the longformer below).
 TOL_STEP_LOSS = 1e-5
 TOL_STEP_GRAD_NORM = 1e-4
 TOL_STEP_PARAMS = 1e-6
+# the longformer step at dropout 0 in bf16, K3/K4/K5 against their plain
+# versions: both sum fp32 products in another order and round the attention
+# output to bf16, so a value near a rounding boundary can land one bf16 ulp
+# (2^-8 relative) apart, and the bf16 layers after it carry that on.  The
+# loss (a mean over ~26,000 masked frames) within 1e-3 relative, grad_norm
+# within 1e-2, the postnet's BatchNorm running statistics (a tenth of one
+# batch's statistics) within 1e-3; parameters within 5 lr_0 as above.
+TOL_LF_LOSS = 1e-3
+TOL_LF_GRAD_NORM = 1e-2
+TOL_LF_STATS = 1e-3
+# The same comparison leaf by leaf, before the optimizer (grad_norm above is
+# dominated by the pre-encoder's fully masked padded rows, and Adam's first
+# step moves every parameter by +-lr_0 whatever its gradient, so the two
+# checks above see little of K4/K5 on the valid rows): max|kernel - plain|
+# over max|plain| of each parameter's gradient.  Read on an H100 80GB HBM3
+# at 700 W: worst leaf 7.5e-3 in bf16 (median 3-4e-3), 3.0e-4 in float32 on
+# full-length utterances (median 2.7e-5).  The limits sit 2.7x and 10x above
+# the readings; a copy of K4 or K5 whose dq or dk is 5% off fails all three.
+TOL_LF_GRADS_BF16 = 2e-2
+TOL_LF_GRADS_F32 = 3e-3
 # timed runs of each request, after one untimed warm-up run
 REPEATS = 5
 
@@ -134,6 +177,44 @@ def attention_bwd_bound_ms(b, h, l, d, dtype_name: str):
     nbytes = 8 * b * h * l * d * esize + 2 * b * h * l * l * esize \
         + b * l * 4 + 2 * b * h * l * 4
     return _bound(nbytes, 10.0 * b * h * l * l * d, dtype_name)
+
+
+def banded_bound_ms(b, h, t, d, c, tt, dtype_name: str):
+    """(least ms, what bounds it) for one banded-attention forward (K3):
+    q, k, v, out, the text keys and values, the masks and lse once; per
+    (b, h) T (12 c d + 4 tt d) operations (scores and P.V over 3c band and
+    tt text keys)."""
+    esize = 4 if dtype_name == "float32" else 2
+    nbytes = (4 * b * h * t * d + 2 * b * h * tt * d) * esize \
+        + b * (t + tt) * 4 + b * h * t * 4
+    return _bound(nbytes, b * h * t * (12.0 * c * d + 4.0 * tt * d),
+                  dtype_name)
+
+
+def banded_dq_bound_ms(b, h, t, d, c, tt, dtype_name: str,
+                       text_grads: bool = True):
+    """(least ms, what bounds it) for one query-chunk backward pass (K4): q,
+    k, v, g read and dq written, the text keys and values (and their fp32
+    gradients), masks, lse and delta; per (b, h) T (18 c d + 6 tt d)
+    operations (scores, dp and dq over band and text keys) plus 4 T tt d
+    for dk_text and dv_text."""
+    esize = 4 if dtype_name == "float32" else 2
+    nbytes = (5 * b * h * t * d + 2 * b * h * tt * d) * esize \
+        + (2 * b * h * tt * d * 4 if text_grads else 0) + b * (t + tt) * 4 \
+        + 2 * b * h * t * 4
+    flops = b * h * t * (18.0 * c * d + (10.0 if text_grads else 6.0) * tt * d)
+    return _bound(nbytes, flops, dtype_name)
+
+
+def banded_dkv_bound_ms(b, h, t, d, c, dtype_name: str):
+    """(least ms, what bounds it) for one key-chunk backward pass (K5): q, k,
+    v, g read and dk, dv written, the speech mask, lse and delta; four
+    products of 2 c^2 d for each of the 3 nc - 2 (key chunk, query chunk)
+    pairs that exist, per (b, h)."""
+    esize = 4 if dtype_name == "float32" else 2
+    nc = t // c
+    nbytes = 6 * b * h * t * d * esize + b * t * 4 + 2 * b * h * t * 4
+    return _bound(nbytes, b * h * (3 * nc - 2) * 8.0 * c * c * d, dtype_name)
 
 
 def kernel_phase(torch, fa, cuda_ms):
@@ -312,6 +393,298 @@ def kernel_bwd_phase(torch, fa, cuda_ms):
                           max_abs_err=worst[(b, h, l, d, name)])
         del q, k, v, go, bias, out, lse, qs, ks, vs, am, lib_out
     return rows["float32"]
+
+
+def _banded_inputs(torch, g, b, h, t, d, tt, dt, lengths):
+    """q, k, v, k_text, v_text, the output gradient, txm and spm on the card;
+    batch entry i has ``lengths[i]`` valid frames (a padded tail of two
+    chunks or more makes query rows whose every band key is masked) and,
+    with text, the last entry's last two text tokens are padding."""
+    dev = torch.device("cuda")
+    q, k, v, go = (torch.randn(b, h, t, d, generator=g).to(dev, dt)
+                   for _ in range(4))
+    kt, vt = (torch.randn(b, h, tt, d, generator=g).to(dev, dt)
+              for _ in range(2))
+    spm = (torch.arange(t)[None, :]
+           < torch.tensor(lengths)[:, None]).to(torch.int32)
+    txm = torch.ones(b, tt, dtype=torch.int32)
+    txm[-1, tt - 2:] = 0
+    return q, k, v, kt, vt, go, txm.to(dev), spm.to(dev)
+
+
+def _masked_rows(torch, ba, txm, spm, c: int):
+    """(B, T) bool: the query rows whose every key, band and text, is
+    masked."""
+    seen = ba.band_mask(spm, c).any(-1) | (txm > 0).any(-1, keepdim=True)
+    return (~seen).repeat_interleave(c, dim=1)
+
+
+def _split_rel_err(torch, got, want, rows):
+    """max|got - want| / max|want| of (B, H, T, d) tensors over the rows
+    (B, T) where ``rows`` holds, and apart over the other rows, each relative
+    to its own largest |want|; 0 for an empty set."""
+    diff = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    errs = []
+    for sel in (rows, ~rows):
+        if not bool(sel.any()):
+            errs.append(0.0)
+            continue
+        m = sel[:, None, :, None]
+        top = torch.where(m, ref, 0.0).amax().clamp_min(1e-30)
+        errs.append((torch.where(m, diff, 0.0).amax() / top).item())
+    return errs
+
+
+def chunked_attention(torch, q, k, v, kt, vt, txm, spm, window: int):
+    """The JAX package's other formula for the same attention, its
+    chunked-einsum path (windowed_attention.py:147-177), in float32: phantom
+    edge neighbours are zeros, masked scores the float32 minimum, and no
+    stand-in text block.  A measurement, not part of the port."""
+    b, h, t, d = q.shape
+    c = window // 2
+    nc = t // c
+
+    def band(x):
+        xc = x.float().reshape(b, x.shape[1], nc, c, -1)
+        z = torch.zeros_like(xc[:, :, :1])
+        return torch.cat([torch.cat([z, xc[:, :, :-1]], 2), xc,
+                          torch.cat([xc[:, :, 1:], z], 2)], 3)
+
+    qc = q.float().reshape(b, h, nc, c, d)
+    s = torch.cat([torch.einsum("bhncd,bhnkd->bhnck", qc, band(k)),
+                   torch.einsum("bhncd,bhsd->bhncs", qc, kt.float())], -1)
+    ok = torch.cat([band(spm.view(b, 1, t, 1))[..., 0][:, :, :, None, :]
+                    .expand(b, h, nc, c, 3 * c) > 0,
+                    (txm > 0).view(b, 1, 1, 1, -1).expand(
+                        b, h, nc, c, kt.shape[2])], -1)
+    p = torch.softmax((s * float(1.0 / d ** 0.5)).masked_fill(
+        ~ok, torch.finfo(torch.float32).min), -1)
+    out = torch.einsum("bhnck,bhnkd->bhncd", p[..., :3 * c], band(v)) \
+        + torch.einsum("bhncs,bhsd->bhncd", p[..., 3 * c:], vt.float())
+    return out.reshape(b, h, t, d), ~ok.any(-1).reshape(b, h, t)
+
+
+def kernel_banded_phase(torch, ba, cuda_ms):
+    """K3, K4 and K5 against their plain versions on the card, at the
+    training shape (B=4, H=2, T=8192, d=192, window 512) as the encoder calls
+    them (64 text keys) and as the pre-encoder does (speech only, the 128-key
+    masked text block, ragged lengths, K4 without text gradients), at a
+    smaller speech-only shape with text gradients and at a small shape with
+    ragged tiles (c=4, 5 text keys); float32 and bfloat16, dropout 0 and 0.2;
+    errors on the fully masked rows apart from the others.  Then K3's
+    keep-mask bits read back, and the times at the training shape beside the
+    plain versions', SDPA's and the bounds."""
+    g = torch.Generator().manual_seed(2)
+    worst = {}
+    cases = [
+        # the encoder's blocks: 64 text keys, the last utterance a chunk short
+        ((4, 2, 8192, 192), 512, 64, (8192, 8192, 8192, 7936), True),
+        # the pre-encoder's blocks: speech only (the 128-key masked stand-in
+        # block), the frame lengths of train-longformer's batch (padded tails
+        # of 0 to 12 chunks), K4 without the text gradients, as
+        # BandedAttention calls it there
+        ((4, 2, 8192, 192), 512, 0, (8192, 5444, 5133, 6229), False),
+        # the stand-in block with its text gradients, a tail of 3 chunks
+        ((2, 2, 2048, 192), 512, 0, (2048, 1280), True),
+        # ragged tiles: c = 4, 5 text keys
+        ((2, 2, 64, 16), 8, 5, (64, 52), True)]
+    for (b, h, t, d), window, tt, lengths, text_grads in cases:
+        c = window // 2
+        for dt, tol in ((torch.float32, TOL_BWD_F32),
+                        (torch.bfloat16, TOL_BWD_BF16)):
+            for rate in (0.0, 0.2):
+                q, k, v, kt, vt, go, txm, spm = _banded_inputs(
+                    torch, g, b, h, t, d, tt, dt, lengths)
+                if tt == 0:
+                    kt = torch.zeros(b, h, ba.EMPTY_TEXT, d, device=q.device,
+                                     dtype=dt)
+                    vt = torch.zeros_like(kt)
+                    txm = torch.zeros(b, ba.EMPTY_TEXT, dtype=torch.int32,
+                                      device=q.device)
+                args = (q, k, v, kt, vt, txm, spm, window, 777, rate)
+                out, lse = ba.banded_attention_fwd(*args)
+                ref, ref_lse = ba.banded_attention_reference(*args)
+                delta = (go.float() * out.float()).sum(-1)
+                bwd = (777, rate, go, lse, delta)
+                got = ba.banded_attention_bwd_dq(*args[:8], *bwd,
+                                                 text_grads=text_grads) \
+                    + ba.banded_attention_bwd_dkv(q, k, v, spm, window, *bwd)
+                want = ba.banded_attention_bwd_dq_reference(*args[:8], *bwd) \
+                    + ba.banded_attention_bwd_dkv_reference(q, k, v, spm,
+                                                            window, *bwd)
+                torch.cuda.synchronize()
+                # out and dq apart on the fully masked query rows (where the
+                # Pallas semantics make them tens of times larger), dk and dv
+                # apart on the padded keys, each against its own largest value
+                rows = _masked_rows(torch, ba, txm, spm, c)
+                keys = spm > 0
+                split = {"out": (out, ref, ~rows),
+                         "dq": (got[0], want[0], ~rows),
+                         "dk": (got[3], want[3], keys),
+                         "dv": (got[4], want[4], keys)}
+                errs = {n: _split_rel_err(torch, a, w, sel)
+                        for n, (a, w, sel) in split.items()}
+                text = [_rel_err(a, w) for a, w in zip(got[1:3], want[1:3])] \
+                    if text_grads else []
+                lerr = (lse - ref_lse).abs().max().item()
+                log(f"  K3/K4/K5 {(b, h, t, d)} c={c} tt={tt} "
+                    f"{str(dt)[6:]} rate={rate}, {int(rows.sum())} fully "
+                    f"masked query rows: max|kernel-plain|/max|plain| on valid"
+                    f" | fully masked rows (valid | padded keys for dk, dv) "
+                    + ", ".join(f"{n} {e[0]:.3g} | {e[1]:.3g}"
+                                for n, e in errs.items())
+                    + (f"; dk_text {text[0]:.3g}, dv_text {text[1]:.3g}"
+                       if text_grads else "; no text gradients asked")
+                    + f"; max|lse-plain| {lerr:.3g} (tol {tol:g}; text "
+                    f"grads and lse {TOL_BWD_F32:g})")
+                check(out.dtype == ref.dtype
+                      and all(a.dtype == w.dtype for a, w, _ in split.values())
+                      and all(max(e) <= tol for e in errs.values())
+                      and all(e <= TOL_BWD_F32 for e in text)
+                      and (text_grads or got[1] is None and got[2] is None)
+                      and lerr <= TOL_F32,
+                      f"K3/K4/K5 {(b, h, t, d)} tt={tt} {dt} rate={rate}")
+                key = (b, h, t, d, str(dt)[6:])
+                pairs = [(out, ref)] + [(a, w) for a, w in zip(got, want)
+                                        if a is not None]
+                for kern, outs in (("K3", pairs[:1]), ("K4", pairs[1:-2]),
+                                   ("K5", pairs[-2:])):
+                    worst[(kern,) + key] = max(
+                        [worst.get((kern,) + key, 0.0)]
+                        + [(a.float() - w.float()).abs().max().item()
+                           for a, w in outs])
+                del q, k, v, kt, vt, go, out, lse, ref, ref_lse, got, want
+                del pairs, delta, args, bwd, split, rows, keys
+    torch.cuda.empty_cache()
+
+    # the JAX package's two formulas differ on query rows whose every key is
+    # masked; K3 follows the Pallas kernel, so it shows that difference too
+    # (speech only, 3 padded chunks; the chunked path has no text block)
+    q, k, v, kt, vt, _, _, spm = _banded_inputs(torch, g, 2, 2, 2048, 192, 0,
+                                                torch.float32, (2048, 1280))
+    zt = torch.zeros(2, 2, ba.EMPTY_TEXT, 192, device=q.device)
+    out, _ = ba.banded_attention_fwd(
+        q, k, v, zt, zt, torch.zeros(2, ba.EMPTY_TEXT, dtype=torch.int32,
+                                     device=q.device), spm, 512, 0, 0.0)
+    chunked, masked = chunked_attention(
+        torch, q, k, v, kt, vt, torch.zeros(2, 0, dtype=torch.int32,
+                                            device=q.device), spm, 512)
+    diff = (out - chunked).abs().amax(-1)
+    log(f"  K3 against the chunked formula (speech only, (2, 2, 2048, 192), "
+        f"fp32): {int(masked.sum())} fully masked query rows, max|diff| "
+        f"{diff[masked].max().item():.3g} on them, "
+        f"{diff[~masked].max().item():.3g} on the other rows")
+    del q, k, v, kt, vt, spm, zt, out, chunked, masked, diff
+
+    # K3's dropout keep-masks read back: q = k = 0 makes p uniform over the
+    # valid keys; v one-hot on the key rows of the chunks of one residue mod 3
+    # (a query chunk's three neighbours have three residues) and on a window
+    # of 192 in-chunk positions gives out[r, j] = keep[r, col] / (n (1-rate))
+    b, h, t, d, window, tt = 1, 2, 1024, 192, 512, 64
+    c, nc, rate, seed = window // 2, t // (window // 2), 0.1, 987654321
+    dev = torch.device("cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        zeros = torch.zeros(b, h, t, d, device=dev, dtype=dt)
+        zt = torch.zeros(b, h, tt, d, device=dev, dtype=dt)
+        txm = torch.ones(b, tt, dtype=torch.int32, device=dev)
+        spm = torch.ones(b, t, dtype=torch.int32, device=dev)
+        got = torch.zeros(b, h, nc, c, 3 * c + tt, dtype=torch.bool, device=dev)
+        rows = torch.arange(t, device=dev)
+        for res in range(3):
+            for w0 in range(0, c, d):
+                n = min(d, c - w0)
+                v = torch.zeros(b, h, t, d, device=dev, dtype=dt)
+                sel = rows[((rows // c) % 3 == res) & (rows % c >= w0)
+                           & (rows % c < w0 + n)]
+                v[:, :, sel, sel % c - w0] = 1
+                out, _ = ba.banded_attention_fwd(zeros, zeros, v, zt, zt, txm,
+                                                 spm, window, seed, rate)
+                out = out.view(b, h, nc, c, d)[..., :n] != 0
+                for ci in range(nc):
+                    nb = [ci + blk - 1 for blk in range(3)]
+                    for blk in range(3):
+                        if 0 <= nb[blk] < nc and nb[blk] % 3 == res:
+                            got[:, :, ci, :, blk * c + w0:blk * c + w0 + n] = \
+                                out[:, :, ci]
+        for w0 in range(0, tt, d):
+            n = min(d, tt - w0)
+            vt = torch.zeros(b, h, tt, d, device=dev, dtype=dt)
+            vt[:, :, w0 + torch.arange(n), torch.arange(n)] = 1
+            out, _ = ba.banded_attention_fwd(zeros, zeros, zeros, zt, vt, txm,
+                                             spm, window, seed, rate)
+            got[..., 3 * c + w0:3 * c + w0 + n] = \
+                out.view(b, h, nc, c, d)[..., :n] != 0
+        want = torch.cat([ba.band_keep(b, h, nc, c, seed, rate, device=dev)
+                          & ba.band_mask(spm, c)[:, None, :, None, :].bool(),
+                          ba.text_keep(b, h, nc, c, tt, seed, rate,
+                                       device=dev)], dim=-1)
+        n_diff = int((got != want).sum())
+        log(f"  K3 dropout keep-mask {str(dt)[6:]}: {n_diff} of {got.numel()} "
+            f"bits differ, keep share {want.float().mean().item():.4f}")
+        check(n_diff == 0, f"K3 dropout mask bits ({dt})")
+
+    # times at the training shape, rate 0, in bfloat16 (the slice's type) and
+    # float32; the library yardstick is SDPA over [speech; text] keys with a
+    # dense boolean band mask, forward, and its backward through autograd
+    rows_out = {}
+    (b, h, t, d), window, tt, lengths, _ = cases[0]
+    c = window // 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        q, k, v, kt, vt, go, txm, spm = _banded_inputs(
+            torch, g, b, h, t, d, tt, dt, lengths)
+        args = (q, k, v, kt, vt, txm, spm, window, 0, 0.0)
+        out, lse = ba.banded_attention_fwd(*args)
+        delta = (go.float() * out.float()).sum(-1)
+        bwd = (0, 0.0, go, lse, delta)
+        ci = torch.arange(t, device=q.device) // c
+        band = (ci[:, None] - ci[None, :]).abs() <= 1
+        keys_ok = torch.cat([band[None] & (spm[:, None, :] > 0),
+                             (txm[:, None, :] > 0).expand(b, t, tt)], dim=-1)
+        mask = keys_ok[:, None]  # (B, 1, T, T + tt)
+        ka, va = torch.cat([k, kt], 2), torch.cat([v, vt], 2)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, ka, va))
+        lib_out = sdpa(qs, ks, vs, attn_mask=mask)
+        fns = {
+            "K3": (lambda: ba.banded_attention_fwd(*args),
+                   lambda: ba.banded_attention_reference(*args),
+                   banded_bound_ms(b, h, t, d, c, tt, name)),
+            "K4": (lambda: ba.banded_attention_bwd_dq(*args[:8], *bwd),
+                   lambda: ba.banded_attention_bwd_dq_reference(*args[:8],
+                                                                *bwd),
+                   banded_dq_bound_ms(b, h, t, d, c, tt, name)),
+            "K5": (lambda: ba.banded_attention_bwd_dkv(q, k, v, spm, window,
+                                                       *bwd),
+                   lambda: ba.banded_attention_bwd_dkv_reference(
+                       q, k, v, spm, window, *bwd),
+                   banded_dkv_bound_ms(b, h, t, d, c, name)),
+        }
+        t_lib_fwd = cuda_ms(lambda: sdpa(q, ka, va, attn_mask=mask), iters=5)
+        t_lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qs, ks, vs), go, retain_graph=True), iters=5)
+        for kern, (kernel, plain, (bound, by)) in fns.items():
+            # in turns: kernel, plain, kernel
+            t_kernel = cuda_ms(kernel, iters=10)
+            t_plain = cuda_ms(plain, iters=3, warmup=1)
+            t_kernel2 = cuda_ms(kernel, iters=10)
+            t_lib = t_lib_fwd if kern == "K3" else t_lib_bwd
+            log(f"  {kern} times {(b, h, t, d)} c={c} tt={tt} {name}: kernel "
+                f"{t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} "
+                f"ms, sdpa {'forward' if kern == 'K3' else 'backward'} "
+                f"{t_lib:.4f} ms, bound {bound:.5f} ms ({by})")
+            rows_out[(kern, name)] = dict(
+                ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=bound, bound_by=by,
+                max_abs_err=worst[(kern, b, h, t, d, name)])
+        log(f"  SDPA with the dense band mask {name}: forward "
+            f"{t_lib_fwd:.4f} ms, backward {t_lib_bwd:.4f} ms, forward + "
+            f"backward {t_lib_fwd + t_lib_bwd:.4f} ms")
+        del q, k, v, kt, vt, go, out, lse, delta, qs, ks, vs, lib_out, mask
+        del keys_ok, band, ka, va, fns, args, bwd
+        torch.cuda.empty_cache()
+    return {kern: rows_out[(kern, "bfloat16")] for kern in ("K3", "K4", "K5")}
 
 
 def make_request(np, fs: int, secs: float, n_phones: int = 40):
@@ -605,6 +978,321 @@ def train_phase(torch, np, fa, wall_time, label, device="cuda"):
     return launches, dict(step_ms=med * 1e3)
 
 
+class PlainBanded:
+    """Within this context the banded-attention wrappers take their plain
+    versions on CUDA tensors too: the oracle step that the kernel step is
+    held against.  The port itself has no such switch."""
+
+    NAMES = ("banded_attention_fwd", "banded_attention_bwd_dq",
+             "banded_attention_bwd_dkv")
+
+    def __init__(self, ba):
+        self.ba = ba
+
+    def __enter__(self):
+        ba = self.ba
+        self.saved = [getattr(ba, n) for n in self.NAMES]
+        ba.banded_attention_fwd = ba.banded_attention_reference
+        ba.banded_attention_bwd_dq = \
+            lambda *a, text_grads=True: ba.banded_attention_bwd_dq_reference(*a)
+        ba.banded_attention_bwd_dkv = ba.banded_attention_bwd_dkv_reference
+
+    def __exit__(self, *exc):
+        for n, f in zip(self.NAMES, self.saved):
+            setattr(self.ba, n, f)
+        return False
+
+
+def _banded_launches(ba):
+    return (ba.LAUNCHES_BANDED_FWD, ba.LAUNCHES_BANDED_DQ,
+            ba.LAUNCHES_BANDED_DKV)
+
+
+def _longformer_setup(torch, np, device):
+    """train-longformer's batch on the card (make_synthetic_batch(
+    default_rng(0)), 4 utterances of up to 8192 frames at 16 kHz, 64 phones,
+    vocabulary 80), its front-end, the yaml's config and that config with
+    every dropout rate 0."""
+    import dataclasses
+
+    from a3t_tpu_torch.data import make_synthetic_batch
+    from a3t_tpu_torch.dsp import LogMelFrontend
+    from a3t_tpu_torch.tasks.config import FRONTEND_16K, a3t_longformer_16k
+
+    hop = FRONTEND_16K.hop_length
+    batch = make_synthetic_batch(
+        np.random.default_rng(0), batch_size=4, n_samples=hop * 8191,
+        n_text=64, hop_length=hop, vocab_size=80, fs=FRONTEND_16K.fs)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    cfg = a3t_longformer_16k(vocab_size=80)
+    cfg0 = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, dropout_rate=0.0, positional_dropout_rate=0.0,
+        attention_dropout_rate=0.0))
+    return batch, LogMelFrontend(FRONTEND_16K, device=device), cfg, cfg0
+
+
+def _dropout0_model(cfg0, device):
+    from a3t_tpu_torch.models import build_model
+
+    model = build_model(cfg0, device=device, seed=0)
+    model.postnet.dropout.rate = 0.0
+    return model
+
+
+def longformer_grad_check(torch, ba, cfg0, fe, batch, tol: float,
+                          what: str, device="cuda") -> float:
+    """One dropout-0 forward, loss and backward of the longformer model
+    through K3-K5 against the same through their plain versions: the loss,
+    and the gradient leaf by leaf, max|kernel - plain| over max|plain| of
+    each parameter, which must stay within ``tol``.  The key projections'
+    biases have a true gradient of zero (softmax ignores a constant added to
+    every score of a row), so theirs is rounding noise in both runs: they
+    are held to the largest gradient of all leaves instead.  Returns the
+    worst ratio."""
+    import copy
+    import contextlib
+
+    from a3t_tpu_torch.models.mlm import mlm_loss
+    from a3t_tpu_torch.train import featurize
+
+    n_blocks = cfg0.encoder.num_blocks + cfg0.encoder.pre_speech_layers
+    kern = _dropout0_model(cfg0, device)
+    plain = copy.deepcopy(kern)
+    mb = featurize(fe, batch)
+    runs = []
+    for model in (kern, plain):
+        model.train()
+        names, params = zip(*model.named_parameters())
+        ba.reset_launches()
+        with PlainBanded(ba) if model is plain else contextlib.nullcontext():
+            before, after = model(**mb,
+                                  generator=torch.Generator().manual_seed(0))
+            loss = mlm_loss(before, after, mb["speech"], mb["masked_position"])
+            grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        runs.append((float(loss.detach()), dict(zip(names, grads)),
+                     _banded_launches(ba)))
+        del before, after, loss, grads
+    (lk, gk, nk), (lp, gp, np_) = runs
+    top = max(g.abs().max().item() for g in gp.values())
+    ratio = {}
+    for name, want in gp.items():
+        ref = top if name.endswith("linear_k.bias") \
+            else want.abs().max().item()
+        ratio[name] = (gk[name] - want).abs().max().item() / max(ref, 1e-30)
+    worst = sorted(ratio.items(), key=lambda kv: -kv[1])
+    log(f"  longformer gradients at dropout 0, kernels vs plain versions, "
+        f"{what}: loss {lk:.7g} vs {lp:.7g} (rel {abs(lk - lp) / abs(lp):.3g})"
+        f", max|grad-plain|/max|plain| per leaf (tol {tol:g}): worst "
+        + ", ".join(f"{n} {r:.3g}" for n, r in worst[:3])
+        + f"; median leaf {worst[len(worst) // 2][1]:.3g} of {len(worst)}; "
+        f"largest gradient {top:.4g}; launches K3/K4/K5 {nk} vs {np_}")
+    check(nk == (n_blocks,) * 3 and np_ == (0, 0, 0),
+          f"launches of the compared gradients ({what})")
+    check(abs(lk - lp) <= TOL_LF_LOSS * abs(lp) and worst[0][1] <= tol,
+          f"kernel vs plain longformer gradients ({what})")
+    del kern, plain, mb, runs, gk, gp
+    torch.cuda.empty_cache()
+    return worst[0][1]
+
+
+def chunked_step(torch, np, ba, device="cuda"):
+    """Measurement of PERF.md §7 (``--chunked-step``, not part of the smoke
+    run): the longformer step at dropout 0 through K3-K5 and the same step
+    with the attention of JAX's chunked formula, which the JAX package runs
+    off the TPU; the two differ only on the padded query rows whose every
+    key is masked."""
+    import a3t_tpu_torch.models.windowed_attention as wa
+    from a3t_tpu_torch.tasks.config import OPTIM_24K
+    from a3t_tpu_torch.train import (create_train_state, make_optimizer,
+                                     make_train_step)
+
+    batch, fe, _, cfg0 = _longformer_setup(torch, np, device)
+
+    def chunked(q, k, v, kt, vt, text_mask, window, speech_mask,
+                dropout_rate, seed):
+        return chunked_attention(torch, q, k, v, kt, vt, text_mask.int(),
+                                 speech_mask.int(), window)[0].to(q.dtype)
+
+    stats = []
+    for attention in (wa.banded_attention, chunked):
+        model = _dropout0_model(cfg0, device)
+        state = create_train_state(model, make_optimizer(OPTIM_24K),
+                                   device=device)
+        wa.banded_attention, banded = attention, wa.banded_attention
+        try:
+            _, st = make_train_step(model, fe, device=device)(state, batch, 0)
+        finally:
+            wa.banded_attention = banded
+        stats.append((float(st["loss"]), float(st["grad_norm"])))
+        del model, state, st
+    log(f"  longformer step at dropout 0: through K3/K4/K5 loss "
+        f"{stats[0][0]:.7g}, grad_norm {stats[0][1]:.7g}; through JAX's "
+        f"chunked formula loss {stats[1][0]:.7g}, grad_norm "
+        f"{stats[1][1]:.7g}")
+
+
+def train_longformer_phase(torch, np, ba, wall_time, label, device="cuda"):
+    """make_train_step of configs/a3t_longformer_16k.yaml at full width and
+    depth, bf16, on the yaml's largest bucket: 4 utterances of 8192 frames
+    (16 kHz, hop 200), 64 phones, vocabulary 80."""
+    import copy
+    import dataclasses
+
+    from a3t_tpu_torch.models import build_model
+    from a3t_tpu_torch.models.mlm import mlm_loss
+    from a3t_tpu_torch.tasks.config import OPTIM_24K
+    from a3t_tpu_torch.train import (create_train_state, featurize,
+                                     make_optimizer, make_train_step)
+
+    batch, fe, cfg, cfg0 = _longformer_setup(torch, np, device)
+    b_size, n_frames = batch["masked_position"].shape
+    n_blocks = cfg.encoder.num_blocks + cfg.encoder.pre_speech_layers
+
+    # one step at dropout 0: K3/K4/K5 against their plain versions
+    kern = _dropout0_model(cfg0, device)
+    plain = copy.deepcopy(kern)
+    results = []
+    for model in (kern, plain):
+        state = create_train_state(model, make_optimizer(OPTIM_24K),
+                                   device=device)
+        step = make_train_step(model, fe, device=device)
+        ba.reset_launches()
+        if model is plain:
+            with PlainBanded(ba):
+                state, stats = step(state, batch, 0)
+        else:
+            state, stats = step(state, batch, 0)
+        torch.cuda.synchronize()
+        results.append((float(stats["loss"]), float(stats["grad_norm"]),
+                        _banded_launches(ba)))
+    (lk, gk, nk), (lp, gp, np_) = results
+    dparam = max((a - b).abs().max().item() for a, b in
+                 zip(kern.parameters(), plain.parameters()))
+    dstats = max((a - b).abs().max().item() for a, b in
+                 zip(kern.buffers(), plain.buffers()) if a.is_floating_point())
+    log(f"  longformer step at dropout 0, kernels vs plain versions: loss "
+        f"{lk:.7g} vs {lp:.7g} (rel {abs(lk - lp) / abs(lp):.3g}, tol "
+        f"{TOL_LF_LOSS:g}), grad_norm {gk:.7g} vs {gp:.7g} (rel "
+        f"{abs(gk - gp) / gp:.3g}, tol {TOL_LF_GRAD_NORM:g}), max|params| "
+        f"diff {dparam:.3g} (tol {TOL_STEP_PARAMS:g}), max|BatchNorm stats| "
+        f"diff {dstats:.3g} (tol {TOL_LF_STATS:g}); launches K3/K4/K5 {nk} "
+        f"vs {np_}")
+    check(nk == (n_blocks,) * 3 and np_ == (0, 0, 0),
+          "launches of the compared longformer steps")
+    check(abs(lk - lp) <= TOL_LF_LOSS * abs(lp), "kernel vs plain loss")
+    check(abs(gk - gp) <= TOL_LF_GRAD_NORM * gp, "kernel vs plain grad_norm")
+    check(dparam <= TOL_STEP_PARAMS and dstats <= TOL_LF_STATS,
+          "kernel vs plain updated parameters")
+    del kern, plain, model, state, stats, step
+    torch.cuda.empty_cache()
+
+    # the gradients themselves, leaf by leaf: on this batch, where the
+    # pre-encoder's fully masked padded rows dominate them (the Pallas
+    # semantics, kept), and on the same batch with every utterance at full
+    # length, where no row is padding and every gradient is the true one, in
+    # bf16 as the yaml trains and in float32
+    full = dict(batch, audio_lengths=torch.full_like(
+        batch["audio_lengths"], int(batch["audio"].shape[1])))
+    cfg0_f32 = dataclasses.replace(cfg0, encoder=dataclasses.replace(
+        cfg0.encoder, compute_dtype="float32"))
+    longformer_grad_check(torch, ba, cfg0, fe, batch, TOL_LF_GRADS_BF16,
+                          "bf16, the batch")
+    longformer_grad_check(torch, ba, cfg0, fe, full, TOL_LF_GRADS_BF16,
+                          "bf16, full-length utterances")
+    longformer_grad_check(torch, ba, cfg0_f32, fe, full, TOL_LF_GRADS_F32,
+                          "float32, full-length utterances")
+
+    # the yaml's dropout rates: 2 warm-up and 5 timed steps
+    model = build_model(cfg, device=device, seed=0)
+    state = create_train_state(model, make_optimizer(OPTIM_24K),
+                               device=device)
+    step = make_train_step(model, fe, device=device)
+    gen = torch.Generator().manual_seed(0)
+    walls = []
+    ba.reset_launches()
+    for i in range(2 + REPEATS):
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+        before = _banded_launches(ba)
+        (state, stats), dt = wall_time(step, state, batch, gen)
+        n = tuple(a - b for a, b in zip(_banded_launches(ba), before))
+        loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
+        skipped = int(stats["notfinite_count"])
+        log(f"  longformer step {i} ({'warm-up' if i < 2 else 'timed'}): "
+            f"{dt * 1e3:.2f} ms wall, loss {loss:.6g}, grad_norm "
+            f"{gnorm:.6g}, notfinite_count {skipped}, launches K3/K4/K5 {n}")
+        check(np.isfinite(loss) and np.isfinite(gnorm) and skipped == 0,
+              f"longformer step {i}: finite loss and grad_norm, no skip")
+        check(n == (n_blocks,) * 3,
+              f"longformer step {i}: launches {n}, expected {n_blocks} each")
+        if i >= 2:
+            walls.append(dt)
+    launches = _banded_launches(ba)
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(walls))
+    frames = b_size * n_frames
+    log(f"  train-longformer: median {med * 1e3:.2f} ms per step (min "
+        f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}, n={REPEATS}), "
+        f"{frames / med:.1f} mel-frames/s (B*F = {frames}), peak memory "
+        f"{peak / 2**30:.2f} GiB [{label}]")
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    m = state.model
+    m.train()
+    ev[0].record()
+    mb = featurize(fe, batch)
+    before, after = m(**mb, generator=gen)
+    loss = mlm_loss(before, after, mb["speech"], mb["masked_position"])
+    ev[1].record()
+    grads = torch.autograd.grad(loss, state.params)
+    ev[2].record()
+    state.apply_gradients(grads)
+    ev[3].record()
+    torch.cuda.synchronize()
+    t_fwd, t_bwd, t_opt = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    log(f"  longformer step breakdown (CUDA events): front-end + forward + "
+        f"loss {t_fwd:.2f} ms, backward {t_bwd:.2f} ms, optimizer "
+        f"{t_opt:.2f} ms [{label}]")
+    del mb, before, after, loss, grads
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        log("  longformer step profile: the profiler saw no device "
+            "activity; busy share not measured")
+        return launches, med * 1e3
+    busy, end, by_name = 0.0, spans[0][0], {}
+    for t0, t1, name in spans:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+    window = end - spans[0][0]
+    log(f"  longformer step profile: device busy {busy / 1e3:.2f} ms of "
+        f"{window / 1e3:.2f} ms from first to last device activity "
+        f"(busy share {busy / window:.4f}), {len(spans)} device activities "
+        f"[{label}]")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+    k3, k4, k5 = (sum(us for name, us in by_name.items()
+                      if any(tag in name for tag in tags)) / 1e3
+                  for tags in (("banded_attention_fwd_kernel",),
+                               ("banded_attention_bwd_dq_kernel",
+                                "banded_text_grad_sum_kernel"),
+                               ("banded_attention_bwd_dkv_kernel",)))
+    log(f"  in the profiled step: K3 {k3:.2f} ms, K4 {k4:.2f} ms, K5 "
+        f"{k5:.2f} ms, together {(k3 + k4 + k5) / (busy / 1e3):.3f} of the "
+        f"device's busy time")
+    return launches, med * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -616,6 +1304,7 @@ def main() -> int:
     import numpy as np
 
     from a3t_tpu_torch.device import card_label, cuda_ms, wall_time
+    from a3t_tpu_torch.ops import banded_attention as ba
     from a3t_tpu_torch.ops import fused_attention as fa
     from a3t_tpu_torch.ops import native
 
@@ -629,20 +1318,31 @@ def main() -> int:
             f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {label}")
 
     with Phase("build"):
-        native.build_all(fa.LIBRARIES)
+        libraries = {**fa.LIBRARIES, **ba.LIBRARIES}
+        native.build_all(libraries)
         fa._entry()
         fa._entry_bwd()
-        for name in fa.LIBRARIES:
+        for name in ba.LIBRARIES:
+            ba._entry(name)
+        for name in libraries:
             for line in native.build_logs.get(name, "").splitlines():
                 if "Compiling entry" in line or "registers" in line \
                         or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+
+    if sys.argv[1:] == ["--chunked-step"]:
+        with Phase("chunked-step"):
+            chunked_step(torch, np, ba)
+        return 0
 
     with Phase("kernel"):
         f32, f32_train = kernel_phase(torch, fa, cuda_ms)
 
     with Phase("kernel-bwd"):
         bwd = kernel_bwd_phase(torch, fa, cuda_ms)
+
+    with Phase("kernel-banded"):
+        banded = kernel_banded_phase(torch, ba, cuda_ms)
 
     with Phase("slice"):
         serve_launches = slice_phase(torch, np, fa, cuda_ms, wall_time, label)
@@ -653,6 +1353,14 @@ def main() -> int:
     log(f"  K1 alone at the training shape {f32_train['ms']:.4f} ms x 8 = "
         f"{8 * f32_train['ms']:.2f} ms, K2 {bwd['ms']:.4f} ms x 8 = "
         f"{8 * bwd['ms']:.2f} ms, per step of {split['step_ms']:.2f} ms "
+        f"[{label}]")
+
+    with Phase("train-longformer"):
+        lf_launches, lf_step_ms = train_longformer_phase(
+            torch, np, ba, wall_time, label)
+    per_step = sum(banded[k]["ms"] for k in ("K3", "K4", "K5"))
+    log(f"  K3 + K4 + K5 alone at the training shape {per_step:.4f} ms x 6 = "
+        f"{6 * per_step:.2f} ms, per longformer step of {lf_step_ms:.2f} ms "
         f"[{label}]")
 
     kernels = [{
@@ -680,6 +1388,18 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
     }]
+    for kern, name, line, n in (
+            ("K3", "banded_attention_fwd", 90, lf_launches[0]),
+            ("K4", "banded_attention_bwd_dq", 172, lf_launches[1]),
+            ("K5", "banded_attention_bwd_dkv", 286, lf_launches[2])):
+        row = banded[kern]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"a3t_tpu_torch/csrc/{name}.cu",
+            "replaces": f"a3t_tpu/ops/banded_attention.py:{line}",
+            "launches": n, **{k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}})
     log(f"done in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(label, flush=True)

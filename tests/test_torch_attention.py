@@ -122,7 +122,9 @@ def test_conformer_stack(rng, kernel, flash):
 
 
 def test_unported_options_raise():
-    for kind in ("selfattn", "rel_selfattn", "longformer"):
+    """Plain and non-legacy rel-pos attention are not ported, and bf16
+    compute only for the longformer block (without a conv module)."""
+    for kind in ("selfattn", "rel_selfattn"):
         with pytest.raises(NotImplementedError):
             tc.ConformerBlock(tc.EncoderConfig(selfattention_layer_type=kind))
     with pytest.raises(NotImplementedError):

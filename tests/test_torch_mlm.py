@@ -34,8 +34,9 @@ def port_config(cfg: A3TModelConfig, flash: bool = True) -> tm.A3TModelConfig:
     names = {f.name for f in dataclasses.fields(tm.A3TModelConfig)}
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
           if f.name in names and f.name not in ("encoder", "decoder")}
-    return tm.A3TModelConfig(encoder=enc(cfg.encoder),
-                             decoder=enc(cfg.decoder), **kw)
+    return tm.A3TModelConfig(
+        encoder=enc(cfg.encoder),
+        decoder=None if cfg.decoder is None else enc(cfg.decoder), **kw)
 
 
 def make_batch(rng, b, n_frames, n_text, odim, vocab):

@@ -1,18 +1,22 @@
-"""Log-mel front-end (``a3t_tpu/dsp/frontend.py:36-118``), computed by rfft.
+"""Log-mel front-end (``a3t_tpu/dsp/frontend.py:36-144``).
 
 Chain (espnet2/tts/feats_extract/log_mel_fbank.py:88-106):
     stft -> power -> amp = sqrt(clamp(power, 1e-10))
          -> mel = clamp(amp @ melmat.T, 1e-10) -> log10 -> zero padded frames
 
-The JAX train step's default is the matmul-DFT variant ``fused``
-(``a3t_tpu/train/train_step.py:94``, ``use_fused_frontend: True`` in
-``tasks/config.py:66``), which computes the same chain with the DFT as two
-matrix products; this rfft computes the same features within ~1e-5
-(measured 8.8e-6 at 24 kHz and 9.3e-6 at 16 kHz on features up to 2.9, by
-``tests/test_torch_train.py::test_featurize_matches_jax_fused_frontend``;
-``tests/test_torch_dsp.py`` holds it against JAX's rfft front-end).  Only
-the Pallas kernel of that chain (``ops/fused_logmel.py``) is off by default;
-it is not ported yet.
+Three routes compute the same features:
+
+* ``__call__`` — rfft (cuFFT on the card), the numerical reference;
+* ``fused`` — the DFT as a matrix product with the window folded in
+  (``stft.dft_matrices``), then the mel product: the JAX train step's
+  default (``a3t_tpu/train/train_step.py:94``), here and in the port;
+* ``ops/fused_logmel.py::fused_logmel`` — the hand-written kernel of the
+  whole chain (K6), reached only through
+  ``train.featurize(..., use_pallas=True)``, as in the JAX package.
+
+``fused`` and the rfft route agree within ~1e-5 on features up to ~3
+(measured 8.8e-6 at 24 kHz and 9.3e-6 at 16 kHz by
+``tests/test_torch_train.py::test_featurize_matches_jax_fused_frontend``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 
 from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.dsp.mel import mel_filterbank
-from a3t_tpu_torch.dsp.stft import num_frames, padded_window, stft
+from a3t_tpu_torch.dsp.stft import (dft_matrices, frame_signal, num_frames,
+                                    padded_window, stft)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,26 +66,82 @@ class LogMelFrontend:
             mel_filterbank(c.fs, c.n_fft, c.n_mels, c.fmin, c.fmax).T,
             device=self.device)  # (n_freqs, n_mels)
         self.window = padded_window(c.n_fft, c.win_length)
+        self._dft = None  # the window's rows of [W_cos | W_sin], built lazily
+
+    def output_size(self) -> int:
+        return self.config.n_mels
 
     def frame_lengths(self, sample_lengths: torch.Tensor) -> torch.Tensor:
         return sample_lengths // self.config.hop_length + 1
 
-    def __call__(self, audio: torch.Tensor, sample_lengths=None):
+    def _mask(self, feats: torch.Tensor, sample_lengths):
+        """Zero the frames at or past each utterance's frame count; (feats,
+        frame_lengths), every frame valid without ``sample_lengths``."""
+        n_f = feats.shape[1]
+        if sample_lengths is None:
+            return feats, torch.full((feats.shape[0],), n_f,
+                                     dtype=torch.int64, device=self.device)
+        flens = self.frame_lengths(torch.as_tensor(sample_lengths,
+                                                   device=self.device))
+        valid = torch.arange(n_f, device=self.device)[None] < flens[:, None]
+        return torch.where(valid[..., None], feats,
+                           torch.zeros_like(feats)), flens
+
+    def _finish(self, amp: torch.Tensor, sample_lengths):
+        feats = torch.log10(torch.clamp(amp @ self.melmat, min=1e-10))
+        return self._mask(feats, sample_lengths)
+
+    def _audio(self, audio) -> torch.Tensor:
+        return torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+
+    def __call__(self, audio, sample_lengths=None):
         """audio (B, S) -> (feats (B, F, n_mels), frame_lengths (B,))."""
         c = self.config
-        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
-        spec = stft(audio, c.n_fft, c.hop_length, c.win_length, self.window)
+        spec = stft(self._audio(audio), c.n_fft, c.hop_length, c.win_length,
+                    self.window)
         power = spec.real ** 2 + spec.imag ** 2
-        amp = torch.sqrt(torch.clamp(power, min=1e-10))
-        feats = torch.log10(torch.clamp(amp @ self.melmat, min=1e-10))
-        n_f = feats.shape[1]
-        if sample_lengths is not None:
-            flens = self.frame_lengths(torch.as_tensor(
-                sample_lengths, device=self.device))
-            valid = torch.arange(n_f, device=self.device)[None] < flens[:, None]
-            feats = torch.where(valid[..., None], feats,
-                                torch.zeros_like(feats))
-        else:
-            flens = torch.full((feats.shape[0],), n_f, dtype=torch.int64,
-                               device=self.device)
-        return feats, flens
+        return self._finish(torch.sqrt(torch.clamp(power, min=1e-10)),
+                            sample_lengths)
+
+    def dft_bases(self) -> torch.Tensor:
+        """The window's rows of [W_cos | W_sin], (win_length, 2 n_freqs)
+        float32 from float64 (the other rows are zero), built at first
+        use."""
+        c = self.config
+        if self._dft is None:
+            left = (c.n_fft - c.win_length) // 2
+            w_cos, w_sin = dft_matrices(c.n_fft, c.win_length)
+            self._dft = torch.cat(
+                [torch.as_tensor(w_cos), torch.as_tensor(w_sin)],
+                dim=1)[left:left + c.win_length].to(self.device)
+        return self._dft
+
+    def fused(self, audio, sample_lengths=None):
+        """The matmul-DFT route: framing and one product with
+        :meth:`dft_bases`, no FFT."""
+        c = self.config
+        left = (c.n_fft - c.win_length) // 2
+        frames = frame_signal(self._audio(audio), c.n_fft, c.hop_length)
+        spec = frames[..., left:left + c.win_length] @ self.dft_bases()
+        re, im = spec[..., :c.n_freqs], spec[..., c.n_freqs:]
+        amp = torch.sqrt(torch.clamp(re * re + im * im, min=1e-10))
+        return self._finish(amp, sample_lengths)
+
+
+class LinearSpectrogramFrontend(LogMelFrontend):
+    """Amplitude linear spectrogram (espnet2's LinearSpectrogram):
+    stft -> |.| with no mel or log."""
+
+    def output_size(self) -> int:
+        return self.config.n_freqs
+
+    def _finish(self, amp, sample_lengths):
+        return self._mask(amp, sample_lengths)
+
+
+class LogSpectrogramFrontend(LinearSpectrogramFrontend):
+    """log(amp) linear spectrogram (espnet2's LogSpectrogram)."""
+
+    def _finish(self, amp, sample_lengths):
+        return super()._finish(torch.log(torch.clamp(amp, min=1e-10)),
+                               sample_lengths)

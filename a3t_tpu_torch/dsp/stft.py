@@ -1,4 +1,4 @@
-"""STFT with torch.stft-compatible semantics (``a3t_tpu/dsp/stft.py:23-97``).
+"""STFT with torch.stft-compatible semantics (``a3t_tpu/dsp/stft.py:23-116``).
 
 ``center=True`` (reflect padding of ``n_fft // 2`` samples on each side),
 ``onesided=True`` and a periodic Hann window of length ``win_length``
@@ -58,3 +58,21 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
     frames = frames * torch.as_tensor(window, dtype=frames.dtype,
                                       device=frames.device)
     return torch.fft.rfft(frames, n=n_fft, dim=-1)
+
+
+def dft_matrices(n_fft: int, win_length: int | None = None,
+                 dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
+    """Real/imag DFT bases with the analysis window folded in, each
+    (n_fft, n_fft // 2 + 1), built in float64 and cast to ``dtype``: for a
+    raw frame ``f``, ``Re(rfft(f * w)) = f @ W_cos`` and ``Im(rfft(f * w)) =
+    f @ W_sin``.  Rows outside the window's ``[(n_fft - win) // 2, + win)``
+    are zero."""
+    if win_length is None:
+        win_length = n_fft
+    w = padded_window(n_fft, win_length, np.float64)
+    n = np.arange(n_fft)[:, None]
+    k = np.arange(1 + n_fft // 2)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    w_cos = (np.cos(ang) * w[:, None]).astype(dtype)
+    w_sin = (-np.sin(ang) * w[:, None]).astype(dtype)
+    return w_cos, w_sin

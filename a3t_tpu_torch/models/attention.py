@@ -8,6 +8,13 @@ branch hands the rel-shifted positional scores to the fused kernels
 with the attention dropout drawn inside the kernels; the plain branch is the
 JAX package's XLA branch (attention.py:179-194), which drops the
 probabilities with :class:`SeededDropout`.
+
+With a compute ``dtype`` (bfloat16) the casts are the JAX module's: the
+projections run in that dtype (flax ``Dense(dtype=...)``), ``pos_emb`` and
+the positional biases take it, the score products accumulate in float32,
+the kernels take q, k, v and the bias in bfloat16, and the plain branch
+keeps the softmax in float32 and stores, drops and multiplies the
+probabilities in bfloat16 (attention.py:122-191).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 from torch import nn
 
 from a3t_tpu_torch.models.dropout import SeededDropout, draw_seed
+from a3t_tpu_torch.models.layers import dense
 from a3t_tpu_torch.ops.fused_attention import fused_attention
 
 
@@ -59,8 +67,10 @@ class RelPositionMultiHeadedAttention(nn.Module):
     """
 
     def __init__(self, d_model: int, n_head: int, legacy: bool = True,
-                 use_flash: bool = True, dropout_rate: float = 0.0):
+                 use_flash: bool = True, dropout_rate: float = 0.0,
+                 dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.h = n_head
         self.d_k = d_model // n_head
         self.legacy = legacy
@@ -77,18 +87,24 @@ class RelPositionMultiHeadedAttention(nn.Module):
     def forward(self, x, pos_emb, mask=None, generator=None):
         b, t, d_model = x.shape
 
-        def heads(y):
+        dt = self.dtype
+        if dt is not None:
+            pos_emb = pos_emb.to(dt)
+
+        def heads(linear, y):
+            y = dense(linear, y, dt)
             return y.view(*y.shape[:-1], self.h, self.d_k)
 
-        q = heads(self.linear_q(x))
-        k = heads(self.linear_k(x))
-        v = heads(self.linear_v(x))
-        p = heads(self.linear_pos(pos_emb))  # (1, P, H, d_k)
-        q_u = q + self.pos_bias_u
-        q_v = q + self.pos_bias_v
+        q = heads(self.linear_q, x)
+        k = heads(self.linear_k, x)
+        v = heads(self.linear_v, x)
+        p = heads(self.linear_pos, pos_emb)  # (1, P, H, d_k)
+        q_u = q + self.pos_bias_u.to(q.dtype)
+        q_v = q + self.pos_bias_v.to(q.dtype)
 
-        matrix_bd = torch.einsum("bthd,bshd->bhts", q_v,
-                                 p.expand(b, *p.shape[1:]))
+        # the score products accumulate in float32 (preferred_element_type)
+        matrix_bd = torch.einsum("bthd,bshd->bhts", q_v.float(),
+                                 p.float().expand(b, *p.shape[1:]))
         matrix_bd = (legacy_rel_shift(matrix_bd) if self.legacy
                      else latest_rel_shift(matrix_bd))
 
@@ -110,14 +126,17 @@ class RelPositionMultiHeadedAttention(nn.Module):
                 seed = draw_seed(generator)
             out = fused_attention(
                 q_u.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), matrix_bd.contiguous(),
-                flat_mask, dropout_rate=rate, seed=seed)
-            out = out.transpose(1, 2).reshape(b, t, d_model)
-            return self.linear_out(out)
+                v.transpose(1, 2).contiguous(),
+                matrix_bd.to(q_u.dtype).contiguous(), flat_mask,
+                dropout_rate=rate, seed=seed)
+            out = out.to(v.dtype).transpose(1, 2).reshape(b, t, d_model)
+            return dense(self.linear_out, out, dt)
 
-        matrix_ac = torch.einsum("bthd,bshd->bhts", q_u, k)
+        matrix_ac = torch.einsum("bthd,bshd->bhts", q_u.float(), k.float())
         attn = apply_attn_mask((matrix_ac + matrix_bd) / math.sqrt(self.d_k),
                                mask)
-        attn = self.dropout(attn, generator)
+        # the softmax stays float32; the probabilities are stored, dropped
+        # and multiplied with v in the compute dtype
+        attn = self.dropout(attn.to(v.dtype), generator)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, d_model)
-        return self.linear_out(out)
+        return dense(self.linear_out, out, dt)

@@ -1,15 +1,16 @@
 """Conformer encoder/decoder stacks (``a3t_tpu/models/conformer.py``).
 
 Two block types are ported: the 24 kHz A3T block (macaron feed-forward
-halves, legacy rel-pos self-attention, conv module with BatchNorm, float32)
-and the 16 kHz longformer block (sliding-window attention with global text
-tokens, no conv module, float32 or bfloat16 compute), both pre-LayerNorm.
+halves, legacy rel-pos self-attention, conv module with BatchNorm) and the
+16 kHz longformer block (sliding-window attention with global text tokens,
+no conv module), both pre-LayerNorm, each in float32 or bfloat16 compute.
 Module names follow ESPnet's EncoderLayer (conformer/encoder_layer.py) so
 state dicts map onto the JAX package's tree.
 
 Mixed precision follows flax's promotion: LayerNorms keep the float32
-stream, the attention projections and feed-forward convolutions run in the
-compute dtype, and each residual sum promotes back to float32.
+stream, the attention projections, feed-forwards and conv module run in the
+compute dtype (BatchNorm in a float32 round trip), and each residual sum
+promotes back to float32.
 """
 
 from __future__ import annotations
@@ -80,12 +81,6 @@ class EncoderConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r} is not ported")
-        if self.dtype is not None and (
-                kind != "longformer" or self.use_cnn_module
-                or self.positionwise_layer_type != "conv1d"):
-            raise NotImplementedError(
-                "bfloat16 compute is ported for the longformer block with "
-                "conv1d feed-forwards and no conv module only")
         if not self.normalize_before:
             raise NotImplementedError("post-LayerNorm stacks are not ported")
 
@@ -96,6 +91,9 @@ class RelPosEncoding(nn.Module):
     over ``max(T, max_len)`` positions and the first T rows are taken, so
     row i carries position ``max(T, max_len) - 1 - i``.  Trained checkpoints
     depend on this table.
+
+    As in flax, ``x * np.float32(sqrt(d))`` promotes a bfloat16 ``x`` to
+    float32, while the table takes ``x``'s dtype (conformer.py:130-131).
     """
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0,
@@ -110,8 +108,9 @@ class RelPosEncoding(nn.Module):
         pe = sinusoidal_table(max(t, self.max_len), self.d_model,
                               reverse=True)[:t]
         pos_emb = torch.tensor(pe, dtype=x.dtype, device=x.device)[None]
-        return (self.dropout(x * math.sqrt(self.d_model), generator),
-                self.dropout(pos_emb, generator))
+        y = x.to(torch.promote_types(x.dtype, torch.float32)) \
+            * float(np.float32(math.sqrt(self.d_model)))
+        return (self.dropout(y, generator), self.dropout(pos_emb, generator))
 
 
 class AbsPosEncoding(nn.Module):
@@ -155,7 +154,7 @@ class ConformerBlock(nn.Module):
             if c.positionwise_layer_type == "linear":
                 return PositionwiseFeedForward(d, c.linear_units,
                                                c.activation_type,
-                                               c.dropout_rate)
+                                               c.dropout_rate, dtype=c.dtype)
             raise NotImplementedError(c.positionwise_layer_type)
 
         self.macaron = c.macaron_style
@@ -172,12 +171,13 @@ class ConformerBlock(nn.Module):
         else:
             self.self_attn = RelPositionMultiHeadedAttention(
                 d, c.attention_heads, use_flash=c.use_flash_attention,
-                dropout_rate=c.attention_dropout_rate)
+                dropout_rate=c.attention_dropout_rate, dtype=c.dtype)
         self.use_cnn = c.use_cnn_module
         if c.use_cnn_module:
             self.norm_conv = nn.LayerNorm(d, eps=1e-5)
             self.conv_module = ConvolutionModule(d, c.cnn_module_kernel,
-                                                 c.activation_type)
+                                                 c.activation_type,
+                                                 dtype=c.dtype)
             self.norm_final = nn.LayerNorm(d, eps=1e-5)
         self.norm_ff = nn.LayerNorm(d, eps=1e-5)
         self.feed_forward = positionwise()

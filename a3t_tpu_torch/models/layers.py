@@ -105,18 +105,21 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
 
 class PositionwiseFeedForward(nn.Module):
-    """Linear -> activation -> dropout -> Linear."""
+    """Linear -> activation -> dropout -> Linear, in the compute ``dtype``
+    (None: float32)."""
 
     def __init__(self, d: int, hidden: int, activation: str = "swish",
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype=None):
         super().__init__()
         self.w_1 = nn.Linear(d, hidden)
         self.w_2 = nn.Linear(hidden, d)
         self.act = ACTIVATIONS[activation]
         self.dropout = SeededDropout(dropout_rate)
+        self.dtype = dtype
 
     def forward(self, x, generator=None):
-        return self.w_2(self.dropout(self.act(self.w_1(x)), generator))
+        h = self.dropout(self.act(dense(self.w_1, x, self.dtype)), generator)
+        return dense(self.w_2, h, self.dtype)
 
 
 class MultiLayeredConv1d(nn.Module):
@@ -141,9 +144,13 @@ class MultiLayeredConv1d(nn.Module):
 
 class ConvolutionModule(nn.Module):
     """Conformer convolution module: pointwise(2d) + GLU -> depthwise ->
-    BatchNorm (eps 1e-5) -> activation -> pointwise."""
+    BatchNorm (eps 1e-5) -> activation -> pointwise.  The convolutions, the
+    GLU and the activation run in the compute ``dtype`` (None: float32);
+    BatchNorm in a float32 round trip (the JAX module's shipped
+    ``bn_compute_dtype=False``)."""
 
-    def __init__(self, d: int, kernel_size: int, activation: str = "swish"):
+    def __init__(self, d: int, kernel_size: int, activation: str = "swish",
+                 dtype=None):
         super().__init__()
         self.pointwise_conv1 = nn.Conv1d(d, 2 * d, 1)
         self.depthwise_conv = nn.Conv1d(d, d, kernel_size,
@@ -151,11 +158,17 @@ class ConvolutionModule(nn.Module):
         self.norm = nn.BatchNorm1d(d, eps=1e-5)
         self.pointwise_conv2 = nn.Conv1d(d, d, 1)
         self.act = ACTIVATIONS[activation]
+        self.dtype = dtype
 
     def forward(self, x):
-        h = F.glu(self.pointwise_conv1(x.transpose(1, 2)), dim=1)
-        h = batch_norm(self.norm, self.depthwise_conv(h))
-        return self.pointwise_conv2(self.act(h)).transpose(1, 2)
+        dt = self.dtype
+        h = conv1d(self.pointwise_conv1, x.transpose(1, 2), dt)
+        a, g = h.chunk(2, dim=1)
+        h = conv1d(self.depthwise_conv, a * torch.sigmoid(g), dt)
+        h = batch_norm(self.norm, h.float())
+        if dt is not None:
+            h = h.to(dt)
+        return conv1d(self.pointwise_conv2, self.act(h), dt).transpose(1, 2)
 
 
 class Postnet(nn.Module):

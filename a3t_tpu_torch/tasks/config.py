@@ -19,16 +19,21 @@ FRONTEND_24K = LogMelConfig(fs=24000, n_fft=2048, hop_length=300,
                             win_length=1200, n_mels=80, fmin=80.0, fmax=7600.0)
 
 
-def a3t_conformer_24k(vocab_size: int = 80) -> A3TModelConfig:
+def a3t_conformer_24k(vocab_size: int = 80,
+                      compute_dtype: str = "float32") -> A3TModelConfig:
     """configs/a3t_conformer_24k.yaml: model.  The vocabulary is the
-    token list's length (80 in the JAX package's RTF bench)."""
+    token list's length (80 in the JAX package's RTF bench);
+    ``compute_dtype="bfloat16"`` on encoder and decoder is the JAX bench's
+    mixed precision (bench.py:90-94), in which both trained stashes were
+    trained."""
     stack = dict(attention_dim=384, attention_heads=2, linear_units=1536,
                  num_blocks=4, dropout_rate=0.2, positional_dropout_rate=0.2,
                  attention_dropout_rate=0.2, macaron_style=True,
                  use_cnn_module=True,
                  positionwise_layer_type="conv1d",
                  positionwise_conv_kernel_size=3, activation_type="swish",
-                 selfattention_layer_type="legacy_rel_selfattn")
+                 selfattention_layer_type="legacy_rel_selfattn",
+                 compute_dtype=compute_dtype)
     return A3TModelConfig(
         odim=FRONTEND_24K.n_mels, vocab_size=vocab_size,
         encoder=EncoderConfig(cnn_module_kernel=7, **stack),

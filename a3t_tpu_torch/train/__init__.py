@@ -9,10 +9,11 @@ from a3t_tpu_torch.train.train_step import (
     TrainState,
     create_train_state,
     featurize,
+    gather_audio,
     make_eval_step,
     make_train_step,
 )
 
 __all__ = ["OptimConfig", "Optimizer", "make_optimizer", "noam_schedule",
            "warmup_lr_schedule", "TrainState", "create_train_state",
-           "featurize", "make_eval_step", "make_train_step"]
+           "featurize", "gather_audio", "make_eval_step", "make_train_step"]

@@ -20,11 +20,14 @@ Batches are dicts of host (numpy) or torch arrays, as in the JAX package:
     speech_segment_pos (B, F)   int32
     text_segment_pos   (B, T)   int32
 
+A batch may carry ``audio_offset`` (B,) in place of ``audio``: the
+waveforms are then gathered from a flat int16 corpus tensor on the device
+(:func:`gather_audio`), given to ``featurize`` and the steps as ``corpus``.
+
 Differences from the JAX step: the state is updated in place and returned
 (the JAX step donates its state); ``rng`` is an int seed or a CPU
 ``torch.Generator`` from which every dropout site draws its seed on the
-host.  Mesh sharding, ``gather_audio``, chained dispatch and the TTS step
-are not ported.
+host.  Mesh sharding, chained dispatch and the TTS step are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.dsp.frontend import LogMelFrontend
 from a3t_tpu_torch.models.mlm import A3TMLMModel, mlm_loss
+from a3t_tpu_torch.ops.fused_logmel import fused_logmel
 from a3t_tpu_torch.train.optim import Optimizer, OptState
 
 
@@ -70,16 +74,64 @@ def create_train_state(model: A3TMLMModel, tx: Optimizer,
                       opt_state=tx.init(model.parameters()), tx=tx)
 
 
-def featurize(frontend: LogMelFrontend, batch: dict) -> dict:
-    """Raw-audio batch -> model input batch on the front-end's device (the
-    rfft path of the JAX ``featurize``, train_step.py:94-160)."""
+def gather_audio(corpus: torch.Tensor, batch: dict,
+                 hop_length: int) -> torch.Tensor:
+    """The (B, S) audio of a batch from the flat int16 ``corpus`` on the
+    device (``a3t_tpu/train/train_step.py:70-91``): S = (F - 1) * hop
+    samples from each ``audio_offset``, zero past each ``audio_lengths``.
+    As JAX's ``dynamic_slice``, an offset is clamped so that its slice lies
+    inside the corpus."""
+    n_frames = batch["masked_position"].shape[1]
+    n_samples = (n_frames - 1) * hop_length
+    if corpus.dim() != 1 or corpus.shape[0] < n_samples:
+        raise ValueError(f"corpus {tuple(corpus.shape)} holds no slice of "
+                         f"{n_samples} samples")
+    dev = corpus.device
+    offsets = torch.as_tensor(batch["audio_offset"], device=dev).to(
+        torch.int64).clamp(0, corpus.shape[0] - n_samples)
+    pos = torch.arange(n_samples, device=dev)
+    audio = corpus[offsets[:, None] + pos[None, :]]
+    valid = pos[None, :] < torch.as_tensor(batch["audio_lengths"],
+                                           device=dev)[:, None]
+    return torch.where(valid, audio, torch.zeros((), dtype=audio.dtype,
+                                                 device=dev))
+
+
+def featurize(frontend: LogMelFrontend, batch: dict, use_fused: bool = True,
+              use_pallas: bool = False, normalizer=None,
+              corpus=None) -> dict:
+    """Raw-audio batch -> model input batch on the front-end's device
+    (``a3t_tpu/train/train_step.py:94-160``).
+
+    ``use_fused=True`` (the default) runs the matmul-DFT front-end,
+    ``use_fused=False`` the rfft one; ``use_pallas=True`` runs the fused
+    log-mel kernel (K6, ``ops/fused_logmel.py``) instead of either.  A batch
+    with ``audio_offset`` takes its waveforms from ``corpus``; int16 audio is
+    dequantized by 1/32768.  ``normalizer`` (e.g. GlobalMVN) applies to the
+    features; ``spemb`` passes through.
+    """
     dev = frontend.device
-    audio = torch.as_tensor(batch["audio"], device=dev)
+    if "audio_offset" in batch:
+        if corpus is None:
+            raise ValueError(
+                "batch has audio_offset (device_audio batcher) but no "
+                "corpus buffer was provided to featurize/make_train_step")
+        audio = gather_audio(corpus, batch,
+                             frontend.config.hop_length).to(dev)
+    else:
+        audio = torch.as_tensor(batch["audio"], device=dev)
     if audio.dtype == torch.int16:
         # int16 PCM (data/batcher.py audio_int16); dequantize on device
         audio = audio.to(torch.float32) * (1.0 / 32768.0)
-    feats, flens = frontend(
-        audio, torch.as_tensor(batch["audio_lengths"], device=dev))
+    lengths = torch.as_tensor(batch["audio_lengths"], device=dev)
+    if use_pallas:
+        feats, flens = fused_logmel(
+            audio.to(torch.float32).contiguous(), frontend.config, lengths)
+    else:
+        fe = frontend.fused if use_fused else frontend
+        feats, flens = fe(audio, lengths)
+    if normalizer is not None:
+        feats = normalizer(feats)
     n_f = feats.shape[1]
     speech_mask = torch.arange(n_f, device=dev)[None, :] < flens[:, None]
     # the reference multiplies the sampled mask by the non-pad mask
@@ -88,7 +140,10 @@ def featurize(frontend: LogMelFrontend, batch: dict) -> dict:
            ("text", "text_mask", "speech_segment_pos", "text_segment_pos")}
     out["masked_position"] = torch.as_tensor(
         batch["masked_position"], device=dev) & speech_mask
-    return dict(speech=feats, speech_mask=speech_mask, **out)
+    out = dict(speech=feats, speech_mask=speech_mask, **out)
+    if "spemb" in batch:
+        out["spemb"] = torch.as_tensor(batch["spemb"], device=dev)
+    return out
 
 
 def check_bucket(model: A3TMLMModel, n_frames: int) -> None:
@@ -118,9 +173,12 @@ def _check_device(frontend: LogMelFrontend, device) -> None:
 
 
 def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
-                    device=None):
+                    device=None, normalizer=None, use_fused: bool = True,
+                    corpus=None):
     """Build the train step ``(state, batch, rng) -> (state, stats)`` on
-    ``device`` (cuda unless the caller asks for the CPU).
+    ``device`` (cuda unless the caller asks for the CPU).  ``normalizer``,
+    ``use_fused`` and ``corpus`` go to :func:`featurize` (the matmul-DFT
+    front-end by default, as in JAX).
 
     ``stats`` holds device tensors: ``loss``, ``loss_mlm``,
     ``masked_frames``, ``grad_norm`` (before clipping) and
@@ -133,7 +191,8 @@ def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
     def step(state: TrainState, batch: dict, rng):
         m = state.model
         m.train()
-        mb = featurize(frontend, batch)
+        mb = featurize(frontend, batch, use_fused=use_fused,
+                       normalizer=normalizer, corpus=corpus)
         check_bucket(m, mb["speech"].shape[1])
         before, after = m(**mb, generator=_generator(rng))
         loss = mlm_loss(before, after, mb["speech"], mb["masked_position"],
@@ -153,9 +212,10 @@ def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
 
 
 def make_eval_step(model: A3TMLMModel, frontend: LogMelFrontend,
-                   device=None):
+                   device=None, normalizer=None):
     """Validation step ``(state, batch) -> stats``: no gradients, running
-    BatchNorm statistics, no dropout."""
+    BatchNorm statistics, no dropout; the matmul-DFT front-end, as in
+    JAX."""
     _check_device(frontend, device)
     use_mse = model.config.use_mse_loss
 
@@ -163,7 +223,7 @@ def make_eval_step(model: A3TMLMModel, frontend: LogMelFrontend,
         m = state.model
         m.eval()
         with torch.no_grad():
-            mb = featurize(frontend, batch)
+            mb = featurize(frontend, batch, normalizer=normalizer)
             before, after = m(**mb)
             loss = mlm_loss(before, after, mb["speech"],
                             mb["masked_position"], use_mse=use_mse)

@@ -122,10 +122,13 @@ def test_conformer_stack(rng, kernel, flash):
 
 
 def test_unported_options_raise():
-    """Plain and non-legacy rel-pos attention are not ported, and bf16
-    compute only for the longformer block (without a conv module)."""
+    """Plain and non-legacy rel-pos attention are not ported, nor a compute
+    dtype other than float32 and bfloat16; the rel-pos block with its conv
+    module builds in bfloat16."""
     for kind in ("selfattn", "rel_selfattn"):
         with pytest.raises(NotImplementedError):
             tc.ConformerBlock(tc.EncoderConfig(selfattention_layer_type=kind))
     with pytest.raises(NotImplementedError):
-        tc.ConformerBlock(tc.EncoderConfig(compute_dtype="bfloat16"))
+        tc.ConformerBlock(tc.EncoderConfig(compute_dtype="float16"))
+    block = tc.ConformerBlock(tc.EncoderConfig(compute_dtype="bfloat16"))
+    assert block.self_attn.dtype == block.conv_module.dtype == torch.bfloat16

@@ -1,5 +1,7 @@
 """The port's training slice (a3t_tpu_torch/train/train_step.py) against the
-JAX package's ``make_train_step(model, fe, use_fused=False)``, for a tiny
+JAX package's ``make_train_step(model, fe, use_fused=False)`` (the port's
+step takes ``use_fused=False`` too: the rfft front-end on both sides), for a
+tiny
 config (2+2 blocks of width 64, postnet 2x16, 20 mel bins) with every
 dropout rate 0.
 
@@ -115,7 +117,8 @@ def _port_state(init, flash: bool = True):
     state = create_train_state(model, make_optimizer(OptimConfig(**OPTIM)),
                                device="cpu")
     fe = LogMelFrontend(LogMelConfig(**FRONTEND), device="cpu")
-    return state, make_train_step(model, fe, device="cpu"), fe
+    return state, make_train_step(model, fe, device="cpu",
+                                  use_fused=False), fe
 
 
 def _assert_state_matches(state, jax_state):
@@ -230,12 +233,12 @@ def test_dropout_step_is_seeded(jax_run):
 
 @pytest.mark.parametrize("recipe", ["24k", "16k"])
 def test_featurize_matches_jax_fused_frontend(recipe):
-    """The port's featurize (an rfft front-end) against JAX's default
-    ``featurize(fe, batch, use_fused=True)`` (the matmul DFT) at the shipped
-    front-ends, 80 mel bins, 4 utterances of 432 frames: log-mel features
-    within atol 5e-5 (the same fp32 chain, the DFT summed another way;
-    measured 8.8e-6 at 24 kHz and 9.3e-6 at 16 kHz on features up to 2.9),
-    masks equal."""
+    """The port's featurize with its rfft front-end (``use_fused=False``)
+    against JAX's default ``featurize(fe, batch, use_fused=True)`` (the
+    matmul DFT) at the shipped front-ends, 80 mel bins, 4 utterances of 432
+    frames: log-mel features within atol 5e-5 (the same fp32 chain, the DFT
+    summed another way; measured 8.8e-6 at 24 kHz and 9.3e-6 at 16 kHz on
+    features up to 2.9), masks equal."""
     from a3t_tpu_torch.tasks.config import FRONTEND_16K, FRONTEND_24K
     from a3t_tpu_torch.train import featurize
 
@@ -248,7 +251,8 @@ def test_featurize_matches_jax_fused_frontend(recipe):
     want = jax_featurize(JaxLogMelFrontend(JaxLogMelConfig(**kw)),
                          {k: jnp.asarray(v) for k, v in batch.items()},
                          use_fused=True)
-    got = featurize(LogMelFrontend(cfg, device="cpu"), batch)
+    got = featurize(LogMelFrontend(cfg, device="cpu"), batch,
+                    use_fused=False)
     assert tuple(got["speech"].shape) == want["speech"].shape == (4, 432, 80)
     np.testing.assert_allclose(got["speech"].numpy(),
                                np.asarray(want["speech"]), atol=5e-5, rtol=0)

@@ -33,6 +33,15 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// acc + a . b as four chained fused multiply-adds
+__device__ __forceinline__ float fdot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int x) {
+  return x == 0 ? v.x : x == 1 ? v.y : x == 2 ? v.z : v.w;
+}
+
 __device__ __forceinline__ void fma4(float4& acc, float w, float4 x) {
   acc.x += w * x.x;
   acc.y += w * x.y;

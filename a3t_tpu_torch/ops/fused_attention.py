@@ -49,8 +49,16 @@ _M32 = 0xFFFFFFFF
 LIBRARIES = {"fused_attention": ("fused_attention_fwd.cu",),
              "fused_attention_bwd": ("fused_attention_bwd.cu",)}
 
+# K1's grid (csrc/fused_attention_fwd.cu): query rows per CTA in fp32 and
+# in bf16 (two warpgroups of 64), and the unit of its key ranges when the
+# rows alone do not fill the card
+ROW_TILE = 64
+ROW_TILE_BF16 = 128
+SPLIT_UNIT = 16
+
 # kernel launches since the last reset (launches only, not plain-version
-# calls): K1 forward, K2 backward
+# calls): K1 forward, K2 backward; one per wrapper call, however many
+# passes the kernel runs
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 
@@ -155,7 +163,7 @@ def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
 def _entry():
     """K1's C entry point, built and loaded on first use."""
     return native.bind("fused_attention", LIBRARIES["fused_attention"],
-                       "a3t_fused_attention_fwd", 7, 5)
+                       "a3t_fused_attention_fwd", 8, 7)
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,17 +192,38 @@ def _check(q_u, named):
         raise ValueError("fused_attention kernel takes contiguous tensors")
 
 
-def _launch(fn, ptrs, q_u, seed: int, rate: float, what: str):
+def _launch(fn, ptrs, ints, q_u, seed: int, rate: float, what: str):
     b, h, l, d = q_u.shape
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
         err = fn(*ptrs, b, h, l, d,
-                 0 if q_u.dtype == torch.float32 else 1,
+                 0 if q_u.dtype == torch.float32 else 1, *ints,
                  float(np.float32(1.0 / np.sqrt(d))), seed & _M32,
                  threshold(rate), float(np.float32(1.0 / (1.0 - rate))),
                  int(rate > 0.0), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fwd_plan(b: int, h: int, l: int, sms: int = 132,
+              rows: int = ROW_TILE) -> tuple[int, int]:
+    """(splits, keys per split) of K1's grid.  A CTA owns ``rows`` query
+    rows of one (b, h); when those B * H * ceil(L / rows) CTAs do not fill
+    the card's ``sms`` multiprocessors, each row tile's keys are split into
+    ranges of a multiple of 16 keys, enough that the grid holds >= ``sms``
+    CTAs where L allows it.  (1, L) means no split."""
+    tiles = b * h * -(-l // rows)
+    if tiles >= sms:
+        return 1, l
+    units = -(-l // SPLIT_UNIT)
+    kps = SPLIT_UNIT * max(1, units // -(-sms // tiles))
+    splits = -(-l // kps)
+    return (1, l) if splits == 1 else (splits, kps)
 
 
 def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float):
@@ -207,9 +236,16 @@ def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float):
     m = _flat_mask(mask, b, l).contiguous()
     out = torch.empty_like(q_u)
     lse = torch.empty((b, h, 1, l), dtype=torch.float32, device=q_u.device)
+    splits, kps = _fwd_plan(b, h, l, _sm_count(q_u.device.index or 0),
+                            ROW_TILE if q_u.dtype == torch.float32
+                            else ROW_TILE_BF16)
+    # the key ranges' partials (acc, max, sum), combined by a second launch
+    part = (torch.empty(splits * b * h * l * (d + 2), dtype=torch.float32,
+                        device=q_u.device) if splits > 1 else None)
     _launch(_entry(), (q_u.data_ptr(), k.data_ptr(), v.data_ptr(),
                        bias.data_ptr(), m.data_ptr(), out.data_ptr(),
-                       lse.data_ptr()), q_u, seed, rate, "fused_attention")
+                       lse.data_ptr(), 0 if part is None else part.data_ptr()),
+            (splits, kps), q_u, seed, rate, "fused_attention")
     LAUNCHES += 1
     return out, lse
 
@@ -230,15 +266,14 @@ def _kernel_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out, lse, g):
     # delta = sum(g * out) per row stays one expression, as it stays
     # outside the Pallas kernel (fused_attention.py:140-141)
     delta = (g.float() * out.float()).sum(-1).contiguous()
-    dq = torch.zeros(mat, dtype=torch.float32, device=q_u.device)
-    dk, dv, dbias = (torch.empty_like(t) for t in (k, v, bias))
+    dq, dk, dv, dbias = (torch.empty_like(t) for t in (q_u, k, v, bias))
     _launch(_entry_bwd(), (q_u.data_ptr(), k.data_ptr(), v.data_ptr(),
                            bias.data_ptr(), m.data_ptr(), g.data_ptr(),
                            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), dbias.data_ptr()),
-            q_u, seed, rate, "fused_attention backward")
+            (), q_u, seed, rate, "fused_attention backward")
     LAUNCHES_BWD += 1
-    return dq.to(q_u.dtype), dk, dv, dbias
+    return dq, dk, dv, dbias
 
 
 def _on_device(q_u, rate: float) -> str:

@@ -10,20 +10,26 @@ Phases, each printing its elapsed seconds:
 2. build: the six kernels' libraries, compiled from csrc/ with one nvcc
    each, all started together: the fused-attention kernels K1 (forward) and
    K2 (backward), the banded-attention kernels K3, K4 and K5, and the fused
-   log-mel kernel K6; their ptxas registers and spills;
+   log-mel kernel K6; their ptxas registers and spills; the tensor-core
+   (HGMMA) instructions of each K1 and K2 function in the compiled code
+   (cuobjdump -sass): every bf16 function must have some and no fp32
+   function any (full fp32, no TF32);
 3. kernel: K1 (through its wrapper) against its plain PyTorch version on
    the card, at the slice's shapes, in float32 and bfloat16, with and
    without a padded key tail, out and logsumexp; at dropout rate 0.1 the
    keep-masks are read back through one-hot values and must equal the plain
-   rule's bit for bit; kernel, plain and library
-   (scaled_dot_product_attention) times, at the serving shapes and at the
-   training shape;
+   rule's bit for bit; two runs at a key-split serving shape must agree bit
+   for bit, and an utterance whose every key is masked must match the plain
+   version through the key split; kernel, plain and library (scaled_dot_product_attention) times,
+   at the serving shapes and at the training shape in float32 and bfloat16;
 4. kernel-bwd: K2, run through FusedAttention.backward, against the plain
    backward (dq, dk, dv, dbias) at the training shape (88, 2, 496, 192) and
    a serving shape, in float32 and bfloat16, at dropout 0 and 0.2, with and
-   without a padded key tail; kernel, plain and library (autograd through
-   scaled_dot_product_attention with a float mask that takes a gradient)
-   times and K2's bound;
+   without a padded key tail, and with an utterance whose every key is
+   masked (its gradients all 0); two runs at the training shape in each dtype,
+   at dropout 0 and 0.2, must give dq, dk, dv and dbias equal bit for bit;
+   kernel, plain and library (autograd through scaled_dot_product_attention
+   with a float mask that takes a gradient) times and K2's bound;
 5. kernel-banded: the banded-attention kernels K3 (forward), K4 (dq and the
    text keys' gradients) and K5 (dk, dv) against their plain versions at the
    longformer training shape (4, 2, 8192, 192) with window 512, as the
@@ -244,6 +250,63 @@ def banded_dkv_bound_ms(b, h, t, d, c, dtype_name: str):
     return _bound(nbytes, b * h * (3 * nc - 2) * 8.0 * c * c * d, dtype_name)
 
 
+def hgmma_counts(lib_path: str, nvcc: str) -> dict:
+    """{kernel function: number of HGMMA (wgmma) instructions} in the SASS
+    of a built library, read with the toolkit's cuobjdump."""
+    import subprocess
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def check_tensor_cores(native, paths: dict) -> None:
+    """K1's and K2's bf16 functions run their products on wgmma; their
+    fp32 functions on the CUDA cores alone."""
+    import re
+    nvcc = native.find_nvcc()
+    for name in ("fused_attention", "fused_attention_bwd"):
+        n_bf16 = 0
+        for fn, n in sorted(hgmma_counts(paths[name], nvcc).items()):
+            m = re.search(r"\d(fused_attention_[a-z0-9_]+?_kernel)I(\w*?)EE", fn)
+            short = (f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2) + 'E'))}>"
+                     if m else fn[:60])
+            log(f"  sass {name}: {short}: {n} HGMMA")
+            if "bf16_kernel" in fn:
+                n_bf16 += 1
+                check(n > 0, f"{fn}: no HGMMA in a bf16 function")
+            elif "f32_kernel" in fn:
+                check(n == 0, f"{fn}: HGMMA in an fp32 function")
+        check(n_bf16 > 0, f"{name}: no bf16 function found in the SASS")
+
+
+def device_ms_per_call(torch, fn, tags, calls: int = 20) -> float:
+    """Device time per call of ``fn`` in the kernels whose names hold one of
+    ``tags`` (torch.profiler): at the serving shapes back-to-back wrapper
+    calls are paced by the host, so CUDA events around them read the host's
+    rate; this reads what the launches themselves take.  NaN when the
+    profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(t in e.name for t in tags))
+    return total / 1e3 / calls if total else float("nan")
+
+
 def kernel_phase(torch, fa, cuda_ms):
     g = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
@@ -278,6 +341,29 @@ def kernel_phase(torch, fa, cuda_ms):
                     key = (b, h, l, d, str(dt)[6:])
                     worst[key] = max(worst.get(key, 0.0), err)
 
+    # an utterance whose every key is masked, through the key split (36 row
+    # tiles at (2, 2, 552)): out 0 and lse -1e30 + log L as in the plain
+    # version, the other utterance unchanged
+    b, h, l, d = 2, 2, 552, 192
+    for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        q, k, v = (torch.randn(b, h, l, d, generator=g).to(dev, dt)
+                   for _ in range(3))
+        bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
+        mask = torch.ones(b, l, dtype=torch.bool, device=dev)
+        mask[0] = False
+        for rate in (0.0, 0.2):
+            out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, 55, rate)
+            ref, ref_lse = fa.fused_attention_reference(q, k, v, bias, mask,
+                                                        55, rate)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lerr = (lse - ref_lse).abs().max().item()
+            log(f"  K1 {(b, h, l, d)} {str(dt)[6:]} rate={rate}, utterance 0 "
+                f"fully masked: max|out-plain| {err:.3g}, max|lse-plain| "
+                f"{lerr:.3g} (tol {tol:g})")
+            check(err <= tol and lerr <= tol,
+                  f"K1 fully masked utterance {dt} rate={rate}")
+
     # dropout keep-masks read back from the kernel: q = k = 0 and bias = 0
     # make p uniform over valid keys, and v = one-hot columns c0..c0+d-1
     # give out[r, j] = keep[r, c0 + j] / (n_valid (1 - rate)), nonzero iff kept
@@ -302,12 +388,33 @@ def kernel_phase(torch, fa, cuda_ms):
             f"bits differ, keep share {want.float().mean().item():.4f}")
         check(n_diff == 0, f"K1 dropout mask bits ({dt})")
 
-    # times at the requests' shapes in float32, which the slice runs, and at
-    # the 6 s request's shape in bfloat16
+    # two runs at a key-split serving shape give the same bits: the key
+    # ranges' partials are combined in a fixed order
+    b, h, l, d = 1, 2, 552, 192
+    check(fa._fwd_plan(b, h, l)[0] > 1, "K1 at (1, 2, 552) splits its keys")
+    for dt in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.2):
+            q, k, v = (torch.randn(b, h, l, d, generator=g).to(dev, dt)
+                       for _ in range(3))
+            bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
+            mask = torch.ones(b, l, dtype=torch.bool, device=dev)
+            mask[0, l - 40:] = False
+            first = fa.fused_attention_fwd(q, k, v, bias, mask, 77, rate)
+            second = fa.fused_attention_fwd(q, k, v, bias, mask, 77, rate)
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            rows = fa.ROW_TILE if dt == torch.float32 else fa.ROW_TILE_BF16
+            log(f"  K1 {(b, h, l, d)} {str(dt)[6:]} rate={rate}, "
+                f"{fa._fwd_plan(b, h, l, rows=rows)[0]} key ranges: two runs "
+                f"{'equal' if same else 'DIFFER'} bit for bit")
+            check(same, f"K1 deterministic ({dt}, rate {rate})")
+
+    # times at the requests' shapes in float32, which the slice runs, at
+    # the 6 s request's shape in bfloat16 and at the training shape in both
     rows = {}
     for b, l, dt in ((1, 552, torch.float32), (1, 552, torch.bfloat16),
                      (1, 296, torch.float32), (1, 696, torch.float32),
-                     (1, 872, torch.float32), (88, 496, torch.float32)):
+                     (1, 872, torch.float32), (88, 496, torch.float32),
+                     (88, 496, torch.bfloat16)):
         name = str(dt)[6:]
         q, k, v = (torch.randn(b, h, l, d, generator=g).to(dev, dt)
                    for _ in range(3))
@@ -329,14 +436,25 @@ def kernel_phase(torch, fa, cuda_ms):
         lib_err = (sdpa(q, k, v, attn_mask=attn_mask).float()
                    - kernel().float()).abs().max().item()
         bound, by = attention_bound_ms(b, h, l, d, name)
+        dev_ms = device_ms_per_call(torch, kernel, ("fused_attention_fwd_",
+                                                    "fused_attention_combine_"))
+        # at the training shape also with the yaml's attention dropout: the
+        # keep-mask hash runs on every score
+        drop = ""
+        if b > 1:
+            t_drop = cuda_ms(lambda: fa.fused_attention_fwd(
+                q, k, v, bias, mask, 0, 0.2)[0])
+            drop = f"; at dropout 0.2 {t_drop:.4f} ms"
         log(f"  K1 times {(b, h, l, d)} {name}: kernel {t_kernel:.4f} / "
             f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms "
-            f"(max|sdpa-kernel| {lib_err:.3g}), bound {bound:.5f} ms ({by})")
+            f"(max|sdpa-kernel| {lib_err:.3g}), bound {bound:.5f} ms ({by}); "
+            f"the kernel's launches alone on the device {dev_ms:.4f} ms{drop}")
         rows[(b, l, name)] = dict(ms=t_kernel, plain_ms=t_plain,
                                   library_ms=t_lib, bound_ms=bound,
                                   bound_by=by,
                                   max_abs_err=worst[(b, h, l, d, name)])
-    return rows[(1, 552, "float32")], rows[(88, 496, "float32")]
+    return (rows[(1, 552, "float32")], rows[(88, 496, "float32")],
+            rows[(88, 496, "bfloat16")])
 
 
 def _rel_err(got, want) -> float:
@@ -385,9 +503,55 @@ def kernel_bwd_phase(torch, fa, cuda_ms):
                         for a, w in zip(got, want)))
                     del q, k, v, go, bias, ins, out, lse, got, want
 
+    # an utterance whose every key is masked: zero gradients there, the
+    # other utterance against the plain backward
+    b, h, l, d = 2, 2, 552, 192
+    for dt, tol in ((torch.float32, TOL_BWD_F32),
+                    (torch.bfloat16, TOL_BWD_BF16)):
+        q, k, v, go = (torch.randn(b, h, l, d, generator=g).to(dev, dt)
+                       for _ in range(4))
+        bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
+        mask = torch.ones(b, l, dtype=torch.bool, device=dev)
+        mask[0] = False
+        for rate in (0.0, 0.2):
+            out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, 56, rate)
+            got = fa.fused_attention_bwd(q, k, v, bias, mask, 56, rate, out,
+                                         lse, go)
+            want = fa.fused_attention_bwd_reference(q, k, v, bias, mask, 56,
+                                                    rate, out, lse, go)
+            torch.cuda.synchronize()
+            errs = [_rel_err(a, w) for a, w in zip(got, want)]
+            zero = all(bool((a[0] == 0).all()) for a in got)
+            log(f"  K2 {(b, h, l, d)} {str(dt)[6:]} rate={rate}, utterance 0 "
+                f"fully masked: max|grad-plain|/max|plain| "
+                + ", ".join(f"{e:.3g}" for e in errs)
+                + f"; its gradients all 0: {zero} (tol {tol:g})")
+            check(max(errs) <= tol and zero,
+                  f"K2 fully masked utterance {dt} rate={rate}")
+
+    # two runs at the training shape give the same bits: no atomics
+    b, h, l, d = 88, 2, 496, 192
+    for dt in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.2):
+            q, k, v, go = (torch.randn(b, h, l, d, generator=g).to(dev, dt)
+                           for _ in range(4))
+            bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
+            mask = torch.ones(b, l, dtype=torch.bool, device=dev)
+            mask[-1, l - l // 5:] = False
+            out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, 99, rate)
+            first = fa.fused_attention_bwd(q, k, v, bias, mask, 99, rate, out,
+                                           lse, go)
+            second = fa.fused_attention_bwd(q, k, v, bias, mask, 99, rate,
+                                            out, lse, go)
+            same = [torch.equal(x, y) for x, y in zip(first, second)]
+            log(f"  K2 {(b, h, l, d)} {str(dt)[6:]} rate={rate}: two runs "
+                f"equal bit for bit: dq {same[0]}, dk {same[1]}, dv "
+                f"{same[2]}, dbias {same[3]}")
+            check(all(same), f"K2 deterministic ({dt}, rate {rate})")
+            del q, k, v, go, bias, out, lse, first, second
+
     # times at the training shape, fp32 as the slice runs it, and bf16
     rows = {}
-    b, h, l, d = 88, 2, 496, 192
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt)[6:]
         q, k, v, go = (torch.randn(b, h, l, d, generator=g).to(dev, dt)
@@ -411,10 +575,13 @@ def kernel_bwd_phase(torch, fa, cuda_ms):
         t_lib = cuda_ms(lambda: torch.autograd.grad(
             lib_out, (qs, ks, vs, am), go, retain_graph=True), iters=10)
         t_kernel2 = cuda_ms(kernel, iters=10)
+        t_drop = cuda_ms(lambda: fa.fused_attention_bwd(
+            q, k, v, bias, mask, 0, 0.2, out, lse, go), iters=10)
         bound, by = attention_bwd_bound_ms(b, h, l, d, name)
         log(f"  K2 times {(b, h, l, d)} {name}: kernel {t_kernel:.4f} / "
             f"{t_kernel2:.4f} ms, plain {t_plain:.4f} ms, sdpa backward "
-            f"{t_lib:.4f} ms, bound {bound:.5f} ms ({by})")
+            f"{t_lib:.4f} ms, bound {bound:.5f} ms ({by}); at dropout 0.2 "
+            f"{t_drop:.4f} ms")
         rows[name] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
                           bound_ms=bound, bound_by=by,
                           max_abs_err=worst[(b, h, l, d, name)])
@@ -1047,6 +1214,26 @@ def slice_phase(torch, np, fa, cuda_ms, wall_time, label, device="cuda"):
         t_voc = cuda_ms(lambda: vocoder(mel), iters=5)
     log(f"  6 s request breakdown (CUDA events): front-end {t_fe:.3f} ms, "
         f"model forward {t_model:.3f} ms, PWG {t_voc:.3f} ms [{label}]")
+    # the same forward's device work: at batch 1 the host paces the forward,
+    # so the events above read the host's launch rate; the profiler reads
+    # what the device itself spends, K1 included
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        model(**inputs)
+        torch.cuda.synchronize()
+    spans = [((e.time_range.end - e.time_range.start) / 1e3, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    k1 = [ms for ms, name in spans if "fused_attention_fwd_" in name
+          or "fused_attention_combine_" in name]
+    if spans:
+        log(f"  6 s request's model forward on the device (torch.profiler): "
+            f"{sum(ms for ms, _ in spans):.3f} ms in {len(spans)} device "
+            f"activities, K1 {sum(k1):.3f} ms in {len(k1)} launches [{label}]")
+    else:
+        log("  6 s request's model forward: the profiler saw no device "
+            "activity; device time not measured")
     return launches
 
 
@@ -1250,8 +1437,13 @@ def train_phase(torch, np, fa, wall_time, label, compute_dtype="float32",
     prof = profile_step(torch, step, state, batch, gen, label, what)
     if prof is not None:
         k1, k2 = (sum(ms for name, ms in prof[0].items() if tag in name)
-                  for tag in ("fused_attention_fwd_kernel",
-                              "fused_attention_bwd_kernel"))
+                  for tag in ("fused_attention_fwd_", "fused_attention_dkdv_"))
+        # K1's key-range combine and K2's dq pass are launches of the same
+        # wrapper calls
+        k1 += sum(ms for name, ms in prof[0].items()
+                  if "fused_attention_combine_" in name)
+        k2 += sum(ms for name, ms in prof[0].items()
+                  if "fused_attention_dq_" in name)
         log(f"  in the profiled {what} step: K1 {k1:.2f} ms, K2 {k2:.2f} ms")
     return launches, dict(step_ms=med * 1e3)
 
@@ -1574,7 +1766,7 @@ def main() -> int:
 
     with Phase("build"):
         libraries = {**fa.LIBRARIES, **ba.LIBRARIES, **fl.LIBRARIES}
-        native.build_all(libraries)
+        paths = native.build_all(libraries)
         fa._entry()
         fa._entry_bwd()
         fl._entry()
@@ -1585,6 +1777,7 @@ def main() -> int:
                 if "Compiling entry" in line or "registers" in line \
                         or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+        check_tensor_cores(native, paths)
 
     if sys.argv[1:] == ["--chunked-step"]:
         with Phase("chunked-step"):
@@ -1592,7 +1785,7 @@ def main() -> int:
         return 0
 
     with Phase("kernel"):
-        f32, f32_train = kernel_phase(torch, fa, cuda_ms)
+        f32, f32_train, _ = kernel_phase(torch, fa, cuda_ms)
 
     with Phase("kernel-bwd"):
         bwd = kernel_bwd_phase(torch, fa, cuda_ms)
@@ -1634,6 +1827,7 @@ def main() -> int:
         "route": "cuda",
         "source": "a3t_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
+        "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd,
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["ms"],
@@ -1646,6 +1840,7 @@ def main() -> int:
         "route": "cuda",
         "source": "a3t_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
+        "note": "redesigned PR 8",
         "launches": train_bwd + bf16_bwd,
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["ms"],

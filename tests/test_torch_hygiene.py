@@ -1,6 +1,7 @@
-"""The port stands alone: a3t_tpu_torch/ and chip_smoke.py import no JAX
-stack and nothing of a3t_tpu, the kernels build without PyTorch's headers,
-and the entry points run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: a3t_tpu_torch/, chip_smoke.py and chip_ab.py
+import no JAX stack and nothing of a3t_tpu, the kernels build without
+PyTorch's headers, and the entry points run on CUDA unless the caller asks
+for the CPU."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "a3t_tpu"}
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "chip_ab.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -22,23 +22,34 @@
 // weighs it by 0: the phantom copy of an edge chunk that the forward read for
 // chunk 0's and chunk nc-1's bands gets no credit.
 //
-// Design.  A CTA owns (b, h, key chunk j, 32 keys) with their k and v in
-// shared memory, and walks the query rows of the three neighbouring chunks in
-// tiles of 32 (q, g, lse, delta of a tile in shared memory).  dk and dv of its
-// keys stay in registers and are written once, so no two CTAs write the same
-// value and the result is bit-reproducible.  256 threads: eight per query row
-// for the scores, eight per key for dk and dv; products on the CUDA cores in
-// fp32 from shared memory.
-//
 // Bound at the training shape (B=4, H=2, T=8192, d=192, c=256):
 //   operations: 3 neighbours x 4 products (s, dp, dv, dk) of 2 c^2 d per key
-//          chunk = 24 c d T per (b, h) = 7.73e10 FLOP, over 67 TFLOP/s in
-//          fp32 = 1.15 ms;
+//          chunk = 24 c d T per (b, h) (7.65e10 FLOP for the 3 nc - 2 pairs
+//          that exist): 0.077 ms at 989 TFLOP/s in bf16, 1.14 ms at 67
+//          TFLOP/s in fp32;
 //   bytes: q, k, v, g, dk, dv (6 x 25 MB in bf16), lse and delta: 0.15 GB over
 //          3.35 TB/s = 0.05 ms.
-// Bound by operations; shared-memory loads set its pace.  A later design
-// moves the four products to wgmma and keeps s and dp for the three
-// neighbours in one pass over q.
+// Bound by operations in both types.
+//
+// Design, bf16 (the longformer's type): K2's dk/dv pass (FlashAttention-2's
+//   key-major loop) with the band as the query range, on the steps that
+//   hopper.cuh shares with K2.  A CTA owns (b, h, key chunk j, 64 keys) with
+//   K and V in swizzled shared memory, and walks the 64-row query tiles of
+//   the chunks j-1, j, j+1 that exist (12 tiles at c = 256, 8 at the edges),
+//   Q, G, lse and delta double-buffered through cp.async; rows past a
+//   chunk's end are zero-filled and get p = 0.  Two warpgroups in two roles,
+//   so no product is computed twice: warpgroup 0 forms S^T = K.Q^T
+//   (m64n64k16), p and the keep-mask, hands p to warpgroup 1 through shared
+//   memory (negated where dropped; a named barrier orders it) and adds
+//   P_d^T.G into dv; warpgroup 1 forms dP^T = V.G^T and ds and adds dS^T.Q
+//   into dk.  P_d^T and dS^T are rounded to bf16 in registers as the A
+//   operand (G and Q MN-major); dk and dv, 64 x d fp32 per warpgroup, stay in
+//   registers and are written once, so no two CTAs write the same value and
+//   the result is the same bit for bit in every run.
+// Design, fp32 (full fp32 on the CUDA cores, no TF32): a CTA owns 32 keys
+//   and walks the neighbours' query rows in tiles of 32 through shared
+//   memory, eight threads per query row for the scores, eight per key for
+//   dk and dv.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,20 +57,194 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+struct Args {
+  const void *q, *k, *v;
+  const int32_t* spm;
+  const void* g;
+  const float *lse, *delta;
+  void *dk, *dv;
+  int B, H, L, d, c, vec;
+  float scale;
+  uint32_t seed, threshold;
+  float keep_scale;
+  int dropout;
+  cudaStream_t stream;
+};
+
+// ---------------------------------------------------------------- bf16
+
+constexpr int KB = 64;  // keys per CTA, query rows per tile
+
+template <int DPAD>
+struct DkvBf16 {
+  static constexpr int TILE = KB * DPAD * 2;
+  static constexpr int STAGE = (2 * TILE + 2 * KB * 4 + 1023) / 1024 * 1024;  // Q, G, lse, delta
+  static constexpr int SMEM = 1024 + 2 * TILE + 2 * STAGE + 32 * 128 * 4;
+};
+
+template <int DPAD>
+__global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(Args a) {
+  using S = DkvBf16<DPAD>;
+  constexpr int TILE = S::TILE, STAGE = S::STAGE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + TILE;
+  uint8_t* stages = vs + TILE;
+  // p of the tile, passed from warpgroup 0 to warpgroup 1 in accumulator
+  // order, negated where the dropout mask drops it
+  float* xbuf = reinterpret_cast<float*>(stages + 2 * STAGE);
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  const int L = a.L, d = a.d, c = a.c;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, w = t >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, qd = lane & 3;
+  const int nc = gridDim.y, j = blockIdx.y, bh = blockIdx.z, b = bh / a.H;
+  const int k0 = blockIdx.x * KB;  // the CTA's first key within the chunk
+  const size_t mat = (size_t)bh * L * d;
+  const int nbt = (c + KB - 1) / KB;  // query tiles per neighbour chunk
+  const int first = j > 0 ? -1 : 0;   // the neighbours that exist: first .. last
+  const int last = j < nc - 1 ? 1 : 0;
+  const int ntiles = (last - first + 1) * nbt;
+  const bool vc = a.vec != 0;
+  auto sw = [](int r, int col) { return sw64(r, col, KB); };
+
+  // this thread's two keys: element i of a score tile is key kr[(i / 2) %
+  // 2], query row 8 (i / 4) + 2 qd + i % 2 of the tile
+  int kr[2];
+  bool kex[2], kvalid[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    kr[hr] = 16 * w + g8 + 8 * hr;
+    kex[hr] = k0 + kr[hr] < c;
+    kvalid[hr] = kex[hr] && a.spm[(size_t)b * L + j * c + k0 + kr[hr]] > 0;
+  }
+
+  auto load_stage = [&](int st, int it) {
+    const int row0 = (j + first + it / nbt) * c, w0 = (it % nbt) * KB;
+    uint8_t* qs = stages + st * STAGE;
+    uint8_t* gs = qs + TILE;
+    float* rl = reinterpret_cast<float*>(gs + TILE);
+    load_tile<bf16, 256, KB, DPAD>(qs, q + mat, d, row0 + w0, row0 + c, 0, d, vc, tid, sw);
+    load_tile<bf16, 256, KB, DPAD>(gs, g + mat, d, row0 + w0, row0 + c, 0, d, vc, tid, sw);
+    if (tid < KB) {
+      const bool in = w0 + tid < c;
+      const size_t o = (size_t)bh * L + row0 + w0 + tid;
+      rl[tid] = in ? a.lse[o] : 0.f;
+      rl[KB + tid] = in ? a.delta[o] : 0.f;
+    }
+  };
+
+  load_tile<bf16, 256, KB, DPAD>(ks, static_cast<const bf16*>(a.k) + mat, d, j * c + k0,
+                                 j * c + c, 0, d, vc, tid, sw);
+  load_tile<bf16, 256, KB, DPAD>(vs, static_cast<const bf16*>(a.v) + mat, d, j * c + k0,
+                                 j * c + c, 0, d, vc, tid, sw);
+  load_stage(0, 0);
+  cp_async_commit();
+
+  // warpgroup 0: S^T = K.Q^T, p, the keep-mask, dv += P_d^T.G;
+  // warpgroup 1: dP^T = V.G^T, ds (with warpgroup 0's p), dk += dS^T.Q
+  float acc[DPAD / 2], sc[32];
+#pragma unroll
+  for (int i = 0; i < DPAD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < ntiles) {
+      load_stage(st ^ 1, it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    const uint8_t* qs = stages + st * STAGE;
+    const uint8_t* gs = qs + TILE;
+    const float* rl = reinterpret_cast<const float*>(gs + TILE);
+    const float* rd = rl + KB;
+    const int off = first + it / nbt, w0 = (it % nbt) * KB;
+
+    fence_regs(sc);
+    wgmma_fence();
+    wgmma_abt64<DPAD>(sc, wg == 0 ? ks : vs, wg == 0 ? qs : gs);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    if (wg == 0) {
+      // query chunk j + off's band draw, at key chunk j's block 1 - off
+      const uint32_t lane_id = (uint32_t)(bh * nc + j + off);
+      const uint32_t col0 = (uint32_t)((1 - off) * c + k0);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = 8 * jj + 2 * qd + e;
+          const int row = w0 + qc;  // within query chunk j + off
+          const float lse_c = rl[qc];
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = 4 * jj + 2 * hr + e;
+            float p = 0.f;
+            bool keep = true;
+            if (kex[hr] && row < c) {
+              const float x = kvalid[hr] ? sc[i] * a.scale : NEG;
+              p = __expf(x - lse_c);
+              if (a.dropout)
+                keep = hash_bits((uint32_t)row * (uint32_t)(3 * c) + col0 + (uint32_t)kr[hr],
+                                 a.seed, lane_id) >= a.threshold;
+            }
+            xbuf[i * 128 + t] = keep ? p : -p;
+            sc[i] = keep ? (a.dropout ? p * a.keep_scale : p) : 0.f;  // p_d
+          }
+        }
+      named_bar_arrive(1, 256);
+    } else {
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float delta_c = rd[8 * jj + 2 * qd + e];
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = 4 * jj + 2 * hr + e;
+            const float x = xbuf[i * 128 + t];
+            float dpk = sc[i];
+            if (a.dropout) dpk = x > 0.f ? dpk * a.keep_scale : 0.f;
+            sc[i] = fabsf(x) * (dpk - delta_c) * a.scale;  // ds, 0 where p is
+          }
+        }
+    }
+
+    wgmma_acc_pb<DPAD>(acc, sc, wg == 0 ? gs : qs);
+    __syncthreads();  // this stage and xbuf are free
+  }
+
+  store_acc_bf16<DPAD>(static_cast<bf16*>(wg == 0 ? a.dv : a.dk) + mat + (size_t)(j * c + k0) * d,
+                       d, c - k0, acc, t);
+}
+
+// ---------------------------------------------------------------- fp32
 
 constexpr int BM = 32;       // query rows per step of the query loop
 constexpr int BN = 32;       // keys per CTA
 constexpr int NT = 256;      // threads per CTA
 constexpr int PS = BN + 4;   // row stride of the p / ds tiles
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int32_t* __restrict__ spm, const T* __restrict__ g,
+template <int DMAX>
+__global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int32_t* __restrict__ spm, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int H, int L, int d, int c,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int L, int d, int c,
     float scale, uint32_t seed, uint32_t threshold, float keep_scale,
     int dropout) {
   constexpr int NG = DMAX / 32;  // float4 groups of d per thread
@@ -96,8 +281,8 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_kernel(
     const int rr = e / dp, cc = e - rr * dp;
     const bool in = rr < nk && cc < d;
     const size_t off = mat + (size_t)(j * c + k0 + rr) * d + cc;
-    ks[e] = in ? to_f(k[off]) : 0.f;
-    vs[e] = in ? to_f(v[off]) : 0.f;
+    ks[e] = in ? k[off] : 0.f;
+    vs[e] = in ? v[off] : 0.f;
   }
   if (tid < BN)
     kval[tid] = tid < nk && spm[(size_t)b * L + j * c + k0 + tid] > 0;
@@ -120,8 +305,8 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_kernel(
         const int rr = e / dp, cc = e - rr * dp, lr = r0 + rr;
         const bool in = lr < c && cc < d;
         const size_t o = mat + (size_t)(iq * c + lr) * d + cc;
-        qs[e] = in ? to_f(q[o]) : 0.f;
-        gs[e] = in ? to_f(g[o]) : 0.f;
+        qs[e] = in ? q[o] : 0.f;
+        gs[e] = in ? g[o] : 0.f;
       }
       if (tid < BM) {
         const int lr = r0 + tid;
@@ -198,51 +383,44 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (col + e < d) {
-          store(dk + o + col + e, kv[e]);
-          store(dv + o + col + e, vv[e]);
+          dk[o + col + e] = kv[e];
+          dv[o + col + e] = vv[e];
         }
       }
     }
   }
 }
 
-template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, const int32_t* spm,
-           const void* g, const float* lse, const float* delta, void* dk,
-           void* dv, int B, int H, int L, int d, int c, float scale,
-           uint32_t seed, uint32_t threshold, float keep_scale, int dropout,
-           cudaStream_t stream) {
-  const int dp = padded_dim(d);
-  const size_t smem = (size_t)(2 * BN * dp + 2 * BM * dp + 2 * BM * PS + 2 * BM) * sizeof(float)
-                      + BN * sizeof(int);
-  auto kern = banded_attention_bwd_dkv_kernel<T, DMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int DPAD>
+int run_bf16(const Args& a) {
+  constexpr int smem = DkvBf16<DPAD>::SMEM;
+  auto kern = banded_attention_bwd_dkv_bf16_kernel<DPAD>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((c + BN - 1) / BN, L / c, B * H);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), spm, static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, L, d, c, scale, seed,
-      threshold, keep_scale, dropout);
+  const dim3 grid((a.c + KB - 1) / KB, a.L / a.c, a.B * a.H);
+  kern<<<grid, 256, smem, a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int32_t* spm,
-             const void* g, const float* lse, const float* delta, void* dk,
-             void* dv, int B, int H, int L, int d, int c, float scale,
-             uint32_t seed, uint32_t threshold, float keep_scale, int dropout,
-             cudaStream_t s) {
-#define A3T_DKV_LAUNCH(DMAX)                                                  \
-  return launch<T, DMAX>(q, k, v, spm, g, lse, delta, dk, dv, B, H, L, d, c, \
-                         scale, seed, threshold, keep_scale, dropout, s)
-  if (d <= 64) A3T_DKV_LAUNCH(64);
-  if (d <= 128) A3T_DKV_LAUNCH(128);
-  if (d <= 192) A3T_DKV_LAUNCH(192);
-  A3T_DKV_LAUNCH(256);
-#undef A3T_DKV_LAUNCH
+template <int DMAX>
+int run_f32(const Args& a) {
+  const int dp = padded_dim(a.d);
+  const size_t smem = (size_t)(2 * BN * dp + 2 * BM * dp + 2 * BM * PS + 2 * BM) * sizeof(float)
+                      + BN * sizeof(int);
+  auto kern = banded_attention_bwd_dkv_f32_kernel<DMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.c + BN - 1) / BN, a.L / a.c, a.B * a.H);
+  kern<<<grid, NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.spm, static_cast<const float*>(a.g), a.lse, a.delta,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.L, a.d, a.c, a.scale,
+      a.seed, a.threshold, a.keep_scale, a.dropout);
+  return (int)cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -257,13 +435,20 @@ extern "C" int a3t_banded_attention_bwd_dkv(
   if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || c <= 0 ||
       L % c != 0 || L / c > 65535 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, spm, g, lse, delta, dk, dv, B, H, L, d, c,
-                           scale, seed, threshold, keep_scale, dropout, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, spm, g, lse, delta, dk, dv, B, H,
-                                   L, d, c, scale, seed, threshold,
-                                   keep_scale, dropout, s);
+  const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(g);
+  const Args a{q, k, v, spm, g, lse, delta, dk, dv, B, H, L, d, c, vec, scale, seed, threshold,
+               keep_scale, dropout, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) {
+    if (d <= 64) return run_f32<64>(a);
+    if (d <= 128) return run_f32<128>(a);
+    if (d <= 192) return run_f32<192>(a);
+    return run_f32<256>(a);
+  }
+  if (dtype == 1) {
+    if (d <= 64) return run_bf16<64>(a);
+    if (d <= 128) return run_bf16<128>(a);
+    if (d <= 192) return run_bf16<192>(a);
+    return run_bf16<256>(a);
+  }
   return (int)cudaErrorInvalidValue;
 }

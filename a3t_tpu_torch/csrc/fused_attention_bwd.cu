@@ -176,13 +176,9 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
     const float* rl = reinterpret_cast<const float*>(bs + BT * BSB);
     const float* rd = rl + BT;
 
-    const uint8_t* sa_tile = wg == 0 ? ks : vs;
-    const uint8_t* sb_tile = wg == 0 ? qs : gs;
     fence_regs(sc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DPAD / 16; ++kk)
-      WgmmaSS<64, 0>::run(sc, desc_k(sa_tile, kk, BT), desc_k(sb_tile, kk, BT), kk > 0);
+    wgmma_abt64<DPAD>(sc, wg == 0 ? ks : vs, wg == 0 ? qs : gs);
     wgmma_commit();
     wgmma_wait();
     fence_regs(sc);
@@ -236,16 +232,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
         }
     }
 
-    uint32_t af[4][4];
-    acc_to_a(sc, af);
-    const uint8_t* rb_tile = wg == 0 ? gs : qs;
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) WgmmaRS<DPAD, 1>::run(acc, af[kk], desc_mn(rb_tile, kk, BT), 1);
-    wgmma_commit();
-    wgmma_wait();
-    fence_regs(acc);
+    wgmma_acc_pb<DPAD>(acc, sc, wg == 0 ? gs : qs);
     __syncthreads();  // this stage and xbuf are free
     if (NST == 1 && it + 1 < nq) {
       load_stage(0, r0 + BT);
@@ -253,18 +240,8 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
     }
   }
 
-  bf16* out = static_cast<bf16*>(wg == 0 ? a.dv : a.dk) + mat;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (gkey[hr] >= L) continue;
-#pragma unroll
-    for (int j = 0; j < DPAD / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * qd + e;
-        if (c < d) out[(size_t)gkey[hr] * d + c] = __float2bfloat16(acc[4 * j + 2 * hr + e]);
-      }
-  }
+  store_acc_bf16<DPAD>(static_cast<bf16*>(wg == 0 ? a.dv : a.dk) + mat + (size_t)col0 * d, d,
+                       L - col0, acc, t);
 }
 
 template <int DPAD>
@@ -274,8 +251,7 @@ __global__ void __launch_bounds__(128) fused_attention_dq_bf16_kernel(Args a) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   const int L = a.L, d = a.d;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, qd = lane & 3;
+  const int tid = threadIdx.x;
   const int bh = blockIdx.y, row0 = blockIdx.x * BT;
   const size_t mat = (size_t)bh * L * d;
   const bf16* kb = static_cast<const bf16*>(a.k) + mat;
@@ -317,19 +293,8 @@ __global__ void __launch_bounds__(128) fused_attention_dq_bf16_kernel(Args a) {
     __syncthreads();
   }
 
-  bf16* dq = static_cast<bf16*>(a.dq) + mat;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int gr = row0 + 16 * w + g8 + 8 * hr;
-    if (gr >= L) continue;
-#pragma unroll
-    for (int j = 0; j < DPAD / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * qd + e;
-        if (c < d) dq[(size_t)gr * d + c] = __float2bfloat16(acc[4 * j + 2 * hr + e]);
-      }
-  }
+  store_acc_bf16<DPAD>(static_cast<bf16*>(a.dq) + mat + (size_t)row0 * d, d, L - row0, acc,
+                       tid);
 }
 
 // ---------------------------------------------------------------- fp32

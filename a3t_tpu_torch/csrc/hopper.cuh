@@ -1,7 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the fused-attention kernels K1
-// (fused_attention_fwd.cu) and K2 (fused_attention_bwd.cu): cp.async tile
-// loads, the 64-byte-swizzled shared-memory layout that wgmma reads, wgmma
-// matrix descriptors, and the bf16 wgmma instructions themselves.
+// Hopper (sm_90a) building blocks shared by the bf16 attention kernels K1
+// (fused_attention_fwd.cu), K2 (fused_attention_bwd.cu), K4
+// (banded_attention_bwd_dq.cu) and K5 (banded_attention_bwd_dkv.cu):
+// cp.async tile loads, the 64-byte-swizzled shared-memory layout that wgmma
+// reads, wgmma matrix descriptors, the bf16 wgmma instructions themselves,
+// and the three steps of FlashAttention-2's backward on 64-row tiles that
+// K2, K4 and K5 share (a 64 x 64 score tile, a score tile times a value
+// tile into a 64 x d accumulator, the accumulator's store).
 //
 // Layout.  A bf16 tile of ROWS rows x COLS columns lives in shared memory as
 // COLS / 32 boxes of ROWS x 32 elements, each row 64 bytes, with the 16-byte
@@ -249,5 +253,55 @@ struct WgmmaRS<256, TB> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
+
+
+// The 64 x 64 fp32 tile D = A . B^T over DPAD columns, A and B 64-row
+// K-major tiles (S = Q.K^T, dP = G.V^T, or their transposes K.Q^T, V.G^T).
+// The caller fences, commits and waits, so that two products can share one
+// wait.
+template <int DPAD>
+__device__ __forceinline__ void wgmma_abt64(float (&d)[32], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < DPAD / 16; ++kk)
+    WgmmaSS<64, 0>::run(d, desc_k(a, kk, 64), desc_k(b, kk, 64), kk > 0);
+}
+
+// acc (64 x DPAD, fp32) += P . B, P a 64 x 64 tile in accumulator order
+// rounded to bf16 as the register A operand, B a 64-row MN-major tile (the
+// sum runs down its rows: dq += dS.K, dv += P_d^T.G, dk += dS^T.Q); waits
+// for the product.
+template <int DPAD>
+__device__ __forceinline__ void wgmma_acc_pb(float (&acc)[DPAD / 2], const float (&p)[32],
+                                             const uint8_t* b) {
+  uint32_t af[4][4];
+  acc_to_a(p, af);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) WgmmaRS<DPAD, 1>::run(acc, af[kk], desc_mn(b, kk, 64), 1);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(acc);
+}
+
+// Thread t's share of a 64 x DPAD accumulator, rounded to bf16, into the
+// rows below nrows and the columns below d of `out` (leading dimension d).
+template <int DPAD>
+__device__ __forceinline__ void store_acc_bf16(bf16* out, int d, int nrows,
+                                               const float (&acc)[DPAD / 2], int t) {
+  const int lane = t & 31;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = 16 * (t >> 5) + (lane >> 2) + 8 * hr;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int j = 0; j < DPAD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * (lane & 3) + e;
+        if (c < d) out[(size_t)r * d + c] = __float2bfloat16(acc[4 * j + 2 * hr + e]);
+      }
+  }
+}
 
 }  // namespace

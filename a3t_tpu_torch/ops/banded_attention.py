@@ -66,6 +66,10 @@ LIBRARIES = {"banded_attention_fwd": ("banded_attention_fwd.cu",),
              "banded_attention_bwd_dq": ("banded_attention_bwd_dq.cu",),
              "banded_attention_bwd_dkv": ("banded_attention_bwd_dkv.cu",)}
 
+# query rows per CTA of K4: the fp32 kernel's tiles of 32, the bf16
+# kernel's two warpgroups of 64
+DQ_ROWS = {torch.float32: 32, torch.bfloat16: 128}
+
 # kernel launches since the last reset (launches only, not plain-version
 # calls): K3 forward, K4 dq pass, K5 dk/dv pass
 LAUNCHES_BANDED_FWD = 0
@@ -276,6 +280,14 @@ def _entry(name: str):
     return native.bind(name, LIBRARIES[name], f"a3t_{name}", n_ptr, n_int)
 
 
+def dq_grid(b: int, h: int, t: int, window: int, dtype):
+    """K4's grid as the kernel launches it: (query-row tiles of a chunk,
+    chunks, b * h).  It writes one text-gradient partial per CTA of a
+    (b, h), grid[0] * grid[1] of them."""
+    c = window // 2
+    return -(-c // DQ_ROWS[dtype]), t // c, b * h
+
+
 def _flags(q, seed: int, rate: float):
     """The kernels' trailing arguments: scale, seed, threshold, keep scale,
     dropout on/off."""
@@ -368,10 +380,10 @@ def _kernel_bwd_dq(q, k, v, k_text, v_text, txm, spm, window, seed, rate, g,
     dkt = dvt = parts = None
     ptrs = [0, 0, 0]
     if text_grads:
-        # one partial (tt, d) sum per CTA of 32 query rows of a chunk,
-        # summed in a fixed order by the library's second launch
-        c = window // 2
-        n_parts = (t // c) * ((c + 31) // 32)
+        # one partial (tt, d) sum per CTA, summed in a fixed order by the
+        # library's second launch
+        rows, chunks, _ = dq_grid(b, h, t, window, q.dtype)
+        n_parts = rows * chunks
         parts = torch.empty((2, b, h, n_parts, tt, d), dtype=torch.float32,
                             device=q.device)
         dkt = torch.empty((b, h, tt, d), dtype=torch.float32, device=q.device)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the serving and train phases of the chip_smoke.py in one checkout,
-for a parent-against-change comparison on one CUDA card.
+the longformer step included, for a parent-against-change comparison on one
+CUDA card.
 
     python3 chip_ab.py ROOT TAG
 
@@ -8,10 +9,11 @@ ROOT is a checkout of the port (for the parent, `git archive` of its commit
 unpacked into a directory that git ignores); TAG labels every line.  Run it
 for parent, change, change, parent in one call on the card, so that both
 commits meet the same card and the same host.  It runs ROOT's own
-`chip_smoke.slice_phase` and `train_phase` (fp32, then bf16), with their
-checks, and prints their timing lines; beside each of the 6 s request's
-CUDA-event times it prints the device time per call from torch.profiler,
-since at batch 1 the host paces the model forward.
+`chip_smoke.slice_phase`, `train_phase` (fp32, then bf16) and
+`train_longformer_phase` (the 16 kHz longformer step in bf16 through K3-K5),
+with their checks, and prints their timing lines; beside each of the 6 s
+request's CUDA-event times it prints the device time per call from
+torch.profiler, since at batch 1 the host paces the model forward.
 """
 
 import os
@@ -33,6 +35,7 @@ def main() -> int:
         return 1
     import chip_smoke
     from a3t_tpu_torch.device import card_label, cuda_ms, wall_time
+    from a3t_tpu_torch.ops import banded_attention as ba
     from a3t_tpu_torch.ops import fused_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -60,6 +63,7 @@ def main() -> int:
     chip_smoke.train_phase(torch, np, fa, wall_time, label)
     chip_smoke.train_phase(torch, np, fa, wall_time, label,
                            compute_dtype="bfloat16")
+    chip_smoke.train_longformer_phase(torch, np, ba, wall_time, label)
     return 0
 
 

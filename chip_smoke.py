@@ -11,8 +11,8 @@ Phases, each printing its elapsed seconds:
    each, all started together: the fused-attention kernels K1 (forward) and
    K2 (backward), the banded-attention kernels K3, K4 and K5, and the fused
    log-mel kernel K6; their ptxas registers and spills; the tensor-core
-   (HGMMA) instructions of each K1 and K2 function in the compiled code
-   (cuobjdump -sass): every bf16 function must have some and no fp32
+   (HGMMA) instructions of each K1, K2, K4 and K5 function in the compiled
+   code (cuobjdump -sass): every bf16 function must have some and no fp32
    function any (full fp32, no TF32);
 3. kernel: K1 (through its wrapper) against its plain PyTorch version on
    the card, at the slice's shapes, in float32 and bfloat16, with and
@@ -37,8 +37,11 @@ Phases, each printing its elapsed seconds:
    (ragged lengths, so fully masked rows), at a smaller speech-only shape and
    a small ragged one, float32 and bfloat16, dropout 0 and 0.2, the errors on
    fully masked rows and padded keys bounded apart from the others; K3's
-   keep-masks read back through one-hot values; kernel, plain and library
-   (SDPA over a dense boolean band mask) times and the bounds;
+   keep-masks read back through one-hot values; two runs of K4 (dq,
+   dk_text, dv_text) and K5 (dk, dv) at the training shape in each dtype, at
+   dropout 0 and 0.2, equal bit for bit; kernel, plain and library (SDPA
+   over a dense boolean band mask) times and the bounds, and K4's and K5's
+   times at dropout 0.2;
 6. kernel-logmel: K6 (through its wrapper) against its plain version at the
    JAX bench's batch (88 x 129,300 samples at 24 kHz, 432 frames, ragged),
    bench_kernels.py's frontend_b32_10s (32 x 240,000 samples, 801 frames),
@@ -268,14 +271,16 @@ def hgmma_counts(lib_path: str, nvcc: str) -> dict:
 
 
 def check_tensor_cores(native, paths: dict) -> None:
-    """K1's and K2's bf16 functions run their products on wgmma; their
-    fp32 functions on the CUDA cores alone."""
+    """The bf16 functions of K1, K2, K4 and K5 run their products on
+    wgmma; their fp32 functions on the CUDA cores alone."""
     import re
     nvcc = native.find_nvcc()
-    for name in ("fused_attention", "fused_attention_bwd"):
+    for name in ("fused_attention", "fused_attention_bwd",
+                 "banded_attention_bwd_dq", "banded_attention_bwd_dkv"):
         n_bf16 = 0
         for fn, n in sorted(hgmma_counts(paths[name], nvcc).items()):
-            m = re.search(r"\d(fused_attention_[a-z0-9_]+?_kernel)I(\w*?)EE", fn)
+            m = re.search(r"\d((?:fused|banded)_attention_[a-z0-9_]+?_kernel)"
+                          r"I(\w*?)EE", fn)
             short = (f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2) + 'E'))}>"
                      if m else fn[:60])
             log(f"  sass {name}: {short}: {n} HGMMA")
@@ -818,12 +823,35 @@ def kernel_banded_phase(torch, ba, cuda_ms):
             f"bits differ, keep share {want.float().mean().item():.4f}")
         check(n_diff == 0, f"K3 dropout mask bits ({dt})")
 
-    # times at the training shape, rate 0, in bfloat16 (the slice's type) and
-    # float32; the library yardstick is SDPA over [speech; text] keys with a
-    # dense boolean band mask, forward, and its backward through autograd
-    rows_out = {}
+    # two runs at the training shape give the same bits: no atomics (K4's
+    # text gradients are per-CTA partials summed in a fixed order)
     (b, h, t, d), window, tt, lengths, _ = cases[0]
     c = window // 2
+    for dt in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.2):
+            q, k, v, kt, vt, go, txm, spm = _banded_inputs(
+                torch, g, b, h, t, d, tt, dt, lengths)
+            args = (q, k, v, kt, vt, txm, spm, window, 99, rate)
+            out, lse = ba.banded_attention_fwd(*args)
+            delta = (go.float() * out.float()).sum(-1)
+            bwd = (99, rate, go, lse, delta)
+            runs = [ba.banded_attention_bwd_dq(*args[:8], *bwd)
+                    + ba.banded_attention_bwd_dkv(q, k, v, spm, window, *bwd)
+                    for _ in range(2)]
+            same = [torch.equal(x, y) for x, y in zip(*runs)]
+            log(f"  K4/K5 {(b, h, t, d)} {str(dt)[6:]} rate={rate}: two runs "
+                f"equal bit for bit: dq {same[0]}, dk_text {same[1]}, "
+                f"dv_text {same[2]}, dk {same[3]}, dv {same[4]}")
+            check(all(same), f"K4/K5 deterministic ({dt}, rate {rate})")
+            del q, k, v, kt, vt, go, txm, spm, args, out, lse, delta, bwd
+            del runs
+    torch.cuda.empty_cache()
+
+    # times at the training shape, rate 0, in bfloat16 (the slice's type) and
+    # float32; the library yardstick is SDPA over [speech; text] keys with a
+    # dense boolean band mask, forward, and its backward through autograd;
+    # K4 and K5 also at the yaml's attention dropout, 0.2
+    rows_out = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt)[6:]
@@ -855,6 +883,11 @@ def kernel_banded_phase(torch, ba, cuda_ms):
                        q, k, v, spm, window, *bwd),
                    banded_dkv_bound_ms(b, h, t, d, c, name)),
         }
+        drop = (0, 0.2, go, lse, delta)
+        dropped = {
+            "K4": lambda: ba.banded_attention_bwd_dq(*args[:8], *drop),
+            "K5": lambda: ba.banded_attention_bwd_dkv(q, k, v, spm, window,
+                                                      *drop)}
         t_lib_fwd = cuda_ms(lambda: sdpa(q, ka, va, attn_mask=mask), iters=5)
         t_lib_bwd = cuda_ms(lambda: torch.autograd.grad(
             lib_out, (qs, ks, vs), go, retain_graph=True), iters=5)
@@ -864,10 +897,13 @@ def kernel_banded_phase(torch, ba, cuda_ms):
             t_plain = cuda_ms(plain, iters=3, warmup=1)
             t_kernel2 = cuda_ms(kernel, iters=10)
             t_lib = t_lib_fwd if kern == "K3" else t_lib_bwd
+            at_drop = (f"; at dropout 0.2 "
+                       f"{cuda_ms(dropped[kern], iters=10):.4f} ms"
+                       if kern in dropped else "")
             log(f"  {kern} times {(b, h, t, d)} c={c} tt={tt} {name}: kernel "
                 f"{t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} "
                 f"ms, sdpa {'forward' if kern == 'K3' else 'backward'} "
-                f"{t_lib:.4f} ms, bound {bound:.5f} ms ({by})")
+                f"{t_lib:.4f} ms, bound {bound:.5f} ms ({by}){at_drop}")
             rows_out[(kern, name)] = dict(
                 ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
                 bound_ms=bound, bound_by=by,
@@ -876,7 +912,7 @@ def kernel_banded_phase(torch, ba, cuda_ms):
             f"{t_lib_fwd:.4f} ms, backward {t_lib_bwd:.4f} ms, forward + "
             f"backward {t_lib_fwd + t_lib_bwd:.4f} ms")
         del q, k, v, kt, vt, go, out, lse, delta, qs, ks, vs, lib_out, mask
-        del keys_ok, band, ka, va, fns, args, bwd
+        del keys_ok, band, ka, va, fns, args, bwd, drop, dropped
         torch.cuda.empty_cache()
     return {kern: rows_out[(kern, "bfloat16")] for kern in ("K3", "K4", "K5")}
 
@@ -1730,9 +1766,9 @@ def train_longformer_phase(torch, np, ba, wall_time, label, device="cuda"):
     k3, k4, k5 = (sum(ms for name, ms in by_name.items()
                       if any(tag in name for tag in tags))
                   for tags in (("banded_attention_fwd_kernel",),
-                               ("banded_attention_bwd_dq_kernel",
+                               ("banded_attention_bwd_dq_",
                                 "banded_text_grad_sum_kernel"),
-                               ("banded_attention_bwd_dkv_kernel",)))
+                               ("banded_attention_bwd_dkv_",)))
     log(f"  in the profiled step: K3 {k3:.2f} ms, K4 {k4:.2f} ms, K5 "
         f"{k5:.2f} ms, together {(k3 + k4 + k5) / busy:.3f} of the "
         f"device's busy time")
@@ -1849,15 +1885,17 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
     }]
-    for kern, name, line, n in (
-            ("K3", "banded_attention_fwd", 90, lf_launches[0]),
-            ("K4", "banded_attention_bwd_dq", 172, lf_launches[1]),
-            ("K5", "banded_attention_bwd_dkv", 286, lf_launches[2])):
+    for kern, name, line, n, note in (
+            ("K3", "banded_attention_fwd", 90, lf_launches[0], {}),
+            ("K4", "banded_attention_bwd_dq", 172, lf_launches[1],
+             {"note": "redesigned PR 9"}),
+            ("K5", "banded_attention_bwd_dkv", 286, lf_launches[2],
+             {"note": "redesigned PR 9"})):
         row = banded[kern]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"a3t_tpu_torch/csrc/{name}.cu",
-            "replaces": f"a3t_tpu/ops/banded_attention.py:{line}",
+            "replaces": f"a3t_tpu/ops/banded_attention.py:{line}", **note,
             "launches": n, **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})

@@ -1,5 +1,5 @@
 // Device helpers shared by the attention kernels (fused_attention_fwd/_bwd,
-// banded_attention_fwd/_bwd_dq/_bwd_dkv): element conversion, the dropout
+// banded_attention_fwd/_bwd_dq/_bwd_dkv): the output store, the dropout
 // counter hash, float4 products and the padded row stride of shared-memory
 // tiles.  The hash must stay bit-identical across all five kernels and equal
 // to the plain versions' ``ops/fused_attention.py::hash_bits``.
@@ -12,8 +12,6 @@ namespace {
 
 constexpr float NEG = -1e30f;   // the masked score of the TPU kernels
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 

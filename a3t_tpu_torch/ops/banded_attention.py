@@ -66,8 +66,9 @@ LIBRARIES = {"banded_attention_fwd": ("banded_attention_fwd.cu",),
              "banded_attention_bwd_dq": ("banded_attention_bwd_dq.cu",),
              "banded_attention_bwd_dkv": ("banded_attention_bwd_dkv.cu",)}
 
-# query rows per CTA of K4: the fp32 kernel's tiles of 32, the bf16
-# kernel's two warpgroups of 64
+# query rows per CTA of K3 and K4: the fp32 kernels' tiles of 64 and 32,
+# the bf16 kernels' two warpgroups of 64
+FWD_ROWS = {torch.float32: 64, torch.bfloat16: 128}
 DQ_ROWS = {torch.float32: 32, torch.bfloat16: 128}
 
 # kernel launches since the last reset (launches only, not plain-version
@@ -278,6 +279,13 @@ def _entry(name: str):
                     "banded_attention_bwd_dq": (14, 8),
                     "banded_attention_bwd_dkv": (9, 6)}[name]
     return native.bind(name, LIBRARIES[name], f"a3t_{name}", n_ptr, n_int)
+
+
+def fwd_grid(b: int, h: int, t: int, window: int, dtype):
+    """K3's grid as the kernel launches it: (query-row tiles of a chunk,
+    chunks, b * h)."""
+    c = window // 2
+    return -(-c // FWD_ROWS[dtype]), t // c, b * h
 
 
 def dq_grid(b: int, h: int, t: int, window: int, dtype):

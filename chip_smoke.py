@@ -11,9 +11,9 @@ Phases, each printing its elapsed seconds:
    each, all started together: the fused-attention kernels K1 (forward) and
    K2 (backward), the banded-attention kernels K3, K4 and K5, and the fused
    log-mel kernel K6; their ptxas registers and spills; the tensor-core
-   (HGMMA) instructions of each K1, K2, K4 and K5 function in the compiled
-   code (cuobjdump -sass): every bf16 function must have some and no fp32
-   function any (full fp32, no TF32);
+   (HGMMA) instructions of each K1, K2, K3, K4 and K5 function in the
+   compiled code (cuobjdump -sass): every bf16 function must have some and
+   no fp32 function any (full fp32, no TF32);
 3. kernel: K1 (through its wrapper) against its plain PyTorch version on
    the card, at the slice's shapes, in float32 and bfloat16, with and
    without a padded key tail, out and logsumexp; at dropout rate 0.1 the
@@ -37,19 +37,20 @@ Phases, each printing its elapsed seconds:
    (ragged lengths, so fully masked rows), at a smaller speech-only shape and
    a small ragged one, float32 and bfloat16, dropout 0 and 0.2, the errors on
    fully masked rows and padded keys bounded apart from the others; K3's
-   keep-masks read back through one-hot values; two runs of K4 (dq,
-   dk_text, dv_text) and K5 (dk, dv) at the training shape in each dtype, at
-   dropout 0 and 0.2, equal bit for bit; kernel, plain and library (SDPA
-   over a dense boolean band mask) times and the bounds, and K4's and K5's
-   times at dropout 0.2;
+   keep-masks read back through one-hot values; two runs of K3 (out, lse),
+   K4 (dq, dk_text, dv_text) and K5 (dk, dv) at the training shape in each
+   dtype, at dropout 0 and 0.2, equal bit for bit; kernel, plain and library
+   (SDPA over a dense boolean band mask) times and the bounds, and the
+   kernels' times at dropout 0.2;
 6. kernel-logmel: K6 (through its wrapper) against its plain version at the
    JAX bench's batch (88 x 129,300 samples at 24 kHz, 432 frames, ragged),
    bench_kernels.py's frontend_b32_10s (32 x 240,000 samples, 801 frames),
-   the longformer batch (4 x 1,638,200 samples at 16 kHz, 8192 frames) and a
-   small odd case (8 kHz, n_fft 256, 38 frames), each with and without
-   sample_lengths: features within 1e-4, tails exactly 0, frame lengths
-   equal; kernel, plain, library (the rfft front-end) and matmul-DFT
-   front-end times beside the bound;
+   the longformer batch (4 x 1,638,200 samples at 16 kHz, 8192 frames), a
+   small odd case (8 kHz, n_fft 256, 38 frames) and a non-power-of-two
+   n_fft (16 kHz, n_fft 400, 8 x 5 s, the direct-DFT route), each with and
+   without sample_lengths: features within 1e-4, tails exactly 0, frame
+   lengths equal, two runs equal bit for bit; kernel, plain, library (the
+   rfft front-end) and matmul-DFT front-end times beside the bound;
 7. slice: the 24 kHz A3T model (d=384, 4+4 Conformer blocks) and the 24 kHz
    ParallelWaveGAN with seeded random weights serve four requests through
    SpeechEditor: the RTF bench's 6 s, 40-phone [MASK] edit of phones 13-27,
@@ -271,12 +272,13 @@ def hgmma_counts(lib_path: str, nvcc: str) -> dict:
 
 
 def check_tensor_cores(native, paths: dict) -> None:
-    """The bf16 functions of K1, K2, K4 and K5 run their products on
+    """The bf16 functions of K1, K2, K3, K4 and K5 run their products on
     wgmma; their fp32 functions on the CUDA cores alone."""
     import re
     nvcc = native.find_nvcc()
     for name in ("fused_attention", "fused_attention_bwd",
-                 "banded_attention_bwd_dq", "banded_attention_bwd_dkv"):
+                 "banded_attention_fwd", "banded_attention_bwd_dq",
+                 "banded_attention_bwd_dkv"):
         n_bf16 = 0
         for fn, n in sorted(hgmma_counts(paths[name], nvcc).items()):
             m = re.search(r"\d((?:fused|banded)_attention_[a-z0-9_]+?_kernel)"
@@ -672,8 +674,9 @@ def kernel_banded_phase(torch, ba, cuda_ms):
     smaller speech-only shape with text gradients and at a small shape with
     ragged tiles (c=4, 5 text keys); float32 and bfloat16, dropout 0 and 0.2;
     errors on the fully masked rows apart from the others.  Then K3's
-    keep-mask bits read back, and the times at the training shape beside the
-    plain versions', SDPA's and the bounds."""
+    keep-mask bits read back, two runs of each kernel at the training shape
+    equal bit for bit, and the times at the training shape beside the plain
+    versions', SDPA's and the bounds."""
     g = torch.Generator().manual_seed(2)
     worst = {}
     cases = [
@@ -833,6 +836,12 @@ def kernel_banded_phase(torch, ba, cuda_ms):
                 torch, g, b, h, t, d, tt, dt, lengths)
             args = (q, k, v, kt, vt, txm, spm, window, 99, rate)
             out, lse = ba.banded_attention_fwd(*args)
+            out2, lse2 = ba.banded_attention_fwd(*args)
+            same3 = [torch.equal(out, out2), torch.equal(lse, lse2)]
+            log(f"  K3 {(b, h, t, d)} {str(dt)[6:]} rate={rate}: two runs "
+                f"equal bit for bit: out {same3[0]}, lse {same3[1]}")
+            check(all(same3), f"K3 deterministic ({dt}, rate {rate})")
+            del out2, lse2
             delta = (go.float() * out.float()).sum(-1)
             bwd = (99, rate, go, lse, delta)
             runs = [ba.banded_attention_bwd_dq(*args[:8], *bwd)
@@ -885,6 +894,7 @@ def kernel_banded_phase(torch, ba, cuda_ms):
         }
         drop = (0, 0.2, go, lse, delta)
         dropped = {
+            "K3": lambda: ba.banded_attention_fwd(*args[:8], 0, 0.2),
             "K4": lambda: ba.banded_attention_bwd_dq(*args[:8], *drop),
             "K5": lambda: ba.banded_attention_bwd_dkv(q, k, v, spm, window,
                                                       *drop)}
@@ -927,8 +937,9 @@ def logmel_bound_ms(b, s, f, c):
     FLOP per bin up to the last bin with a non-zero mel weight (power,
     clamp, square root), 2 per non-zero entry of the filterbank, and one
     log per output.  The FFT count is the bound; the direct DFT that the
-    kernel computes, 2 win 2 per bin over those bins, gives the third
-    number, for reference."""
+    TPU kernel computes (and the port's route for an n_fft that is not a
+    power of two), 2 win 2 per bin over those bins, gives the third number,
+    for reference."""
     from a3t_tpu_torch.dsp.mel import mel_filterbank
 
     melmat = mel_filterbank(c.fs, c.n_fft, c.n_mels, c.fmin, c.fmax)
@@ -946,9 +957,11 @@ def kernel_logmel_phase(torch, np, fl, cuda_ms, label):
     """K6 through its wrapper against its plain version on the card, with
     and without sample_lengths: max|kernel - plain| on the log10 features
     within TOL_F32, frames at or past the lengths exactly 0, the frame
-    lengths equal; then kernel, plain, library (the port's rfft front-end:
-    cuFFT and one product) and matmul-DFT front-end (cuBLAS fp32) times
-    beside the bound, at every shape."""
+    lengths equal, two runs equal bit for bit; then kernel, plain, library
+    (the port's rfft front-end: cuFFT and one product) and matmul-DFT
+    front-end (cuBLAS fp32) times beside the bound, at every shape.  The
+    repo's configs take the FFT route; the fifth case, n_fft 400, the
+    direct DFT."""
     from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
     from a3t_tpu_torch.tasks.config import FRONTEND_16K, FRONTEND_24K
 
@@ -967,6 +980,8 @@ def kernel_logmel_phase(torch, np, fl, cuda_ms, label):
 
     small = LogMelConfig(fs=8000, n_fft=256, hop_length=80, win_length=240,
                          n_mels=20, fmin=20, fmax=4000)
+    odd = LogMelConfig(fs=16000, n_fft=400, hop_length=160, win_length=400,
+                       n_mels=80)
     cases = [
         # the JAX bench's batch (train, train-bf16, frontend)
         ("bench_b88_432", FRONTEND_24K, bench["audio"],
@@ -977,28 +992,35 @@ def kernel_logmel_phase(torch, np, fl, cuda_ms, label):
         ("longformer_b4_8192", FRONTEND_16K, lf_batch["audio"],
          lf_batch["audio_lengths"]),
         # tests/test_ops.py's odd case: n_fft 256, 38 frames
-        ("small_8k_b2_38", small) + noise(2, 80 * 37, 2000)]
+        ("small_8k_b2_38", small) + noise(2, 80 * 37, 2000),
+        # an n_fft that is not a power of two (the direct-DFT route): 8
+        # utterances of 5 s at 16 kHz, 501 frames
+        ("nfft400_b8_501", odd) + noise(8, 16000 * 5, 40000)]
     rows, worst = {}, 0.0
     for name, c, audio, lengths in cases:
         b, n = audio.shape
         f = c.num_frames(n)
         for sl in (None, lengths):
             out, flens = fl.fused_logmel(audio, c, sl)
+            again, _ = fl.fused_logmel(audio, c, sl)
             ref, ref_flens = fl.fused_logmel_plain(audio, c, sl)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             tail = torch.arange(f, device=dev)[None, :] >= flens[:, None]
             tail_ok = sl is None or not bool(out[tail].any())
-            log(f"  K6 {name} {tuple(audio.shape)} -> {tuple(out.shape)} "
-                f"lengths={'no' if sl is None else 'yes'}: max|kernel-plain|"
-                f" {err:.3g} (tol {TOL_F32:g}) on features in "
-                f"[{ref.min().item():.3f}, {ref.max().item():.3f}], "
+            same = torch.equal(out, again)
+            log(f"  K6 {name} ({fl.plan(c).route}) {tuple(audio.shape)} -> "
+                f"{tuple(out.shape)} lengths={'no' if sl is None else 'yes'}:"
+                f" max|kernel-plain| {err:.3g} (tol {TOL_F32:g}) on features "
+                f"in [{ref.min().item():.3f}, {ref.max().item():.3f}], "
                 f"{int(tail.sum()) if sl is not None else 0} tail frames "
                 f"{'all 0' if tail_ok else 'NOT 0'}, frame lengths "
-                f"{'equal' if torch.equal(flens, ref_flens) else 'DIFFER'}")
+                f"{'equal' if torch.equal(flens, ref_flens) else 'DIFFER'}, "
+                f"two runs {'equal' if same else 'DIFFER'} bit for bit")
             check(out.shape == (b, f, c.n_mels) and err <= TOL_F32
-                  and tail_ok and torch.equal(flens, ref_flens),
+                  and tail_ok and torch.equal(flens, ref_flens) and same,
                   f"K6 {name} lengths={sl is not None}")
+            del again
             worst = max(worst, err)
         fe = LogMelFrontend(c, device=dev)
         # in turns: kernel, plain, library, matmul DFT, kernel
@@ -1765,7 +1787,7 @@ def train_longformer_phase(torch, np, ba, wall_time, label, device="cuda"):
     by_name, busy = prof
     k3, k4, k5 = (sum(ms for name, ms in by_name.items()
                       if any(tag in name for tag in tags))
-                  for tags in (("banded_attention_fwd_kernel",),
+                  for tags in (("banded_attention_fwd_",),
                                ("banded_attention_bwd_dq_",
                                 "banded_text_grad_sum_kernel"),
                                ("banded_attention_bwd_dkv_",)))
@@ -1805,7 +1827,8 @@ def main() -> int:
         paths = native.build_all(libraries)
         fa._entry()
         fa._entry_bwd()
-        fl._entry()
+        fl._entry("fft")
+        fl._entry("dft")
         for name in ba.LIBRARIES:
             ba._entry(name)
         for name in libraries:
@@ -1886,7 +1909,8 @@ def main() -> int:
         "library_ms": bwd["library_ms"],
     }]
     for kern, name, line, n, note in (
-            ("K3", "banded_attention_fwd", 90, lf_launches[0], {}),
+            ("K3", "banded_attention_fwd", 90, lf_launches[0],
+             {"note": "redesigned: bf16 on wgmma"}),
             ("K4", "banded_attention_bwd_dq", 172, lf_launches[1],
              {"note": "redesigned PR 9"}),
             ("K5", "banded_attention_bwd_dkv", 286, lf_launches[2],
@@ -1903,6 +1927,7 @@ def main() -> int:
         "name": "fused_logmel", "route": "cuda",
         "source": "a3t_tpu_torch/csrc/fused_logmel.cu",
         "replaces": "a3t_tpu/ops/fused_logmel.py:93",
+        "note": "redesigned: an fp32 FFT in shared memory",
         "launches": logmel_launches, **{k: logmel[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}})

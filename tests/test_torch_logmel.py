@@ -149,6 +149,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fl.fused_logmel(audio, c, torch.tensor([800]))
     with pytest.raises(ValueError, match="different devices"):
         fl.fused_logmel(audio, c, torch.tensor([800, 700], device="meta"))
+    # what neither kernel route takes: n_fft past 4096, more than 128 mel
+    # bins on the direct-DFT route (n_fft not a power of two), a window
+    # longer than n_fft
+    with pytest.raises(ValueError, match="4096"):
+        fl.plan(dataclasses.replace(c, n_fft=8192))
+    with pytest.raises(ValueError, match="128 mel"):
+        fl.plan(dataclasses.replace(c, n_fft=400, win_length=400,
+                                    n_mels=129))
+    with pytest.raises(ValueError, match="win_length"):
+        fl.plan(dataclasses.replace(c, win_length=300))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,77 @@
+"""Training CLI: the port of ``a3t_tpu/bin/train.py`` (the espnet2
+mlm_train analogue).
+
+    python -m a3t_tpu_torch.bin.train --config configs/a3t_conformer_24k.yaml \
+        --set train_data_dir=dump/raw/tr_no_dev \
+        --set valid_data_dir=dump/raw/dev --set exp_dir=exp/a3t
+
+Trains on the CUDA card unless ``--device cpu`` is given.  The JAX CLI's
+``--prng`` (JAX's PRNG implementations) and ``--coordinator`` /
+``--num-hosts`` / ``--host-id`` (multi-host training, ROADMAP A10) are not
+ported; passing them raises.
+
+A resumed run (epoch or mid-epoch) equals an uninterrupted one bit for bit
+on the CPU.  On the card it does so only when the caller first sets
+``torch.backends.cudnn.deterministic = True``,
+``torch.use_deterministic_algorithms(True)`` and ``CUBLAS_WORKSPACE_CONFIG``
+(e.g. ``:4096:8``); this CLI sets none of them, because
+``nn.Embedding``'s CUDA backward, among others, sums with atomics and the
+deterministic implementations are slower.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+
+def main(argv=None):
+    """Parse ``argv`` and train; returns ``(trainer, final state)``, or
+    None with ``--print-config``."""
+    parser = argparse.ArgumentParser(description="A3T pretraining (PyTorch)")
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--print-config", action="store_true",
+                        help="print the resolved (or default) config as "
+                             "YAML and exit")
+    parser.add_argument(
+        "--set", action="append", default=[], metavar="KEY=VALUE",
+        help="override config entries, e.g. --set optim.lr=0.5")
+    parser.add_argument("--log-level", default="INFO")
+    parser.add_argument("--detect-anomaly", action="store_true",
+                        help="torch.autograd.set_detect_anomaly: fail at the "
+                             "op that produced a NaN (debug only, slow)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default cuda)")
+    for flag in ("--prng", "--coordinator", "--num-hosts", "--host-id"):
+        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    for flag in ("prng", "coordinator", "num_hosts", "host_id"):
+        if getattr(args, flag) is not None:
+            parser.error(f"--{flag.replace('_', '-')} is not ported "
+                         "(JAX-only or multi-host, ROADMAP A10)")
+
+    logging.basicConfig(
+        level=getattr(logging, args.log_level.upper()),
+        format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")
+
+    from a3t_tpu_torch.tasks.config import (A3TTaskConfig, dump_config,
+                                            load_config)
+    from a3t_tpu_torch.tasks.mlm import MLMTask
+
+    if args.print_config:
+        cfg = (load_config(args.config, args.set) if args.config
+               else A3TTaskConfig())
+        sys.stdout.write(dump_config(cfg))
+        return None
+    if args.config is None:
+        parser.error("--config is required (or use --print-config)")
+    if args.detect_anomaly:
+        import torch
+
+        torch.autograd.set_detect_anomaly(True)
+    return MLMTask.run(load_config(args.config, args.set), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Kaldi-style data-directory IO: a copy of ``a3t_tpu/data/fileio.py``.
+
+The files a data directory holds (egs2/vctk/sedit/, dump/raw/{set}/):
+
+* ``wav.scp``       — ``uttid /path/to/file.wav``
+* ``text``          — ``uttid PHN1 PHN2 ...``
+* ``mfa_start``     — ``uttid 0.12 0.31 ...`` (seconds per phone)
+* ``mfa_end``       — same
+* ``utt2spk``       — ``uttid spk``
+
+WAV is read with scipy.  FLAC is read only through the native decoder
+(``native/loader/flac.cc`` by way of :mod:`a3t_tpu_torch.data.native_loader`),
+mono only: the JAX package's pure-Python FLAC twin (``a3t_tpu/data/flac.py``),
+its fallback for multi-channel files and failed native decodes, is not
+ported (ROADMAP A7-rest), so those raise here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterator
+
+import numpy as np
+
+
+def read_2column_text(path: str) -> dict[str, str]:
+    """uttid<space>rest-of-line -> {uttid: rest} (fileio/read_text.py:10)."""
+    out: dict[str, str] = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split(maxsplit=1)
+            if not parts:
+                continue
+            out[parts[0]] = parts[1] if len(parts) == 2 else ""
+    return out
+
+
+def load_num_sequence_text(path: str, dtype=np.float32) -> dict[str, np.ndarray]:
+    """uttid v1 v2 ... -> {uttid: array} (fileio/read_text.py:38)."""
+    return {k: np.asarray([float(x) for x in v.replace(",", " ").split()],
+                          dtype=dtype)
+            for k, v in read_2column_text(path).items()}
+
+
+def write_num_sequence_text(path: str, data: dict[str, np.ndarray]):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        for k in sorted(data):
+            vals = " ".join(str(x) for x in np.asarray(data[k]).tolist())
+            f.write(f"{k} {vals}\n")
+
+
+def write_2column_text(path: str, data: dict[str, str]):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        for k in sorted(data):
+            f.write(f"{k} {data[k]}\n")
+
+
+def flac_channels(path: str) -> int:
+    """A FLAC file's channel count from its STREAMINFO block (0 when the
+    first metadata block is not STREAMINFO)."""
+    with open(path, "rb") as f:
+        head = f.read(21)
+    if len(head) < 21 or (head[4] & 0x7F) != 0:
+        return 0
+    return ((head[20] >> 1) & 0x07) + 1
+
+
+def read_wav(path: str, always_float: bool = True) -> tuple[int, np.ndarray]:
+    """Read a PCM/float WAV or a mono FLAC; returns (fs, float32 in [-1, 1])
+    (or the WAV's own samples with ``always_float=False``).  Dispatches on
+    the container magic, so ``wav.scp`` entries may mix formats."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"fLaC":
+        if not always_float or flac_channels(path) != 1:
+            raise NotImplementedError(
+                f"{path}: only mono FLAC read as float is supported (the "
+                "native decoder); the Python FLAC decoder is not ported "
+                "(ROADMAP A7-rest)")
+        from a3t_tpu_torch.data.native_loader import read_file
+
+        return read_file(path)
+
+    from scipy.io import wavfile
+
+    fs, data = wavfile.read(path)
+    if always_float and data.dtype.kind == "i":
+        data = data.astype(np.float32) / float(np.iinfo(data.dtype).max + 1)
+    elif always_float and data.dtype.kind == "u":  # uint8 wav
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    elif data.dtype != np.float32:
+        data = data.astype(np.float32)
+    return int(fs), data
+
+
+def write_wav(path: str, fs: int, data: np.ndarray, pcm16: bool = True):
+    from scipy.io import wavfile
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if pcm16:
+        clipped = np.clip(np.asarray(data), -1.0, 1.0)
+        wavfile.write(path, fs, (clipped * 32767.0).astype(np.int16))
+    else:
+        wavfile.write(path, fs, np.asarray(data, np.float32))
+
+
+class SoundScpReader:
+    """wav.scp reader: reader[uttid] -> (fs, float32 waveform)."""
+
+    def __init__(self, path: str):
+        self.data = read_2column_text(path)
+
+    def __getitem__(self, key: str) -> tuple[int, np.ndarray]:
+        return read_wav(self.data[key])
+
+    def __contains__(self, key):
+        return key in self.data
+
+    def __len__(self):
+        return len(self.data)
+
+    def keys(self) -> Iterator[str]:
+        return iter(self.data)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from a3t_tpu_torch.device import resolve_device
@@ -52,6 +53,12 @@ class LogMelConfig:
 
     def num_frames(self, n_samples: int) -> int:
         return num_frames(n_samples, self.hop_length)
+
+    def seconds_to_frames(self, t: np.ndarray) -> np.ndarray:
+        """Alignment time (sec) -> frame index: floor(fs * t / hop)
+        (espnet2/train/collate_fn.py:236-237)."""
+        return np.floor(self.fs * np.asarray(t) / self.hop_length).astype(
+            np.int32)
 
 
 class LogMelFrontend:

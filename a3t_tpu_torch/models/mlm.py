@@ -51,6 +51,8 @@ class A3TModelConfig:
     spemb_dim: int = 0
     # loss settings (sedit_model.py:105-108)
     use_mse_loss: bool = False
+    mlm_prob: float = 0.8
+    mean_phn_span: int = 8
 
 
 class MLMEncoder(ConformerStack):

@@ -1,18 +1,194 @@
-"""The shipped configurations as Python constants.
+"""YAML-driven task configuration: the port of ``a3t_tpu/tasks/config.py``.
 
-The JAX package reads its configs through ``yaml`` (a3t_tpu/tasks/config.py);
-the port needs no YAML reader: ``configs/a3t_conformer_24k.yaml`` and
-``configs/a3t_longformer_16k.yaml`` are written out here as dataclasses
-(front-end, model with its dropout rates, optimizer).
+The whole configuration is a tree of dataclasses with the JAX package's
+field names: ``load_config(path, overrides)`` <-> ``save_config(cfg,
+path)``, and ``--set a.b.c=value`` overrides.  YAML is read and written by
+:mod:`a3t_tpu_torch.tasks.yaml_subset`, not PyYAML, and resolves scalars as
+``yaml.safe_load`` does, overrides included.  Unknown keys raise
+``KeyError``.
+
+Four keys of the JAX ``EncoderConfig`` have no field here
+(``a3t_tpu/models/conformer.py:58-95``): ``cnn_module_shifted``, ``remat``
+and ``remat_attention`` are lowering and memory knobs that leave the
+numerics as they are, so the loader accepts them either way (and logs one
+line when one is on); ``cnn_module_bn_compute_dtype`` changes the numerics,
+so ``true`` is refused.
+
+The shipped configurations also stand here as constants (front-end, model
+with its dropout rates, optimizer), equal to what ``load_config`` gives for
+``configs/a3t_conformer_24k.yaml`` and ``configs/a3t_longformer_16k.yaml``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
+import typing
+from typing import Any, Optional
+
+from a3t_tpu_torch.data.batcher import BatcherConfig
 from a3t_tpu_torch.dsp.frontend import LogMelConfig
 from a3t_tpu_torch.models.conformer import EncoderConfig
 from a3t_tpu_torch.models.mlm import A3TModelConfig
 from a3t_tpu_torch.models.pwg import PWGConfig
+from a3t_tpu_torch.tasks import yaml_subset
 from a3t_tpu_torch.train.optim import OptimConfig
+from a3t_tpu_torch.train.trainer import TrainerConfig
+
+logger = logging.getLogger("a3t_tpu_torch")
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """The JAX package's device-mesh settings (``a3t_tpu/parallel/mesh.py``).
+    The port trains on one card: anything but one device per axis raises
+    when a task is built (ROADMAP A10)."""
+
+    data_parallel: Optional[int] = None
+    tensor_parallel: int = 1
+    sequence_parallel: int = 1
+
+
+@dataclasses.dataclass
+class A3TTaskConfig:
+    # data
+    train_data_dir: str = ""
+    valid_data_dir: str = ""
+    token_list: str = ""  # path; built from the training text if empty
+    exp_dir: str = "exp/a3t"
+    speech_only: bool = False
+    num_workers_prefetch: int = 2
+    use_tensorboard: bool = False
+    use_wandb: bool = False
+    wandb_project: str = "a3t_tpu"
+    num_plot_examples: int = 0
+    # multi-corpus pretraining entries {name, data_dir, portion, ...}
+    corpora: tuple = ()
+    # "none" | "global_mvn" | "utterance_mvn"; global_mvn reads stats_file
+    normalize: str = "none"
+    stats_file: str = ""
+    spemb_file: str = ""
+    # components
+    frontend: LogMelConfig = dataclasses.field(default_factory=LogMelConfig)
+    model: A3TModelConfig = dataclasses.field(default_factory=A3TModelConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    batcher: BatcherConfig = dataclasses.field(default_factory=BatcherConfig)
+    trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    use_fused_frontend: bool = True
+
+
+# EncoderConfig keys of the JAX package without a field here
+_NUMERICS_NEUTRAL = ("cnn_module_shifted", "remat", "remat_attention")
+_REFUSED_IF_TRUE = "cnn_module_bn_compute_dtype"
+
+
+def _drop_jax_only(data: dict, where: str) -> list[str]:
+    """Remove the JAX-only EncoderConfig keys from ``data``; returns those
+    that were on.  Raises for anything the port cannot honour."""
+    on = []
+    for k in (*_NUMERICS_NEUTRAL, _REFUSED_IF_TRUE):
+        if k not in data:
+            continue
+        v = data.pop(k)
+        if not isinstance(v, bool):
+            raise ValueError(f"{where}.{k}: expected true or false, got {v!r}")
+        if v and k == _REFUSED_IF_TRUE:
+            raise NotImplementedError(
+                f"{where}.{k}: true (BatchNorm in the compute dtype) changes "
+                "the numerics and is not ported (ROADMAP A2)")
+        if v:
+            on.append(f"{where}.{k}")
+    return on
+
+
+def _nested_type(cls, name: str) -> Optional[type]:
+    """The dataclass type of field ``name`` of ``cls`` (Optional unwrapped),
+    or None."""
+    t = typing.get_type_hints(cls).get(name)
+    if typing.get_origin(t) is typing.Union:
+        args = [a for a in typing.get_args(t) if a is not type(None)]
+        t = args[0] if len(args) == 1 else None
+    return t if dataclasses.is_dataclass(t) else None
+
+
+def _build(cls, data: Any, where: str, knobs_on: list):
+    """Build the dataclass ``cls`` from a plain dict, recursively; lists
+    become tuples."""
+    if data is None:
+        return cls()
+    if not isinstance(data, dict):
+        raise TypeError(f"{where}: expected a mapping, got {data!r}")
+    data = dict(data)
+    if cls is EncoderConfig:
+        knobs_on += _drop_jax_only(data, where)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in data.items():
+        if k not in fields:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        target = _nested_type(cls, k)
+        if target is not None and isinstance(v, dict):
+            v = _build(target, v, f"{where}.{k}", knobs_on)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def config_from_dict(data: dict) -> A3TTaskConfig:
+    knobs_on: list[str] = []
+    cfg = _build(A3TTaskConfig, data, "config", knobs_on)
+    if knobs_on:
+        logger.info("config: %s on in the JAX package; a lowering or memory "
+                    "choice with the same numerics, dropped by the port",
+                    ", ".join(knobs_on))
+    return cfg
+
+
+def load_config(path: str, overrides: Optional[list[str]] = None
+                ) -> A3TTaskConfig:
+    data = yaml_subset.load_file(path) or {}
+    return config_from_dict(apply_overrides(data, overrides or []))
+
+
+def _to_dict(obj) -> Any:
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_dict(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)):
+        return [_to_dict(x) for x in obj]
+    return obj
+
+
+def dump_config(cfg: A3TTaskConfig) -> str:
+    return yaml_subset.dump(_to_dict(cfg))
+
+
+def save_config(cfg: A3TTaskConfig, path: str):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(dump_config(cfg))
+
+
+def apply_overrides(data: dict, overrides: list[str]) -> dict:
+    """Apply ``a.b.c=value`` overrides; each value is read as YAML."""
+    for ov in overrides:
+        key, sep, raw = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override {ov!r} is not KEY=VALUE")
+        node = data
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+            if node is None or not isinstance(node, dict):
+                raise ValueError(f"override {ov!r}: {p} is not a mapping")
+        node[parts[-1]] = yaml_subset.load(raw)
+    return data
+
+
+# -- the shipped configurations as constants ----------------------------------
 
 # configs/a3t_conformer_24k.yaml: front-end
 FRONTEND_24K = LogMelConfig(fs=24000, n_fft=2048, hop_length=300,

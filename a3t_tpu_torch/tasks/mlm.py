@@ -1,0 +1,236 @@
+"""MLM (A3T pretraining) task assembly: the port of ``a3t_tpu/tasks/mlm.py``
+(the reference's MLMTask, espnet2/tasks/mlm.py:107-680).
+
+Wires token list -> model -> optimizer -> batcher and iterators -> train
+step -> trainer for one corpus on one device, and rebuilds a trained model
+from its experiment directory (``build_model_from_dir``, the reference's
+build_model_from_file, tasks/mlm.py:446-496).  :meth:`MLMTask.build`
+returns the trainer and the initial state, so that a caller can hand in
+its own state; :meth:`MLMTask.run` builds and trains.
+
+Not ported, each raising with its ROADMAP item: multi-corpus mixtures
+(``corpora``, A7-rest), speaker conditioning (``model.spemb_dim``, A3), the
+duration-aware TTS variant (A9), ``speech_only`` (A6), per-epoch plots
+(``num_plot_examples``, A7-rest), record shards (A7-rest),
+``batcher.device_audio`` (A7-rest) and meshes of more than one device (A10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+
+from a3t_tpu_torch.data.batcher import BucketBatcher
+from a3t_tpu_torch.data.dataset import A3TDataset
+from a3t_tpu_torch.data.fileio import read_2column_text
+from a3t_tpu_torch.data.iterator import DeviceTransfer, EpochIterFactory
+from a3t_tpu_torch.device import resolve_device
+from a3t_tpu_torch.dsp import LogMelFrontend
+from a3t_tpu_torch.models.mlm import A3TMLMModel, build_model
+from a3t_tpu_torch.tasks.config import A3TTaskConfig, load_config, save_config
+from a3t_tpu_torch.text import TokenIDConverter, build_token_list
+from a3t_tpu_torch.train.checkpoint import CheckpointManager, load_params
+from a3t_tpu_torch.train.optim import make_optimizer
+from a3t_tpu_torch.train.train_step import (TrainState, create_train_state,
+                                            make_eval_step, make_train_step)
+from a3t_tpu_torch.train.trainer import Trainer
+
+logger = logging.getLogger("a3t_tpu_torch")
+
+
+def check_supported(cfg: A3TTaskConfig) -> None:
+    """Raise for what the port's task does not do yet (speech-only data,
+    device-resident audio and chained dispatch raise where they are built:
+    the dataset, the batcher and the Trainer)."""
+    refused = [
+        (bool(cfg.corpora), "multi-corpus training (corpora)", "A7-rest"),
+        (cfg.model.spemb_dim > 0, "speaker conditioning (model.spemb_dim)",
+         "A3"),
+        (cfg.model.duration_predictor_layers > 0,
+         "the duration-aware variant (model.duration_predictor_layers)",
+         "A9"),
+        (cfg.num_plot_examples > 0, "per-epoch plots (num_plot_examples)",
+         "A7-rest"),
+        (cfg.mesh.data_parallel not in (None, 1)
+         or cfg.mesh.tensor_parallel != 1 or cfg.mesh.sequence_parallel != 1,
+         "a mesh of more than one device", "A10"),
+    ]
+    for bad, what, item in refused:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported (ROADMAP {item})")
+
+
+class MLMTask:
+    @classmethod
+    def build_token_converter(cls, cfg: A3TTaskConfig) -> TokenIDConverter:
+        if cfg.token_list and os.path.exists(cfg.token_list):
+            return TokenIDConverter(cfg.token_list)
+        # build from the training text (recipe stage 5, mlm.sh:257-260)
+        texts = read_2column_text(
+            os.path.join(cfg.train_data_dir, "text")).values()
+        conv = TokenIDConverter(build_token_list(texts))
+        if cfg.token_list:
+            conv.save(cfg.token_list)
+        return conv
+
+    @classmethod
+    def build_frontend(cls, cfg: A3TTaskConfig, device=None) -> LogMelFrontend:
+        return LogMelFrontend(cfg.frontend, device=device)
+
+    @classmethod
+    def build_normalizer(cls, cfg: A3TTaskConfig):
+        if cfg.normalize == "global_mvn":
+            from a3t_tpu_torch.dsp.normalize import GlobalMVN
+
+            return GlobalMVN.from_stats(cfg.stats_file)
+        if cfg.normalize == "utterance_mvn":
+            from a3t_tpu_torch.dsp.normalize import UtteranceMVN
+
+            return UtteranceMVN()
+        if cfg.normalize != "none":
+            raise ValueError(f"unknown normalize {cfg.normalize!r}")
+        return None
+
+    @classmethod
+    def build_model(cls, cfg: A3TTaskConfig, vocab_size: int,
+                    device=None) -> A3TMLMModel:
+        """The model with seeded random weights (``trainer.seed``)."""
+        model_cfg = dataclasses.replace(cfg.model, vocab_size=vocab_size,
+                                        odim=cfg.frontend.n_mels)
+        return build_model(model_cfg, device=device, seed=cfg.trainer.seed)
+
+    @classmethod
+    def build_batcher(cls, cfg: A3TTaskConfig, data_dir: str,
+                      conv: TokenIDConverter, train: bool) -> BucketBatcher:
+        if os.path.exists(os.path.join(data_dir, "index.npz")):
+            raise NotImplementedError(
+                f"{data_dir} holds record shards, which are not ported "
+                "(ROADMAP A7-rest)")
+        bcfg = cfg.batcher
+        if not train:
+            bcfg = dataclasses.replace(bcfg, mlm_prob_factor=1.0)
+        return BucketBatcher(
+            A3TDataset(data_dir, conv, speech_only=cfg.speech_only),
+            cfg.frontend, bcfg)
+
+    @classmethod
+    def build(cls, cfg: A3TTaskConfig, device=None,
+              shard: tuple[int, int] = (0, 1)) -> tuple[Trainer, TrainState]:
+        """Write config.yaml and tokens.txt to ``exp_dir`` and assemble the
+        trainer and the initial train state on ``device`` (cuda unless the
+        caller asks for the CPU)."""
+        check_supported(cfg)
+        dev = resolve_device(device)
+        # longformer buckets must be multiples of the half-window (the
+        # pad_to_longformer_att_window invariant, collate_fn.py:241-247)
+        enc = cfg.model.encoder
+        if enc.selfattention_layer_type == "longformer":
+            c = (enc.attention_window // 2) * max(enc.attention_dilation, 1)
+            bad = [b for b in cfg.batcher.bucket_frames if b % c != 0]
+            if bad:
+                raise ValueError(
+                    f"bucket_frames {bad} not multiples of half-window x "
+                    f"dilation {c} (required by longformer attention)")
+
+        os.makedirs(cfg.exp_dir, exist_ok=True)
+        save_config(cfg, os.path.join(cfg.exp_dir, "config.yaml"))
+        conv = cls.build_token_converter(cfg)
+        conv.save(os.path.join(cfg.exp_dir, "tokens.txt"))
+
+        def factory(data_dir, train, num_iters):
+            batcher = cls.build_batcher(cfg, data_dir, conv, train)
+            transfer = DeviceTransfer(dev) if dev.type == "cuda" else None
+            return EpochIterFactory(batcher, num_iters, shard,
+                                    cfg.num_workers_prefetch, transfer)
+
+        train_factory = factory(cfg.train_data_dir, True,
+                                cfg.trainer.num_iters_per_epoch)
+        batcher = train_factory.batcher
+        logger.info("train buckets: %s (%d utts dropped as overlong)",
+                    [(b.n_frames, b.batch_size) for b in batcher.buckets],
+                    batcher.n_dropped)
+        valid_factory = (factory(cfg.valid_data_dir, False, None)
+                         if cfg.valid_data_dir else None)
+
+        fe = cls.build_frontend(cfg, dev)
+        model = cls.build_model(cfg, len(conv), dev)
+        state = create_train_state(model, make_optimizer(cfg.optim), dev)
+        logger.info("model params: %.2fM",
+                    sum(p.numel() for p in model.parameters()) / 1e6)
+
+        normalizer = cls.build_normalizer(cfg)
+        tb_writer = wandb_run = None
+        if cfg.use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                tb_writer = SummaryWriter(
+                    os.path.join(cfg.exp_dir, "tensorboard"))
+            except ImportError:  # tensorboard is optional
+                logger.warning("tensorboard unavailable; skipping")
+        if cfg.use_wandb:
+            try:
+                import wandb
+
+                wandb_run = wandb.init(
+                    project=cfg.wandb_project,
+                    name=os.path.basename(os.path.abspath(cfg.exp_dir)),
+                    dir=cfg.exp_dir)
+            except ImportError:  # wandb is optional
+                logger.warning("wandb unavailable; skipping")
+
+        trainer = Trainer(
+            cfg.trainer,
+            make_train_step(model, fe, device=dev, normalizer=normalizer,
+                            use_fused=cfg.use_fused_frontend),
+            make_eval_step(model, fe, device=dev, normalizer=normalizer),
+            train_factory,
+            valid_factory,
+            CheckpointManager(os.path.join(cfg.exp_dir, "checkpoints"),
+                              keep_nbest=cfg.trainer.keep_nbest_models,
+                              criterion=cfg.trainer.best_model_criterion),
+            tensorboard_writer=tb_writer,
+            wandb_run=wandb_run,
+        )
+        return trainer, state
+
+    @classmethod
+    def run(cls, cfg: A3TTaskConfig, device=None,
+            shard: tuple[int, int] = (0, 1)) -> tuple[Trainer, TrainState]:
+        """Full training (the reference's main_worker,
+        abs_task.py:1048-1299); returns the trainer and the final state."""
+        trainer, state = cls.build(cfg, device, shard)
+        return trainer, trainer.run(state)
+
+    @classmethod
+    def build_model_from_dir(cls, exp_dir: str, which: str = "ave",
+                             device=None):
+        """(model, config, tokens) from a training run's directory, the
+        model in eval mode on ``device`` (cuda unless the caller asks for
+        the CPU).
+
+        ``which``: "ave" (the n-best averaged parameters, the file inference
+        uses, sedit_inference.py:352, with the BatchNorm statistics of the
+        latest epoch), "best"/"latest" (the latest epoch) or "epoch_N"."""
+        dev = resolve_device(device)
+        cfg = load_config(os.path.join(exp_dir, "config.yaml"))
+        conv = TokenIDConverter(os.path.join(exp_dir, "tokens.txt"))
+        model = cls.build_model(cfg, len(conv), dev)
+        ckpt_dir = os.path.join(exp_dir, "checkpoints")
+        manager = CheckpointManager(ckpt_dir)
+        latest = manager.latest_epoch()
+        if which in ("ave", "best", "latest"):
+            epoch = latest
+        else:
+            epoch = int(which.split("_")[-1])
+        if epoch is None:
+            raise FileNotFoundError(f"no epoch checkpoint in {ckpt_dir}")
+        state = load_params(os.path.join(ckpt_dir, f"epoch_{epoch}.pt"))
+        ave = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("ave_"))
+        if which == "ave" and ave:
+            state = {**state, **load_params(os.path.join(ckpt_dir, ave[-1]))}
+        model.load_state_dict(state, strict=True)
+        return model.eval(), cfg, conv
+

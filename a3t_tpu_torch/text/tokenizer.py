@@ -1,4 +1,4 @@
-"""Phone-token <-> id mapping, a copy of ``a3t_tpu/text/tokenizer.py:50-81``.
+"""Phone tokens: a copy of ``a3t_tpu/text/tokenizer.py``.
 
 The sedit recipes tokenize text that is already phones, so the tokenizer is
 a whitespace split and the vocabulary is the phone set plus specials
@@ -7,13 +7,31 @@ a whitespace split and the vocabulary is the phone set plus specials
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Iterable, Sequence
 
+BLANK = "<blank>"
 UNK = "<unk>"
+SOS_EOS = "<sos/eos>"
 
 
 def tokenize(text: str) -> list[str]:
     return text.split()
+
+
+def build_token_list(
+    texts: Iterable[str],
+    specials_first: Sequence[str] = (BLANK, UNK),
+    specials_last: Sequence[str] = (SOS_EOS,),
+    min_count: int = 1,
+) -> list[str]:
+    """Vocabulary from a corpus of (phone) strings, sorted by token: blank
+    and unk first, sos/eos last (the recipe's token-list stage)."""
+    counter: Counter[str] = Counter()
+    for t in texts:
+        counter.update(tokenize(t))
+    toks = sorted(k for k, c in counter.items() if c >= min_count)
+    return list(specials_first) + toks + list(specials_last)
 
 
 class TokenIDConverter:
@@ -43,3 +61,8 @@ class TokenIDConverter:
 
     def text2ids(self, text: str) -> list[int]:
         return self.tokens2ids(tokenize(text))
+
+    def save(self, path: str):
+        with open(path, "w", encoding="utf-8") as f:
+            for t in self.token_list:
+                f.write(t + "\n")

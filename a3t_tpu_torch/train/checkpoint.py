@@ -1,0 +1,282 @@
+"""Checkpoints with the reference's retention semantics: the port of
+``a3t_tpu/train/checkpoint.py`` (reference trainer.py:366-443,
+main_funcs/average_nbest_models.py).
+
+A checkpoint directory holds
+
+* ``epoch_<n>.pt`` — the full training state after epoch n: the step, the
+  model's ``state_dict`` (its parameters and the BatchNorm running
+  statistics) and the optimizer's ``OptState`` tensors, written with
+  ``torch.save``;
+* ``step_e<n>_i<k>.pt`` — the same, mid-epoch (preemption safety);
+* ``ave_<n>best.pt`` — ``{"params": ...}``, the mean of the n best epochs'
+  parameters;
+* ``meta.json`` / ``meta_step.json`` — the reporter's history as JSON, and
+  ``LATEST``, the newest epoch.
+
+There is no orbax: the format is the port's own.  Every file is written to
+a temporary name and moved into place with ``os.replace``, so a crash never
+leaves half a checkpoint under a checkpoint's name.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Optional
+
+import torch
+
+from a3t_tpu_torch.train.optim import OptState
+from a3t_tpu_torch.train.reporter import Reporter
+
+logger = logging.getLogger("a3t_tpu_torch")
+
+
+def _write_atomic(path: str, write) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _save(obj, path: str) -> None:
+    _write_atomic(path, lambda tmp: torch.save(obj, tmp))
+
+
+def _save_text(text: str, path: str) -> None:
+    def write(tmp):
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(text)
+
+    _write_atomic(path, write)
+
+
+def _state_tree(state) -> dict:
+    os_ = state.opt_state
+    return {"step": state.step, "model": state.model.state_dict(),
+            "opt_state": {k: getattr(os_, k) for k in
+                          OptState.__dataclass_fields__}}
+
+
+def _load_into(state, tree: dict):
+    """Restore ``tree`` into the live TrainState ``state`` (in place),
+    keeping each tensor's device."""
+    state.model.load_state_dict(tree["model"], strict=True)
+    os_ = state.opt_state
+    for k, v in tree["opt_state"].items():
+        old = getattr(os_, k)
+        setattr(os_, k, v.to(device=old.device, dtype=old.dtype))
+    state.step = int(tree["step"])
+    return state
+
+
+def _read(path: str, device="cpu"):
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep_nbest: int = 5,
+                 criterion=("valid", "loss", "min")):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.keep_nbest = keep_nbest
+        self.criterion = tuple(criterion)
+
+    def _epoch_path(self, epoch: int) -> str:
+        return os.path.join(self.directory, f"epoch_{epoch}.pt")
+
+    @staticmethod
+    def _epoch_of(name: str) -> Optional[int]:
+        """epoch_<n>.pt -> n; None for anything else."""
+        if not (name.startswith("epoch_") and name.endswith(".pt")):
+            return None
+        tail = name[len("epoch_"):-len(".pt")]
+        return int(tail) if tail.isdigit() else None
+
+    # -- per-epoch checkpoints ---------------------------------------------
+    def save_epoch(self, epoch: int, state, reporter: Reporter):
+        """Save the full state after ``epoch``, the reporter's history and
+        the LATEST pointer, then prune to the n best."""
+        _save(_state_tree(state), self._epoch_path(epoch))
+        _save_text(json.dumps({"epoch": epoch,
+                               "reporter": reporter.state_dict()}),
+                   os.path.join(self.directory, "meta.json"))
+        _save_text(str(epoch), os.path.join(self.directory, "LATEST"))
+        self._prune(reporter)
+
+    def _prune(self, reporter: Reporter):
+        phase, key, mode = self.criterion
+        keep = set(reporter.sort_epochs(phase, key, mode)[: self.keep_nbest])
+        # always keep the newest for resume, also when the criterion's phase
+        # has no stats (training without a validation set)
+        keep.add(reporter.epoch)
+        for name in os.listdir(self.directory):
+            e = self._epoch_of(name)
+            if e is not None and e not in keep:
+                os.remove(os.path.join(self.directory, name))
+
+    def latest_epoch(self) -> Optional[int]:
+        marker = os.path.join(self.directory, "LATEST")
+        if not os.path.exists(marker):
+            return None
+        with open(marker) as f:
+            e = int(f.read().strip())
+        if os.path.exists(self._epoch_path(e)):
+            return e
+        done = [d for d in map(self._epoch_of, os.listdir(self.directory))
+                if d is not None]
+        return max(done) if done else None
+
+    def restore(self, epoch: int, state):
+        """Load epoch ``epoch``'s full state into ``state`` (in place)."""
+        return _load_into(state, _read(self._epoch_path(epoch)))
+
+    def restore_reporter(self, reporter: Reporter,
+                         up_to_epoch: Optional[int] = None) -> Optional[int]:
+        """Load the reporter's history from meta.json, dropping entries newer
+        than ``up_to_epoch`` (the epoch whose weights exist)."""
+        meta_path = os.path.join(self.directory, "meta.json")
+        if not os.path.exists(meta_path):
+            return None
+        with open(meta_path, encoding="utf-8") as f:
+            meta = json.load(f)
+        reporter.load_state_dict(meta["reporter"])
+        epoch = int(meta["epoch"])
+        if up_to_epoch is not None and epoch > up_to_epoch:
+            reporter.history = {e: h for e, h in reporter.history.items()
+                                if e <= up_to_epoch}
+            reporter.epoch = epoch = up_to_epoch
+        return epoch
+
+    # -- mid-epoch checkpoints ---------------------------------------------
+    def _step_path(self, epoch: int, iteration: int) -> str:
+        return os.path.join(self.directory, f"step_e{epoch}_i{iteration}.pt")
+
+    def save_mid_epoch(self, epoch: int, iteration: int, state,
+                       reporter: Reporter):
+        """Save the full state after ``iteration`` steps of ``epoch``; only
+        the newest mid-epoch checkpoint is kept, and the epoch checkpoints,
+        the n-best ranking and LATEST stay as they are."""
+        path = self._step_path(epoch, iteration)
+        _save(_state_tree(state), path)
+        _save_text(json.dumps({"epoch": epoch, "iteration": iteration,
+                               "reporter": reporter.state_dict()}),
+                   os.path.join(self.directory, "meta_step.json"))
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and name != os.path.basename(path):
+                os.remove(os.path.join(self.directory, name))
+
+    def latest_mid_epoch(self) -> Optional[tuple[int, int]]:
+        """(epoch, iteration) of the newest mid-epoch checkpoint, if any."""
+        keys = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_e") and name.endswith(".pt"):
+                e, i = name[len("step_e"):-len(".pt")].split("_i")
+                keys.append((int(e), int(i)))
+        return max(keys) if keys else None
+
+    def restore_mid_epoch(self, state, reporter: Reporter):
+        """Load the newest mid-epoch checkpoint into ``state``; returns
+        (state, epoch, iteration).  The caller resumes that epoch skipping
+        the first ``iteration`` batches."""
+        key = self.latest_mid_epoch()
+        if key is None:
+            raise FileNotFoundError("no mid-epoch checkpoint")
+        epoch, iteration = key
+        with open(os.path.join(self.directory, "meta_step.json"),
+                  encoding="utf-8") as f:
+            meta = json.load(f)
+        state = _load_into(state, _read(self._step_path(epoch, iteration)))
+        reporter.load_state_dict(meta["reporter"])
+        return state, epoch, iteration
+
+    def clear_mid_epoch(self):
+        """Drop mid-epoch checkpoints (once their epoch completes)."""
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") or name == "meta_step.json":
+                os.remove(os.path.join(self.directory, name))
+
+    # -- n-best averaging ----------------------------------------------------
+    def average_nbest(self, reporter: Reporter, model: torch.nn.Module,
+                      n: Optional[int] = None):
+        """Write ``ave_<k>best.pt``: the mean (in float64, cast back to each
+        parameter's dtype) of the parameters of the k <= n best epochs that
+        still have checkpoints.  Returns ({name: tensor}, epochs)."""
+        phase, key, mode = self.criterion
+        n = n if n is not None else self.keep_nbest
+        epochs = [e for e in reporter.sort_epochs(phase, key, mode)[:n]
+                  if os.path.exists(self._epoch_path(e))]
+        if not epochs:
+            raise ValueError("no ranked epochs available to average")
+        names = [name for name, _ in model.named_parameters()]
+        acc = None
+        for e in epochs:
+            sd = _read(self._epoch_path(e))["model"]
+            vals = [sd[name].to(torch.float64) for name in names]
+            acc = vals if acc is None else [a + v for a, v in zip(acc, vals)]
+        dtypes = {name: p.dtype for name, p in model.named_parameters()}
+        avg = {name: (a / len(epochs)).to(dtypes[name])
+               for name, a in zip(names, acc)}
+        _save({"params": avg},
+              os.path.join(self.directory, f"ave_{len(epochs)}best.pt"))
+        return avg, epochs
+
+
+def load_params(path: str) -> dict:
+    """The parameters ``{name: tensor}`` (on the CPU) of a port checkpoint
+    file: an ``ave_*`` export's ``params``, or an epoch or mid-epoch
+    checkpoint's model state (BatchNorm statistics included).  It stands
+    where ``a3t_tpu.train.checkpoint.restore_portable`` does."""
+    tree = _read(path)
+    return tree["params"] if "params" in tree else tree["model"]
+
+
+def warm_start_params(model: torch.nn.Module, path: str,
+                      grow_vocab: bool = False,
+                      allow_missing: bool = False) -> torch.nn.Module:
+    """Load a port checkpoint's parameters into ``model`` (in place), each
+    cast to the model's dtype and device: the reference's --init_param
+    (espnet2/torch_utils/load_pretrained_model.py:43-102).
+
+    ``grow_vocab=True`` lets the model's embedding tables be longer than the
+    checkpoint's (the first rows are loaded, the new ids keep their fresh
+    init); ``allow_missing=True`` lets the model hold parameters the
+    checkpoint lacks (they keep their fresh init).  Checkpoint parameters the
+    model lacks always raise."""
+    buffers = dict(model.named_buffers())  # BatchNorm statistics
+    loaded = {k: v for k, v in load_params(path).items() if k not in buffers}
+    own = dict(model.named_parameters())
+    extra = sorted(set(loaded) - set(own))
+    if extra:
+        raise ValueError(
+            f"warm-start params structure mismatch: {path} holds params the "
+            f"model lacks (first: {extra[:3]}) — did the config change?")
+    fresh = sorted(set(own) - set(loaded))
+    if fresh and not allow_missing:
+        raise ValueError(
+            f"warm-start params structure mismatch: model params missing "
+            f"from {path} (first: {fresh[:3]}); pass allow_missing=True to "
+            "keep their fresh init (new-module fine-tune)")
+    if fresh:
+        logger.info("warm-start: %d params not in %s keep fresh init "
+                    "(first: %s)", len(fresh), path, fresh[:3])
+    with torch.no_grad():
+        for name, x in loaded.items():
+            p = own[name]
+            if x.shape != p.shape:
+                growth = (grow_vocab and x.dim() == p.dim()
+                          and x.shape[1:] == p.shape[1:]
+                          and x.shape[0] < p.shape[0])
+                if not growth:
+                    raise ValueError(
+                        f"warm-start shape mismatch at {name}: checkpoint "
+                        f"{tuple(x.shape)} vs model {tuple(p.shape)}")
+                p[: x.shape[0]].copy_(x.to(p.dtype))
+            else:
+                p.copy_(x.to(p.dtype))
+    return model

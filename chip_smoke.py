@@ -13,7 +13,8 @@ Phases, each printing its elapsed seconds:
    log-mel kernel K6; their ptxas registers and spills; the tensor-core
    (HGMMA) instructions of each K1, K2, K3, K4 and K5 function in the
    compiled code (cuobjdump -sass): every bf16 function must have some and
-   no fp32 function any (full fp32, no TF32);
+   no fp32 function any (full fp32, no TF32); beside them, the native WAV
+   loader (native/loader) with the host C++ compiler;
 3. kernel: K1 (through its wrapper) against its plain PyTorch version on
    the card, at the slice's shapes, in float32 and bfloat16, with and
    without a padded key tail, out and logsumexp; at dropout rate 0.1 the
@@ -85,7 +86,32 @@ Phases, each printing its elapsed seconds:
    rows), in bf16 and float32; then, with the yaml's dropout rates, 2
    warm-up and 5 timed steps, each finite, not skipped, with 6 launches of
    each of K3, K4 and K5; the median step time, mel-frames/s, peak memory, a
-   CUDA-event split and one step under torch.profiler.
+   CUDA-event split and one step under torch.profiler;
+12. trainer: configs/a3t_conformer_24k.yaml, unedited, through
+   a3t_tpu_torch.bin.train.main on a generated 24 kHz corpus (600 training
+   utterances generated in six processes, of which it keeps two whole
+   batches of each of the yaml's first two buckets, 292 at 256 frames and
+   146 at 512, and 64 validation utterances, in a temporary directory):
+   run A trains 2 epochs of 4 steps at the yaml's buckets and batch sizes
+   (256 x 146, 512 x 73), each step finite and not skipped, 8 K1 launches
+   per train and eval step and 8 K2 per train step, config, tokens, epoch
+   and average checkpoints written, and build_model_from_dir serves a
+   finite forward; run B (stopped after epoch 1, started again) and run C
+   (stopped at a mid-epoch save, started again) end equal to A bit for bit
+   (parameters, BatchNorm statistics, Adam's moments), all three with
+   cudnn.deterministic, torch.use_deterministic_algorithms(True) and
+   CUBLAS_WORKSPACE_CONFIG set (the CLI sets none of them); K1 (out, lse)
+   and K2 (dq, dk, dv, dbias) against their plain versions at each
+   bucket's shape as the step gives it to them (B x (frames + phones), the
+   key mask of a real batch), in float32 and bfloat16, at dropout 0 and
+   0.2; the batches that reach the step through the prefetch thread and
+   DeviceTransfer equal the host's bit for bit, with the consumer's stream
+   held back and batches held; then, in fp32 and in bf16 (whose epoch
+   launches K1 and K2 8 times a step too), per-bucket step times on the
+   device's clock, mel-frames/s (padded and the utterances' own), data
+   wait, host time per step and the device's idle time between steps, the
+   busy share over an epoch of 3 steps (torch.profiler), the native decode
+   and host assembly of one batch, and the bare step on the same bucket.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -98,6 +124,7 @@ import json
 import math
 import os
 import sys
+import threading
 import time
 
 T0 = time.perf_counter()
@@ -1338,6 +1365,24 @@ def step_split(torch, state, fe, batch, gen, label, what):
     return t
 
 
+def device_busy(torch, prof):
+    """(busy ms, window ms, {kernel name: ms}, activities) of a
+    torch.profiler run: the union of the device's activities over the
+    window from the first to the last of them; None when the profiler saw
+    no device activity."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end, by_name = 0.0, spans[0][0], {}
+    for t0, t1, name in spans:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
+    return busy / 1e3, (end - spans[0][0]) / 1e3, by_name, len(spans)
+
+
 def profile_step(torch, step, state, batch, gen, label, what, top=10):
     """One more step under torch.profiler: the device's busy share over the
     step and the kernels that take its time.  Returns ({kernel name: ms},
@@ -1348,26 +1393,19 @@ def profile_step(torch, step, state, batch, gen, label, what, top=10):
                              ProfilerActivity.CUDA]) as prof:
         step(state, batch, gen)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
+    busy = device_busy(torch, prof)
+    if busy is None:
         log(f"  {what} step profile: the profiler saw no device activity; "
             "busy share not measured")
         return None
-    busy, end, by_name = 0.0, spans[0][0], {}
-    for t0, t1, name in spans:
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
-        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
-    window = end - spans[0][0]
-    log(f"  {what} step profile: device busy {busy / 1e3:.2f} ms of "
-        f"{window / 1e3:.2f} ms from first to last device activity "
-        f"(busy share {busy / window:.4f}), {len(spans)} device activities "
+    busy_ms, window, by_name, n = busy
+    log(f"  {what} step profile: device busy {busy_ms:.2f} ms of "
+        f"{window:.2f} ms from first to last device activity "
+        f"(busy share {busy_ms / window:.4f}), {n} device activities "
         f"[{label}]")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {ms:9.3f} ms  {name[:100]}")
-    return by_name, busy / 1e3
+    return by_name, busy_ms
 
 
 def train_phase(torch, np, fa, wall_time, label, compute_dtype="float32",
@@ -1797,6 +1835,547 @@ def train_longformer_phase(torch, np, ba, wall_time, label, device="cuda"):
     return launches, med * 1e3
 
 
+# --- trainer: bin/train.main on a generated corpus ---------------------------
+
+CONFIG_24K = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "a3t_conformer_24k.yaml")
+# the generated corpus: 6 training shards of 100 utterances and one
+# validation shard of 64, each written by its own process.  8-35 phones of
+# 60-220 ms make 40-470 frames at 24 kHz (hop 300): about half fall in the
+# yaml's 256-frame bucket (146 a batch) and half in its 512-frame bucket
+# (73 a batch), none above.  The training split keeps two whole batches of
+# each bucket (292 and 146 utterances, the first in uid order), so every
+# step of the phase is a full batch, as in a corpus of thousands of batches.
+TRAIN_SHARDS = 6
+SHARD_UTTS = 100
+VALID_UTTS = 64
+PHONES = (8, 36)
+HOP_24K = 300
+MIN_FRAMES = 16  # BatcherConfig.min_frames: shorter utterances are dropped
+TRAIN_FILL = ((256, 2 * 146), (512, 2 * 73))  # (bucket frames, utterances)
+ITERS = 4  # steps per epoch of the runs held against each other: one pass
+
+
+def _gen_shard(out_dir, n_utts, seed):
+    from a3t_tpu_torch.data.miniature import generate_speechlike_corpus
+
+    generate_speechlike_corpus(out_dir, n_utts=n_utts, n_speakers=8,
+                               fs=24000, n_phones_range=PHONES, seed=seed,
+                               speaker_seed=0)
+
+
+def _n_frames(path):
+    """The batcher's frame count of a wav, from its header."""
+    import wave
+
+    with wave.open(path) as w:
+        return 1 + w.getnframes() // HOP_24K
+
+
+def make_corpus(root):
+    """(train_dir, valid_dir, seconds, bytes): the shards generated in
+    parallel processes, then merged into one data directory (uids prefixed
+    by shard) that keeps TRAIN_FILL's utterances of each bucket."""
+    import multiprocessing
+
+    from a3t_tpu_torch.data.fileio import (read_2column_text,
+                                           write_2column_text)
+
+    t0 = time.perf_counter()
+    jobs = [(os.path.join(root, f"shard{k}"), SHARD_UTTS, k)
+            for k in range(TRAIN_SHARDS)]
+    valid = os.path.join(root, "valid")
+    jobs.append((valid, VALID_UTTS, 100))
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        pool.starmap(_gen_shard, jobs)
+    merged = {name: {} for name in ("wav.scp", "text", "mfa_start",
+                                    "mfa_end", "utt2spk")}
+    for k, (shard, _, _) in enumerate(jobs[:-1]):
+        for name, table in merged.items():
+            for uid, v in read_2column_text(os.path.join(shard, name)).items():
+                table[f"s{k}_{uid}"] = v
+    frames = {u: _n_frames(p) for u, p in merged["wav.scp"].items()}
+    keep, lo = [], MIN_FRAMES
+    for hi, n in TRAIN_FILL:
+        members = sorted(u for u, f in frames.items() if lo < f <= hi)
+        check(len(members) >= n, f"the generated corpus holds {n} "
+              f"utterances of {lo + 1}-{hi} frames (it holds {len(members)})")
+        keep += members[:n]
+        lo = hi
+    train = os.path.join(root, "train")
+    for name, table in merged.items():
+        write_2column_text(os.path.join(train, name),
+                           {u: table[u] for u in sorted(keep)})
+    seconds = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(merged["wav.scp"][u]) for u in keep) + sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _, fs in os.walk(valid) for f in fs)
+    return train, valid, seconds, nbytes
+
+
+def _train_argv(train, valid, exp, device, *sets):
+    argv = ["--config", CONFIG_24K, "--device", device]
+    for s in (f"train_data_dir={train}", f"valid_data_dir={valid}",
+              f"exp_dir={exp}", "trainer.keep_nbest_models=2",
+              "trainer.log_interval=4", *sets):
+        argv += ["--set", s]
+    return argv
+
+
+def _snapshot(state):
+    """The model's parameters and BatchNorm statistics and Adam's moments,
+    copied to the host."""
+    out = {k: v.detach().cpu().clone()
+           for k, v in state.model.state_dict().items()}
+    out["opt.mu"] = state.opt_state.mu.cpu().clone()
+    out["opt.nu"] = state.opt_state.nu.cpu().clone()
+    return out
+
+
+def _compare(torch, got, want, what):
+    """Check bit equality; on a difference print each differing tensor's
+    largest |difference| before failing."""
+    bad = [(k, (got[k].double() - want[k].double()).abs().max().item())
+           for k in want if not torch.equal(got[k], want[k])]
+    for k, d in bad[:20]:
+        log(f"    {what}: {k} differs, max|diff| {d:.3g}")
+    log(f"  {what}: {len(want) - len(bad)} of {len(want)} tensors "
+        f"(parameters, BatchNorm statistics, Adam moments) equal bit for bit")
+    check(not bad, f"{what}: the resumed run equals the uninterrupted run")
+
+
+def _fill(batcher):
+    """bucket frames -> the share of the bucket's frames that its
+    utterances' own frames fill (the rest is padding to the bucket)."""
+    return {spec.n_frames: sum(batcher._frames[u] for u in members)
+            / (len(members) * spec.n_frames)
+            for spec, members in zip(batcher.buckets, batcher.bucket_members)}
+
+
+def _bucket_numbers(np, steps, label, what, fill):
+    """Per bucket: median device ms per step (CUDA events around each step),
+    mel-frames/s (B x F over it, and the utterances' own frames by the
+    bucket's ``fill``), the median data wait (the reporter's iter time),
+    the host's time in the step call, and the device's idle time before the
+    step (from the previous step's end event).  Every batch is full; the
+    first step of each bucket is left out."""
+    out = {}
+    for frames in sorted({r["frames"] for r in steps}):
+        rows = [r for r in steps if r["frames"] == frames][1:]
+        if not rows:
+            continue
+        ms = float(np.median([r["device_ms"] for r in rows]))
+        wait = float(np.median([r["iter_wait_s"] for r in rows])) * 1e3
+        host = float(np.median([r["host_s"] for r in rows])) * 1e3
+        gaps = [r["gap_ms"] for r in rows if "gap_ms" in r]
+        gap = float(np.median(gaps)) if gaps else float("nan")
+        b = rows[0]["batch"]
+        out[frames] = ms
+        rate = b * frames / ms * 1e3
+        log(f"  {what} bucket {frames} frames x {b}: median {ms:.2f} ms per "
+            f"step on the device's clock (n={len(rows)}, min "
+            f"{min(r['device_ms'] for r in rows):.2f}, max "
+            f"{max(r['device_ms'] for r in rows):.2f}), "
+            f"{rate:.1f} mel-frames/s (B*F = {b * frames}), of them the "
+            f"utterances' own {rate * fill[frames]:.1f} (fill "
+            f"{fill[frames]:.4f}), "
+            f"median data wait {wait:.2f} ms, host in the step call "
+            f"{host:.2f} ms, device idle before the step {gap:.2f} ms "
+            f"[{label}]")
+    return out
+
+
+def measure_trainer(torch, np, trainer, state, epoch, label, what):
+    """On a built trainer: an epoch of 8 steps for the per-bucket step
+    times and data waits, the device's busy share over an epoch of 3 steps
+    (torch.profiler), the host's batch assembly and native decode per
+    batch, and the same bucket's batch through the bare step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    factory = trainer.train_iter_factory
+    batcher = factory.batcher
+    factory.num_iters = trainer.config.num_iters_per_epoch = 8
+    n0 = len(trainer.step_log)
+    t0 = time.perf_counter()
+    state = trainer.train_one_epoch(state, epoch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = list(trainer.step_log)[n0:]
+    check(all(np.isfinite(r["loss"]) for r in steps),
+          f"{what}: every step's loss is finite")
+    log(f"  {what}: an epoch of {len(steps)} steps in {wall:.2f} s wall "
+        f"({wall / len(steps) * 1e3:.1f} ms per step, the epoch's set-up "
+        f"included) [{label}]")
+    medians = _bucket_numbers(np, steps, label, what, _fill(batcher))
+
+    # device activities only: recording the host's ops as well slows each
+    # launch, and the bf16 step's dispatch only just keeps pace with the
+    # card (with them, its 3 steps read 226-257 ms against ~195 ms)
+    factory.num_iters = trainer.config.num_iters_per_epoch = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state = trainer.train_one_epoch(state, epoch + 1)
+        torch.cuda.synchronize()
+    busy = device_busy(torch, prof)
+    if busy is None:
+        log(f"  {what}: the profiler saw no device activity; busy share "
+            "not measured")
+    else:
+        busy_ms, window, _, n = busy
+        log(f"  {what}: over an epoch of 3 steps the device is busy "
+            f"{busy_ms:.2f} ms of {window:.2f} ms from first to last device "
+            f"activity (busy share {busy_ms / window:.4f}, idle "
+            f"{1 - busy_ms / window:.4f}), {n} device activities [{label}]")
+        # where the window goes: each step between its events, the gaps
+        # between steps, and what lies outside them (the first batch's copy
+        # before step 1, the statistics' copy after step 3)
+        prof_steps = list(trainer.step_log)[-3:]
+        inside = sum(r["device_ms"] + r.get("gap_ms", 0.0)
+                     for r in prof_steps)
+        log(f"  {what}: the 3 profiled steps on the device's clock "
+            + ", ".join(f"{r['device_ms']:.2f} ms (gap before "
+                        f"{r.get('gap_ms', float('nan')):.2f}, host "
+                        f"{r['host_s'] * 1e3:.2f} ms, data wait "
+                        f"{r['iter_wait_s'] * 1e3:.2f} ms)"
+                        for r in prof_steps)
+            + f"; outside the steps {window - inside:.2f} ms of the window")
+
+    # the host's side of one batch of each bucket
+    rng = np.random.default_rng(0)
+    for bi, spec in enumerate(batcher.buckets):
+        uids = batcher.bucket_members[bi][: spec.batch_size]
+        idx = [batcher._uid_index[u] for u in uids]
+        buf = np.zeros((len(uids), spec.n_samples), np.int16)
+        dec, gen = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batcher._loader.load_batch_i16(idx, spec.n_samples, out=buf)
+            dec.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            host = batcher.make_batch(bi, uids, rng)
+            gen.append(time.perf_counter() - t0)
+        log(f"  {what} bucket {spec.n_frames}: native decode of "
+            f"{len(uids)} wavs {np.median(dec) * 1e3:.2f} ms, whole batch "
+            f"assembly (decode, masking, positions) {np.median(gen) * 1e3:.2f}"
+            f" ms per batch on the host")
+
+    # the bare step on the 256-frame bucket's batch, already on the card
+    bi = 0
+    spec = batcher.buckets[bi]
+    host = batcher.make_batch(bi, batcher.bucket_members[bi][
+        : spec.batch_size], np.random.default_rng(1))
+    batch = {k: torch.as_tensor(v, device=state.opt_state.mu.device)
+             for k, v in host.items()}
+    gen = torch.Generator().manual_seed(0)
+    times = []
+    for i in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, stats = trainer.train_step(state, batch, gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(ev[0].elapsed_time(ev[1]))
+    bare = float(np.median(times))
+    log(f"  {what}: the bare step on a {spec.n_frames}-frame batch of "
+        f"{spec.batch_size}: median {bare:.2f} ms (n=3), the trainer's "
+        f"{medians.get(spec.n_frames, float('nan')):.2f} ms for the same "
+        f"bucket ({medians.get(spec.n_frames, float('nan')) / bare:.3f}x) "
+        f"[{label}]")
+    return state
+
+
+def trainer_kernel_check(torch, np, fa, batcher, h, d, frontend):
+    """K1 (out, lse) and K2 (dq, dk, dv, dbias) against their plain versions
+    at each bucket's shape as the trainer's step hands it to them: B the
+    bucket's batch size, L its frames plus its phone tokens, the key mask
+    that of the bucket's first batch (its frames, then its phones, as
+    featurize and the model build it); float32 and bfloat16, dropout 0 and
+    0.2, random q, k, v, bias and output gradient.  Returns the largest
+    |kernel - plain| of K1 and of K2 in float32."""
+    from a3t_tpu_torch.train.train_step import featurize
+
+    g = torch.Generator().manual_seed(5)
+    dev = frontend.device
+    worst = [0.0, 0.0]
+    for bi, spec in enumerate(batcher.buckets):
+        host = batcher.make_batch(bi, batcher.bucket_members[bi][
+            : spec.batch_size], np.random.default_rng(bi))
+        mb = featurize(frontend, host)
+        mask = torch.cat([mb["speech_mask"], mb["text_mask"].bool()], 1)
+        b, l = mask.shape
+        check((b, l) == (spec.batch_size, spec.n_frames + spec.n_text),
+              f"the {spec.n_frames}-frame bucket's attention is "
+              f"{spec.batch_size} x {spec.n_frames + spec.n_text}")
+        for dt, tol, tol_bwd in ((torch.float32, TOL_F32, TOL_BWD_F32),
+                                 (torch.bfloat16, TOL_BF16, TOL_BWD_BF16)):
+            for rate in (0.0, 0.2):
+                q, k, v, go = (torch.randn(b, h, l, d, generator=g).to(
+                    dev, dt) for _ in range(4))
+                bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
+                out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, 2468,
+                                                  rate)
+                ref, ref_lse = fa.fused_attention_reference(
+                    q, k, v, bias, mask, 2468, rate)
+                ins = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+                got = torch.autograd.grad(
+                    fa.fused_attention(*ins, mask, rate, 2468), ins, go)
+                want = fa.fused_attention_bwd_reference(
+                    q, k, v, bias, mask, 2468, rate, out, lse, go)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                lerr = (lse - ref_lse).abs().max().item()
+                errs = [_rel_err(a, w) for a, w in zip(got, want)]
+                log(f"  K1/K2 at the trainer's {(b, h, l, d)} "
+                    f"{str(dt)[6:]} rate={rate}: K1 max|out-plain| "
+                    f"{err:.3g}, max|lse-plain| {lerr:.3g} (tol {tol:g}); "
+                    f"K2 max|grad-plain|/max|plain| dq {errs[0]:.3g}, dk "
+                    f"{errs[1]:.3g}, dv {errs[2]:.3g}, dbias {errs[3]:.3g} "
+                    f"(tol {tol_bwd:g})")
+                check(err <= tol and lerr <= tol,
+                      f"K1 at the trainer's {(b, h, l, d)} {dt} rate={rate}")
+                check(all(a.dtype == w.dtype for a, w in zip(got, want))
+                      and max(errs) <= tol_bwd,
+                      f"K2 at the trainer's {(b, h, l, d)} {dt} rate={rate}")
+                if dt == torch.float32:
+                    worst[0] = max(worst[0], err)
+                    worst[1] = max(worst[1], max(
+                        (a - w).abs().max().item()
+                        for a, w in zip(got, want)))
+                del q, k, v, go, bias, out, lse, ref, ref_lse, ins, got, want
+    return worst
+
+
+def transfer_check(torch, np, trainer, epoch):
+    """The trainer's batches as its step receives them, through the
+    prefetch thread and DeviceTransfer, against the same batches assembled
+    on the host, bit for bit.  Before it reads each batch the consumer
+    queues ~50 ms of work on its stream, so the producer copies ahead and
+    reuses its pinned buffers; it holds every other batch, and copies the
+    others on its stream and drops them at once, so their memory goes back
+    to the allocator while those copies still wait in the stream."""
+    factory = trainer.train_iter_factory
+    check(factory.transfer is not None, "the trainer's batches reach the "
+          "card through DeviceTransfer")
+    n = 2 * ITERS
+    saved = factory.num_iters
+    factory.num_iters = n
+    try:
+        want = list(factory._batches(epoch))
+        it = factory(epoch)
+        held, copies = {}, []
+        try:
+            for i, batch in enumerate(it):
+                torch.cuda._sleep(100_000_000)
+                copies.append({k: t.clone() for k, t in batch.items()})
+                if i % 2 == 0:
+                    held[i] = batch
+                del batch
+        finally:
+            it.close()
+    finally:
+        factory.num_iters = saved
+    torch.cuda.synchronize()
+    check(len(copies) == n, f"the prefetch iterator gave {n} batches")
+    bad = [(i, k, how) for how, got in
+           (("read on the step's stream", dict(enumerate(copies))),
+            ("held", held))
+           for i, batch in got.items() for k, t in batch.items()
+           if not np.array_equal(t.cpu().numpy(), want[i][k])]
+    log(f"  DeviceTransfer: {n} batches ({len(want[0])} arrays each) read "
+        f"on the step's stream after a queued wait, {len(held)} of them "
+        f"held to the end: {len(bad)} arrays differ from the host's "
+        f"batches {bad[:8]}")
+    check(not bad, "the batches on the card equal the host's bit for bit")
+
+
+def trainer_phase(torch, np, fa, label, device="cuda"):
+    """configs/a3t_conformer_24k.yaml, unedited, trained through
+    bin/train.main on a generated 24 kHz corpus; returns the K1/K2 launches
+    of the uninterrupted fp32 run and the bf16 run, and K1's and K2's
+    largest float32 errors at the trainer's shapes."""
+    import gc
+    import tempfile
+
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.dsp import LogMelFrontend
+    from a3t_tpu_torch.tasks.mlm import MLMTask
+    from a3t_tpu_torch.train.checkpoint import CheckpointManager
+    from a3t_tpu_torch.train.train_step import featurize
+
+    with tempfile.TemporaryDirectory(prefix="a3t_trainer_") as root:
+        train, valid, secs, nbytes = make_corpus(os.path.join(root, "data"))
+        log(f"  corpus: {TRAIN_SHARDS * SHARD_UTTS} training and "
+            f"{VALID_UTTS} validation utterances at 24 kHz generated in "
+            f"{secs:.2f} s ({TRAIN_SHARDS + 1} processes), {nbytes / 1e6:.1f}"
+            f" MB on disk")
+
+        def run(name, *sets):
+            exp = os.path.join(root, name)
+            t0 = time.perf_counter()
+            trainer, state = train_main(_train_argv(train, valid, exp, device,
+                                                    *sets))
+            torch.cuda.synchronize()
+            log(f"  run {name} ({' '.join(sets)}): "
+                f"{len(trainer.step_log)} steps in "
+                f"{time.perf_counter() - t0:.2f} s")
+            return exp, trainer, state
+
+        iters = f"trainer.num_iters_per_epoch={ITERS}"
+        # Runs A, B and C in deterministic mode: cuDNN's deterministic
+        # algorithms, and PyTorch's deterministic implementations, which
+        # this step needs for nn.Embedding's backward (its CUDA kernel sums
+        # with atomics, so two identical passes differ in the embeddings'
+        # gradients without them).  Any op without a deterministic
+        # implementation would raise here.
+        cudnn = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            # A: two epochs, uninterrupted
+            fa.reset_launches()
+            exp_a, trainer, state = run("A", "trainer.max_epoch=2", iters)
+            launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+            want = _snapshot(state)
+            batcher = trainer.train_iter_factory.batcher
+            buckets = [(b.n_frames, b.batch_size) for b in batcher.buckets]
+            members = [len(m) for m in batcher.bucket_members]
+            log(f"  buckets (frames, batch): {buckets}, members {members}, "
+                f"{batcher.n_dropped} dropped")
+            check(buckets == [(256, 146), (512, 73)],
+                  "the yaml's first two buckets at its batch sizes")
+            check(all(m == 2 * b for m, (_, b) in zip(members, buckets))
+                  and batcher.n_dropped == 0,
+                  "each bucket holds two whole batches, nothing dropped")
+            steps = trainer.step_log
+            check(len(steps) == 2 * ITERS and all(
+                np.isfinite(r["loss"]) for r in steps),
+                "every step of run A is finite")
+            check(int(state.opt_state.total_notfinite) == 0,
+                  "no step of run A was skipped")
+            n_eval = sum(len(trainer.valid_iter_factory.batcher.batch_plan(e))
+                         for e in (1, 2))
+            log(f"  run A: {len(steps)} train steps "
+                f"{[(r['frames'], round(r['loss'], 3)) for r in steps]}, "
+                f"{n_eval} eval steps; launches K1 {launches[0]} K2 "
+                f"{launches[1]}; valid loss by epoch "
+                f"{[round(h['valid']['loss'], 4) for h in trainer.reporter.history.values()]}")
+            check(launches == (8 * (len(steps) + n_eval), 8 * len(steps)),
+                  "8 K1 launches per train and eval step, 8 K2 per train "
+                  "step")
+            files = sorted(os.listdir(exp_a)) + sorted(
+                os.listdir(os.path.join(exp_a, "checkpoints")))
+            log(f"  run A wrote {files}")
+            check({"config.yaml", "tokens.txt", "epoch_1.pt", "epoch_2.pt",
+                   "ave_2best.pt"} <= set(files),
+                  "config, tokens, epoch and average checkpoints written")
+
+            model, cfg, conv = MLMTask.build_model_from_dir(exp_a,
+                                                            device=device)
+            vb = trainer.valid_iter_factory.batcher
+            host = vb.make_batch(0, vb.bucket_members[0][
+                : vb.buckets[0].batch_size], np.random.default_rng(0))
+            fe = LogMelFrontend(cfg.frontend, device=device)
+            with torch.no_grad():
+                before, after = model(**featurize(fe, host))
+            check(bool(torch.isfinite(after).all()) and tuple(after.shape)
+                  == (vb.buckets[0].batch_size, vb.buckets[0].n_frames, 80),
+                  "build_model_from_dir serves a finite forward")
+            log(f"  build_model_from_dir(A): forward on a validation batch "
+                f"{tuple(after.shape)}, finite")
+            del model, before, after
+
+            # B: stopped after epoch 1, started again
+            exp_b, _, _ = run("B", "trainer.max_epoch=1", iters)
+            _, tb, sb = run("B", "trainer.max_epoch=2", iters)
+            check([r["epoch"] for r in tb.step_log] == [2] * ITERS,
+                  "run B resumed at epoch 2")
+            _compare(torch, _snapshot(sb), want, "epoch resume (B vs A)")
+            del tb, sb
+
+            # C: stopped at a mid-epoch save in epoch 2, started again
+            save = CheckpointManager.save_mid_epoch
+
+            class Stop(Exception):
+                pass
+
+            def save_then_stop(self, epoch, iteration, *a, **kw):
+                save(self, epoch, iteration, *a, **kw)
+                if epoch == 2:
+                    raise Stop
+
+            CheckpointManager.save_mid_epoch = save_then_stop
+            try:
+                run("C", "trainer.max_epoch=2", iters,
+                    "trainer.save_interval_steps=3")
+                check(False, "run C stops at its mid-epoch save")
+            except Stop:
+                pass
+            finally:
+                CheckpointManager.save_mid_epoch = save
+            mid = CheckpointManager(os.path.join(root, "C", "checkpoints")
+                                    ).latest_mid_epoch()
+            check(mid == (2, 3), f"run C left a mid-epoch save at {mid}")
+            _, tc, sc = run("C", "trainer.max_epoch=2", iters,
+                            "trainer.save_interval_steps=3")
+            check([(r["epoch"], r["iteration"]) for r in tc.step_log]
+                  == [(2, 3)], "run C resumed at epoch 2, iteration 3")
+            _compare(torch, _snapshot(sc), want, "mid-epoch resume (C vs A)")
+            del tc, sc
+            _bucket_numbers(np, steps, label, "run A (deterministic mode)",
+                            _fill(batcher))
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = cudnn
+            torch.use_deterministic_algorithms(False)
+            if cublas is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        att = next(m for m in state.model.modules() if hasattr(m, "d_k"))
+        errs = trainer_kernel_check(torch, np, fa, batcher, att.h, att.d_k,
+                                    fe)
+        transfer_check(torch, np, trainer, 5)
+
+        # timing in fp32 (cuDNN's own choices again) on run A's trainer
+        state = measure_trainer(torch, np, trainer, state, 3, label,
+                                "trainer fp32")
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one short epoch in bf16, the stashes' own precision
+        fa.reset_launches()
+        _, trainer, state = run(
+            "bf16", "trainer.max_epoch=1", "trainer.num_iters_per_epoch=6",
+            "model.encoder.compute_dtype=bfloat16",
+            "model.decoder.compute_dtype=bfloat16")
+        bf16 = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+        steps = trainer.step_log
+        n_eval = len(trainer.valid_iter_factory.batcher.batch_plan(1))
+        check(all(np.isfinite(r["loss"]) for r in steps)
+              and int(state.opt_state.total_notfinite) == 0,
+              "every bf16 step is finite and not skipped")
+        log(f"  run bf16: {len(steps)} train steps, {n_eval} eval steps; "
+            f"launches K1 {bf16[0]} K2 {bf16[1]}")
+        check(bf16 == (8 * (len(steps) + n_eval), 8 * len(steps)),
+              "bf16: 8 K1 launches per train and eval step, 8 K2 per train "
+              "step")
+        _bucket_numbers(np, steps, label, "trainer bf16 epoch 1",
+                        _fill(trainer.train_iter_factory.batcher))
+        measure_trainer(torch, np, trainer, state, 2, label, "trainer bf16")
+        del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (launches[0] + bf16[0], launches[1] + bf16[1]), errs
+
+
 def main() -> int:
     import torch
 
@@ -1807,6 +2386,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from a3t_tpu_torch.data import native_loader
     from a3t_tpu_torch.device import card_label, cuda_ms, wall_time
     from a3t_tpu_torch.ops import banded_attention as ba
     from a3t_tpu_torch.ops import fused_attention as fa
@@ -1823,8 +2403,26 @@ def main() -> int:
             f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {label}")
 
     with Phase("build"):
+        # the trainer's native WAV loader (host C++) builds beside nvcc
+        loader_build = {}
+
+        def build_loader():
+            t0 = time.perf_counter()
+            try:
+                loader_build["path"] = native_loader.build()
+            except Exception as e:  # re-raised below, in this thread
+                loader_build["error"] = e
+            loader_build["seconds"] = time.perf_counter() - t0
+
+        loader_thread = threading.Thread(target=build_loader)
+        loader_thread.start()
         libraries = {**fa.LIBRARIES, **ba.LIBRARIES, **fl.LIBRARIES}
         paths = native.build_all(libraries)
+        loader_thread.join()
+        if "error" in loader_build:
+            raise loader_build["error"]
+        log(f"  native/loader built in {loader_build['seconds']:.2f} s: "
+            f"{os.path.relpath(loader_build['path'])}")
         fa._entry()
         fa._entry_bwd()
         fl._entry("fft")
@@ -1881,14 +2479,19 @@ def main() -> int:
         f"{6 * per_step:.2f} ms, per longformer step of {lf_step_ms:.2f} ms "
         f"[{label}]")
 
+    with Phase("trainer"):
+        (trainer_fwd, trainer_bwd), trainer_errs = trainer_phase(
+            torch, np, fa, label)
+
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "a3t_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
-        "launches": serve_launches + train_fwd + bf16_fwd,
+        "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd,
         "max_abs_err": f32["max_abs_err"],
+        "max_abs_err_trainer_shapes": trainer_errs[0],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -1900,8 +2503,9 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
-        "launches": train_bwd + bf16_bwd,
+        "launches": train_bwd + bf16_bwd + trainer_bwd,
         "max_abs_err": bwd["max_abs_err"],
+        "max_abs_err_trainer_shapes": trainer_errs[1],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

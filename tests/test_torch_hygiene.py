@@ -1,7 +1,8 @@
 """The port stands alone: a3t_tpu_torch/, chip_smoke.py and chip_ab.py
-import no JAX stack and nothing of a3t_tpu, the kernels build without
-PyTorch's headers, and the entry points run on CUDA unless the caller asks
-for the CPU."""
+import no JAX stack, nothing of a3t_tpu and no yaml (the card's machine
+makes no yaml promise; the port reads its configs with
+tasks/yaml_subset.py), the kernels build without PyTorch's headers, and the
+entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "a3t_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "a3t_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "a3t_tpu",
+             "yaml"}
 
 
 def _sources():
@@ -45,13 +47,13 @@ def _imports(tree):
 
 
 def test_no_jax_or_a3t_tpu_imports():
-    """Nowhere in the port, not even inside functions; yaml only lazily."""
+    """Nowhere in the port, not even inside functions; no yaml either."""
     bad = []
     for path in _sources():
         with open(path, encoding="utf-8") as f:
             tree = ast.parse(f.read(), path)
-        for root, at_top in _imports(tree):
-            if root in FORBIDDEN or (root == "yaml" and at_top):
+        for root, _ in _imports(tree):
+            if root in FORBIDDEN:
                 bad.append(f"{os.path.relpath(path, ROOT)}: {root}")
     assert not bad, bad
 
@@ -63,7 +65,7 @@ def test_import_loads_no_jax():
             ".__init__") for p in _sources() if p.startswith(PKG))
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{sorted(FORBIDDEN | {'yaml'})!r}]\n"
+            f"{sorted(FORBIDDEN)!r}]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -112,6 +114,46 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             make(device="cuda")
         make(device="cpu")
+
+
+def test_training_entry_points_need_cuda_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """bin/train.main (default --device cuda) and MLMTask raise without a
+    card before they write anything; with the CPU asked for they train."""
+    from a3t_tpu_torch.bin.train import main
+    from a3t_tpu_torch.data.miniature import generate_mini_corpus
+    from a3t_tpu_torch.tasks.config import load_config
+    from a3t_tpu_torch.tasks.mlm import MLMTask
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = generate_mini_corpus(str(tmp_path / "data"), n_utts=3, fs=24000)
+    exp = str(tmp_path / "exp")
+    sets = [f"train_data_dir={data}", "valid_data_dir=''", f"exp_dir={exp}",
+            "frontend.n_mels=8", "model.postnet_layers=1",
+            "model.postnet_chans=8", "batcher.batch_bins=2048",
+            "batcher.bucket_frames=[256]", "trainer.max_epoch=1",
+            "trainer.num_iters_per_epoch=1"]
+    sets += [f"model.{s}.{k}={v}" for s in ("encoder", "decoder")
+             for k, v in (("attention_dim", 16), ("linear_units", 16),
+                          ("num_blocks", 1))]
+    argv = ["--config", os.path.join(ROOT, "configs", "a3t_conformer_24k.yaml"),
+            "--log-level", "WARNING"]
+    for s in sets:
+        argv += ["--set", s]
+    cfg = load_config(argv[1], sets)
+    for make in (lambda **kw: main(argv + [f"--device={kw['device']}"]
+                                   if kw else argv),
+                 lambda **kw: MLMTask.build(cfg, **kw),
+                 lambda **kw: MLMTask.build_model_from_dir(exp, **kw)):
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make(**kw)
+    assert not os.path.exists(exp)
+    trainer, state = main(argv + ["--device", "cpu"])
+    assert state.step == 1 and next(state.model.parameters()).device.type \
+        == "cpu"
+    MLMTask.build_model_from_dir(exp, device="cpu")
+    MLMTask.build(cfg, device="cpu")
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

@@ -1,0 +1,169 @@
+"""Speech-editing CLI: the port of ``a3t_tpu/bin/sedit.py``.
+
+    # regenerate a span so the utterance says the new text
+    python -m a3t_tpu_torch.bin.sedit edit --exp-dir exp/a3t \
+        --data-dir dump/dev --uid utt001 --new-text "HH AH0 L OW1 W ER1 L D" \
+        --out edited.wav
+
+    # prompt TTS: continue the utterance with new content
+    python -m a3t_tpu_torch.bin.sedit prompt --exp-dir exp/a3t \
+        --data-dir dump/dev --uid utt001 \
+        --new-text "<prompt text> <continuation>" --out out.wav
+
+    # MCD-style reconstruction of the span under [MASK]
+    python -m a3t_tpu_torch.bin.sedit reconstruct --exp-dir exp/a3t \
+        --data-dir dump/dev --uid utt001 --new-text "A B [MASK] E F" \
+        --out rec.wav
+
+The model comes from an experiment directory of ``a3t_tpu_torch.bin.train``
+(``--checkpoint``: ave, latest or epoch_N), the vocoder from a
+``parallel_wavegan`` checkpoint (``--vocoder PKL``) or Griffin-Lim when
+none is given.  New text is read through a phone-level lexicon (every phone
+of the data directory's ``text`` maps to itself) and the native
+letter-to-sound engine for other words.  Runs on the CUDA card unless
+``--device cpu`` is given.  ``--duration-model`` (FastSpeech2, ROADMAP A9),
+``--spk-xvector`` (speaker conditioning, A3) and a vocoder directory
+trained by ``a3t_tpu.train.vocoder`` (orbax, A2) are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def refuse_unported(args) -> None:
+    """Raise for the options that wait for other ROADMAP items."""
+    if args.duration_model:
+        raise NotImplementedError(
+            "--duration-model needs FastSpeech2, which is not ported "
+            "(ROADMAP A9)")
+    if args.spk_xvector:
+        raise NotImplementedError(
+            "--spk-xvector needs speaker conditioning, which is not ported "
+            "(ROADMAP A3)")
+    if args.vocoder and os.path.isdir(args.vocoder):
+        raise NotImplementedError(
+            f"{args.vocoder} is a vocoder directory (orbax), which the port "
+            "cannot read (ROADMAP A2); pass a parallel_wavegan checkpoint")
+
+
+def make_vocoder(path, frontend_config, device):
+    """A callable (B, F, n_mels) mel -> (B, S) wav: the parallel_wavegan
+    checkpoint at ``path`` (the default generator, hop 300, with the
+    front-end's mel bins) with its noise drawn from a generator seeded with
+    0 in every call, or None (Griffin-Lim) without a path."""
+    if not path:
+        return None
+    import torch
+
+    from a3t_tpu_torch.models.pwg import (ParallelWaveGANGenerator, PWGConfig,
+                                          load_pwg_checkpoint)
+
+    cfg = PWGConfig(aux_channels=frontend_config.n_mels)
+    if cfg.upsample_factor != frontend_config.hop_length:
+        raise ValueError(f"the parallel_wavegan generator upsamples by "
+                         f"{cfg.upsample_factor}, the front-end's hop is "
+                         f"{frontend_config.hop_length}")
+    gen = ParallelWaveGANGenerator(cfg)
+    gen.load_state_dict(load_pwg_checkpoint(path, cfg), strict=True)
+    gen = gen.to(device).eval()
+    noise = torch.Generator(device=device)
+    return lambda mel: gen(mel, generator=noise.manual_seed(0))
+
+
+def phone_lexicon(texts: dict) -> dict:
+    """Every phone of a data directory's texts maps to itself."""
+    phones = {p for t in texts.values() for p in t.split()}
+    return {p.upper(): [p] for p in phones}
+
+
+def build_editor(args):
+    """(editor, alignments, dataset, texts) for ``args``."""
+    from a3t_tpu_torch.data.dataset import A3TDataset
+    from a3t_tpu_torch.data.fileio import read_2column_text
+    from a3t_tpu_torch.device import resolve_device
+    from a3t_tpu_torch.inference import FileAlignmentSource, SpeechEditor
+    from a3t_tpu_torch.tasks.mlm import MLMTask
+    from a3t_tpu_torch.text import letter_to_sound
+
+    dev = resolve_device(args.device)
+    model, cfg, conv = MLMTask.build_model_from_dir(
+        args.exp_dir, which=args.checkpoint, device=dev)
+    texts = read_2column_text(os.path.join(args.data_dir, "text"))
+    duration_fn = None
+    if args.uniform_duration > 0:
+        def duration_fn(phones, wav):
+            return [args.uniform_duration] * len(phones)
+    editor = SpeechEditor(
+        model, cfg.frontend, conv,
+        vocoder=make_vocoder(args.vocoder, cfg.frontend, dev),
+        duration_fn=duration_fn, lexicon=phone_lexicon(texts),
+        g2p=letter_to_sound, device=dev)
+    dataset = A3TDataset(args.data_dir, conv)
+    return editor, FileAlignmentSource(args.data_dir), dataset, texts
+
+
+def main(argv=None):
+    """Edit one utterance and write the wav; returns the ``EditResult``
+    (edit, reconstruct) or the prompt TTS dict."""
+    parser = argparse.ArgumentParser(description="A3T speech editing "
+                                                 "(PyTorch)")
+    parser.add_argument("mode", choices=["edit", "prompt", "reconstruct"])
+    parser.add_argument("--exp-dir", required=True)
+    parser.add_argument("--data-dir", required=True,
+                        help="dir with wav.scp/text/mfa_start/mfa_end")
+    parser.add_argument("--uid", required=True)
+    parser.add_argument("--new-text", required=True)
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--checkpoint", default="ave")
+    parser.add_argument("--vocoder", default=None,
+                        help="parallel_wavegan checkpoint (Griffin-Lim if "
+                             "unset)")
+    parser.add_argument("--duration-model", "--duration-exp-dir",
+                        dest="duration_model", default=None,
+                        help="not ported (FastSpeech2, ROADMAP A9)")
+    parser.add_argument("--spk-xvector", default=None,
+                        help="not ported (speaker conditioning, ROADMAP A3)")
+    parser.add_argument("--uniform-duration", type=float, default=0.1,
+                        help="per-phone duration in seconds for new phones")
+    parser.add_argument(
+        "--dynamic-eval", default=None, metavar="LR,STEPS",
+        help="test-time fine-tuning on the utterance before decoding, "
+             "e.g. 5e-5,3")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda)")
+    args = parser.parse_args(argv)
+    refuse_unported(args)
+
+    from a3t_tpu_torch.data.fileio import write_wav
+
+    editor, aligner, dataset, texts = build_editor(args)
+    wav = dataset[args.uid]["audio"]
+    align = aligner(args.uid)
+    old_str = texts[args.uid]
+
+    if args.dynamic_eval:
+        from a3t_tpu_torch.inference.baselines import dynamic_evaluation
+
+        lr, steps = args.dynamic_eval.split(",")
+        editor = dynamic_evaluation(editor, wav, align, old_str,
+                                    lr=float(lr), steps=int(steps))
+
+    fs = editor.fe.config.fs
+    if args.mode == "prompt":
+        res = editor.prompt_tts(wav, align, old_str, args.new_text)
+        write_wav(args.out, fs, res["full"])
+    elif args.mode == "reconstruct":
+        res = editor.reconstruct_masked_span(wav, align, old_str,
+                                             args.new_text)
+        write_wav(args.out, fs, res.origin_replaced)
+    else:
+        res = editor.edit(wav, align, old_str, args.new_text)
+        write_wav(args.out, fs, res.origin_replaced)
+    print(f"wrote {args.out}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

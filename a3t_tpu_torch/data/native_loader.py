@@ -14,59 +14,29 @@ raises: there is no Python decoding to fall back to.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 from typing import Sequence
 
 import numpy as np
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-NATIVE_DIR = os.path.join(_ROOT, "native", "loader")
-BUILD_DIR = os.path.join(_ROOT, "a3t_tpu_torch", "_build")
+from a3t_tpu_torch import host_build
+
+NATIVE_DIR = os.path.join(host_build.ROOT, "native", "loader")
 SOURCES = ("loader.cc", "flac.cc", "flac.h")
+BUILD_DIR = host_build.BUILD_DIR
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 _lib = None
 
 
-def _compiler() -> str:
-    for cand in (os.environ.get("CXX"), "c++", "g++"):
-        path = cand and shutil.which(cand)
-        if path:
-            return path
-    raise RuntimeError("no C++ compiler found (CXX, c++, g++) to build "
-                       "native/loader")
-
-
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(NATIVE_DIR, name), "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"liba3t_loader_{h.hexdigest()[:16]}.so")
+    return host_build.library_path("liba3t_loader", NATIVE_DIR, SOURCES,
+                                   CXX_FLAGS, BUILD_DIR)
 
 
 def build() -> str:
-    """Compile the loader unless it is built; returns the library's path.
-    Concurrent builds each link to their own temporary name and rename
-    it into place, so a reader never maps a half-written file."""
-    path = library_path()
-    if os.path.isfile(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_compiler(), *CXX_FLAGS, "-o", tmp,
-           *(os.path.join(NATIVE_DIR, n) for n in SOURCES if n.endswith(".cc"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"building native/loader failed:\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path
+    """Compile the loader unless it is built; returns the library's path."""
+    return host_build.build(library_path(), NATIVE_DIR, SOURCES, CXX_FLAGS)
 
 
 def _load():

@@ -4,6 +4,8 @@ from a3t_tpu_torch.dsp.frontend import (
     LogMelFrontend,
     LogSpectrogramFrontend,
 )
+from a3t_tpu_torch.dsp.griffin_lim import (griffin_lim, logmel_to_wav,
+                                           mel_to_linear)
 from a3t_tpu_torch.dsp.mel import hz_to_mel, mel_filterbank, mel_to_hz
 from a3t_tpu_torch.dsp.normalize import (
     GlobalMVN,
@@ -12,10 +14,11 @@ from a3t_tpu_torch.dsp.normalize import (
     collect_stats,
 )
 from a3t_tpu_torch.dsp.stft import (dft_matrices, frame_signal, hann_window,
-                                    padded_window, stft)
+                                    istft, padded_window, stft)
 
 __all__ = ["LinearSpectrogramFrontend", "LogMelConfig", "LogMelFrontend",
            "LogSpectrogramFrontend", "hz_to_mel", "mel_filterbank",
            "mel_to_hz", "GlobalMVN", "UtteranceMVN", "aggregate_stats",
-           "collect_stats", "dft_matrices", "frame_signal", "hann_window",
+           "collect_stats", "dft_matrices", "frame_signal", "griffin_lim",
+           "hann_window", "istft", "logmel_to_wav", "mel_to_linear",
            "padded_window", "stft"]

@@ -76,3 +76,35 @@ def dft_matrices(n_fft: int, win_length: int | None = None,
     w_cos = (np.cos(ang) * w[:, None]).astype(dtype)
     w_sin = (-np.sin(ang) * w[:, None]).astype(dtype)
     return w_cos, w_sin
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: int | None = None,
+          length: int | None = None) -> torch.Tensor:
+    """Inverse STFT (overlap-add with window-square normalisation), the
+    counterpart of ``torch.istft(center=True)``: complex (B, F,
+    n_fft // 2 + 1) -> (B, S), S = ``length`` or (F - 1) * hop.
+
+    The overlap-add is ``F.fold`` (col2im), which sums each output sample's
+    frames in a fixed order without atomics, so two runs on the card agree
+    bit for bit."""
+    if win_length is None:
+        win_length = n_fft
+    window = torch.as_tensor(padded_window(n_fft, win_length),
+                             device=spec.device)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
+    b, n_f, _ = frames.shape
+    out_len = n_fft + (n_f - 1) * hop_length
+
+    def overlap_add(cols):  # (B, n_fft, F) -> (B, out_len)
+        return F.fold(cols, (1, out_len), (1, n_fft),
+                      stride=(1, hop_length)).reshape(cols.shape[0], out_len)
+
+    sig = overlap_add(frames.transpose(1, 2))
+    wsq = overlap_add((window * window)[None, :, None].expand(1, n_fft, n_f))
+    sig = sig / torch.clamp(wsq, min=1e-11)
+    pad = n_fft // 2
+    sig = sig[:, pad:-pad] if pad else sig
+    if length is not None:
+        sig = sig[:, :length]
+    return sig

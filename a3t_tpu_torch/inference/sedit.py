@@ -7,8 +7,13 @@
 * :func:`duration_adjust_factor` — trimmed-mean speaking-rate ratio;
 * :class:`SpeechEditor` — build the new phone timeline, zero-fill the edited
   span's waveform, mask it, reconstruct it with the teacher-forced A3T
-  forward, vocode, and splice ``wav[:t0] + generated[t0':t1'] + wav[t1:]``;
-  prompt TTS is the append-mode special case.
+  forward, vocode (Griffin-Lim when no vocoder is given), and splice
+  ``wav[:t0] + generated[t0':t1'] + wav[t1:]``; prompt TTS is the
+  append-mode special case;
+* :class:`FileAlignmentSource` — alignments from a data directory's
+  ``text``/``mfa_start``/``mfa_end`` files;
+* :func:`merge_utterances` — two aligned utterances as one (cross-speaker
+  prompts).
 
 The host-side logic is a copy of the JAX package's, so both give the same
 spans as integers; the front-end, model and vocoder run on the editor's
@@ -18,13 +23,17 @@ device.  Inputs are padded to frame buckets of 64 and text buckets of 8.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from a3t_tpu_torch.data.fileio import (load_num_sequence_text,
+                                       read_2column_text)
 from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.dsp.frontend import LogMelConfig, LogMelFrontend
+from a3t_tpu_torch.dsp.griffin_lim import logmel_to_wav
 from a3t_tpu_torch.masking.alignment import (
     masked_positions_from_boundary,
     segment_positions,
@@ -83,6 +92,26 @@ class UtteranceAlignment:
     start_sec: np.ndarray  # (n_phones,)
     end_sec: np.ndarray
     word2phns: dict[str, list[str]]  # "idx_WORD" -> phones (incl. sp entries)
+
+    @property
+    def durations(self) -> np.ndarray:
+        return np.asarray(self.end_sec) - np.asarray(self.start_sec)
+
+
+class FileAlignmentSource:
+    """Alignments from a data directory's text/mfa_start/mfa_end files, each
+    phone its own word in ``word2phns``."""
+
+    def __init__(self, data_dir: str):
+        self.text = read_2column_text(os.path.join(data_dir, "text"))
+        self.start = load_num_sequence_text(os.path.join(data_dir, "mfa_start"))
+        self.end = load_num_sequence_text(os.path.join(data_dir, "mfa_end"))
+
+    def __call__(self, uid: str) -> UtteranceAlignment:
+        phones = self.text[uid].split()
+        word2phns = {f"{i}_{p.upper()}": [p] for i, p in enumerate(phones)}
+        return UtteranceAlignment(
+            phones, self.start[uid], self.end[uid], word2phns)
 
 
 def _word_entries(word2phns: dict[str, list[str]]) -> list[tuple[int, str, list[str]]]:
@@ -221,12 +250,14 @@ class SpeechEditor:
         frontend_config: the front-end matching the model's training.
         token_converter: phone vocabulary.
         vocoder: callable (B, F, n_mels) log-mel tensor -> (B, S) waveform
-            tensor, e.g. a ``ParallelWaveGANGenerator``.  Griffin-Lim, the
-            JAX package's default, is not ported: without a vocoder,
-            vocoding raises.
+            tensor, e.g. a ``ParallelWaveGANGenerator``; Griffin-Lim
+            (``dsp/griffin_lim.py``, 32 iterations, seed 0) when None.
         duration_fn: callable (phones, wav) -> per-phone seconds; needed
             for text replacement and prompt TTS, not for [MASK] editing.
         lexicon / g2p: word -> phones resources for new text.
+        normalizer: applied to the front-end's mel before the model (e.g.
+            ``GlobalMVN``); its ``inverse``, where it has one, is applied
+            before vocoding.
         device: where the front-end runs; cuda unless the caller asks for
             the CPU.
     """
@@ -242,10 +273,12 @@ class SpeechEditor:
         g2p: Optional[Callable] = None,
         frame_bucket: int = 64,
         text_bucket: int = 8,
+        normalizer=None,
         device=None,
     ):
         self.device = resolve_device(device)
         self.model = model
+        self.normalizer = normalizer
         self.fe = LogMelFrontend(frontend_config, device=self.device)
         self.tokens = token_converter
         self.vocoder = vocoder
@@ -259,15 +292,19 @@ class SpeechEditor:
     def mel(self, wav: np.ndarray) -> np.ndarray:
         """Model-domain log-mel of a waveform, (1 + len // hop, n_mels)."""
         feats, _ = self.fe(torch.as_tensor(wav[None]))
+        if self.normalizer is not None:
+            feats = self.normalizer(feats)
         n_f = 1 + len(wav) // self.fe.config.hop_length
         return feats[0, :n_f].cpu().numpy()
 
     def _vocode(self, mel: np.ndarray) -> np.ndarray:
-        if self.vocoder is None:
-            raise NotImplementedError(
-                "Griffin-Lim is not ported: pass a vocoder (models/pwg.py)")
+        """Model-domain mel -> waveform, denormalising first."""
+        m = torch.as_tensor(mel[None], device=self.device)
+        if self.normalizer is not None and hasattr(self.normalizer, "inverse"):
+            m = self.normalizer.inverse(m)
         with torch.inference_mode():
-            wav = self.vocoder(torch.as_tensor(mel[None], device=self.device))
+            wav = (self.vocoder(m) if self.vocoder is not None
+                   else logmel_to_wav(m, self.fe.config))
         return wav[0].float().cpu().numpy()
 
     # -- timeline construction -------------------------------------------
@@ -376,6 +413,8 @@ class SpeechEditor:
         audio = np.zeros(s_pad, np.float32)
         audio[: len(wav)] = wav[:s_pad]
         feats, _ = self.fe(torch.as_tensor(audio[None]), [len(wav)])
+        if self.normalizer is not None:
+            feats = self.normalizer(feats)
 
         a_start = np.minimum(
             np.floor(c.fs * np.asarray(start_sec) / hop).astype(np.int32), n_f)
@@ -478,3 +517,31 @@ class SpeechEditor:
         return {"prompt": wav, "new_wav": new_wav_out,
                 "full": np.concatenate([wav[: old_b[0] * hop], new_wav_out]),
                 "mel": mel_edited, "span_boundary": new_b}
+
+
+def merge_utterances(
+    wav1: np.ndarray,
+    align1: UtteranceAlignment,
+    text1: str,
+    wav2: np.ndarray,
+    align2: UtteranceAlignment,
+    text2: str,
+) -> tuple[np.ndarray, str, UtteranceAlignment]:
+    """Concatenate two aligned utterances into one (cross-speaker
+    prompts): the second's times shift by the first's last end, its word
+    indices by the first's word count."""
+    offset = float(np.asarray(align1.end_sec)[-1])
+    new_wav = np.concatenate([wav1, wav2])
+    new_text = text1 + " " + text2
+    start = np.concatenate(
+        [np.asarray(align1.start_sec), np.asarray(align2.start_sec) + offset])
+    end = np.concatenate(
+        [np.asarray(align1.end_sec), np.asarray(align2.end_sec) + offset])
+    n1 = len(align1.word2phns)
+    word2phns = dict(align1.word2phns)
+    for key, phones in align2.word2phns.items():
+        idx, wrd = key.split("_", 1)
+        word2phns[f"{int(idx) + n1}_{wrd}"] = phones
+    merged = UtteranceAlignment(
+        list(align1.phones) + list(align2.phones), start, end, word2phns)
+    return new_wav, new_text, merged

@@ -8,6 +8,9 @@
 
 Parameter names are the ``parallel_wavegan`` package's, which
 ``a3t_tpu/models/pwg.py::convert_pwg_state`` maps onto the flax tree.
+:func:`load_pwg_checkpoint` reads that package's checkpoints (a pickle or
+``.pth`` holding ``model``/``generator``), folding weight norm into plain
+weights (:func:`convert_pwg_state`, ``a3t_tpu/models/pwg.py:278-341``).
 """
 
 from __future__ import annotations
@@ -165,3 +168,55 @@ def build_vocoder(config: PWGConfig = PWGConfig(), device=None,
     gen = ParallelWaveGANGenerator(config)
     init_parameters(gen, torch.Generator().manual_seed(seed))
     return gen.to(dev).eval()
+
+
+def _fold_weight_norm(sd: dict, key: str) -> np.ndarray:
+    """The dense conv weight, folding ``weight_g``/``weight_v`` (norm over
+    every axis but the first) if present."""
+    if f"{key}.weight" in sd:
+        return np.asarray(sd[f"{key}.weight"])
+    g = np.asarray(sd[f"{key}.weight_g"])
+    v = np.asarray(sd[f"{key}.weight_v"])
+    norm = np.sqrt((v ** 2).sum(axis=tuple(range(1, v.ndim)), keepdims=True))
+    return g * v / norm
+
+
+def convert_pwg_state(state_dict: dict,
+                      config: PWGConfig = PWGConfig()) -> dict:
+    """A ``parallel_wavegan`` generator state dict, with or without weight
+    norm, -> the state dict of :class:`ParallelWaveGANGenerator` (tensors on
+    the CPU; it loads with ``strict=True``).  Reads the keys the JAX
+    package's ``convert_pwg_state`` reads and no others."""
+    sd = {k: v.detach().cpu().numpy() if hasattr(v, "detach")
+          else np.asarray(v) for k, v in state_dict.items()}
+    out = {}
+
+    def conv(prefix, bias=True):
+        out[f"{prefix}.weight"] = _fold_weight_norm(sd, prefix)
+        if bias and f"{prefix}.bias" in sd:
+            out[f"{prefix}.bias"] = sd[f"{prefix}.bias"]
+
+    conv("first_conv")
+    conv("last_conv_layers.1")
+    conv("last_conv_layers.3")
+    conv("upsample_net.conv_in", bias=False)
+    for i in range(len(config.upsample_scales)):
+        # up_layers: [stretch, conv2d] per scale, the conv at 2i + 1
+        conv(f"upsample_net.upsample.up_layers.{2 * i + 1}", bias=False)
+    for i in range(config.layers):
+        conv(f"conv_layers.{i}.conv")
+        conv(f"conv_layers.{i}.conv1x1_aux", bias=False)
+        conv(f"conv_layers.{i}.conv1x1_out")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in out.items()}
+
+
+def load_pwg_checkpoint(path: str, config: PWGConfig = PWGConfig()) -> dict:
+    """The generator state dict of a ``parallel_wavegan`` checkpoint (its
+    ``model`` and then ``generator`` entries, where present)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "generator"):
+        if isinstance(sd, dict) and key in sd:
+            sd = sd[key]
+    return convert_pwg_state(sd, config)
+

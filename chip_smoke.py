@@ -112,6 +112,31 @@ Phases, each printing its elapsed seconds:
    wait, host time per step and the device's idle time between steps, the
    busy share over an epoch of 3 steps (torch.profiler), the native decode
    and host assembly of one batch, and the bare step on the same bucket.
+13. serve-cli: the serving and scoring CLIs on run A's experiment (kept
+   with the corpus until this phase ends) and a validation utterance of at
+   least 24 phones, through their main(argv) on the card:
+   a3t_tpu_torch.bin.sedit reconstruct (the middle third under [MASK]; once
+   cold, then 3 times), edit (3 phones replaced by 5 vocabulary phones at
+   --uniform-duration 0.1) and prompt (8 phones appended), 3 times each
+   (the median's host time is reported), each vocoded
+   with Griffin-Lim; edit again with --vocoder set to a parallel_wavegan
+   pickle written from seeded tensors (weight_g/weight_v, 24 kHz size) and
+   with --dynamic-eval 5e-5,1; then the model written as an ESPnet
+   experiment (.pth, config.yaml with its token list) and
+   a3t_tpu_torch.bin.mcd_gate --espnet-ckpt on 4 validation utterances with
+   Griffin-Lim.  Checks: every wav finite and of the length the span
+   boundaries imply, 8 K1 launches per forward, dynamic evaluation's 8 K1
+   and 8 K2 launches per example with the adapted parameters moved and the
+   original model's parameters and running statistics unchanged bit for
+   bit, MCD.json with n = 4 and finite means, --espnet-ckpt and --exp-dir
+   giving the same mel_edited bit for bit, K1 and K2 against their plain
+   versions at each request's own shape (1, 2, f_pad + t_pad, 192), fp32,
+   dropout 0 and 0.2, Griffin-Lim on the card against its CPU run from one
+   initial phase (1 and 32 iterations), two runs of istft on the card equal
+   bit for bit.  Prints each request's wall time and RTF after its model
+   load, the loads, Griffin-Lim against PWG on one mel, the edit request's
+   split, dynamic evaluation's seconds per pass and the MCD analysis's host
+   seconds per utterance.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -124,6 +149,7 @@ import json
 import math
 import os
 import sys
+import tempfile
 import threading
 import time
 
@@ -2084,6 +2110,54 @@ def measure_trainer(torch, np, trainer, state, epoch, label, what):
     return state
 
 
+def kernel_pair_check(torch, fa, mask, h, d, g, where, dtypes=None,
+                      rates=(0.0, 0.2)):
+    """K1 (out, lse) and K2 (dq, dk, dv, dbias) against their plain
+    versions at the key mask ``mask`` (B, L) with ``h`` heads of width
+    ``d``: random q, k, v, bias and output gradient from ``g``, float32 and
+    bfloat16 (or ``dtypes``), at each of ``rates``.  Returns the largest
+    |kernel - plain| of K1 and of K2 in float32."""
+    b, l = mask.shape
+    dev = mask.device
+    worst = [0.0, 0.0]
+    for dt, tol, tol_bwd in dtypes or (
+            (torch.float32, TOL_F32, TOL_BWD_F32),
+            (torch.bfloat16, TOL_BF16, TOL_BWD_BF16)):
+        for rate in rates:
+            q, k, v, go = (torch.randn(b, h, l, d, generator=g).to(
+                dev, dt) for _ in range(4))
+            bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
+            out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, 2468,
+                                              rate)
+            ref, ref_lse = fa.fused_attention_reference(
+                q, k, v, bias, mask, 2468, rate)
+            ins = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+            got = torch.autograd.grad(
+                fa.fused_attention(*ins, mask, rate, 2468), ins, go)
+            want = fa.fused_attention_bwd_reference(
+                q, k, v, bias, mask, 2468, rate, out, lse, go)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lerr = (lse - ref_lse).abs().max().item()
+            errs = [_rel_err(a, w) for a, w in zip(got, want)]
+            log(f"  K1/K2 at {where} {(b, h, l, d)} {str(dt)[6:]} "
+                f"rate={rate}: K1 max|out-plain| {err:.3g}, max|lse-plain| "
+                f"{lerr:.3g} (tol {tol:g}); K2 max|grad-plain|/max|plain| "
+                f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}, "
+                f"dbias {errs[3]:.3g} (tol {tol_bwd:g})")
+            check(err <= tol and lerr <= tol,
+                  f"K1 at {where} {(b, h, l, d)} {dt} rate={rate}")
+            check(all(a.dtype == w.dtype for a, w in zip(got, want))
+                  and max(errs) <= tol_bwd,
+                  f"K2 at {where} {(b, h, l, d)} {dt} rate={rate}")
+            if dt == torch.float32:
+                worst[0] = max(worst[0], err)
+                worst[1] = max(worst[1], max(
+                    (a - w).abs().max().item() for a, w in zip(got, want)))
+            del q, k, v, go, bias, out, lse, ref, ref_lse, ins, got, want
+    return worst
+
+
 def trainer_kernel_check(torch, np, fa, batcher, h, d, frontend):
     """K1 (out, lse) and K2 (dq, dk, dv, dbias) against their plain versions
     at each bucket's shape as the trainer's step hands it to them: B the
@@ -2095,7 +2169,6 @@ def trainer_kernel_check(torch, np, fa, batcher, h, d, frontend):
     from a3t_tpu_torch.train.train_step import featurize
 
     g = torch.Generator().manual_seed(5)
-    dev = frontend.device
     worst = [0.0, 0.0]
     for bi, spec in enumerate(batcher.buckets):
         host = batcher.make_batch(bi, batcher.bucket_members[bi][
@@ -2106,42 +2179,8 @@ def trainer_kernel_check(torch, np, fa, batcher, h, d, frontend):
         check((b, l) == (spec.batch_size, spec.n_frames + spec.n_text),
               f"the {spec.n_frames}-frame bucket's attention is "
               f"{spec.batch_size} x {spec.n_frames + spec.n_text}")
-        for dt, tol, tol_bwd in ((torch.float32, TOL_F32, TOL_BWD_F32),
-                                 (torch.bfloat16, TOL_BF16, TOL_BWD_BF16)):
-            for rate in (0.0, 0.2):
-                q, k, v, go = (torch.randn(b, h, l, d, generator=g).to(
-                    dev, dt) for _ in range(4))
-                bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
-                out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, 2468,
-                                                  rate)
-                ref, ref_lse = fa.fused_attention_reference(
-                    q, k, v, bias, mask, 2468, rate)
-                ins = [t.clone().requires_grad_() for t in (q, k, v, bias)]
-                got = torch.autograd.grad(
-                    fa.fused_attention(*ins, mask, rate, 2468), ins, go)
-                want = fa.fused_attention_bwd_reference(
-                    q, k, v, bias, mask, 2468, rate, out, lse, go)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                lerr = (lse - ref_lse).abs().max().item()
-                errs = [_rel_err(a, w) for a, w in zip(got, want)]
-                log(f"  K1/K2 at the trainer's {(b, h, l, d)} "
-                    f"{str(dt)[6:]} rate={rate}: K1 max|out-plain| "
-                    f"{err:.3g}, max|lse-plain| {lerr:.3g} (tol {tol:g}); "
-                    f"K2 max|grad-plain|/max|plain| dq {errs[0]:.3g}, dk "
-                    f"{errs[1]:.3g}, dv {errs[2]:.3g}, dbias {errs[3]:.3g} "
-                    f"(tol {tol_bwd:g})")
-                check(err <= tol and lerr <= tol,
-                      f"K1 at the trainer's {(b, h, l, d)} {dt} rate={rate}")
-                check(all(a.dtype == w.dtype for a, w in zip(got, want))
-                      and max(errs) <= tol_bwd,
-                      f"K2 at the trainer's {(b, h, l, d)} {dt} rate={rate}")
-                if dt == torch.float32:
-                    worst[0] = max(worst[0], err)
-                    worst[1] = max(worst[1], max(
-                        (a - w).abs().max().item()
-                        for a, w in zip(got, want)))
-                del q, k, v, go, bias, out, lse, ref, ref_lse, ins, got, want
+        errs = kernel_pair_check(torch, fa, mask, h, d, g, "the trainer's")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
     return worst
 
 
@@ -2188,13 +2227,14 @@ def transfer_check(torch, np, trainer, epoch):
     check(not bad, "the batches on the card equal the host's bit for bit")
 
 
-def trainer_phase(torch, np, fa, label, device="cuda"):
+def trainer_phase(torch, np, fa, label, root, device="cuda"):
     """configs/a3t_conformer_24k.yaml, unedited, trained through
-    bin/train.main on a generated 24 kHz corpus; returns the K1/K2 launches
-    of the uninterrupted fp32 run and the bf16 run, and K1's and K2's
-    largest float32 errors at the trainer's shapes."""
+    bin/train.main on a 24 kHz corpus generated under ``root``; returns the
+    K1/K2 launches of the uninterrupted fp32 run and the bf16 run, K1's and
+    K2's largest float32 errors at the trainer's shapes, and run A's
+    experiment directory and the validation split, which the serve-cli
+    phase serves from."""
     import gc
-    import tempfile
 
     from a3t_tpu_torch.bin.train import main as train_main
     from a3t_tpu_torch.dsp import LogMelFrontend
@@ -2202,178 +2242,481 @@ def trainer_phase(torch, np, fa, label, device="cuda"):
     from a3t_tpu_torch.train.checkpoint import CheckpointManager
     from a3t_tpu_torch.train.train_step import featurize
 
-    with tempfile.TemporaryDirectory(prefix="a3t_trainer_") as root:
-        train, valid, secs, nbytes = make_corpus(os.path.join(root, "data"))
-        log(f"  corpus: {TRAIN_SHARDS * SHARD_UTTS} training and "
-            f"{VALID_UTTS} validation utterances at 24 kHz generated in "
-            f"{secs:.2f} s ({TRAIN_SHARDS + 1} processes), {nbytes / 1e6:.1f}"
-            f" MB on disk")
+    train, valid, secs, nbytes = make_corpus(os.path.join(root, "data"))
+    log(f"  corpus: {TRAIN_SHARDS * SHARD_UTTS} training and "
+        f"{VALID_UTTS} validation utterances at 24 kHz generated in "
+        f"{secs:.2f} s ({TRAIN_SHARDS + 1} processes), {nbytes / 1e6:.1f}"
+        f" MB on disk")
 
-        def run(name, *sets):
-            exp = os.path.join(root, name)
-            t0 = time.perf_counter()
-            trainer, state = train_main(_train_argv(train, valid, exp, device,
-                                                    *sets))
-            torch.cuda.synchronize()
-            log(f"  run {name} ({' '.join(sets)}): "
-                f"{len(trainer.step_log)} steps in "
-                f"{time.perf_counter() - t0:.2f} s")
-            return exp, trainer, state
+    def run(name, *sets):
+        exp = os.path.join(root, name)
+        t0 = time.perf_counter()
+        trainer, state = train_main(_train_argv(train, valid, exp, device,
+                                                *sets))
+        torch.cuda.synchronize()
+        log(f"  run {name} ({' '.join(sets)}): "
+            f"{len(trainer.step_log)} steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return exp, trainer, state
 
-        iters = f"trainer.num_iters_per_epoch={ITERS}"
-        # Runs A, B and C in deterministic mode: cuDNN's deterministic
-        # algorithms, and PyTorch's deterministic implementations, which
-        # this step needs for nn.Embedding's backward (its CUDA kernel sums
-        # with atomics, so two identical passes differ in the embeddings'
-        # gradients without them).  Any op without a deterministic
-        # implementation would raise here.
-        cudnn = (torch.backends.cudnn.deterministic,
-                 torch.backends.cudnn.benchmark)
-        cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-        torch.use_deterministic_algorithms(True)
-        try:
-            # A: two epochs, uninterrupted
-            fa.reset_launches()
-            exp_a, trainer, state = run("A", "trainer.max_epoch=2", iters)
-            launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
-            want = _snapshot(state)
-            batcher = trainer.train_iter_factory.batcher
-            buckets = [(b.n_frames, b.batch_size) for b in batcher.buckets]
-            members = [len(m) for m in batcher.bucket_members]
-            log(f"  buckets (frames, batch): {buckets}, members {members}, "
-                f"{batcher.n_dropped} dropped")
-            check(buckets == [(256, 146), (512, 73)],
-                  "the yaml's first two buckets at its batch sizes")
-            check(all(m == 2 * b for m, (_, b) in zip(members, buckets))
-                  and batcher.n_dropped == 0,
-                  "each bucket holds two whole batches, nothing dropped")
-            steps = trainer.step_log
-            check(len(steps) == 2 * ITERS and all(
-                np.isfinite(r["loss"]) for r in steps),
-                "every step of run A is finite")
-            check(int(state.opt_state.total_notfinite) == 0,
-                  "no step of run A was skipped")
-            n_eval = sum(len(trainer.valid_iter_factory.batcher.batch_plan(e))
-                         for e in (1, 2))
-            log(f"  run A: {len(steps)} train steps "
-                f"{[(r['frames'], round(r['loss'], 3)) for r in steps]}, "
-                f"{n_eval} eval steps; launches K1 {launches[0]} K2 "
-                f"{launches[1]}; valid loss by epoch "
-                f"{[round(h['valid']['loss'], 4) for h in trainer.reporter.history.values()]}")
-            check(launches == (8 * (len(steps) + n_eval), 8 * len(steps)),
-                  "8 K1 launches per train and eval step, 8 K2 per train "
-                  "step")
-            files = sorted(os.listdir(exp_a)) + sorted(
-                os.listdir(os.path.join(exp_a, "checkpoints")))
-            log(f"  run A wrote {files}")
-            check({"config.yaml", "tokens.txt", "epoch_1.pt", "epoch_2.pt",
-                   "ave_2best.pt"} <= set(files),
-                  "config, tokens, epoch and average checkpoints written")
-
-            model, cfg, conv = MLMTask.build_model_from_dir(exp_a,
-                                                            device=device)
-            vb = trainer.valid_iter_factory.batcher
-            host = vb.make_batch(0, vb.bucket_members[0][
-                : vb.buckets[0].batch_size], np.random.default_rng(0))
-            fe = LogMelFrontend(cfg.frontend, device=device)
-            with torch.no_grad():
-                before, after = model(**featurize(fe, host))
-            check(bool(torch.isfinite(after).all()) and tuple(after.shape)
-                  == (vb.buckets[0].batch_size, vb.buckets[0].n_frames, 80),
-                  "build_model_from_dir serves a finite forward")
-            log(f"  build_model_from_dir(A): forward on a validation batch "
-                f"{tuple(after.shape)}, finite")
-            del model, before, after
-
-            # B: stopped after epoch 1, started again
-            exp_b, _, _ = run("B", "trainer.max_epoch=1", iters)
-            _, tb, sb = run("B", "trainer.max_epoch=2", iters)
-            check([r["epoch"] for r in tb.step_log] == [2] * ITERS,
-                  "run B resumed at epoch 2")
-            _compare(torch, _snapshot(sb), want, "epoch resume (B vs A)")
-            del tb, sb
-
-            # C: stopped at a mid-epoch save in epoch 2, started again
-            save = CheckpointManager.save_mid_epoch
-
-            class Stop(Exception):
-                pass
-
-            def save_then_stop(self, epoch, iteration, *a, **kw):
-                save(self, epoch, iteration, *a, **kw)
-                if epoch == 2:
-                    raise Stop
-
-            CheckpointManager.save_mid_epoch = save_then_stop
-            try:
-                run("C", "trainer.max_epoch=2", iters,
-                    "trainer.save_interval_steps=3")
-                check(False, "run C stops at its mid-epoch save")
-            except Stop:
-                pass
-            finally:
-                CheckpointManager.save_mid_epoch = save
-            mid = CheckpointManager(os.path.join(root, "C", "checkpoints")
-                                    ).latest_mid_epoch()
-            check(mid == (2, 3), f"run C left a mid-epoch save at {mid}")
-            _, tc, sc = run("C", "trainer.max_epoch=2", iters,
-                            "trainer.save_interval_steps=3")
-            check([(r["epoch"], r["iteration"]) for r in tc.step_log]
-                  == [(2, 3)], "run C resumed at epoch 2, iteration 3")
-            _compare(torch, _snapshot(sc), want, "mid-epoch resume (C vs A)")
-            del tc, sc
-            _bucket_numbers(np, steps, label, "run A (deterministic mode)",
-                            _fill(batcher))
-        finally:
-            (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark) = cudnn
-            torch.use_deterministic_algorithms(False)
-            if cublas is None:
-                os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-            else:
-                os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        att = next(m for m in state.model.modules() if hasattr(m, "d_k"))
-        errs = trainer_kernel_check(torch, np, fa, batcher, att.h, att.d_k,
-                                    fe)
-        transfer_check(torch, np, trainer, 5)
-
-        # timing in fp32 (cuDNN's own choices again) on run A's trainer
-        state = measure_trainer(torch, np, trainer, state, 3, label,
-                                "trainer fp32")
-        del trainer, state
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # one short epoch in bf16, the stashes' own precision
+    iters = f"trainer.num_iters_per_epoch={ITERS}"
+    # Runs A, B and C in deterministic mode: cuDNN's deterministic
+    # algorithms, and PyTorch's deterministic implementations, which
+    # this step needs for nn.Embedding's backward (its CUDA kernel sums
+    # with atomics, so two identical passes differ in the embeddings'
+    # gradients without them).  Any op without a deterministic
+    # implementation would raise here.
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        # A: two epochs, uninterrupted
         fa.reset_launches()
-        _, trainer, state = run(
-            "bf16", "trainer.max_epoch=1", "trainer.num_iters_per_epoch=6",
-            "model.encoder.compute_dtype=bfloat16",
-            "model.decoder.compute_dtype=bfloat16")
-        bf16 = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+        exp_a, trainer, state = run("A", "trainer.max_epoch=2", iters)
+        launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+        want = _snapshot(state)
+        batcher = trainer.train_iter_factory.batcher
+        buckets = [(b.n_frames, b.batch_size) for b in batcher.buckets]
+        members = [len(m) for m in batcher.bucket_members]
+        log(f"  buckets (frames, batch): {buckets}, members {members}, "
+            f"{batcher.n_dropped} dropped")
+        check(buckets == [(256, 146), (512, 73)],
+              "the yaml's first two buckets at its batch sizes")
+        check(all(m == 2 * b for m, (_, b) in zip(members, buckets))
+              and batcher.n_dropped == 0,
+              "each bucket holds two whole batches, nothing dropped")
         steps = trainer.step_log
-        n_eval = len(trainer.valid_iter_factory.batcher.batch_plan(1))
-        check(all(np.isfinite(r["loss"]) for r in steps)
-              and int(state.opt_state.total_notfinite) == 0,
-              "every bf16 step is finite and not skipped")
-        log(f"  run bf16: {len(steps)} train steps, {n_eval} eval steps; "
-            f"launches K1 {bf16[0]} K2 {bf16[1]}")
-        check(bf16 == (8 * (len(steps) + n_eval), 8 * len(steps)),
-              "bf16: 8 K1 launches per train and eval step, 8 K2 per train "
+        check(len(steps) == 2 * ITERS and all(
+            np.isfinite(r["loss"]) for r in steps),
+            "every step of run A is finite")
+        check(int(state.opt_state.total_notfinite) == 0,
+              "no step of run A was skipped")
+        n_eval = sum(len(trainer.valid_iter_factory.batcher.batch_plan(e))
+                     for e in (1, 2))
+        log(f"  run A: {len(steps)} train steps "
+            f"{[(r['frames'], round(r['loss'], 3)) for r in steps]}, "
+            f"{n_eval} eval steps; launches K1 {launches[0]} K2 "
+            f"{launches[1]}; valid loss by epoch "
+            f"{[round(h['valid']['loss'], 4) for h in trainer.reporter.history.values()]}")
+        check(launches == (8 * (len(steps) + n_eval), 8 * len(steps)),
+              "8 K1 launches per train and eval step, 8 K2 per train "
               "step")
-        _bucket_numbers(np, steps, label, "trainer bf16 epoch 1",
-                        _fill(trainer.train_iter_factory.batcher))
-        measure_trainer(torch, np, trainer, state, 2, label, "trainer bf16")
-        del trainer, state
+        files = sorted(os.listdir(exp_a)) + sorted(
+            os.listdir(os.path.join(exp_a, "checkpoints")))
+        log(f"  run A wrote {files}")
+        check({"config.yaml", "tokens.txt", "epoch_1.pt", "epoch_2.pt",
+               "ave_2best.pt"} <= set(files),
+              "config, tokens, epoch and average checkpoints written")
+
+        model, cfg, conv = MLMTask.build_model_from_dir(exp_a,
+                                                        device=device)
+        vb = trainer.valid_iter_factory.batcher
+        host = vb.make_batch(0, vb.bucket_members[0][
+            : vb.buckets[0].batch_size], np.random.default_rng(0))
+        fe = LogMelFrontend(cfg.frontend, device=device)
+        with torch.no_grad():
+            before, after = model(**featurize(fe, host))
+        check(bool(torch.isfinite(after).all()) and tuple(after.shape)
+              == (vb.buckets[0].batch_size, vb.buckets[0].n_frames, 80),
+              "build_model_from_dir serves a finite forward")
+        log(f"  build_model_from_dir(A): forward on a validation batch "
+            f"{tuple(after.shape)}, finite")
+        del model, before, after
+
+        # B: stopped after epoch 1, started again
+        exp_b, _, _ = run("B", "trainer.max_epoch=1", iters)
+        _, tb, sb = run("B", "trainer.max_epoch=2", iters)
+        check([r["epoch"] for r in tb.step_log] == [2] * ITERS,
+              "run B resumed at epoch 2")
+        _compare(torch, _snapshot(sb), want, "epoch resume (B vs A)")
+        del tb, sb
+
+        # C: stopped at a mid-epoch save in epoch 2, started again
+        save = CheckpointManager.save_mid_epoch
+
+        class Stop(Exception):
+            pass
+
+        def save_then_stop(self, epoch, iteration, *a, **kw):
+            save(self, epoch, iteration, *a, **kw)
+            if epoch == 2:
+                raise Stop
+
+        CheckpointManager.save_mid_epoch = save_then_stop
+        try:
+            run("C", "trainer.max_epoch=2", iters,
+                "trainer.save_interval_steps=3")
+            check(False, "run C stops at its mid-epoch save")
+        except Stop:
+            pass
+        finally:
+            CheckpointManager.save_mid_epoch = save
+        mid = CheckpointManager(os.path.join(root, "C", "checkpoints")
+                                ).latest_mid_epoch()
+        check(mid == (2, 3), f"run C left a mid-epoch save at {mid}")
+        _, tc, sc = run("C", "trainer.max_epoch=2", iters,
+                        "trainer.save_interval_steps=3")
+        check([(r["epoch"], r["iteration"]) for r in tc.step_log]
+              == [(2, 3)], "run C resumed at epoch 2, iteration 3")
+        _compare(torch, _snapshot(sc), want, "mid-epoch resume (C vs A)")
+        del tc, sc
+        _bucket_numbers(np, steps, label, "run A (deterministic mode)",
+                        _fill(batcher))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
     gc.collect()
     torch.cuda.empty_cache()
-    return (launches[0] + bf16[0], launches[1] + bf16[1]), errs
+
+    att = next(m for m in state.model.modules() if hasattr(m, "d_k"))
+    errs = trainer_kernel_check(torch, np, fa, batcher, att.h, att.d_k,
+                                fe)
+    transfer_check(torch, np, trainer, 5)
+
+    # timing in fp32 (cuDNN's own choices again) on run A's trainer
+    state = measure_trainer(torch, np, trainer, state, 3, label,
+                            "trainer fp32")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one short epoch in bf16, the stashes' own precision
+    fa.reset_launches()
+    _, trainer, state = run(
+        "bf16", "trainer.max_epoch=1", "trainer.num_iters_per_epoch=6",
+        "model.encoder.compute_dtype=bfloat16",
+        "model.decoder.compute_dtype=bfloat16")
+    bf16 = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    steps = trainer.step_log
+    n_eval = len(trainer.valid_iter_factory.batcher.batch_plan(1))
+    check(all(np.isfinite(r["loss"]) for r in steps)
+          and int(state.opt_state.total_notfinite) == 0,
+          "every bf16 step is finite and not skipped")
+    log(f"  run bf16: {len(steps)} train steps, {n_eval} eval steps; "
+        f"launches K1 {bf16[0]} K2 {bf16[1]}")
+    check(bf16 == (8 * (len(steps) + n_eval), 8 * len(steps)),
+          "bf16: 8 K1 launches per train and eval step, 8 K2 per train "
+          "step")
+    _bucket_numbers(np, steps, label, "trainer bf16 epoch 1",
+                    _fill(trainer.train_iter_factory.batcher))
+    measure_trainer(torch, np, trainer, state, 2, label, "trainer bf16")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ((launches[0] + bf16[0], launches[1] + bf16[1]), errs, exp_a,
+            valid)
+
+
+TOL_GL_1 = 1e-4  # Griffin-Lim, card against CPU, one iteration
+# 32 iterations: the phase recursion carries each iteration's rounding
+# (cuFFT against pocketfft, ~1e-7 relative) into the next; the port on the
+# CPU against JAX's reads 1.2e-6 over 32 (tests/test_torch_griffin_lim.py)
+TOL_GL_32 = 1e-3
+SERVE_LR = "5e-5,1"  # --dynamic-eval: lr and passes
+SERVE_REPEATS = 3  # warm requests of each mode, each with its model load
+MCD_UTTS = 4
+
+
+def _pwg_pickle(torch, path):
+    """A parallel_wavegan-layout pickle of the 24 kHz generator (model ->
+    generator) with every conv weight split into weight_g and weight_v, from
+    seeded tensors."""
+    from a3t_tpu_torch.models import PWGConfig, build_vocoder
+
+    g = torch.Generator().manual_seed(7)
+    sd = {}
+    for k, v in build_vocoder(PWGConfig(), device="cpu",
+                              seed=1).state_dict().items():
+        if k.endswith(".weight") and v.dim() >= 3:
+            p = k[: -len(".weight")]
+            sd[f"{p}.weight_v"] = torch.randn(v.shape, generator=g)
+            sd[f"{p}.weight_g"] = 0.5 * torch.rand(
+                (v.shape[0],) + (1,) * (v.dim() - 1), generator=g) + 0.25
+        else:
+            sd[k] = v
+    torch.save({"model": {"generator": sd}, "steps": 1}, path)
+    return path
+
+
+def _wav_length_check(np, res, wav, hop, vocoded_frames, what):
+    """The vocoded wav and the spliced wav have the lengths that the span
+    boundaries imply, and both are finite."""
+    n_f = res.mel_edited.shape[0]
+    check(res.prediction.shape == ((n_f - 1 + vocoded_frames) * hop,),
+          f"{what}: vocoded length {res.prediction.shape} for {n_f} frames")
+    t_old = [hop * x for x in res.old_span_boundary]
+    t_new = [hop * x for x in res.new_span_boundary]
+    check(len(res.origin_replaced)
+          == len(wav) - (t_old[1] - t_old[0]) + (t_new[1] - t_new[0]),
+          f"{what}: spliced length {len(res.origin_replaced)}")
+    check(bool(np.isfinite(res.prediction).all()
+               and np.isfinite(res.origin_replaced).all()),
+          f"{what}: finite wavs")
+
+
+def serve_cli_phase(torch, np, fa, cuda_ms, label, exp_dir, valid, root,
+                    device="cuda"):
+    """The serving and scoring CLIs on run A's experiment and the
+    validation split: bin.sedit's three modes with Griffin-Lim, an edit
+    with a parallel_wavegan pickle, an edit with --dynamic-eval, and
+    bin.mcd_gate --espnet-ckpt on the same weights written as an ESPnet
+    experiment.  Returns the K1 and K2 launches of the CLIs' run."""
+    from a3t_tpu_torch.bin import mcd_gate, sedit
+    from a3t_tpu_torch.compat.espnet import save_espnet_a3t
+    from a3t_tpu_torch.data.dataset import A3TDataset
+    from a3t_tpu_torch.data.fileio import read_2column_text, read_wav
+    from a3t_tpu_torch.dsp import griffin_lim, istft, logmel_to_wav, stft
+    from a3t_tpu_torch.dsp import mel_to_linear
+    from a3t_tpu_torch.dsp.griffin_lim import initial_phase
+    from a3t_tpu_torch.inference import FileAlignmentSource, baselines
+
+    texts = read_2column_text(os.path.join(valid, "text"))
+    # the request: the first validation utterance of at least 24 phones
+    uid = next(u for u in sorted(texts) if len(texts[u].split()) >= 24)
+    phones = texts[uid].split()
+    n = len(phones)
+    vocab = sorted({p for t in texts.values() for p in t.split()})
+    k = n // 2 - 1
+    news = {
+        "reconstruct": mcd_gate.protocol_mask(texts[uid]),
+        "edit": " ".join(phones[:k] + vocab[:5] + phones[k + 3:]),
+        "prompt": " ".join(phones + [vocab[(3 * i) % len(vocab)]
+                                     for i in range(8)]),
+    }
+    out = os.path.join(root, "serve")
+    os.makedirs(out, exist_ok=True)
+    pkl = _pwg_pickle(torch, os.path.join(out, "pwg.pkl"))
+
+    # wrappers that time the loads and keep the editors, the MCD analysis
+    # and dynamic evaluation for the checks after the counted run
+    seen = {"editors": [], "load": [], "mcd": [], "dyn": []}
+    build_sedit, build_gate = sedit.build_editor, mcd_gate.build_editor
+    mcd_fn, dyn_fn = mcd_gate.mcd_between_waveforms, \
+        baselines.dynamic_evaluation
+
+    def timed_build(build):
+        def wrapped(args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            made = build(args)
+            torch.cuda.synchronize()
+            seen["load"].append(time.perf_counter() - t0)
+            seen["editors"].append(made[0])
+            return made
+        return wrapped
+
+    def timed_mcd(*a, **kw):
+        t0 = time.perf_counter()
+        value = mcd_fn(*a, **kw)
+        seen["mcd"].append(time.perf_counter() - t0)
+        return value
+
+    def watched_dyn(editor, *a, **kw):
+        before = {k: v.detach().clone()
+                  for k, v in editor.model.state_dict().items()}
+        l1, l2 = fa.LAUNCHES, fa.LAUNCHES_BWD
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adapted = dyn_fn(editor, *a, **kw)
+        torch.cuda.synchronize()
+        seen["dyn"].append(dict(
+            seconds=time.perf_counter() - t0, k1=fa.LAUNCHES - l1,
+            k2=fa.LAUNCHES_BWD - l2, before=before, editor=editor,
+            adapted=adapted))
+        return adapted
+
+    def request(mode, *extra):
+        argv = [mode, "--exp-dir", exp_dir, "--data-dir", valid, "--uid",
+                uid, "--new-text", news[mode], "--out",
+                os.path.join(out, f"{mode}{len(seen['load'])}.wav"),
+                "--device", device, *extra]
+        l1 = fa.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sedit.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - seen["load"][-1]
+        return res, wall, fa.LAUNCHES - l1, argv[argv.index("--out") + 1]
+
+    sedit.build_editor = timed_build(build_sedit)
+    mcd_gate.build_editor = timed_build(build_gate)
+    mcd_gate.mcd_between_waveforms = timed_mcd
+    baselines.dynamic_evaluation = watched_dyn
+    try:
+        fa.reset_launches()
+        results = {}
+        # the process's first request brings cuFFT plans and cuDNN's
+        # algorithms in; it is reported apart
+        results["reconstruct-cold"] = [request("reconstruct")]
+        for mode in ("reconstruct", "edit", "prompt"):
+            results[mode] = [request(mode) for _ in range(SERVE_REPEATS)]
+        results["edit-pwg"] = [request("edit", "--vocoder", pkl)]
+        results["edit-dyn"] = [request("edit", "--dynamic-eval", SERVE_LR)]
+        esp = save_espnet_a3t(seen["editors"][0].model,
+                              seen["editors"][0].fe.config,
+                              seen["editors"][0].tokens.token_list,
+                              os.path.join(out, "espnet"))
+        mcd_uids = sorted(texts)[:MCD_UTTS]
+        gate_out = os.path.join(out, "mcd")
+        l1 = fa.LAUNCHES
+        report = mcd_gate.main(["--espnet-ckpt", esp, "--data-dir", valid,
+                                "--uids", ",".join(mcd_uids), "--out",
+                                gate_out, "--device", device])
+        gate_k1 = fa.LAUNCHES - l1
+        launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    finally:
+        sedit.build_editor, mcd_gate.build_editor = build_sedit, build_gate
+        mcd_gate.mcd_between_waveforms = mcd_fn
+        baselines.dynamic_evaluation = dyn_fn
+
+    editor = seen["editors"][0]
+    fe = editor.fe.config
+    hop, fs = fe.hop_length, fe.fs
+    wav = A3TDataset(valid)[uid]["audio"]
+    align = FileAlignmentSource(valid)(uid)
+    log(f"  request {uid}: {n} phones, {len(wav) / fs:.3f} s; model loads "
+        f"(build_editor, checkpoint to card) "
+        f"{[round(t, 3) for t in seen['load']]} s [{label}]")
+    dyn = seen["dyn"][0]
+    n_examples = max(n - 1, 1)
+    for name, runs in results.items():
+        for res, _, k1, path in runs:
+            fs_out, written = read_wav(path)
+            if name == "prompt":
+                mel = res["mel"]
+                n_f = mel.shape[0]
+                check(len(res["full"]) == (n_f - 1) * hop
+                      and len(res["new_wav"])
+                      == (n_f - 1 - res["span_boundary"][0]) * hop
+                      and bool(np.isfinite(res["full"]).all()),
+                      f"{name}: wav lengths for {n_f} frames, span "
+                      f"{res['span_boundary']}")
+                out_wav, spans = res["full"], res["span_boundary"]
+            else:
+                _wav_length_check(np, res, wav, hop,
+                                  1 if name == "edit-pwg" else 0, name)
+                out_wav, mel = res.origin_replaced, res.mel_edited
+                spans = (res.old_span_boundary, res.new_span_boundary)
+            check(fs_out == fs and len(written) == len(out_wav),
+                  f"{name}: the written wav")
+            want = 8 * (1 + (n_examples if name == "edit-dyn" else 0))
+            check(k1 == want, f"{name}: {k1} K1 launches, expected {want}")
+        walls = [wall for _, wall, _, _ in runs]
+        med = float(np.median(walls))
+        log(f"  sedit {name}: median {med * 1e3:.1f} ms wall after the load "
+            f"(min {min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}, n="
+            f"{len(walls)}) for {len(out_wav) / fs:.3f} s of audio, RTF "
+            f"{med * fs / len(out_wav):.4f}; mel {mel.shape}, spans {spans}"
+            f", K1 launches {k1} per request [{label}]")
+
+    # dynamic evaluation: launches, the adapted copy, the untouched original
+    check(dyn["k1"] == 8 * n_examples and dyn["k2"] == 8 * n_examples,
+          f"dynamic evaluation: K1 {dyn['k1']}, K2 {dyn['k2']} launches for "
+          f"{n_examples} examples, expected 8 each per example")
+    orig = dyn["editor"].model.state_dict()
+    check(all(torch.equal(orig[k], v) for k, v in dyn["before"].items()),
+          "dynamic evaluation leaves the editor's parameters and running "
+          "statistics as they were, bit for bit")
+    adapted = dyn["adapted"].model.state_dict()
+    moved = [k for k, v in adapted.items()
+             if "running_" not in k and "num_batches" not in k
+             and not torch.equal(v, orig[k])]
+    kept = all(torch.equal(adapted[k], orig[k]) for k in orig
+               if "running_" in k)
+    check(len(moved) > 0 and kept, "the adapted parameters differ from the "
+          "original ones and the running statistics are the original's")
+    n_params = sum(1 for k in adapted
+                   if "running_" not in k and "num_batches" not in k)
+    log(f"  dynamic evaluation ({SERVE_LR}): {n_examples} examples, "
+        f"{dyn['seconds']:.3f} s per pass "
+        f"({dyn['seconds'] / n_examples * 1e3:.1f} ms per example step), "
+        f"K1 {dyn['k1']} K2 {dyn['k2']} launches, {len(moved)} of "
+        f"{n_params} parameter tensors moved, running statistics kept "
+        f"[{label}]")
+
+    # the MCD gate
+    with open(os.path.join(gate_out, "MCD.json")) as f:
+        written = json.load(f)
+    check(written["n"] == MCD_UTTS and math.isfinite(written["mean_mcd"])
+          and math.isfinite(written["vocoder_ceiling_mcd"]),
+          f"MCD.json: n {written['n']}, mean {written['mean_mcd']}, ceiling "
+          f"{written['vocoder_ceiling_mcd']}")
+    check(gate_k1 == 8 * MCD_UTTS, f"mcd_gate: {gate_k1} K1 launches")
+    per_utt = sum(seen["mcd"]) / MCD_UTTS
+    log(f"  mcd_gate --espnet-ckpt on {MCD_UTTS} utterances: mean MCD "
+        f"{report['mean_mcd']:.3f} dB, vocoder ceiling "
+        f"{report['vocoder_ceiling_mcd']:.3f} dB (random weights, "
+        f"Griffin-Lim); MCD analysis {per_utt:.3f} s per utterance on the "
+        f"host (two scores each) [{label}]")
+
+    # --espnet-ckpt against --exp-dir, bit for bit
+    ed_esp = seen["editors"][-1]
+    got = ed_esp.reconstruct_masked_span(wav, align, texts[uid],
+                                         news["reconstruct"])
+    want = results["reconstruct"][0][0]
+    check(np.array_equal(got.mel_edited, want.mel_edited),
+          "--espnet-ckpt and --exp-dir give the same mel_edited bit for bit")
+    log("  --espnet-ckpt and --exp-dir: mel_edited equal bit for bit")
+
+    # K1/K2 against their plain versions at each request's own shape
+    g = torch.Generator().manual_seed(11)
+    att = next(m for m in editor.model.modules() if hasattr(m, "d_k"))
+    for mode in ("reconstruct", "edit", "prompt"):
+        tl = editor._new_timeline(wav, align, texts[uid], news[mode],
+                                  mask_reconstruct=mode == "reconstruct")
+        inputs = editor.build_inputs(tl[0], tl[1], tl[2], tl[3], tl[5])
+        mask = torch.cat([inputs["speech_mask"], inputs["text_mask"]], 1)
+        kernel_pair_check(torch, fa, mask, att.h, att.d_k, g,
+                          f"the {mode} request's",
+                          dtypes=((torch.float32, TOL_F32, TOL_BWD_F32),))
+
+    # Griffin-Lim: the card against the CPU from one initial phase, and
+    # against PWG on the same mel
+    mel = torch.as_tensor(results["edit"][0][0].mel_edited[None])
+    mag_cpu = mel_to_linear(mel, fe)
+    phase = initial_phase(mag_cpu.shape, 0, "cpu")
+    for iters, tol in ((1, TOL_GL_1), (32, TOL_GL_32)):
+        want = griffin_lim(mag_cpu, fe, iters, phase=phase)
+        got = griffin_lim(mag_cpu.to(device), fe, iters,
+                          phase=phase.to(device)).cpu()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"  Griffin-Lim card vs CPU, {iters} iteration(s) from one "
+            f"phase: max|diff|/max|cpu| {err:.3g} (tol {tol:g})")
+        check(err <= tol, f"Griffin-Lim card vs CPU, {iters} iterations")
+    mel_d = mel.to(device)
+    vocoder = sedit.make_vocoder(pkl, fe, device)
+    tl = editor._new_timeline(wav, align, texts[uid], news["edit"])
+    inputs = editor.build_inputs(tl[0], tl[1], tl[2], tl[3], tl[5])
+    with torch.inference_mode():
+        gl_ms = cuda_ms(lambda: logmel_to_wav(mel_d, fe), iters=10)
+        pwg_ms = cuda_ms(lambda: vocoder(mel_d), iters=10)
+        fwd_ms = cuda_ms(lambda: editor.model(**inputs), iters=10)
+    wall_ms = float(np.median([w for _, w, _, _ in results["edit"]])) * 1e3
+    log(f"  vocoders on the edit's mel {tuple(mel.shape)}: Griffin-Lim (32 "
+        f"iterations) {gl_ms:.3f} ms, PWG {pwg_ms:.3f} ms (CUDA events) "
+        f"[{label}]")
+    log(f"  the edit request's median {wall_ms:.1f} ms: model forward {fwd_ms:.3f} "
+        f"ms, Griffin-Lim {gl_ms:.3f} ms (CUDA events, each paced by the "
+        f"host's launches at batch 1), the rest {wall_ms - fwd_ms - gl_ms:.1f}"
+        f" ms (timeline, front-end, padding, splice, wav write) [{label}]")
+
+    # istft on the card, twice, bit for bit
+    spec = stft(torch.as_tensor(wav[None], device=device), fe.n_fft, hop,
+                fe.win_length)
+    a, b = (istft(spec, fe.n_fft, hop, fe.win_length) for _ in range(2))
+    check(torch.equal(a, b), "two runs of istft on the card agree bit for "
+          "bit")
+    log(f"  istft on the card: two runs equal bit for bit {tuple(a.shape)}")
+    return launches
 
 
 def main() -> int:
@@ -2479,9 +2822,15 @@ def main() -> int:
         f"{6 * per_step:.2f} ms, per longformer step of {lf_step_ms:.2f} ms "
         f"[{label}]")
 
-    with Phase("trainer"):
-        (trainer_fwd, trainer_bwd), trainer_errs = trainer_phase(
-            torch, np, fa, label)
+    # the trainer's corpus and experiments stay until serve-cli is done
+    with tempfile.TemporaryDirectory(prefix="a3t_trainer_") as root:
+        with Phase("trainer"):
+            (trainer_fwd, trainer_bwd), trainer_errs, exp_a, valid = \
+                trainer_phase(torch, np, fa, label, root)
+
+        with Phase("serve-cli"):
+            cli_fwd, cli_bwd = serve_cli_phase(torch, np, fa, cuda_ms, label,
+                                               exp_a, valid, root)
 
     kernels = [{
         "name": "fused_attention_fwd",
@@ -2489,7 +2838,9 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
-        "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd,
+        "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
+        + cli_fwd,
+        "launches_serve_cli": cli_fwd,
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "ms": f32["ms"],
@@ -2503,7 +2854,8 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
-        "launches": train_bwd + bf16_bwd + trainer_bwd,
+        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd,
+        "launches_serve_cli": cli_bwd,
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "ms": bwd["ms"],

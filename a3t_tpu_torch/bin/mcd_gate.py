@@ -15,10 +15,12 @@ f0 80-7600, shiftms 300, power-silence stripping, DTW).
 The model comes from an experiment directory of ``a3t_tpu_torch.bin.train``
 or a published ESPnet A3T checkpoint (``--espnet-ckpt``, with its
 ``config.yaml`` alongside), the vocoder from a ``parallel_wavegan``
-checkpoint or Griffin-Lim.  Writes ``<out>/MCD.json`` with the JAX CLI's
-keys.  Runs on the CUDA card unless ``--device cpu`` is given; the MCD
-analysis runs on the host.  ``--duration-model`` (A9), ``--spk-xvector``
-(A3) and a vocoder directory (A2) are not ported and raise.
+checkpoint or Griffin-Lim.  With ``--duration-model`` (a FastSpeech2
+experiment or ESPnet ``.pth``, conditioned on ``--spk-xvector``) the masked
+span is regenerated at the predicted durations rather than the original
+timeline.  Writes ``<out>/MCD.json`` with the JAX CLI's keys.  Runs on the
+CUDA card unless ``--device cpu`` is given; the MCD analysis runs on the
+host.  A vocoder directory (orbax, ROADMAP A2) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import os
 
 import numpy as np
 
-from a3t_tpu_torch.bin.sedit import make_vocoder, phone_lexicon, refuse_unported
+from a3t_tpu_torch.bin.sedit import (make_duration_fn, make_vocoder,
+                                     phone_lexicon, refuse_unported)
 from a3t_tpu_torch.eval.mcd import MCDConfig, mcd_between_waveforms
 from a3t_tpu_torch.eval.mcd import middle_third_mask_str as protocol_mask
 
@@ -88,6 +91,8 @@ def build_editor(args):
     texts = read_2column_text(os.path.join(args.data_dir, "text"))
     editor = SpeechEditor(
         model, fe_cfg, conv, vocoder=make_vocoder(args.vocoder, fe_cfg, dev),
+        duration_fn=(make_duration_fn(args, dev)
+                     if getattr(args, "duration_model", None) else None),
         lexicon=phone_lexicon(texts), g2p=letter_to_sound, device=dev)
     return editor, texts
 
@@ -95,11 +100,10 @@ def build_editor(args):
 def run_gate(editor, texts, dataset, alignments, uids, out: str,
              mcd_config=None, spembs=None) -> dict:
     """Decode, save the splits and score the MCD for ``uids``; returns the
-    report.  ``spembs`` (explicit speaker embeddings) needs speaker
-    conditioning, which is not ported (ROADMAP A3)."""
-    if spembs is not None:
-        raise NotImplementedError("speaker embeddings need speaker "
-                                  "conditioning (ROADMAP A3)")
+    report.  ``spembs`` ({uid: (E,) float32}) gives a speaker-conditioned
+    model explicit x-vectors (the reference's spk2xvector lookup,
+    sedit_inference.py:203-210); uids it lacks take the editor's
+    ``spemb_fn``."""
     fs = editor.fe.config.fs
     hop = editor.fe.config.hop_length
     cfg = mcd_config or MCDConfig(
@@ -111,7 +115,8 @@ def run_gate(editor, texts, dataset, alignments, uids, out: str,
         wav = dataset[uid]["audio"]
         text = texts[uid]
         res = editor.edit(wav, alignments(uid), text, protocol_mask(text),
-                          mask_reconstruct=mask_reconstruct)
+                          mask_reconstruct=mask_reconstruct,
+                          spemb=None if spembs is None else spembs.get(uid))
         s_new, e_new = res.new_span_boundary
         s_old, e_old = res.old_span_boundary
         save_splits(res.prediction, s_new * hop, e_new * hop, out, "sedit",
@@ -162,9 +167,10 @@ def main(argv=None):
                          "'vctk_unseen' select the protocol lists; "
                          "default = all utterances in data-dir")
     ap.add_argument("--duration-model", default=None,
-                    help="not ported (FastSpeech2, ROADMAP A9)")
+                    help="FastSpeech2 duration predictor (FS2 experiment "
+                         "directory or ESPnet .pth)")
     ap.add_argument("--spk-xvector", default=None,
-                    help="not ported (speaker conditioning, ROADMAP A3)")
+                    help=".npy x-vector (E,) for the duration model")
     ap.add_argument("--vocoder", default=None,
                     help="parallel_wavegan checkpoint (Griffin-Lim if unset)")
     ap.add_argument("--out", required=True)

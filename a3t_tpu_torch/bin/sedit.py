@@ -15,15 +15,24 @@
         --data-dir dump/dev --uid utt001 --new-text "A B [MASK] E F" \
         --out rec.wav
 
+    # durations of the new phones from a FastSpeech2 conditioned on a
+    # speaker's x-vector
+    python -m a3t_tpu_torch.bin.sedit edit --exp-dir exp/a3t \
+        --data-dir dump/dev --uid utt001 --new-text "..." --out edited.wav \
+        --duration-model exp/fs2 --spk-xvector spk1.npy
+
 The model comes from an experiment directory of ``a3t_tpu_torch.bin.train``
 (``--checkpoint``: ave, latest or epoch_N), the vocoder from a
 ``parallel_wavegan`` checkpoint (``--vocoder PKL``) or Griffin-Lim when
-none is given.  New text is read through a phone-level lexicon (every phone
-of the data directory's ``text`` maps to itself) and the native
-letter-to-sound engine for other words.  Runs on the CUDA card unless
-``--device cpu`` is given.  ``--duration-model`` (FastSpeech2, ROADMAP A9),
-``--spk-xvector`` (speaker conditioning, A3) and a vocoder directory
-trained by ``a3t_tpu.train.vocoder`` (orbax, A2) are not ported and raise.
+none is given.  New phones last ``--uniform-duration`` seconds each, or
+what ``--duration-model`` predicts: a FastSpeech2 experiment of
+``tasks/fs2.py`` or an ESPnet FastSpeech2 ``.pth`` with its
+``config.yaml``, conditioned on ``--spk-xvector`` (one (E,) ``.npy``).
+New text is read through a phone-level lexicon (every phone of the data
+directory's ``text`` maps to itself) and the native letter-to-sound engine
+for other words.  Runs on the CUDA card unless ``--device cpu`` is given.
+A vocoder directory trained by ``a3t_tpu.train.vocoder`` (orbax) is not
+ported and raises (ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -33,15 +42,12 @@ import os
 
 
 def refuse_unported(args) -> None:
-    """Raise for the options that wait for other ROADMAP items."""
-    if args.duration_model:
-        raise NotImplementedError(
-            "--duration-model needs FastSpeech2, which is not ported "
-            "(ROADMAP A9)")
-    if args.spk_xvector:
-        raise NotImplementedError(
-            "--spk-xvector needs speaker conditioning, which is not ported "
-            "(ROADMAP A3)")
+    """Raise for an option that waits for another ROADMAP item, and for
+    ``--spk-xvector`` without the duration model it conditions (the JAX
+    CLI ignores it there)."""
+    if args.spk_xvector and not args.duration_model:
+        raise ValueError("--spk-xvector conditions the duration model; "
+                         "give --duration-model too")
     if args.vocoder and os.path.isdir(args.vocoder):
         raise NotImplementedError(
             f"{args.vocoder} is a vocoder directory (orbax), which the port "
@@ -78,6 +84,23 @@ def phone_lexicon(texts: dict) -> dict:
     return {p.upper(): [p] for p in phones}
 
 
+def make_duration_fn(args, device):
+    """The editor's duration function: ``--duration-model`` conditioned on
+    ``--spk-xvector``, else ``--uniform-duration`` seconds per phone (None
+    when that is 0)."""
+    if args.duration_model:
+        import numpy as np
+
+        from a3t_tpu_torch.inference.durations import load_duration_fn
+
+        spembs = np.load(args.spk_xvector) if args.spk_xvector else None
+        return load_duration_fn(args.duration_model, spembs=spembs,
+                                device=device)
+    if args.uniform_duration > 0:
+        return lambda phones, wav: [args.uniform_duration] * len(phones)
+    return None
+
+
 def build_editor(args):
     """(editor, alignments, dataset, texts) for ``args``."""
     from a3t_tpu_torch.data.dataset import A3TDataset
@@ -91,15 +114,11 @@ def build_editor(args):
     model, cfg, conv = MLMTask.build_model_from_dir(
         args.exp_dir, which=args.checkpoint, device=dev)
     texts = read_2column_text(os.path.join(args.data_dir, "text"))
-    duration_fn = None
-    if args.uniform_duration > 0:
-        def duration_fn(phones, wav):
-            return [args.uniform_duration] * len(phones)
     editor = SpeechEditor(
         model, cfg.frontend, conv,
         vocoder=make_vocoder(args.vocoder, cfg.frontend, dev),
-        duration_fn=duration_fn, lexicon=phone_lexicon(texts),
-        g2p=letter_to_sound, device=dev)
+        duration_fn=make_duration_fn(args, dev),
+        lexicon=phone_lexicon(texts), g2p=letter_to_sound, device=dev)
     dataset = A3TDataset(args.data_dir, conv)
     return editor, FileAlignmentSource(args.data_dir), dataset, texts
 
@@ -120,13 +139,17 @@ def main(argv=None):
     parser.add_argument("--vocoder", default=None,
                         help="parallel_wavegan checkpoint (Griffin-Lim if "
                              "unset)")
-    parser.add_argument("--duration-model", "--duration-exp-dir",
-                        dest="duration_model", default=None,
-                        help="not ported (FastSpeech2, ROADMAP A9)")
+    parser.add_argument(
+        "--duration-model", "--duration-exp-dir", dest="duration_model",
+        default=None,
+        help="FastSpeech2 duration predictor: an FS2 experiment directory "
+             "or an ESPnet .pth checkpoint (with config.yaml alongside)")
     parser.add_argument("--spk-xvector", default=None,
-                        help="not ported (speaker conditioning, ROADMAP A3)")
+                        help=".npy x-vector (E,) for the duration model's "
+                             "speaker conditioning")
     parser.add_argument("--uniform-duration", type=float, default=0.1,
-                        help="per-phone duration in seconds for new phones")
+                        help="per-phone duration in seconds for new phones "
+                             "(ignored with --duration-model)")
     parser.add_argument(
         "--dynamic-eval", default=None, metavar="LR,STEPS",
         help="test-time fine-tuning on the utterance before decoding, "

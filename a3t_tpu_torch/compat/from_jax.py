@@ -1,10 +1,12 @@
 """Carry weights from the JAX package's flax trees into the port.
 
-The inverse of ``a3t_tpu/compat/torch_import.py`` and
-``a3t_tpu/models/pwg.py::convert_pwg_state``: a flax Dense kernel (in, out)
-becomes a Linear weight (out, in), a Conv kernel (k, in, out) a Conv1d weight
-(out, in, k), LayerNorm/BatchNorm ``scale`` a ``weight`` and ``batch_stats``
-the running statistics.  Inputs are trees of array-likes (numpy, or anything
+The inverse of ``a3t_tpu/compat/torch_import.py``,
+``a3t_tpu/compat/fs2_import.py`` and ``a3t_tpu/models/pwg.py::
+convert_pwg_state``: a flax Dense kernel (in, out) becomes a Linear weight
+(out, in), a Conv kernel (k, in, out) a Conv1d weight (out, in, k), a 2-D
+Conv kernel (kh, kw, in, out) a Conv2d weight (out, in, kh, kw),
+LayerNorm/BatchNorm ``scale`` a ``weight`` and ``batch_stats`` the running
+statistics.  Inputs are trees of array-likes (numpy, or anything
 ``np.asarray`` takes); outputs are ``{state_dict name: np.ndarray}`` with
 ESPnet's names.  :func:`load_train_state` carries a whole JAX train state
 (parameters, ``batch_stats``, the optax state and the step) into the port's
@@ -13,8 +15,10 @@ imports JAX.
 
 ESPnet has no name for the longformer model's speech-only pre-encoder
 (``convert_model_state`` maps none), so it keeps the JAX tree's name:
-``pre_speech_encoders.encoders.{i}...``.  Windowed attention has the four
-projections of ESPnet's MHA and no positional ones.
+``pre_speech_encoders.encoders.{i}...``; nor for the speaker-conditioned
+A3T model's ``spemb_proj``, ``spemb_proj_mid`` and ``spemb_out``, nor for the
+x-vector network (:func:`xvector_state`), which keep theirs.  Windowed
+attention has the four projections of ESPnet's MHA and no positional ones.
 """
 
 from __future__ import annotations
@@ -121,6 +125,9 @@ def mlm_state(variables) -> dict:
            **dense(p["sfc"], "sfc")}
     if "segment_emb" in p:
         out["encoder.segment_emb.weight"] = _np(p["segment_emb"]["embedding"])
+    for name in ("spemb_proj", "spemb_proj_mid", "spemb_out"):
+        if name in p:
+            out.update(dense(p[name], name))
     if "pre_speech_encoders" in p:
         out.update(stack(p["pre_speech_encoders"],
                          s.get("pre_speech_encoders", {}),
@@ -128,13 +135,109 @@ def mlm_state(variables) -> dict:
     if "decoder" in p:
         out.update(stack(p["decoder"], s.get("decoder", {}), "decoder"))
     if "postnet" in p:
-        pn, pns = p["postnet"], s["postnet"]
-        i = 0
-        while f"Conv_{i}" in pn:
-            out.update(conv(pn[f"Conv_{i}"], f"postnet.postnet.{i}.0"))
-            out.update(batch_norm(pn[f"BatchNorm_{i}"], pns[f"BatchNorm_{i}"],
-                                  f"postnet.postnet.{i}.1"))
-            i += 1
+        out.update(postnet(p["postnet"], s["postnet"], "postnet.postnet"))
+    return out
+
+
+def postnet(p, stats, prefix: str) -> dict:
+    out = {}
+    i = 0
+    while f"Conv_{i}" in p:
+        out.update(conv(p[f"Conv_{i}"], f"{prefix}.{i}.0"))
+        out.update(batch_norm(p[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"],
+                              f"{prefix}.{i}.1"))
+        i += 1
+    return out
+
+
+def predictor(p, prefix: str) -> dict:
+    """Duration / variance predictor: Conv_i, LayerNorm_i, Dense_0."""
+    out = dense(p["Dense_0"], f"{prefix}.linear")
+    i = 0
+    while f"Conv_{i}" in p:
+        out.update(conv(p[f"Conv_{i}"], f"{prefix}.conv.{i}.0"))
+        out.update(layer_norm(p[f"LayerNorm_{i}"], f"{prefix}.conv.{i}.2"))
+        i += 1
+    return out
+
+
+def gru(p, prefix: str) -> dict:
+    """flax GRUCell {ir, iz, in, hr, hz, hn} -> torch GRU (layer 0), the
+    inverse of ``fs2_import.py::_gru_cell``: flax carries one bias per gate
+    on the input side for r and z (torch's b_ir + b_hr folded), so those
+    go to ``bias_ih_l0`` with zeros in ``bias_hh_l0``; the n gate keeps
+    both (b_hn inside the reset product, as in torch)."""
+    k = {g: _np(p[g]["kernel"]).T for g in ("ir", "iz", "in", "hr", "hz",
+                                            "hn")}
+    hn_b = _np(p["hn"]["bias"])
+    zeros = np.zeros_like(hn_b)
+    return {f"{prefix}.weight_ih_l0": np.concatenate(
+                [k["ir"], k["iz"], k["in"]]),
+            f"{prefix}.weight_hh_l0": np.concatenate(
+                [k["hr"], k["hz"], k["hn"]]),
+            f"{prefix}.bias_ih_l0": np.concatenate(
+                [_np(p[g]["bias"]) for g in ("ir", "iz", "in")]),
+            f"{prefix}.bias_hh_l0": np.concatenate([zeros, zeros, hn_b])}
+
+
+def gst(p, stats, prefix: str) -> dict:
+    """StyleEncoder: ref_enc (Conv_i + BatchNorm_i as ESPnet's Sequential
+    of conv, norm and ReLU; GRUCell_0) and stl (gst_embs, four Dense)."""
+    ref, ref_s = p["ref_enc"], stats["ref_enc"]
+    out = gru(ref["GRUCell_0"], f"{prefix}.ref_enc.gru")
+    i = 0
+    while f"Conv_{i}" in ref:
+        out[f"{prefix}.ref_enc.convs.{3 * i}.weight"] = _np(
+            ref[f"Conv_{i}"]["kernel"]).transpose(3, 2, 0, 1).copy()
+        out.update(batch_norm(ref[f"BatchNorm_{i}"], ref_s[f"BatchNorm_{i}"],
+                              f"{prefix}.ref_enc.convs.{3 * i + 1}"))
+        i += 1
+    out[f"{prefix}.stl.gst_embs"] = _np(p["stl"]["gst_embs"])
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        out.update(dense(p["stl"][name], f"{prefix}.stl.mha.{name}"))
+    return out
+
+
+def fs2_state(variables) -> dict:
+    """FastSpeech2 variables ``{"params", "batch_stats"}`` -> port state
+    (ESPnet's names, the transformer blocks' norms as ``norm_mha`` /
+    ``norm_ff``)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = {"encoder.embed.0.weight": _np(p["text_embed"]["embedding"]),
+           **stack(p["encoder"], s.get("encoder", {}), "encoder"),
+           **stack(p["decoder"], s.get("decoder", {}), "decoder"),
+           **conv(p["pitch_embed"], "pitch_embed.0"),
+           **conv(p["energy_embed"], "energy_embed.0"),
+           **dense(p["feat_out"], "feat_out")}
+    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        out.update(predictor(p[name], name))
+    if "alpha" in p.get("enc_posenc", {}):
+        out["encoder.embed.1.alpha"] = _np(p["enc_posenc"]["alpha"])
+    if "alpha" in p.get("dec_posenc", {}):
+        out["decoder.embed.0.alpha"] = _np(p["dec_posenc"]["alpha"])
+    if "projection" in p:
+        out.update(dense(p["projection"], "projection"))
+    if "gst" in p:
+        out.update(gst(p["gst"], s["gst"], "gst"))
+    if "postnet" in p:
+        out.update(postnet(p["postnet"], s["postnet"], "postnet.postnet"))
+    return out
+
+
+def xvector_state(variables) -> dict:
+    """XVectorNet variables ``{"params"}`` -> port state (the flax names:
+    ``tdnn_i`` convolutions, ``bn_i`` LayerNorms, ``embed_a``, and the
+    classification head ``bn_embed``, ``embed_b``, ``classifier`` when
+    present)."""
+    p = variables["params"]
+    out = {}
+    for name, v in p.items():
+        if name.startswith("tdnn_"):
+            out.update(conv(v, name))
+        elif name.startswith("bn_"):
+            out.update(layer_norm(v, name))
+        else:
+            out.update(dense(v, name))
     return out
 
 

@@ -11,9 +11,10 @@ half runs on the device in the train step.
 
 Both packages draw every random choice from numpy's generators seeded the
 same way, so the port's plans and batches equal the JAX package's bit for
-bit.  Not ported: speaker embeddings (``spemb_map``, ROADMAP A3), duration
-collection for the TTS variant (A9), device-resident audio (needs the
-record shards of A7-rest) and chained superbatches (A6); each raises.
+bit.  With a ``spemb_map`` (uid -> x-vector) batches carry a float32
+``spemb`` (B, E), zero in empty slots.  Not ported: duration collection for
+the TTS variant (A9), device-resident audio (needs the record shards of
+A7-rest) and chained superbatches (A6); each raises.
 """
 
 from __future__ import annotations
@@ -75,9 +76,6 @@ class BucketBatcher:
         n_mels: Optional[int] = None,
         spemb_map: Optional[dict] = None,
     ):
-        if spemb_map is not None:
-            raise NotImplementedError(
-                "speaker embeddings in batches are not ported (ROADMAP A3)")
         if config.duration_collect:
             raise NotImplementedError(
                 "duration_collect is not ported (ROADMAP A9)")
@@ -88,6 +86,9 @@ class BucketBatcher:
         self.dataset = dataset
         self.fe = frontend
         self.config = config
+        self.spemb_map = spemb_map
+        self._spemb_dim = (len(next(iter(spemb_map.values())))
+                           if spemb_map else 0)
         n_mels = n_mels if n_mels is not None else frontend.n_mels
         hop = frontend.hop_length
 
@@ -206,9 +207,15 @@ class BucketBatcher:
             # decode, so PCM16 sources round-trip bit for bit
             audio = np.clip(np.rint(audio * 32768.0), -32768,
                             32767).astype(np.int16)
-        return dict(text=text, text_mask=text_mask, masked_position=masked,
-                    speech_segment_pos=ssp, text_segment_pos=tsp,
-                    audio_lengths=audio_lengths, audio=audio)
+        out = dict(text=text, text_mask=text_mask, masked_position=masked,
+                   speech_segment_pos=ssp, text_segment_pos=tsp,
+                   audio_lengths=audio_lengths, audio=audio)
+        if self.spemb_map is not None:
+            spemb = np.zeros((b, self._spemb_dim), np.float32)
+            for i, uid in enumerate(uids):
+                spemb[i] = self.spemb_map[uid]
+            out["spemb"] = spemb
+        return out
 
     def epoch_iterator(self, epoch: int, shard: tuple[int, int] = (0, 1)):
         """Yield host batches for one epoch (reproducibly seeded)."""

@@ -1,21 +1,27 @@
-"""Test-time fine-tuning and the [MASK]-filling helper of the baselines
-(``a3t_tpu/inference/baselines.py:33-48`` and ``:145-196``).
+"""The FastSpeech2 baselines and test-time fine-tuning
+(``a3t_tpu/inference/baselines.py``; reference
+espnet2/bin/sedit_inference.py:160-260, 748-776).
 
 * :func:`resolve_mask_str` — ``[MASK]`` in a text replaced by the original
   phones it spans;
+* :class:`FS2Baselines` — baseline1, FS2 TTS of the new text (GST +
+  x-vector conditioned); baseline2, FS2 TTS of only the edited text spliced
+  into the original mel at the edited span; baseline3, FS2 TTS of the
+  whole new text with the edited span's slice (located by the predicted
+  durations) spliced in;
 * :func:`dynamic_evaluation` — a few plain-SGD passes of per-word [MASK]
   reconstruction on the prompt utterance before decoding (speaker
   adaptation), on a copy of the editor's model.
-
-The FastSpeech2 baselines (``FS2Baselines``) wait for FastSpeech2 (ROADMAP
-A9).
 """
 
 from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
+
+from a3t_tpu_torch.dsp.griffin_lim import logmel_to_wav
 
 from a3t_tpu_torch.inference.sedit import (
     MASK_TOKEN,
@@ -40,6 +46,94 @@ def resolve_mask_str(alignment: UtteranceAlignment, old_str: str,
     old_phns = list(alignment.phones)
     filled = " ".join(old_phns[span_replaced[0]:span_replaced[1]])
     return new_str.replace(MASK_TOKEN, filled)
+
+
+class FS2Baselines:
+    """The three baselines from one FastSpeech2 (in eval mode, on its
+    device), its token converter, the editor's front-end (a
+    ``LogMelFrontend`` on the same device) and a vocoder ((B, F, n_mels) ->
+    (B, S) tensors; Griffin-Lim, ``dsp/griffin_lim.py``, when None)."""
+
+    def __init__(self, fs2_model, token_converter, frontend, vocoder=None):
+        self.model = fs2_model
+        self.tokens = token_converter
+        self.fe = frontend
+        self.vocoder = vocoder
+
+    def _synthesize(self, text_str: str, prompt_wav=None, spembs=None):
+        """(mel (n_frames, n_mels) up to the total duration, the durations
+        of the text's tokens and the eos) for ``text_str``."""
+        dev = next(self.model.parameters()).device
+        ids = self.tokens.text2ids(text_str) + [self.model.config.idim - 1]
+        text = torch.as_tensor([ids], device=dev)
+        mask = torch.ones_like(text, dtype=torch.bool)
+        with torch.inference_mode():
+            speech = None
+            if prompt_wav is not None and self.model.config.use_gst:
+                speech, _ = self.fe(np.asarray(prompt_wav, np.float32)[None])
+            sp = (None if spembs is None else torch.as_tensor(
+                np.asarray(spembs, np.float32)[None], device=dev))
+            out = self.model(text, mask, speech=speech, spembs=sp)
+        durations = out["durations"][0].cpu().numpy()
+        n_valid = int(durations.sum())
+        return out["after"][0, :n_valid].cpu().numpy(), durations
+
+    def _vocode(self, mel: np.ndarray) -> np.ndarray:
+        m = torch.as_tensor(mel[None], device=self.fe.device)
+        with torch.inference_mode():
+            wav = (self.vocoder(m) if self.vocoder is not None
+                   else logmel_to_wav(m, self.fe.config))
+        return wav[0].float().cpu().numpy()
+
+    def _old_span(self, alignment: UtteranceAlignment, span_replaced):
+        c = self.fe.config
+        start = alignment.start_sec
+        return [int(start[span_replaced[0]] * c.fs / c.hop_length),
+                int(start[min(span_replaced[1], len(start) - 1)] * c.fs
+                    / c.hop_length)]
+
+    def baseline1(self, new_str: str, prompt_wav=None, spembs=None):
+        """Full-utterance FS2 TTS of the new text (ref :160-185)."""
+        mel, _ = self._synthesize(new_str, prompt_wav, spembs)
+        return self._vocode(mel)
+
+    def baseline2(self, wav, alignment: UtteranceAlignment, full_str: str,
+                  new_str: str, target_str: str, lexicon, mel_fn,
+                  spembs=None):
+        """TTS of only the edited text, spliced into the original mel
+        (ref :187-222)."""
+        _, span_replaced, _ = diff_phone_spans(
+            alignment, full_str, new_str, lexicon)
+        old_span = self._old_span(alignment, span_replaced)
+        input_feat = mel_fn(wav)
+        mel_t, durations = self._synthesize(target_str, wav, spembs)
+        eos_dur = int(durations[-1])
+        mel_t = mel_t[: len(mel_t) - eos_dur] if eos_dur else mel_t
+        out = np.concatenate(
+            [input_feat[: old_span[0]], mel_t, input_feat[old_span[1]:]], 0)
+        return self._vocode(out)
+
+    def baseline3(self, wav, alignment: UtteranceAlignment, full_str: str,
+                  new_str: str, lexicon, mel_fn, spembs=None):
+        """TTS of the whole new text, only the edited span's slice spliced
+        in, located by the predicted durations (ref :224-260).  For
+        ``[MASK]`` reconstruction the original text is synthesized and the
+        span is the original one."""
+        new_phns, span_replaced, span_added = diff_phone_spans(
+            alignment, full_str, new_str, lexicon)
+        if MASK_TOKEN in new_str:
+            new_phns = list(alignment.phones)
+            span_added = list(span_replaced)
+            new_str = " ".join(new_phns)
+        old_span = self._old_span(alignment, span_replaced)
+        input_feat = mel_fn(wav)
+        mel_full, d = self._synthesize(new_str, wav, spembs)
+        s = int(d[: span_added[0]].sum())
+        e = int(d[: span_added[1]].sum())
+        out = np.concatenate(
+            [input_feat[: old_span[0]], mel_full[s:e],
+             input_feat[old_span[1]:]], 0)
+        return self._vocode(out)
 
 
 def dynamic_evaluation(

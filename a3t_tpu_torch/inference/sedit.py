@@ -260,6 +260,11 @@ class SpeechEditor:
             before vocoding.
         device: where the front-end runs; cuda unless the caller asks for
             the CPU.
+        spemb_fn: for a speaker-conditioned model (``spemb_dim > 0``), a
+            callable (padded audio, context frame mask) -> x-vector, e.g.
+            ``models/xvector.py::make_spemb_extractor``: the mask leaves
+            out padding and the masked span.  An explicit ``spemb`` given to
+            :meth:`edit` takes its place; with neither the model gets zeros.
     """
 
     def __init__(
@@ -275,8 +280,10 @@ class SpeechEditor:
         text_bucket: int = 8,
         normalizer=None,
         device=None,
+        spemb_fn: Optional[Callable] = None,
     ):
         self.device = resolve_device(device)
+        self.spemb_fn = spemb_fn
         self.model = model
         self.normalizer = normalizer
         self.fe = LogMelFrontend(frontend_config, device=self.device)
@@ -400,8 +407,11 @@ class SpeechEditor:
 
     # -- model decode ----------------------------------------------------
     def build_inputs(self, wav: np.ndarray, phones: list[str],
-                     start_sec, end_sec, span_boundary: list[int]) -> dict:
-        """Bucket-padded model inputs for one utterance, on the device."""
+                     start_sec, end_sec, span_boundary: list[int],
+                     spemb: Optional[np.ndarray] = None) -> dict:
+        """Bucket-padded model inputs for one utterance, on the device; a
+        speaker-conditioned model's ``spemb`` is the one given, else the
+        ``spemb_fn``'s x-vector of the unmasked context."""
         c = self.fe.config
         hop = c.hop_length
         n_f = 1 + len(wav) // hop
@@ -430,18 +440,24 @@ class SpeechEditor:
         host = dict(text=ids, masked_position=masked, speech_mask=speech_mask,
                     text_mask=text_mask, speech_segment_pos=ssp.astype(np.int64),
                     text_segment_pos=tsp.astype(np.int64))
+        if getattr(self.model.config, "spemb_dim", 0) > 0:
+            if spemb is None and self.spemb_fn is not None:
+                spemb = self.spemb_fn(audio, speech_mask & ~masked)
+            if spemb is not None:
+                host["spemb"] = np.asarray(spemb, np.float32)
         out = {k: torch.as_tensor(v[None], device=self.device)
                for k, v in host.items()}
         out["speech"] = feats
         return out
 
     def _reconstruct(self, wav: np.ndarray, phones: list[str],
-                     start_sec, end_sec, span_boundary: list[int]) -> np.ndarray:
+                     start_sec, end_sec, span_boundary: list[int],
+                     spemb: Optional[np.ndarray] = None) -> np.ndarray:
         """Teacher-forced reconstruction of the span; the full mel with the
         generated span spliced in."""
         n_f = 1 + len(wav) // self.fe.config.hop_length
         inputs = self.build_inputs(wav, phones, start_sec, end_sec,
-                                   span_boundary)
+                                   span_boundary, spemb)
         with torch.inference_mode():
             before, after = self.model(**inputs)
         gen = (after if after is not None else before)[0].cpu().numpy()
@@ -459,14 +475,19 @@ class SpeechEditor:
         new_str: str,
         duration_adjust: bool = True,
         mask_reconstruct: bool = False,
+        spemb: Optional[np.ndarray] = None,
     ) -> EditResult:
-        """Replace/regenerate a span of ``wav`` so it says ``new_str``."""
+        """Replace/regenerate a span of ``wav`` so it says ``new_str``;
+        ``spemb`` (E,), an explicit speaker embedding for a
+        speaker-conditioned model (the reference's spk2xvector lookup,
+        sedit_inference.py:203-210), takes the ``spemb_fn``'s place."""
         hop = self.fe.config.hop_length
         new_wav, phones, n_start, n_end, old_b, new_b = self._new_timeline(
             wav, alignment, old_str, new_str,
             duration_adjust=duration_adjust,
             mask_reconstruct=mask_reconstruct)
-        mel_edited = self._reconstruct(new_wav, phones, n_start, n_end, new_b)
+        mel_edited = self._reconstruct(new_wav, phones, n_start, n_end, new_b,
+                                       spemb)
         mel_original = self.mel(wav)
         replaced_wav = self._vocode(mel_edited)
         t_old = [hop * x for x in old_b]
@@ -489,11 +510,12 @@ class SpeechEditor:
     def reconstruct_masked_span(
         self, wav: np.ndarray, alignment: UtteranceAlignment,
         old_str: str, masked_str: str,
+        spemb: Optional[np.ndarray] = None,
     ) -> EditResult:
         """Mask the span marked [MASK] in ``masked_str`` and regenerate it
         teacher-forced (the MCD protocol)."""
         return self.edit(wav, alignment, old_str, masked_str,
-                         mask_reconstruct=True)
+                         mask_reconstruct=True, spemb=spemb)
 
     def prompt_tts(
         self,

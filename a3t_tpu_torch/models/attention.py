@@ -1,5 +1,5 @@
-"""Multi-head attention with (legacy) relative positional encoding
-(``a3t_tpu/models/attention.py``).
+"""Multi-head attention with (legacy) relative positional encoding, and
+plain scaled dot-product attention (``a3t_tpu/models/attention.py``).
 
 scores = ((q + u) k^T + rel_shift((q + v) p^T)) / sqrt(d_k); masked columns
 get the dtype minimum before the softmax and are re-zeroed after.  The flash
@@ -56,7 +56,44 @@ def apply_attn_mask(scores: torch.Tensor, mask) -> torch.Tensor:
     return torch.softmax(scores, dim=-1).masked_fill(~m, 0.0)
 
 
-class RelPositionMultiHeadedAttention(nn.Module):
+class MultiHeadedAttention(nn.Module):
+    """Plain scaled dot-product self-attention (attention.py:67-97), the
+    ``selfattn`` kind of the transformer FastSpeech2 stacks: masked columns
+    get the dtype minimum before the float32 softmax and are re-zeroed
+    after; the probabilities are dropped with :class:`SeededDropout` in
+    training mode.  No fused kernel: the JAX module has none either."""
+
+    def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0,
+                 dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.h = n_head
+        self.d_k = d_model // n_head
+        self.linear_q = nn.Linear(d_model, d_model)
+        self.linear_k = nn.Linear(d_model, d_model)
+        self.linear_v = nn.Linear(d_model, d_model)
+        self.linear_out = nn.Linear(d_model, d_model)
+        self.dropout = SeededDropout(dropout_rate)
+
+    def heads(self, linear, y):
+        """A projection in the compute dtype, split into (..., H, d_k)."""
+        y = dense(linear, y, self.dtype)
+        return y.view(*y.shape[:-1], self.h, self.d_k)
+
+    def forward(self, query, key, value, mask=None, generator=None):
+        b, t, d_model = query.shape
+        dt = self.dtype
+        q = self.heads(self.linear_q, query)
+        k = self.heads(self.linear_k, key)
+        v = self.heads(self.linear_v, value)
+        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) \
+            / math.sqrt(self.d_k)
+        attn = self.dropout(apply_attn_mask(scores, mask), generator)
+        out = torch.einsum("bhts,bshd->bthd", attn.to(v.dtype), v)
+        return dense(self.linear_out, out.reshape(b, t, d_model), dt)
+
+
+class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     """Self-attention with relative positional encoding.
 
     ``legacy=True``: pos_emb of length T over reversed positions;
@@ -69,20 +106,12 @@ class RelPositionMultiHeadedAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, legacy: bool = True,
                  use_flash: bool = True, dropout_rate: float = 0.0,
                  dtype=None):
-        super().__init__()
-        self.dtype = dtype
-        self.h = n_head
-        self.d_k = d_model // n_head
+        super().__init__(d_model, n_head, dropout_rate, dtype)
         self.legacy = legacy
         self.use_flash = use_flash
-        self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(d_model, d_model)
-        self.linear_v = nn.Linear(d_model, d_model)
-        self.linear_out = nn.Linear(d_model, d_model)
         self.linear_pos = nn.Linear(d_model, d_model, bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
-        self.dropout = SeededDropout(dropout_rate)
 
     def forward(self, x, pos_emb, mask=None, generator=None):
         b, t, d_model = x.shape
@@ -91,14 +120,10 @@ class RelPositionMultiHeadedAttention(nn.Module):
         if dt is not None:
             pos_emb = pos_emb.to(dt)
 
-        def heads(linear, y):
-            y = dense(linear, y, dt)
-            return y.view(*y.shape[:-1], self.h, self.d_k)
-
-        q = heads(self.linear_q, x)
-        k = heads(self.linear_k, x)
-        v = heads(self.linear_v, x)
-        p = heads(self.linear_pos, pos_emb)  # (1, P, H, d_k)
+        q = self.heads(self.linear_q, x)
+        k = self.heads(self.linear_k, x)
+        v = self.heads(self.linear_v, x)
+        p = self.heads(self.linear_pos, pos_emb)  # (1, P, H, d_k)
         q_u = q + self.pos_bias_u.to(q.dtype)
         q_v = q + self.pos_bias_v.to(q.dtype)
 

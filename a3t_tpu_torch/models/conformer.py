@@ -1,9 +1,13 @@
 """Conformer encoder/decoder stacks (``a3t_tpu/models/conformer.py``).
 
-Two block types are ported: the 24 kHz A3T block (macaron feed-forward
-halves, legacy rel-pos self-attention, conv module with BatchNorm) and the
-16 kHz longformer block (sliding-window attention with global text tokens,
-no conv module), both pre-LayerNorm, each in float32 or bfloat16 compute.
+The block takes every attention kind of the JAX package's stacks: legacy
+rel-pos self-attention (the 24 kHz A3T block and the published conformer
+FastSpeech2), the "latest" rel-pos variant with its 2T-1 table
+(``rel_selfattn``), plain self-attention (``selfattn``, the transformer
+FastSpeech2) and, for the 16 kHz longformer block, sliding-window attention
+with global text tokens; macaron halves and the conv module are options.
+All are pre-LayerNorm, in float32 or bfloat16 compute.  Attention dilation
+and the chunked longformer path are not ported (ROADMAP A8).
 Module names follow ESPnet's EncoderLayer (conformer/encoder_layer.py) so
 state dicts map onto the JAX package's tree.
 
@@ -22,7 +26,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from a3t_tpu_torch.models.attention import RelPositionMultiHeadedAttention
+from a3t_tpu_torch.models.attention import (
+    MultiHeadedAttention,
+    RelPositionMultiHeadedAttention,
+)
 from a3t_tpu_torch.models.dropout import SeededDropout
 from a3t_tpu_torch.models.layers import (
     ConvolutionModule,
@@ -31,6 +38,10 @@ from a3t_tpu_torch.models.layers import (
     sinusoidal_table,
 )
 from a3t_tpu_torch.models.windowed_attention import WindowedSelfAttention
+
+
+ATTENTION_KINDS = ("legacy_rel_selfattn", "rel_selfattn", "selfattn",
+                   "longformer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +63,8 @@ class EncoderConfig:
     positionwise_layer_type: str = "conv1d"  # "conv1d" | "linear"
     positionwise_conv_kernel_size: int = 3
     activation_type: str = "swish"
-    # "legacy_rel_selfattn" | "longformer" (sliding window + global text)
+    # "legacy_rel_selfattn" | "rel_selfattn" | "selfattn" | "longformer"
+    # (sliding window + global text)
     selfattention_layer_type: str = "legacy_rel_selfattn"
     attention_window: int = 0  # full window of "longformer"
     attention_dilation: int = 1
@@ -71,13 +83,15 @@ class EncoderConfig:
 
     def check_supported(self) -> None:
         kind = self.selfattention_layer_type
-        if kind not in ("legacy_rel_selfattn", "longformer"):
-            raise NotImplementedError(f"{kind!r} attention is not ported")
+        if kind not in ATTENTION_KINDS:
+            raise ValueError(f"unknown attention kind {kind!r}")
         if kind == "longformer" and self.attention_dilation != 1:
-            raise NotImplementedError("attention dilation is not ported")
+            raise NotImplementedError(
+                "attention dilation is not ported (ROADMAP A8)")
         if kind == "longformer" and not self.use_pallas_attention:
             raise NotImplementedError(
-                "the chunked-einsum longformer path is not ported")
+                "the chunked-einsum longformer path is not ported "
+                "(ROADMAP A8)")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r} is not ported")
@@ -85,28 +99,43 @@ class EncoderConfig:
             raise NotImplementedError("post-LayerNorm stacks are not ported")
 
 
+def rel_pos_table(t: int, d_model: int) -> np.ndarray:
+    """The "latest" variant's symmetric (2T - 1, d) table: positions
+    T - 1 .. -(T - 1) (embedding.py:173-244, conformer.py:126-129)."""
+    pos = sinusoidal_table(t, d_model)
+    neg = pos.copy()
+    neg[:, 0::2] *= -1.0  # sin(-x) = -sin(x); cos part unchanged
+    return np.concatenate([pos[::-1], neg[1:]], axis=0)
+
+
 class RelPosEncoding(nn.Module):
-    """x -> (dropout(x * sqrt(d)), dropout(pos_emb)), two separate draws,
-    with LegacyRelPositionalEncoding's quirk: the reversed table is built
-    over ``max(T, max_len)`` positions and the first T rows are taken, so
-    row i carries position ``max(T, max_len) - 1 - i``.  Trained checkpoints
-    depend on this table.
+    """x -> (dropout(x * sqrt(d)), dropout(pos_emb)), two separate draws.
+
+    ``legacy=True`` has LegacyRelPositionalEncoding's quirk: the reversed
+    table is built over ``max(T, max_len)`` positions and the first T rows
+    are taken, so row i carries position ``max(T, max_len) - 1 - i``.
+    Trained checkpoints depend on this table.  ``legacy=False`` takes the
+    symmetric 2T - 1 table of :func:`rel_pos_table`.
 
     As in flax, ``x * np.float32(sqrt(d))`` promotes a bfloat16 ``x`` to
     float32, while the table takes ``x``'s dtype (conformer.py:130-131).
     """
 
     def __init__(self, d_model: int, dropout_rate: float = 0.0,
-                 max_len: int = 5000):
+                 max_len: int = 5000, legacy: bool = True):
         super().__init__()
         self.d_model = d_model
         self.max_len = max_len
+        self.legacy = legacy
         self.dropout = SeededDropout(dropout_rate)
 
     def forward(self, x, generator=None):
         t = x.shape[1]
-        pe = sinusoidal_table(max(t, self.max_len), self.d_model,
-                              reverse=True)[:t]
+        if self.legacy:
+            pe = sinusoidal_table(max(t, self.max_len), self.d_model,
+                                  reverse=True)[:t]
+        else:
+            pe = rel_pos_table(t, self.d_model)
         pos_emb = torch.tensor(pe, dtype=x.dtype, device=x.device)[None]
         y = x.to(torch.promote_types(x.dtype, torch.float32)) \
             * float(np.float32(math.sqrt(self.d_model)))
@@ -114,23 +143,32 @@ class RelPosEncoding(nn.Module):
 
 
 class AbsPosEncoding(nn.Module):
-    """x -> (dropout(x * sqrt(d) + pe), None) (embedding.py:35-94,
-    ``scaled=False``); the None stands for the relative table that
-    :class:`RelPosEncoding` returns, as the JAX model's ``_PosEnc`` does.
+    """x -> (dropout(x * sqrt(d) + pe), None) (embedding.py:35-94); the None
+    stands for the relative table that :class:`RelPosEncoding` returns, as
+    the JAX model's ``_PosEnc`` does.
+
+    ``scaled=True`` is ScaledPositionalEncoding (conformer.py:139-154, the
+    FastSpeech2 stacks): x + alpha * pe with a learnable scalar ``alpha``
+    (one at first), ``x`` not scaled by sqrt(d).
 
     As in flax, ``x * np.float32(sqrt(d))`` promotes a bfloat16 ``x`` to
     float32, and the table is rounded to ``x``'s dtype before it is added.
     """
 
-    def __init__(self, d_model: int, dropout_rate: float = 0.0):
+    def __init__(self, d_model: int, dropout_rate: float = 0.0,
+                 scaled: bool = False):
         super().__init__()
         self.d_model = d_model
         self.dropout = SeededDropout(dropout_rate)
+        self.alpha = nn.Parameter(torch.ones(())) if scaled else None
 
     def forward(self, x, generator=None):
         pe = torch.tensor(sinusoidal_table(x.shape[1], self.d_model),
                           device=x.device)[None].to(x.dtype)
-        y = x.float() * float(np.float32(math.sqrt(self.d_model))) + pe
+        if self.alpha is not None:
+            y = x + self.alpha * pe
+        else:
+            y = x.float() * float(np.float32(math.sqrt(self.d_model))) + pe
         return self.dropout(y, generator), None
 
 
@@ -138,8 +176,10 @@ class ConformerBlock(nn.Module):
     """x += 1/2 drop(ff_macaron(LN(x))); x += drop(attn(LN(x)));
     x += drop(conv(LN(x))); x += 1/2 drop(ff(LN(x))); x = LN(x).
 
-    The attention is legacy rel-pos MHA, or for ``longformer`` windowed
-    attention over ``[speech (n_frames) ; text]`` with a flat key mask."""
+    The attention is rel-pos MHA (legacy or latest), plain MHA
+    (``selfattn``, which takes no positional table), or for ``longformer``
+    windowed attention over ``[speech (n_frames) ; text]`` with a flat key
+    mask."""
 
     def __init__(self, c: EncoderConfig):
         super().__init__()
@@ -163,14 +203,19 @@ class ConformerBlock(nn.Module):
             self.norm_ff_macaron = nn.LayerNorm(d, eps=1e-5)
             self.feed_forward_macaron = positionwise()
         self.norm_mha = nn.LayerNorm(d, eps=1e-5)
-        self.longformer = c.selfattention_layer_type == "longformer"
-        if self.longformer:
+        self.kind = c.selfattention_layer_type
+        if self.kind == "longformer":
             self.self_attn = WindowedSelfAttention(
                 d, c.attention_heads, c.attention_window,
                 c.attention_dropout_rate, dtype=c.dtype)
+        elif self.kind == "selfattn":
+            self.self_attn = MultiHeadedAttention(
+                d, c.attention_heads, c.attention_dropout_rate, dtype=c.dtype)
         else:
             self.self_attn = RelPositionMultiHeadedAttention(
-                d, c.attention_heads, use_flash=c.use_flash_attention,
+                d, c.attention_heads,
+                legacy=self.kind == "legacy_rel_selfattn",
+                use_flash=c.use_flash_attention,
                 dropout_rate=c.attention_dropout_rate, dtype=c.dtype)
         self.use_cnn = c.use_cnn_module
         if c.use_cnn_module:
@@ -191,11 +236,13 @@ class ConformerBlock(nn.Module):
             x = x + self.ff_scale * drop(self.feed_forward_macaron(
                 self.norm_ff_macaron(x), generator))
         h = self.norm_mha(x)
-        if self.longformer:
+        if self.kind == "longformer":
             flat_mask = mask[:, 0] if mask is not None and mask.dim() == 3 \
                 else mask
             h = self.self_attn(h, h.shape[1] if n_frames is None else n_frames,
                                flat_mask, generator)
+        elif self.kind == "selfattn":
+            h = self.self_attn(h, h, h, mask, generator)
         else:
             h = self.self_attn(h, pos_emb, mask, generator)
         x = x + drop(h)

@@ -85,18 +85,21 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
 def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """flax ``BatchNorm(use_running_average=False, momentum=0.9)`` over
-    (B, C, T): batch statistics over (B, T), padding included, with flax's
-    variance E[x^2] - E[x]^2 (clipped at 0, biased); the running statistics
-    move by ``ra = 0.9 * ra + 0.1 * batch`` with that biased variance, where
-    torch's own BatchNorm would use the unbiased one."""
+    (B, C, T) or (B, C, H, W): batch statistics over every axis but C,
+    padding included, with flax's variance E[x^2] - E[x]^2 (clipped at 0,
+    biased); the running statistics move by ``ra = 0.9 * ra + 0.1 * batch``
+    with that biased variance, where torch's own BatchNorm would use the
+    unbiased one."""
     x = x.float()
-    mean = x.mean(dim=(0, 2))
-    var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+    dims = (0,) + tuple(range(2, x.dim()))
+    mean = x.mean(dim=dims)
+    var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
         bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+    shape = (-1,) + (1,) * (x.dim() - 2)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean[:, None]) * mul[:, None] + bn.bias[:, None]
+    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -212,3 +215,61 @@ class MaskedInput(nn.Module):
     def forward(self, x, masked_position):
         return torch.where(masked_position[..., None],
                            self.mask_feature.to(x.dtype), x)
+
+
+class VariancePredictor(nn.Module):
+    """FastSpeech's predictor stack (duration_predictor.py:14-113,
+    variance_predictor.py): ``n_layers`` x [same-padded Conv1d -> ReLU ->
+    LayerNorm (eps 1e-5, the JAX modules') -> dropout], then a Linear to one
+    value per position, zero where ``pad_mask`` is True.  Output (B, T, 1);
+    ESPnet's names (``conv.{i}.0``, ``conv.{i}.2``, ``linear``)."""
+
+    def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 384,
+                 kernel_size: int = 3, dropout_rate: float = 0.5):
+        super().__init__()
+        self.conv = nn.ModuleList(
+            nn.ModuleList([
+                nn.Conv1d(idim if i == 0 else n_chans, n_chans, kernel_size,
+                          padding="same"),
+                nn.ReLU(), nn.LayerNorm(n_chans, eps=1e-5),
+                SeededDropout(dropout_rate)])
+            for i in range(n_layers))
+        self.linear = nn.Linear(n_chans, 1)
+
+    def forward(self, x, pad_mask=None, generator=None):
+        h = x
+        for conv, relu, norm, drop in self.conv:
+            h = conv(h.transpose(1, 2)).transpose(1, 2)
+            h = drop(norm(relu(h)), generator)
+        out = self.linear(h)
+        if pad_mask is not None:
+            out = out.masked_fill(pad_mask[..., None], 0.0)
+        return out
+
+
+class DurationPredictor(VariancePredictor):
+    """The duration predictor (layers.py:291-322): log-domain durations
+    (B, T), trained against log(d + 1) and rounded to frames at
+    inference by :meth:`to_durations`; dropout 0.1, as in JAX."""
+
+    def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 256,
+                 kernel_size: int = 3, dropout_rate: float = 0.1):
+        super().__init__(idim, n_layers, n_chans, kernel_size, dropout_rate)
+
+    def forward(self, x, pad_mask=None, generator=None):
+        return super().forward(x, pad_mask, generator)[..., 0]
+
+    @staticmethod
+    def to_durations(log_durations: torch.Tensor, offset: float = 1.0
+                     ) -> torch.Tensor:
+        """max(round(exp(x) - offset), 0) as int64; ``torch.round`` rounds
+        half to even, as ``jnp.round`` does."""
+        return torch.clamp(torch.round(torch.exp(log_durations) - offset),
+                           min=0.0).to(torch.int64)
+
+
+def duration_loss(log_pred: torch.Tensor, target_durations: torch.Tensor,
+                  offset: float = 1.0) -> torch.Tensor:
+    """Per-position squared error in the log domain (layers.py:325-330)."""
+    t = torch.log(target_durations.float() + offset)
+    return (log_pred - t) ** 2

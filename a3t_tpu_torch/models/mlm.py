@@ -13,6 +13,15 @@ tree; that map has no name for the pre-encoder, which takes the JAX tree's
 name.  ``model.train()`` turns on dropout (seeds from the ``generator``
 given to ``forward``) and batch-statistics BatchNorm; :func:`mlm_loss` is the
 masked L1 training loss.
+
+With ``spemb_dim > 0`` the model conditions on an utterance-level speaker
+embedding (an x-vector, ``models/xvector.py``) at three sites, as the JAX
+model does (:141-159, :230-234, :297-316): L2-normalised (epsilon 1e-8; a
+missing embedding is zeros), projected by ``spemb_proj`` onto both
+modalities' embeddings, by ``spemb_proj_mid`` onto the encoder's output and
+by the zero-initialised ``spemb_out`` onto the output mel.  ESPnet has no
+names for them, so they keep the JAX tree's names.  The duration-aware
+variant (``duration_predictor_layers > 0``) is not ported (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -86,14 +95,16 @@ class A3TMLMModel(nn.Module):
     def __init__(self, config: A3TModelConfig):
         super().__init__()
         c = config
-        if c.spemb_dim:
-            raise NotImplementedError(
-                "speaker-conditioned A3T (spemb_dim > 0) is not ported")
         if c.duration_predictor_layers:
-            raise NotImplementedError("the duration-aware variant is not ported")
+            raise NotImplementedError(
+                "the duration-aware variant is not ported (ROADMAP A9)")
         self.config = c
         d = c.encoder.attention_dim
         self.encoder = MLMEncoder(c)
+        if c.spemb_dim > 0:
+            self.spemb_proj = nn.Linear(c.spemb_dim, d)
+            self.spemb_proj_mid = nn.Linear(c.spemb_dim, d)
+            self.spemb_out = nn.Linear(c.spemb_dim, c.odim)
         self.posenc = _posenc(c.encoder)
         self.pre_speech_encoders = None
         if c.encoder.pre_speech_layers > 0:
@@ -109,8 +120,19 @@ class A3TMLMModel(nn.Module):
             self.postnet = Postnet(c.odim, c.postnet_layers, c.postnet_chans,
                                    c.postnet_filts, dtype=c.encoder.dtype)
 
+    def _norm_spemb(self, spemb, batch_size: int, device) -> torch.Tensor:
+        """The L2-normalised speaker embedding (epsilon 1e-8), zeros when
+        absent (the projections' biases alone)."""
+        if spemb is None:
+            spemb = torch.zeros(batch_size, self.config.spemb_dim,
+                                device=device)
+        spemb = spemb.float()
+        return spemb / (torch.linalg.vector_norm(spemb, dim=-1, keepdim=True)
+                        + 1e-8)
+
     def encode(self, speech, text, masked_position, speech_mask, text_mask,
-               speech_segment_pos, text_segment_pos, generator=None):
+               speech_segment_pos, text_segment_pos, spemb=None,
+               generator=None):
         """((B, F + T, d) encoder states, (B, 1, F + T) mask)."""
         enc = self.encoder
         dt = self.config.encoder.dtype
@@ -130,6 +152,11 @@ class A3TMLMModel(nn.Module):
         if self.config.use_segment_emb:
             h_speech = h_speech + enc.segment_emb(speech_segment_pos)
             h_text = h_text + enc.segment_emb(text_segment_pos)
+        if self.config.spemb_dim > 0:
+            se = self._norm_spemb(spemb, speech.shape[0], speech.device)
+            # no compute dtype: flax promotes to float32
+            se = dense(self.spemb_proj, se.to(h_speech.dtype))[:, None, :]
+            h_speech, h_text = h_speech + se, h_text + se
         if self.pre_speech_encoders is not None:
             h_speech = self.pre_speech_encoders(
                 h_speech, pos_speech, speech_mask[:, None, :], generator,
@@ -149,15 +176,23 @@ class A3TMLMModel(nn.Module):
     def forward(self, speech, text, masked_position, speech_mask, text_mask,
                 speech_segment_pos, text_segment_pos, spemb=None,
                 generator=None):
-        if spemb is not None:
-            raise NotImplementedError("spemb conditioning is not ported")
+        """``spemb`` (B, spemb_dim): the speaker embedding of a
+        speaker-conditioned model (zeros when None); a model without
+        speaker conditioning ignores it, as the JAX model does."""
         n_frames = speech.shape[1]
         hidden, mask = self.encode(
             speech, text, masked_position, speech_mask, text_mask,
-            speech_segment_pos, text_segment_pos, generator)
+            speech_segment_pos, text_segment_pos, spemb, generator)
+        se = None
+        if self.config.spemb_dim > 0:
+            se = self._norm_spemb(spemb, speech.shape[0], speech.device)
+            hidden = hidden + dense(self.spemb_proj_mid,
+                                    se.to(hidden.dtype))[:, None, :]
         if self.config.decoder is not None:
             hidden = self.decode(hidden, mask, generator, n_frames)
         before_outs = self.sfc(hidden[:, :n_frames]).float()
+        if se is not None:
+            before_outs = before_outs + self.spemb_out(se).float()[:, None, :]
         after_outs = None
         if self.config.postnet_layers > 0:
             after_outs = before_outs + self.postnet(before_outs, generator)
@@ -167,8 +202,10 @@ class A3TMLMModel(nn.Module):
 def _posenc(c: EncoderConfig) -> nn.Module:
     """Relative positions for legacy rel-pos stacks, absolute otherwise
     (the JAX model's ``_PosEnc`` kinds)."""
-    if c.selfattention_layer_type == "legacy_rel_selfattn":
-        return RelPosEncoding(c.attention_dim, c.positional_dropout_rate)
+    kind = c.selfattention_layer_type
+    if kind in ("legacy_rel_selfattn", "rel_selfattn"):
+        return RelPosEncoding(c.attention_dim, c.positional_dropout_rate,
+                              legacy=kind == "legacy_rel_selfattn")
     return AbsPosEncoding(c.attention_dim, c.positional_dropout_rate)
 
 
@@ -190,16 +227,20 @@ def mlm_loss(before_outs, after_outs, target, masked_position,
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the JAX package's initialisers: xavier
-    uniform for dense, conv and positional-bias weights, zero biases,
-    standard normal embeddings and mask feature, identity BatchNorm."""
+    uniform for dense, conv, recurrent and positional-bias weights, zero
+    biases, standard normal embeddings, mask feature and style tokens,
+    identity BatchNorm, a scaled positional encoding's ``alpha`` one, and
+    the speaker offset ``spemb_out`` zero (mlm.py:154-159)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "bias" or (p.dim() == 1 and leaf == "weight"):
-                # LayerNorm / BatchNorm scale is one, every bias zero
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf == "mask_feature" or isinstance(
-                    model.get_submodule(name.rsplit(".", 1)[0]), nn.Embedding):
+            owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+            if leaf.startswith("bias") or owner == "spemb_out":
+                p.zero_()
+            elif p.dim() == 0 or (p.dim() == 1 and leaf == "weight"):
+                # LayerNorm / BatchNorm scale and alpha are one
+                p.fill_(1.0)
+            elif leaf in ("mask_feature", "gst_embs") or isinstance(
+                    model.get_submodule(owner), nn.Embedding):
                 p.normal_(generator=generator)
             else:
                 nn.init.xavier_uniform_(p, generator=generator)

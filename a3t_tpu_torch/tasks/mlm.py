@@ -8,8 +8,9 @@ build_model_from_file, tasks/mlm.py:446-496).  :meth:`MLMTask.build`
 returns the trainer and the initial state, so that a caller can hand in
 its own state; :meth:`MLMTask.run` builds and trains.
 
-Not ported, each raising with its ROADMAP item: multi-corpus mixtures
-(``corpora``, A7-rest), speaker conditioning (``model.spemb_dim``, A3), the
+A speaker-conditioned model (``model.spemb_dim > 0``) takes its batches'
+x-vectors from :meth:`MLMTask._build_spemb_map`.  Not ported, each raising
+with its ROADMAP item: multi-corpus mixtures (``corpora``, A7-rest), the
 duration-aware TTS variant (A9), ``speech_only`` (A6), per-epoch plots
 (``num_plot_examples``, A7-rest), record shards (A7-rest),
 ``batcher.device_audio`` (A7-rest) and meshes of more than one device (A10).
@@ -20,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+
+import numpy as np
 
 from a3t_tpu_torch.data.batcher import BucketBatcher
 from a3t_tpu_torch.data.dataset import A3TDataset
@@ -45,8 +48,6 @@ def check_supported(cfg: A3TTaskConfig) -> None:
     the dataset, the batcher and the Trainer)."""
     refused = [
         (bool(cfg.corpora), "multi-corpus training (corpora)", "A7-rest"),
-        (cfg.model.spemb_dim > 0, "speaker conditioning (model.spemb_dim)",
-         "A3"),
         (cfg.model.duration_predictor_layers > 0,
          "the duration-aware variant (model.duration_predictor_layers)",
          "A9"),
@@ -111,9 +112,56 @@ class MLMTask:
         bcfg = cfg.batcher
         if not train:
             bcfg = dataclasses.replace(bcfg, mlm_prob_factor=1.0)
-        return BucketBatcher(
-            A3TDataset(data_dir, conv, speech_only=cfg.speech_only),
-            cfg.frontend, bcfg)
+        ds = A3TDataset(data_dir, conv, speech_only=cfg.speech_only)
+        spemb_map = None
+        if cfg.model.spemb_dim > 0:
+            spemb_map = cls._build_spemb_map(cfg, ds, data_dir)
+        return BucketBatcher(ds, cfg.frontend, bcfg, spemb_map=spemb_map)
+
+    @classmethod
+    def _build_spemb_map(cls, cfg: A3TTaskConfig, ds: A3TDataset,
+                         data_dir: str) -> dict:
+        """uid -> x-vector for a speaker-conditioned model
+        (``a3t_tpu/tasks/mlm.py:116-164``).  Each uid resolves, in order,
+        from ``<data_dir>/utt2xvector.npz`` (per-utterance embeddings,
+        ``models/xvector.py::build_utt2xvector``), then ``cfg.spemb_file``
+        by uid, then ``cfg.spemb_file`` by speaker (``utt2spk``).  A uid
+        that resolves nowhere raises: a silent zero vector would train the
+        conditioning to be ignored."""
+        local_path = os.path.join(data_dir, "utt2xvector.npz")
+        local = table = {}
+        if os.path.exists(local_path):
+            with np.load(local_path) as f:
+                local = {k: np.asarray(f[k], np.float32) for k in f.files}
+        if cfg.spemb_file:
+            with np.load(cfg.spemb_file) as f:
+                table = {k: np.asarray(f[k], np.float32) for k in f.files}
+        if not local and not table:
+            raise ValueError(
+                f"model.spemb_dim > 0 but neither {local_path} nor "
+                "spemb_file provides embeddings")
+        utt2spk_path = os.path.join(data_dir, "utt2spk")
+        utt2spk = (read_2column_text(utt2spk_path)
+                   if os.path.exists(utt2spk_path) else {})
+        spemb_map, missing = {}, []
+        for uid in ds.uids:
+            if uid in local:
+                spemb_map[uid] = local[uid]
+            elif uid in table:
+                spemb_map[uid] = table[uid]
+            else:
+                spk = utt2spk.get(uid)
+                if spk is None:
+                    spk = ds.get_meta(uid).get("speaker")
+                if spk in table:
+                    spemb_map[uid] = table[spk]
+                else:
+                    missing.append(uid)
+        if missing:
+            raise ValueError(
+                f"no speaker embedding for {len(missing)} utts of "
+                f"{data_dir} (first: {missing[:3]})")
+        return spemb_map
 
     @classmethod
     def build(cls, cfg: A3TTaskConfig, device=None,

@@ -81,15 +81,17 @@ def step_generator(seed: int, epoch: int, iteration: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(s[0]) << 32 | int(s[1]))
 
 
-def _batch_shape(batch) -> tuple[int, int]:
-    """(batch size, frames) of a batch."""
+def batch_shape(batch) -> tuple[int, int]:
+    """(batch size, frames) of an A3T batch."""
     b, f = batch["masked_position"].shape
     return int(b), int(f)
 
 
 class Trainer:
     """Drives train/valid epochs over iterator factories
-    (``factory(epoch) -> iterable of batches``, reseeded per epoch)."""
+    (``factory(epoch) -> iterable of batches``, reseeded per epoch).
+    ``batch_shape(batch) -> (batch size, frames)`` weighs each step's
+    statistics and fills the step log (``batch_shape`` for A3T batches)."""
 
     def __init__(
         self,
@@ -101,6 +103,7 @@ class Trainer:
         checkpoint_manager: Optional[CheckpointManager] = None,
         tensorboard_writer=None,
         wandb_run=None,
+        batch_shape: Callable = batch_shape,
     ):
         if config.steps_per_dispatch > 1:
             raise NotImplementedError(
@@ -112,6 +115,7 @@ class Trainer:
         self.train_iter_factory = train_iter_factory
         self.valid_iter_factory = valid_iter_factory
         self.ckpt = checkpoint_manager
+        self.batch_shape = batch_shape
         self.reporter = Reporter()
         self.tb = tensorboard_writer
         self.wandb = wandb_run
@@ -250,7 +254,7 @@ class Trainer:
                         prof = None
                 t0 = time.perf_counter()
                 sub.register_time("iter", t0 - t_last)
-                b, f = _batch_shape(batch)
+                b, f = self.batch_shape(batch)
                 rec = {"epoch": epoch, "iteration": steps_done, "batch": b,
                        "frames": f, "iter_wait_s": t0 - t_last}
                 if on_cuda:
@@ -315,5 +319,5 @@ class Trainer:
         pending = []
         for batch in self.valid_iter_factory(epoch):
             pending.append((self.eval_step(state, batch),
-                            float(_batch_shape(batch)[0]), {}))
+                            float(self.batch_shape(batch)[0]), {}))
         self._flush(sub, pending)

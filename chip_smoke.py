@@ -137,6 +137,32 @@ Phases, each printing its elapsed seconds:
    load, the loads, Griffin-Lim against PWG on one mel, the edit request's
    split, dynamic evaluation's seconds per pass and the MCD analysis's host
    seconds per utterance.
+14. speaker-fs2: speaker conditioning and the FastSpeech2 path on the
+   trainer's corpus (8 speakers), in the same temporary directory: a seeded
+   x-vector network (XVectorConfig(), its log-mel MVN from the corpus)
+   written in load_xvector's format, build_spk2xvector and
+   build_utt2xvector over the corpus; configs/fs2_conformer_24k.yaml (the
+   GST + x-vector conformer FastSpeech2, 4 + 4 blocks through K1/K2)
+   trained 8 steps through FS2Task.run in fp32 with the spk2xvector table
+   (finite, not skipped, 8 K1 per train and eval forward and 8 K2 per
+   train step, K1/K2 against their plain versions at the encoder's and the
+   decoder's masks: B 16 x text 64 and x 512 frames); the 24 kHz yaml
+   with spemb_dim 192 trained 8 steps through bin.train (the same launch
+   checks, the zero-initialised speaker offset moved); bin.sedit edit
+   --duration-model --spk-xvector (8 + 2 x 4 K1 launches, 4 per duration
+   prediction); an edit and a prompt TTS through SpeechEditor(spemb_fn=
+   make_spemb_extractor(...)); the context x-vector equal bit for bit with
+   the masked span's interior (what reaches no context frame through the
+   STFT window and the TDNN) replaced by noise; two runs of the duration
+   function equal; bin.batch_decode --fs2-exp --spk-xvector on 4
+   validation utterances (six wavs each, of the lengths the spans and the
+   summed durations give); bin.mcd_gate --duration-model on the same 4;
+   save_espnet_fs2 -> load_duration_fn(.pth) equal to the experiment's
+   durations bit for bit.  Prints the FS2 step's device time,
+   mel-frames/s, data wait and host batch assembly, the same step on one
+   batch with no producer thread running, and medians of 3 after
+   a warm-up of the x-vector extraction, the duration function, requests
+   with FS2 durations, each baseline and the model loads.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -2719,6 +2745,512 @@ def serve_cli_phase(torch, np, fa, cuda_ms, label, exp_dir, valid, root,
     return launches
 
 
+CONFIG_FS2 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "fs2_conformer_24k.yaml")
+FS2_STEPS = 8  # FastSpeech2 and speaker-conditioned A3T training steps
+FS2_SETS: list = []  # extra FS2 config overrides (a CPU rehearsal's widths)
+SPEMB_SETS: list = []  # the same for the speaker-conditioned A3T run
+DECODE_UTTS = 4
+# the context x-vector's reach around a frame: the TDNN's context, sum of
+# (k - 1) / 2 * dilation = 2 + 2 + 3 frames, and the STFT's half-window
+XV_CONTEXT = 7
+
+
+def _median3(np, fn):
+    """(median seconds of 3 host-clock runs after a warm-up, each ending
+    synchronised, the last result)."""
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def seeded_xvector(torch, np, fe, train_ds, out_dir, device):
+    """XVectorConfig() (512 channels, 192 dims) with seeded weights (the
+    JAX initialisers), its log-mel MVN taken from the training corpus, in
+    ``load_xvector``'s format; returns (seconds for the MVN, frames)."""
+    from a3t_tpu_torch.models.mlm import init_parameters
+    from a3t_tpu_torch.models.xvector import (XVectorConfig, XVectorNet,
+                                              save_xvector)
+
+    net = XVectorNet(XVectorConfig(n_mels=fe.config.n_mels))
+    init_parameters(net, torch.Generator().manual_seed(17))
+    t0 = time.perf_counter()
+    total = sq = None
+    n = 0
+    with torch.inference_mode():
+        for uid in train_ds.uids:
+            feats = fe(train_ds[uid]["audio"][None])[0][0].double()
+            total = feats.sum(0) if total is None else total + feats.sum(0)
+            sq = (feats * feats).sum(0) if sq is None \
+                else sq + (feats * feats).sum(0)
+            n += feats.shape[0]
+    mean = (total / n).cpu().numpy()
+    std = np.sqrt(np.maximum((sq / n).cpu().numpy() - mean ** 2, 1e-10))
+    save_xvector(net, (mean.astype(np.float32), std.astype(np.float32)),
+                 out_dir)
+    return time.perf_counter() - t0, n
+
+
+def _fs2_masks(torch, np, batcher, eos_id, fs2_model, device):
+    """The key masks K1 and K2 see in FastSpeech2's training step: the
+    encoder's text mask (B x 64, the longest bucket's first batch) and the
+    decoder's frame mask (B x max_feat_len) from that batch's durations."""
+    from a3t_tpu_torch.models.fastspeech2 import length_regulate
+
+    bi = len(batcher._buckets) - 1
+    while not batcher._buckets[bi]:
+        bi -= 1
+    host = batcher.make_batch(bi, batcher._buckets[bi][
+        : batcher.config.batch_size], eos_id)
+    text_mask = torch.as_tensor(host["text_mask"], device=device)
+    d = torch.as_tensor(host["durations"], device=device)
+    _, frames = length_regulate(
+        torch.zeros(*d.shape, 1, device=device), d,
+        fs2_model.config.max_feat_len)
+    return text_mask, frames
+
+
+def speaker_fs2_phase(torch, np, fa, label, root, train, valid, device="cuda"):
+    """Speaker conditioning and the FastSpeech2 path on the trainer
+    phase's corpus (8 speakers): a seeded x-vector directory and its
+    per-speaker and per-utterance x-vectors; configs/fs2_conformer_24k.yaml
+    trained 8 steps through FS2Task.run (fp32, with the spk2xvector
+    table); configs/a3t_conformer_24k.yaml with spemb_dim 192 trained 8
+    steps through bin.train; then bin.sedit edit with --duration-model and
+    --spk-xvector, an edit and a prompt TTS through SpeechEditor(spemb_fn=
+    make_spemb_extractor(...)), bin.batch_decode --fs2-exp --spk-xvector
+    and bin.mcd_gate --duration-model on 4 validation utterances, and the
+    ESPnet .pth route of the duration model.  Returns the K1 and K2
+    launches of the phase's main path and K1's and K2's largest float32
+    errors at the FastSpeech2 shapes."""
+    import gc
+
+    from a3t_tpu_torch.bin import batch_decode, mcd_gate, sedit
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.compat.fs2 import save_espnet_fs2
+    from a3t_tpu_torch.data.dataset import A3TDataset
+    from a3t_tpu_torch.data.fileio import read_2column_text, read_wav
+    from a3t_tpu_torch.dsp import LogMelFrontend
+    from a3t_tpu_torch.inference import (FS2Baselines, FileAlignmentSource,
+                                         SpeechEditor, diff_phone_spans,
+                                         resolve_mask_str)
+    from a3t_tpu_torch.inference.durations import load_duration_fn
+    from a3t_tpu_torch.models import xvector as xv
+    from a3t_tpu_torch.tasks.fs2 import FS2Task, load_fs2_config
+    from a3t_tpu_torch.tasks.mlm import MLMTask
+
+    out = os.path.join(root, "speaker")
+    os.makedirs(out, exist_ok=True)
+    cfg24 = load_fs2_config(CONFIG_FS2).frontend
+    fe = LogMelFrontend(cfg24, device=device)
+    train_ds, valid_ds = A3TDataset(train), A3TDataset(valid)
+    speakers = sorted(set(train_ds.utt2spk.values()))
+
+    # 1. the x-vector directory, spk2xvector and utt2xvector
+    xv_dir = os.path.join(out, "xvector")
+    mvn_s, n_frames = seeded_xvector(torch, np, fe, train_ds, xv_dir, device)
+    xnet, mvn = xv.load_xvector(xv_dir, device=device)
+    spk_path = os.path.join(xv_dir, "spk2xvector.npz")
+    t0 = time.perf_counter()
+    spk2xv = xv.build_spk2xvector(xnet, fe, train_ds, spk_path, mel_mvn=mvn)
+    spk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for d, ds in ((train, train_ds), (valid, valid_ds)):
+        utt2xv = xv.build_utt2xvector(
+            xnet, fe, ds, os.path.join(d, "utt2xvector.npz"), mel_mvn=mvn)
+        check(sorted(utt2xv) == list(ds.uids) and all(
+            v.shape == (192,) and np.isfinite(v).all()
+            for v in utt2xv.values()), f"utt2xvector of {d}")
+    utt_s = time.perf_counter() - t0
+    check(sorted(spk2xv) == speakers and all(
+        v.shape == (192,) and np.isfinite(v).all() for v in spk2xv.values()),
+        "spk2xvector: one finite 192-dim x-vector per speaker")
+    log(f"  x-vectors: MVN over {n_frames} training frames in {mvn_s:.2f} s; "
+        f"spk2xvector of {len(spk2xv)} speakers over {len(train_ds)} "
+        f"utterances (one call each) in {spk_s:.2f} s; utt2xvector of "
+        f"{len(train_ds)} + {len(valid_ds)} utterances (chunks of 32) in "
+        f"{utt_s:.2f} s [{label}]")
+    del xnet
+    spk_npy = os.path.join(out, f"{speakers[0]}.npy")
+    np.save(spk_npy, spk2xv[speakers[0]])
+
+    # 2. FastSpeech2 training
+    fs2_exp = os.path.join(out, "fs2")
+    cfg = load_fs2_config(CONFIG_FS2, [
+        f"train_data_dir={train}", f"valid_data_dir={valid}",
+        f"exp_dir={fs2_exp}", f"spk_xvector={spk_path}",
+        "trainer.max_epoch=1", f"trainer.num_iters_per_epoch={FS2_STEPS}",
+        *FS2_SETS])
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    trainer, state = FS2Task.run(cfg, device=device)
+    torch.cuda.synchronize()
+    fs2_wall = time.perf_counter() - t0
+    fs2_launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    steps = list(trainer.step_log)
+    vplan = trainer.valid_iter_factory.batcher.batcher
+    n_eval = sum(-(-len(m) // vplan.config.batch_size)
+                 for m in vplan._buckets)
+    n_blocks = cfg.model.encoder.num_blocks + cfg.model.decoder.num_blocks
+    check(len(steps) == FS2_STEPS and all(
+        np.isfinite(r["loss"]) for r in steps)
+        and int(state.opt_state.total_notfinite) == 0,
+        "every FastSpeech2 step is finite and not skipped")
+    check(fs2_launches == (n_blocks * (len(steps) + n_eval),
+                           n_blocks * len(steps)),
+          f"FastSpeech2: {n_blocks} K1 launches per train and eval forward, "
+          f"{n_blocks} K2 per train step (read K1 {fs2_launches[0]}, K2 "
+          f"{fs2_launches[1]} for {len(steps)} + {n_eval} steps)")
+    dev_ms = [r["device_ms"] for r in steps[1:]]
+    wait = [r["iter_wait_s"] * 1e3 for r in steps[1:]]
+    b, f = steps[0]["batch"], steps[0]["frames"]
+    med = float(np.median(dev_ms))
+    batcher = trainer.train_iter_factory.batcher
+    host_s, _ = _median3(np, lambda: batcher.batcher.make_batch(
+        0, batcher.batcher._buckets[0][: cfg.batcher.batch_size],
+        batcher.eos_id))
+    log(f"  FS2Task.run: {len(steps)} steps + {n_eval} eval steps in "
+        f"{fs2_wall:.2f} s; losses {[round(r['loss'], 2) for r in steps]}; "
+        f"K1 {fs2_launches[0]}, K2 {fs2_launches[1]} launches [{label}]")
+    log(f"  FS2 step (B = {b}, {f} frames, text {sorted(cfg.batcher.text_buckets)}"
+        f"): median {med:.2f} ms on the device's clock (n={len(dev_ms)}, "
+        f"min {min(dev_ms):.2f}, max {max(dev_ms):.2f}), "
+        f"{b * f / med * 1e3:.1f} mel-frames/s; data wait median "
+        f"{float(np.median(wait)):.2f} ms per step (max {max(wait):.2f}); "
+        f"host assembly of one batch (F0 and energy on the host) "
+        f"{host_s * 1e3:.1f} ms (median of 3) [{label}]")
+    host_ms = float(np.median([r["host_s"] for r in steps[1:]])) * 1e3
+    # the same step on one assembled batch with no producer thread running
+    # (2 warm-up + 5 timed steps, CUDA events), beside the trainer's
+    host = batcher.batcher.make_batch(
+        0, batcher.batcher._buckets[0][: cfg.batcher.batch_size],
+        batcher.eos_id)
+    bare = []
+    for i in range(7):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        trainer.train_step(state, host, i)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            bare.append(ev[0].elapsed_time(ev[1]))
+    bare_ms = float(np.median(bare))
+    log(f"  FS2 step: host time in the trainer's step call median "
+        f"{host_ms:.2f} ms; the bare step on one batch with no producer "
+        f"thread running median {bare_ms:.2f} ms (n=5, min {min(bare):.2f},"
+        f" max {max(bare):.2f}), {b * f / bare_ms * 1e3:.1f} mel-frames/s: "
+        f"the trainer's step is {med / bare_ms:.2f}x the bare step while the "
+        f"producer thread extracts F0 and energy in numpy [{label}]")
+    text_mask, frame_mask = _fs2_masks(torch, np, batcher.batcher,
+                                       batcher.eos_id, state.model, device)
+    att = next(m for m in state.model.modules() if hasattr(m, "d_k"))
+    g = torch.Generator().manual_seed(13)
+    errs = [0.0, 0.0]
+    for mask, where in ((text_mask, "FS2's encoder"),
+                        (frame_mask, "FS2's decoder")):
+        e = kernel_pair_check(torch, fa, mask, att.h, att.d_k, g, where)
+        errs = [max(a, c) for a, c in zip(errs, e)]
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. speaker-conditioned A3T training
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    spemb_exp = os.path.join(out, "a3t_spemb")
+    trainer, state = train_main(_train_argv(
+        train, valid, spemb_exp, device, "model.spemb_dim=192",
+        f"spemb_file={spk_path}", "trainer.max_epoch=2",
+        f"trainer.num_iters_per_epoch={FS2_STEPS // 2}", *SPEMB_SETS))
+    torch.cuda.synchronize()
+    a3t_launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    steps = list(trainer.step_log)
+    n_eval = sum(len(trainer.valid_iter_factory.batcher.batch_plan(e))
+                 for e in (1, 2))
+    check(len(steps) == FS2_STEPS and all(
+        np.isfinite(r["loss"]) for r in steps)
+        and int(state.opt_state.total_notfinite) == 0,
+        "every speaker-conditioned A3T step is finite and not skipped")
+    a3t_cfg = state.model.config
+    a3t_blocks = a3t_cfg.encoder.num_blocks + a3t_cfg.decoder.num_blocks
+    check(a3t_launches == (a3t_blocks * (len(steps) + n_eval),
+                           a3t_blocks * len(steps)),
+          f"speaker-conditioned A3T: {a3t_blocks} K1 launches per train and "
+          f"eval step, {a3t_blocks} K2 per train step")
+    moved = float(state.model.spemb_out.weight.detach().abs().max())
+    log(f"  bin.train spemb_dim=192: {len(steps)} steps + {n_eval} eval "
+        f"steps in {time.perf_counter() - t0:.2f} s; losses "
+        f"{[round(r['loss'], 3) for r in steps]}; K1 {a3t_launches[0]}, K2 "
+        f"{a3t_launches[1]}; max|spemb_out.weight| {moved:.3g} (zero at "
+        f"init); step median "
+        f"{float(np.median([r['device_ms'] for r in steps[1:]])):.2f} ms "
+        f"on the device's clock [{label}]")
+    check(moved > 0, "the zero-initialised speaker offset moved")
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. serving
+    texts = read_2column_text(os.path.join(valid, "text"))
+    uid = next(u for u in sorted(texts) if len(texts[u].split()) >= 24)
+    phones = texts[uid].split()
+    n = len(phones)
+    vocab = sorted({p for t in texts.values() for p in t.split()})
+    k = n // 2 - 1
+    new_edit = " ".join(phones[:k] + vocab[:5] + phones[k + 3:])
+    new_prompt = " ".join(phones + [vocab[(3 * i) % len(vocab)]
+                                    for i in range(8)])
+    wav = valid_ds[uid]["audio"]
+    align = FileAlignmentSource(valid)(uid)
+    hop, fs = fe.config.hop_length, fe.config.fs
+    fa.reset_launches()
+    serve = {"k1": 0, "k2": 0}
+
+    def counted(fn):
+        """Run ``fn`` with the launch counts read into the phase's total
+        (the main path's serving part)."""
+        l1, l2 = fa.LAUNCHES, fa.LAUNCHES_BWD
+        res = fn()
+        serve["k1"] += fa.LAUNCHES - l1
+        serve["k2"] += fa.LAUNCHES_BWD - l2
+        return res
+
+    # 4a. bin.sedit edit --duration-model --spk-xvector
+    argv = ["edit", "--exp-dir", spemb_exp, "--data-dir", valid, "--uid",
+            uid, "--new-text", new_edit, "--out",
+            os.path.join(out, "edit.wav"), "--duration-model", fs2_exp,
+            "--spk-xvector", spk_npy, "--device", device]
+    l1 = fa.LAUNCHES
+    res = counted(lambda: sedit.main(argv))
+    cli_k1 = fa.LAUNCHES - l1
+    _wav_length_check(np, res, wav, hop, 0, "sedit --duration-model")
+    enc_blocks = cfg.model.encoder.num_blocks
+    check(cli_k1 == a3t_blocks + 2 * enc_blocks,
+          f"sedit --duration-model: {cli_k1} K1 launches, expected "
+          f"{a3t_blocks} (the A3T forward) + 2 x {enc_blocks} (the duration "
+          "model's encoder on the old and the new phones)")
+    log(f"  bin.sedit edit --duration-model --spk-xvector {speakers[0]}: "
+        f"{n} phones, spans {res.old_span_boundary} -> "
+        f"{res.new_span_boundary}, K1 launches {cli_k1} [{label}]")
+
+    # 4b. loads, the duration function, the x-vector extractor
+    load_a3t, (model, a3t_cfg, conv) = _median3(
+        np, lambda: MLMTask.build_model_from_dir(spemb_exp, device=device))
+    load_fs2, (fs2, fs2_cfg, fs2_conv) = _median3(
+        np, lambda: FS2Task.build_model_from_dir(fs2_exp, device=device))
+    load_xv, _ = _median3(np, lambda: xv.load_xvector(xv_dir, device))
+    dur_fn = load_duration_fn(fs2_exp, spembs=spk2xv[speakers[0]],
+                              device=device)
+    l1 = fa.LAUNCHES
+    d1 = counted(lambda: dur_fn(phones, wav))
+    check(fa.LAUNCHES - l1 == enc_blocks, f"one duration prediction: "
+          f"{fa.LAUNCHES - l1} K1 launches, expected {enc_blocks} (the "
+          "encoder's blocks)")
+    d2 = counted(lambda: dur_fn(phones, wav))
+    check(d1 == d2 and len(d1) == n, "two runs of the duration function "
+          "agree bit for bit")
+    dur_s, _ = _median3(np, lambda: counted(lambda: dur_fn(phones, wav)))
+    spemb_fn = xv.make_spemb_extractor(xv_dir, fe)
+    tl = SpeechEditor(model, a3t_cfg.frontend, conv, device=device,
+                      lexicon=sedit.phone_lexicon(texts))._new_timeline(
+        wav, align, texts[uid], mcd_gate.protocol_mask(texts[uid]),
+        mask_reconstruct=True)
+    f_pad = -(-(1 + len(wav) // hop) // 64) * 64
+    audio = np.zeros((f_pad - 1) * hop, np.float32)
+    audio[: len(wav)] = wav
+    s, e = tl[5]
+    ctx = np.arange(f_pad) < 1 + len(wav) // hop
+    ctx[s:e] = False
+    xv_s, x_ctx = _median3(np, lambda: spemb_fn(audio, ctx))
+    half = fe.config.n_fft // 2
+    lo, hi = (s - 1 + XV_CONTEXT) * hop + half, (e - XV_CONTEXT) * hop - half
+    check(hi - lo > 10 * hop, f"the masked span [{s}, {e}) has an interior "
+          "that reaches no context frame")
+    noise = np.random.default_rng(3).standard_normal(audio.size).astype(
+        np.float32) * 0.3
+    inner = audio.copy()
+    inner[lo:hi] = noise[lo:hi]
+    whole = audio.copy()
+    whole[s * hop:e * hop] = noise[s * hop:e * hop]
+    x_inner, x_whole = spemb_fn(inner, ctx), spemb_fn(whole, ctx)
+    check(np.array_equal(x_inner, x_ctx), "the context x-vector is the same "
+          "bit for bit with the masked span's interior replaced by noise")
+    log(f"  context x-vector (frames [{s}, {e}) masked of {int(ctx.sum()) + e - s}"
+        f"): equal bit for bit with samples [{lo}, {hi}) replaced by noise; "
+        f"with the whole span replaced, max|diff| "
+        f"{np.abs(x_whole - x_ctx).max():.3g} of max|x| "
+        f"{np.abs(x_ctx).max():.3g} (the span's edges reach the context "
+        f"through the STFT window and the TDNN) [{label}]")
+
+    # 4c. an edit and a prompt TTS through SpeechEditor(spemb_fn=...)
+    editor = SpeechEditor(model, a3t_cfg.frontend, conv, duration_fn=dur_fn,
+                          lexicon=sedit.phone_lexicon(texts),
+                          device=device, spemb_fn=spemb_fn)
+    edit_s, res = _median3(np, lambda: counted(
+        lambda: editor.edit(wav, align, texts[uid], new_edit)))
+    _wav_length_check(np, res, wav, hop, 0, "edit with spemb_fn")
+    prompt_s, pres = _median3(np, lambda: counted(
+        lambda: editor.prompt_tts(wav, align, texts[uid], new_prompt)))
+    check(len(pres["full"]) == (pres["mel"].shape[0] - 1) * hop
+          and bool(np.isfinite(pres["full"]).all()),
+          "prompt TTS with spemb_fn: finite, of the mel's length")
+    log(f"  SpeechEditor(spemb_fn, FS2 durations): edit median "
+        f"{edit_s * 1e3:.1f} ms (RTF {edit_s * fs / len(res.origin_replaced):.4f}), "
+        f"prompt +8 phones {prompt_s * 1e3:.1f} ms (RTF "
+        f"{prompt_s * fs / len(pres['full']):.4f}); x-vector extraction "
+        f"{xv_s * 1e3:.2f} ms, the duration function {dur_s * 1e3:.2f} ms "
+        f"per call (medians of 3 on the host clock) [{label}]")
+    log(f"  model loads (median of 3): speaker-conditioned A3T "
+        f"{load_a3t:.3f} s, FastSpeech2 {load_fs2:.3f} s, x-vector "
+        f"{load_xv:.3f} s [{label}]")
+
+    # 4d. the ESPnet .pth route of the duration model
+    pth = save_espnet_fs2(fs2, fs2_conv.token_list, fs2_cfg.frontend,
+                          os.path.join(out, "espnet_fs2"))
+    by_pth = load_duration_fn(pth, spembs=spk2xv[speakers[0]], device=device)
+    for u in sorted(texts)[:DECODE_UTTS]:
+        ph = texts[u].split()
+        w = valid_ds[u]["audio"]
+        a, c = counted(lambda: dur_fn(ph, w)), counted(lambda: by_pth(ph, w))
+        check(a == c, f"{u}: the ESPnet .pth and the experiment give the "
+              "same durations bit for bit")
+    log(f"  duration model through save_espnet_fs2 -> load_duration_fn(.pth)"
+        f": durations equal bit for bit on {DECODE_UTTS} utterances")
+
+    # 4e. the baselines, timed per utterance
+    base = FS2Baselines(fs2, fs2_conv, fe)
+    ali = align
+    rs = resolve_mask_str(ali, texts[uid], new_edit, editor.lexicon)
+    _, sp_add_ed = diff_phone_spans(ali, texts[uid], new_edit,
+                                    editor.lexicon)[1:]
+    target = " ".join(rs.split()[sp_add_ed[0]:sp_add_ed[1]])
+    x0 = spk2xv[speakers[0]]
+    b_s = [_median3(np, lambda: counted(lambda: base.baseline1(rs, wav, x0))),
+           _median3(np, lambda: counted(lambda: base.baseline2(
+               wav, ali, texts[uid], new_edit, target, editor.lexicon,
+               editor.mel, x0))),
+           _median3(np, lambda: counted(lambda: base.baseline3(
+               wav, ali, texts[uid], new_edit, editor.lexicon, editor.mel,
+               x0)))]
+    check(all(np.isfinite(w).all() for _, w in b_s), "finite baselines")
+    log(f"  baselines on {uid} ({len(wav) / fs:.3f} s): "
+        + ", ".join(f"baseline{i + 1} {t * 1e3:.1f} ms ({len(w) / fs:.3f} s"
+                    f" of audio)" for i, (t, w) in enumerate(b_s))
+        + f" (medians of 3, Griffin-Lim) [{label}]")
+
+    # 4f. bin.batch_decode --fs2-exp --spk-xvector
+    uids = sorted(texts)[:DECODE_UTTS]
+    task = os.path.join(out, "tasks.txt")
+    with open(task, "w") as fh:
+        for i, u in enumerate(uids):
+            p = texts[u].split()
+            fh.write(f"{u}|{' '.join(p[:3] + vocab[:3] + p[5:])}\n"
+                     if i % 2 else f"{u}\n")
+    seen = {"edit": [], "synth": [], "vocode": []}
+    edit_fn, synth_fn, vocode_fn = (SpeechEditor.edit,
+                                    FS2Baselines._synthesize,
+                                    FS2Baselines._vocode)
+
+    def rec(key, fn):
+        def wrapped(self, *a, **kw):
+            if key == "vocode":
+                seen[key].append(a[0].shape[0])
+            r = fn(self, *a, **kw)
+            if key != "vocode":
+                seen[key].append(r)
+            return r
+        return wrapped
+
+    SpeechEditor.edit = rec("edit", edit_fn)
+    FS2Baselines._synthesize = rec("synth", synth_fn)
+    FS2Baselines._vocode = rec("vocode", vocode_fn)
+    try:
+        dec_out = os.path.join(out, "decode")
+        got = counted(lambda: batch_decode.main([
+            "--exp-dir", spemb_exp, "--data-dir", valid, "--task-file", task,
+            "--out-dir", dec_out, "--fs2-exp", fs2_exp, "--spk-xvector",
+            spk_path, "--device", device]))
+    finally:
+        SpeechEditor.edit, FS2Baselines._synthesize, FS2Baselines._vocode = \
+            edit_fn, synth_fn, vocode_fn
+    check(set(got) == set(uids) and len(seen["edit"]) == DECODE_UTTS
+          and len(seen["synth"]) == len(seen["vocode"]) == 3 * DECODE_UTTS,
+          "batch_decode: an edit and three baselines per utterance")
+    lexicon = sedit.phone_lexicon(texts)
+    for i, u in enumerate(uids):
+        w = valid_ds[u]["audio"]
+        r = seen["edit"][i]
+        _wav_length_check(np, r, w, hop, 0, f"batch_decode {u}")
+        s0, e0 = r.old_span_boundary
+        a = FileAlignmentSource(valid)(u)
+        new = (" ".join(texts[u].split()[:3] + vocab[:3]
+                        + texts[u].split()[5:]) if i % 2
+               else mcd_gate.protocol_mask(texts[u]))
+        _, span_rep, span_add = diff_phone_spans(a, texts[u], new, lexicon)
+        if "[MASK]" in new:
+            span_add = list(span_rep)
+        o0, o1 = base._old_span(a, span_rep)
+        n_in = 1 + len(w) // hop
+        (_, d1), (_, d2), (_, d3) = seen["synth"][3 * i: 3 * i + 3]
+        want_frames = [int(d1.sum()),
+                       o0 + int(d2.sum()) - int(d2[-1]) + n_in - o1,
+                       o0 + int(d3[span_add[0]:span_add[1]].sum()) + n_in
+                       - o1]
+        check(seen["vocode"][3 * i: 3 * i + 3] == want_frames,
+              f"batch_decode {u}: the baselines vocode {want_frames} frames "
+              f"(read {seen['vocode'][3 * i: 3 * i + 3]})")
+        for name, frames in zip(("baseline1", "baseline2", "baseline3"),
+                                want_frames):
+            fs_out, data = read_wav(os.path.join(dec_out, f"{u}_{name}.wav"))
+            check(fs_out == fs and len(data) == (frames - 1) * hop
+                  and np.isfinite(data).all(),
+                  f"batch_decode {u} {name}: {len(data)} samples for "
+                  f"{frames} frames of summed durations")
+        for name, length in (("full", len(r.prediction)),
+                             ("replaced", len(r.origin_replaced)),
+                             ("gt_span", (e0 - s0) * hop)):
+            fs_out, data = read_wav(os.path.join(dec_out, f"{u}_{name}.wav"))
+            check(fs_out == fs and len(data) == length,
+                  f"batch_decode {u} {name}: {len(data)} samples")
+        log(f"  batch_decode {u} ({'edit' if i % 2 else '[MASK]'}): spans "
+            f"{r.old_span_boundary} -> {r.new_span_boundary}; baselines "
+            f"{want_frames} frames from the summed durations; six wavs of "
+            f"the expected lengths, finite [{label}]")
+
+    # 4g. bin.mcd_gate --duration-model
+    report = counted(lambda: mcd_gate.main([
+        "--exp-dir", spemb_exp, "--data-dir", valid, "--uids",
+        ",".join(uids), "--out", os.path.join(out, "mcd"),
+        "--duration-model", fs2_exp, "--spk-xvector", spk_npy,
+        "--device", device]))
+    check(report["n"] == DECODE_UTTS
+          and math.isfinite(report["vocoder_ceiling_mcd"]),
+          f"mcd_gate --duration-model: n {report['n']}, ceiling "
+          f"{report['vocoder_ceiling_mcd']}")
+    log(f"  mcd_gate --duration-model on {DECODE_UTTS} utterances: per "
+        f"utterance {report['per_utt']}, vocoder ceiling "
+        f"{report['vocoder_ceiling_mcd']:.3f} dB (random weights, "
+        f"Griffin-Lim; a span that the predicted durations leave empty "
+        f"scores NaN) [{label}]")
+    del model, fs2, editor, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = (fs2_launches[0] + a3t_launches[0] + serve["k1"],
+                fs2_launches[1] + a3t_launches[1] + serve["k2"])
+    log(f"  speaker-fs2 main path: K1 {launches[0]} (FS2 training "
+        f"{fs2_launches[0]}, A3T training {a3t_launches[0]}, serving "
+        f"{serve['k1']}), K2 {launches[1]} [{label}]")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -2832,6 +3364,11 @@ def main() -> int:
             cli_fwd, cli_bwd = serve_cli_phase(torch, np, fa, cuda_ms, label,
                                                exp_a, valid, root)
 
+        with Phase("speaker-fs2"):
+            (sp_fwd, sp_bwd), fs2_errs = speaker_fs2_phase(
+                torch, np, fa, label, root,
+                os.path.join(root, "data", "train"), valid)
+
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -2839,10 +3376,12 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd,
+        + cli_fwd + sp_fwd,
         "launches_serve_cli": cli_fwd,
+        "launches_speaker_fs2": sp_fwd,
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[0],
+        "max_abs_err_fs2_shapes": fs2_errs[0],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -2854,10 +3393,12 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
-        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd,
+        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd,
         "launches_serve_cli": cli_bwd,
+        "launches_speaker_fs2": sp_bwd,
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[1],
+        "max_abs_err_fs2_shapes": fs2_errs[1],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

@@ -122,12 +122,23 @@ def test_conformer_stack(rng, kernel, flash):
 
 
 def test_unported_options_raise():
-    """Plain and non-legacy rel-pos attention are not ported, nor a compute
-    dtype other than float32 and bfloat16; the rel-pos block with its conv
-    module builds in bfloat16."""
-    for kind in ("selfattn", "rel_selfattn"):
-        with pytest.raises(NotImplementedError):
-            tc.ConformerBlock(tc.EncoderConfig(selfattention_layer_type=kind))
+    """A compute dtype other than float32 and bfloat16 is not ported, and an
+    unknown attention kind raises; plain (selfattn) and latest rel-pos
+    (rel_selfattn) attention build (tests/test_torch_fs2.py holds them
+    against JAX); the rel-pos block with its conv module builds in
+    bfloat16."""
+    from a3t_tpu_torch.models.attention import (
+        MultiHeadedAttention, RelPositionMultiHeadedAttention)
+
+    plain = tc.ConformerBlock(tc.EncoderConfig(
+        selfattention_layer_type="selfattn"))
+    assert isinstance(plain.self_attn, MultiHeadedAttention)
+    latest = tc.ConformerBlock(tc.EncoderConfig(
+        selfattention_layer_type="rel_selfattn"))
+    assert isinstance(latest.self_attn, RelPositionMultiHeadedAttention)
+    assert not latest.self_attn.legacy
+    with pytest.raises(ValueError, match="attention kind"):
+        tc.ConformerBlock(tc.EncoderConfig(selfattention_layer_type="x"))
     with pytest.raises(NotImplementedError):
         tc.ConformerBlock(tc.EncoderConfig(compute_dtype="float16"))
     block = tc.ConformerBlock(tc.EncoderConfig(compute_dtype="bfloat16"))

@@ -4,7 +4,9 @@ subset reader, tasks/yaml_subset.py) against PyYAML and the JAX package's
 config the repo ships or stashes and on JAX ``save_config`` output; override
 values resolve as ``yaml.safe_load`` resolves them; the JAX loader reads the
 port's ``save_config`` output back equal; the port's constants equal the
-loaded yamls; and what the port cannot honour is refused."""
+loaded yamls; and what the port cannot honour is refused.  The FastSpeech2
+task configs (``configs/fs2_*.yaml``, ``tasks/fs2.py::FS2TaskConfig``) are
+held the same way against JAX's ``_build(FS2TaskConfig, ...)``."""
 
 import dataclasses
 import glob
@@ -21,7 +23,10 @@ from a3t_tpu_torch.tasks import config as port_config
 from a3t_tpu_torch.tasks import yaml_subset
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHIPPED = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
+# the A3T task configs; configs/fs2_*.yaml are FastSpeech2 task configs
+FS2_SHIPPED = sorted(glob.glob(os.path.join(ROOT, "configs", "fs2_*.yaml")))
+SHIPPED = sorted(set(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
+                 - set(FS2_SHIPPED))
 STASHED = [os.path.join(ROOT, "artifacts", n, "config.yaml")
            for n in ("soak12k_params", "spemb_params")]
 ALL = SHIPPED + STASHED
@@ -50,7 +55,7 @@ def test_all_five_config_files_are_present():
     assert len(SHIPPED) == 3 and all(os.path.exists(p) for p in ALL)
 
 
-@pytest.mark.parametrize("path", ALL, ids=_rel)
+@pytest.mark.parametrize("path", ALL + FS2_SHIPPED, ids=_rel)
 def test_reader_equals_safe_load(path):
     with open(path, encoding="utf-8") as f:
         text = f.read()
@@ -83,6 +88,34 @@ def test_jax_reads_port_save_config_back_equal(path, tmp_path):
     got = jax_config.load_config(str(out))
     assert jax_config._to_dict(got) == jax_config._to_dict(
         jax_config.load_config(path))
+
+
+def test_fs2_config_files_are_present():
+    assert [_rel(p) for p in FS2_SHIPPED] == ["configs/fs2_conformer_24k.yaml"]
+
+
+@pytest.mark.parametrize("path", FS2_SHIPPED, ids=_rel)
+def test_fs2_config_equals_jax_config(path, tmp_path):
+    """load_fs2_config equals JAX's _build(FS2TaskConfig, ...) on the file
+    and on JAX's save_config of it; JAX reads the port's save_config back
+    equal; the reader equals safe_load on JAX's output."""
+    from a3t_tpu.tasks.fs2 import FS2TaskConfig
+    from a3t_tpu_torch.tasks.fs2 import load_fs2_config
+
+    def jax_load(p):
+        return jax_config._build(FS2TaskConfig, jax_config.load_yaml_dict(p))
+
+    want = _without_jax_only(jax_config._to_dict(jax_load(path)))
+    assert port_config._to_dict(load_fs2_config(path)) == want
+    jax_out = tmp_path / "jax.yaml"
+    jax_config.save_config(jax_load(path), str(jax_out))
+    text = jax_out.read_text()
+    assert yaml_subset.load(text) == yaml.safe_load(text)
+    assert port_config._to_dict(load_fs2_config(str(jax_out))) == want
+    port_out = tmp_path / "port.yaml"
+    port_config.save_config(load_fs2_config(path), str(port_out))
+    assert jax_config._to_dict(jax_load(str(port_out))) == \
+        jax_config._to_dict(jax_load(path))
 
 
 VALUES = ["1e-3", "1.0e-3", "0.5", "[1, 2]", "null", "true", '"x"', "'x'",

@@ -219,8 +219,11 @@ def test_refusals(corpora, monkeypatch, tmp_path):
     ds = A3TDataset(port_dir, TokenIDConverter(build_token_list(
         read_2column_text(os.path.join(port_dir, "text")).values())))
     fe = LogMelConfig(**FE)
-    with pytest.raises(NotImplementedError, match="A3"):
-        BucketBatcher(ds, fe, BatcherConfig(**BATCHER), spemb_map={})
+    # speaker embeddings are ported (tests/test_torch_spemb.py holds the
+    # batches against JAX's)
+    with_spemb = BucketBatcher(ds, fe, BatcherConfig(**BATCHER), spemb_map={
+        u: np.ones(3, np.float32) for u in ds.uids})
+    assert next(with_spemb.epoch_iterator(0))["spemb"].shape[1] == 3
     with pytest.raises(NotImplementedError, match="A9"):
         BucketBatcher(ds, fe, BatcherConfig(**BATCHER, duration_collect=True))
     with pytest.raises(NotImplementedError, match="A7-rest"):

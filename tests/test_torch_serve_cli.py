@@ -583,22 +583,38 @@ def port_argparse(**kw):
     return argparse.Namespace(**{**base, **kw})
 
 
-@pytest.mark.parametrize("cli", ["sedit", "mcd_gate"])
-@pytest.mark.parametrize("flag,item", [
-    ("--duration-model", "A9"), ("--spk-xvector", "A3"),
-    ("--vocoder", "A2")])
-def test_unported_options_raise(exp, tmp_path, cli, flag, item):
+def _cli_argv(cli, exp, tmp_path, *extra):
     data, exp_dir = exp
-    value = str(tmp_path) if flag == "--vocoder" else "x"
     if cli == "sedit":
-        argv = _sedit_argv("edit", data, exp_dir, "utt000", "AA",
-                           str(tmp_path / "o.wav"), flag, value)
-        main = port_sedit.main
-    else:
-        argv = ["--exp-dir", exp_dir, "--data-dir", data, "--out",
-                str(tmp_path / "m"), "--device", "cpu", flag, value]
-        main = port_mcd_gate.main
+        return port_sedit.main, _sedit_argv(
+            "edit", data, exp_dir, "utt000", "AA", str(tmp_path / "o.wav"),
+            *extra)
+    return port_mcd_gate.main, ["--exp-dir", exp_dir, "--data-dir", data,
+                                "--out", str(tmp_path / "m"), "--device",
+                                "cpu", *extra]
+
+
+@pytest.mark.parametrize("cli", ["sedit", "mcd_gate"])
+@pytest.mark.parametrize("flag,item", [("--vocoder", "A2")])
+def test_unported_options_raise(exp, tmp_path, cli, flag, item):
+    main, argv = _cli_argv(cli, exp, tmp_path, flag, str(tmp_path))
     with pytest.raises(NotImplementedError, match=item):
+        main(argv)
+    assert not os.path.exists(tmp_path / "o.wav")
+    assert not os.path.exists(tmp_path / "m")
+
+
+@pytest.mark.parametrize("cli", ["sedit", "mcd_gate"])
+@pytest.mark.parametrize("extra,error", [
+    (("--spk-xvector", "x.npy"), ValueError),
+    (("--duration-model", "missing.pth"), FileNotFoundError)])
+def test_duration_options_check_their_inputs(exp, tmp_path, cli, extra,
+                                             error):
+    """--spk-xvector alone (it conditions the duration model) and a
+    --duration-model that is not there raise before anything is written
+    (tests/test_torch_fs2_serve.py runs both options against JAX)."""
+    main, argv = _cli_argv(cli, exp, tmp_path, *extra)
+    with pytest.raises(error):
         main(argv)
     assert not os.path.exists(tmp_path / "o.wav")
     assert not os.path.exists(tmp_path / "m")

@@ -335,7 +335,6 @@ def test_task_refusals(corpus, tmp_path):
                                         postnet_layers=1))
     for extra, item in (
             ({"corpora": [{"name": "x", "data_dir": corpus[0]}]}, "A7-rest"),
-            ({"model": {**base["model"], "spemb_dim": 8}}, "A3"),
             ({"model": {**base["model"], "duration_predictor_layers": 2}},
              "A9"),
             ({"speech_only": True}, "A6"),
@@ -345,6 +344,11 @@ def test_task_refusals(corpus, tmp_path):
             ({"mesh": {"tensor_parallel": 2}}, "A10")):
         with pytest.raises(NotImplementedError, match=item):
             MLMTask.build(config_from_dict({**base, **extra}), device="cpu")
+    # speaker conditioning is ported: without embeddings for its batches
+    # the task raises
+    with pytest.raises(ValueError, match="neither"):
+        MLMTask.build(config_from_dict({**base, "model": {
+            **base["model"], "spemb_dim": 8}}), device="cpu")
     records = tmp_path / "records"
     records.mkdir()
     (records / "index.npz").write_bytes(b"")

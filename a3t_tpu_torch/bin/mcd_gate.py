@@ -15,12 +15,15 @@ f0 80-7600, shiftms 300, power-silence stripping, DTW).
 The model comes from an experiment directory of ``a3t_tpu_torch.bin.train``
 or a published ESPnet A3T checkpoint (``--espnet-ckpt``, with its
 ``config.yaml`` alongside), the vocoder from a ``parallel_wavegan``
-checkpoint or Griffin-Lim.  With ``--duration-model`` (a FastSpeech2
-experiment or ESPnet ``.pth``, conditioned on ``--spk-xvector``) the masked
-span is regenerated at the predicted durations rather than the original
-timeline.  Writes ``<out>/MCD.json`` with the JAX CLI's keys.  Runs on the
+checkpoint, a vocoder directory of ``a3t_tpu_torch.bin.train_vocoder``
+(``--vocoder DIR``: ``state.pt`` with its mel statistics, as JAX's CLI
+reads one of ``a3t_tpu.bin.train_vocoder``) or Griffin-Lim.  With
+``--duration-model`` (a FastSpeech2 experiment or ESPnet ``.pth``,
+conditioned on ``--spk-xvector``) the masked span is regenerated at the
+predicted durations rather than the original timeline.  Writes ``<out>/MCD.json`` with the JAX CLI's keys.  Runs on the
 CUDA card unless ``--device cpu`` is given; the MCD analysis runs on the
-host.  A vocoder directory (orbax, ROADMAP A2) is not ported and raises.
+host.  A vocoder directory without ``state.pt`` (the JAX package's orbax
+state, ROADMAP A2) raises.
 """
 
 from __future__ import annotations
@@ -172,14 +175,15 @@ def main(argv=None):
     ap.add_argument("--spk-xvector", default=None,
                     help=".npy x-vector (E,) for the duration model")
     ap.add_argument("--vocoder", default=None,
-                    help="parallel_wavegan checkpoint (Griffin-Lim if unset)")
+                    help="parallel_wavegan checkpoint or vocoder directory "
+                         "of bin.train_vocoder (Griffin-Lim if unset)")
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
     if not args.exp_dir and not args.espnet_ckpt:
         ap.error("one of --exp-dir / --espnet-ckpt is required")
-    refuse_unported(args)
+    refuse_unported(args, vocoder_dirs=True)
 
     from a3t_tpu_torch.data.dataset import A3TDataset
     from a3t_tpu_torch.inference import FileAlignmentSource

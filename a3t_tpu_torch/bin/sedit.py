@@ -31,8 +31,8 @@ what ``--duration-model`` predicts: a FastSpeech2 experiment of
 New text is read through a phone-level lexicon (every phone of the data
 directory's ``text`` maps to itself) and the native letter-to-sound engine
 for other words.  Runs on the CUDA card unless ``--device cpu`` is given.
-A vocoder directory trained by ``a3t_tpu.train.vocoder`` (orbax) is not
-ported and raises (ROADMAP A2).
+A vocoder directory is refused, as the JAX CLI reads only a pickle
+(``bin.mcd_gate --vocoder DIR`` takes one of ``bin.train_vocoder``).
 """
 
 from __future__ import annotations
@@ -41,26 +41,38 @@ import argparse
 import os
 
 
-def refuse_unported(args) -> None:
+def refuse_unported(args, vocoder_dirs: bool = False) -> None:
     """Raise for an option that waits for another ROADMAP item, and for
     ``--spk-xvector`` without the duration model it conditions (the JAX
-    CLI ignores it there)."""
+    CLI ignores it there).  A vocoder directory is refused unless
+    ``vocoder_dirs`` (mcd_gate's, as in JAX) and it holds the port's
+    ``state.pt``."""
     if args.spk_xvector and not args.duration_model:
         raise ValueError("--spk-xvector conditions the duration model; "
                          "give --duration-model too")
-    if args.vocoder and os.path.isdir(args.vocoder):
+    if args.vocoder and os.path.isdir(args.vocoder) and not (
+            vocoder_dirs and os.path.exists(
+                os.path.join(args.vocoder, "state.pt"))):
         raise NotImplementedError(
-            f"{args.vocoder} is a vocoder directory (orbax), which the port "
-            "cannot read (ROADMAP A2); pass a parallel_wavegan checkpoint")
+            f"{args.vocoder} is a vocoder directory without the port's "
+            "state.pt (the JAX package's orbax state cannot be read, "
+            "ROADMAP A2)" + ("" if vocoder_dirs else "; this CLI takes a "
+                             "parallel_wavegan checkpoint"))
 
 
 def make_vocoder(path, frontend_config, device):
-    """A callable (B, F, n_mels) mel -> (B, S) wav: the parallel_wavegan
-    checkpoint at ``path`` (the default generator, hop 300, with the
-    front-end's mel bins) with its noise drawn from a generator seeded with
-    0 in every call, or None (Griffin-Lim) without a path."""
+    """A callable (B, F, n_mels) mel -> (B, S) wav: a vocoder directory of
+    ``bin.train_vocoder`` (``train/vocoder.py::load_vocoder``), or the
+    parallel_wavegan checkpoint at ``path`` (the default generator, hop
+    300, with the front-end's mel bins) with its noise drawn from a
+    generator seeded with 0 in every call; None (Griffin-Lim) without a
+    path."""
     if not path:
         return None
+    if os.path.isdir(path):
+        from a3t_tpu_torch.train.vocoder import load_vocoder
+
+        return load_vocoder(path, device)
     import torch
 
     from a3t_tpu_torch.models.pwg import (ParallelWaveGANGenerator, PWGConfig,

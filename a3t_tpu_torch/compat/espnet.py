@@ -15,6 +15,7 @@ config's ``normalize`` entry is not applied.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -217,12 +218,15 @@ def load_espnet_a3t(model_file: str, config_file: Optional[str] = None,
     sd = torch.load(model_file, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model" in sd:
         sd = sd["model"]
-    if "duration_predictor.linear.weight" in sd:
-        raise NotImplementedError("the duration-aware variant "
-                                  "(ESPnetMLMTTSModel) is not ported "
-                                  "(ROADMAP A9)")
-    model = A3TMLMModel(model_cfg)
-    missing, unexpected = model.load_state_dict(espnet_state(sd), strict=False)
+    sd = espnet_state(sd)
+    # the duration-aware variant (ESPnetMLMTTSModel): its predictor's
+    # layers are counted from the state, as convert_model_state walks them
+    n_dur = 0
+    while f"duration_predictor.conv.{n_dur}.0.weight" in sd:
+        n_dur += 1
+    model = A3TMLMModel(dataclasses.replace(
+        model_cfg, duration_predictor_layers=n_dur))
+    missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
         raise ValueError(f"{model_file} does not fit the A3T model of "

@@ -136,6 +136,8 @@ def mlm_state(variables) -> dict:
         out.update(stack(p["decoder"], s.get("decoder", {}), "decoder"))
     if "postnet" in p:
         out.update(postnet(p["postnet"], s["postnet"], "postnet.postnet"))
+    if "duration_predictor" in p:
+        out.update(predictor(p["duration_predictor"], "duration_predictor"))
     return out
 
 
@@ -242,7 +244,11 @@ def xvector_state(variables) -> dict:
 
 
 def pwg_state(variables) -> dict:
-    """ParallelWaveGANGenerator variables ``{"params"}`` -> port state."""
+    """ParallelWaveGANGenerator variables ``{"params"}`` -> port state.
+    The scan layout of ``ParallelWaveGANGeneratorScan`` (the vocoder
+    trainer's) holds the residual blocks as ``stacks/block_l`` with a
+    leading stack axis; stack s's block l is the unrolled block
+    ``s * layers_per_stack + l``."""
     p = variables["params"]
     up = p["upsample_net"]
     out = {**conv(p["first_conv"], "first_conv"),
@@ -255,11 +261,30 @@ def pwg_state(variables) -> dict:
         out[f"upsample_net.upsample.up_layers.{2 * i + 1}.weight"] = \
             _np(up[f"up_conv_{i}"]["kernel"]).reshape(1, 1, 1, -1)
         i += 1
-    i = 0
-    while f"block_{i}" in p:
-        blk = p[f"block_{i}"]
+    blocks = []
+    if "stacks" in p:
+        per_stack = len(p["stacks"])
+        n_stacks = _np(p["stacks"]["block_0"]["conv"]["kernel"]).shape[0]
+        for s in range(n_stacks):
+            blocks += [{name: {k: _np(v)[s] for k, v in leaf.items()}
+                        for name, leaf in p["stacks"][f"block_{l}"].items()}
+                       for l in range(per_stack)]
+    while f"block_{len(blocks)}" in p:
+        blocks.append(p[f"block_{len(blocks)}"])
+    for i, blk in enumerate(blocks):
         for name in ("conv", "conv1x1_aux", "conv1x1_out"):
             out.update(conv(blk[name], f"conv_layers.{i}.{name}"))
+    return out
+
+
+def pwg_discriminator_state(variables) -> dict:
+    """PWGDiscriminator variables ``{"params"}`` (``conv_i``,
+    ``conv_out``) -> port state (``convs.i``, ``conv_out``)."""
+    p = variables["params"]
+    out = conv(p["conv_out"], "conv_out")
+    i = 0
+    while f"conv_{i}" in p:
+        out.update(conv(p[f"conv_{i}"], f"convs.{i}"))
         i += 1
     return out
 

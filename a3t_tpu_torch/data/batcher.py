@@ -12,9 +12,12 @@ half runs on the device in the train step.
 Both packages draw every random choice from numpy's generators seeded the
 same way, so the port's plans and batches equal the JAX package's bit for
 bit.  With a ``spemb_map`` (uid -> x-vector) batches carry a float32
-``spemb`` (B, E), zero in empty slots.  Not ported: duration collection for
-the TTS variant (A9), device-resident audio (needs the record shards of
-A7-rest) and chained superbatches (A6); each raises.
+``spemb`` (B, E), zero in empty slots.  With ``duration_collect`` (the
+duration-aware TTS variant) they carry int32 ``durations`` and
+``reordered_index`` (B, F) and ``reduced_lengths`` (B,)
+(``masking.duration_reduction``; empty slots keep durations 1, the
+identity order and length 0).  Not ported: device-resident audio (needs
+the record shards of A7-rest) and chained superbatches (A6); each raises.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 
 from a3t_tpu_torch.data.dataset import A3TDataset
 from a3t_tpu_torch.dsp.frontend import LogMelConfig
-from a3t_tpu_torch.masking import phones_masking, segment_positions
+from a3t_tpu_torch.masking import (duration_reduction, phones_masking,
+                                   segment_positions)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +58,9 @@ class BatcherConfig:
     seed: int = 0
     # round batch sizes to a multiple of this (the data-parallel degree)
     batch_multiple: int = 1
-    duration_collect: bool = False  # not ported (ROADMAP A9)
+    # the duration-aware TTS variant: also emit durations, reordered_index
+    # and reduced_lengths (espnet2/train/collate_fn.py:267-271)
+    duration_collect: bool = False
     # decode batches with the native C++ thread-pool loader (native/loader);
     # a failed build raises
     use_native_loader: bool = True
@@ -76,9 +82,6 @@ class BucketBatcher:
         n_mels: Optional[int] = None,
         spemb_map: Optional[dict] = None,
     ):
-        if config.duration_collect:
-            raise NotImplementedError(
-                "duration_collect is not ported (ROADMAP A9)")
         if config.device_audio:
             raise NotImplementedError(
                 "device_audio needs record shards, not ported (ROADMAP "
@@ -167,6 +170,11 @@ class BucketBatcher:
         masked = np.zeros((b, spec.n_frames), bool)
         ssp = np.zeros((b, spec.n_frames), np.int32)
         tsp = np.zeros((b, spec.n_text), np.int32)
+        if cfg.duration_collect:
+            durations = np.ones((b, spec.n_frames), np.int32)
+            reordered = np.tile(np.arange(spec.n_frames, dtype=np.int32),
+                                (b, 1))
+            reduced_lengths = np.zeros(b, np.int32)
 
         if self._loader is not None and uids:
             idx = [self._uid_index[u] for u in uids]
@@ -201,6 +209,10 @@ class BucketBatcher:
             masked[i, n_f:] = False
             ssp[i], tsp[i] = segment_positions(spec.n_frames, spec.n_text,
                                                starts, ends, t_len)
+            if cfg.duration_collect and t_len > 0:
+                reordered[i], durations[i], reduced_lengths[i] = \
+                    duration_reduction(spec.n_frames, starts, ends, t_len,
+                                       masked[i], n_f)
 
         if cfg.audio_int16 and audio.dtype != np.int16:
             # round-to-nearest x32768: the exact inverse of the /32768
@@ -215,6 +227,9 @@ class BucketBatcher:
             for i, uid in enumerate(uids):
                 spemb[i] = self.spemb_map[uid]
             out["spemb"] = spemb
+        if cfg.duration_collect:
+            out.update(durations=durations, reordered_index=reordered,
+                       reduced_lengths=reduced_lengths)
         return out
 
     def epoch_iterator(self, epoch: int, shard: tuple[int, int] = (0, 1)):

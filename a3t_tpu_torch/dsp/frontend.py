@@ -17,6 +17,10 @@ Three routes compute the same features:
 ``fused`` and the rfft route agree within ~1e-5 on features up to ~3
 (measured 8.8e-6 at 24 kHz and 9.3e-6 at 16 kHz by
 ``tests/test_torch_train.py::test_featurize_matches_jax_fused_frontend``).
+
+:func:`extract_corpus_mels` and :func:`corpus_mvn` (``a3t_tpu/dsp/
+frontend.py:147-186``) give the offline trainers (x-vector, vocoder) a
+whole corpus's log-mels and their statistics.
 """
 
 from __future__ import annotations
@@ -152,3 +156,36 @@ class LogSpectrogramFrontend(LinearSpectrogramFrontend):
     def _finish(self, amp, sample_lengths):
         return super()._finish(torch.log(torch.clamp(amp, min=1e-10)),
                                sample_lengths)
+
+
+def extract_corpus_mels(frontend: LogMelFrontend, wavs, chunk: int = 32):
+    """A corpus's log-mels in batches on the front-end's device.
+
+    Each waveform is cut to a whole number of hops; every chunk of
+    ``chunk`` utterances is zero-padded to one shared length (the longest
+    cut rounded up to a multiple of ``64 * hop``) and goes through the
+    rfft front-end (``__call__``) in one call.  Returns ``(cut_wavs,
+    mels)``, ``mels[i]`` a float32 array of (len(cut_wavs[i]) // hop,
+    n_mels): the centred STFT's last frame, which reaches past the
+    waveform, is left out."""
+    hop = frontend.config.hop_length
+    trunc = [np.asarray(w[: (len(w) // hop) * hop], np.float32) for w in wavs]
+    bucket = max((len(w) for w in trunc), default=0)
+    bucket = -(-bucket // (64 * hop)) * 64 * hop
+    mels: list = []
+    for c0 in range(0, len(trunc), chunk):
+        group = trunc[c0: c0 + chunk]
+        padded = np.zeros((chunk, bucket), np.float32)
+        for j, wav in enumerate(group):
+            padded[j, : len(wav)] = wav
+        with torch.inference_mode():
+            mel = frontend(padded)[0].cpu().numpy()
+        mels += [mel[j, : len(wav) // hop] for j, wav in enumerate(group)]
+    return trunc, mels
+
+
+def corpus_mvn(mels):
+    """Per-bin mean and standard deviation over a list of (T_i, n_mels)
+    arrays, the deviation floored at 1e-5 (GlobalMVN's guard)."""
+    allm = np.concatenate(mels, axis=0)
+    return allm.mean(axis=0), np.maximum(allm.std(axis=0), 1e-5)

@@ -1,7 +1,6 @@
 """Alignment-aware masking and segment positions, host-side numpy.
 
-A copy of ``a3t_tpu/masking/alignment.py:28-102`` (the functions that
-inference and the synthetic training batches use), kept here so that the
+A copy of ``a3t_tpu/masking/alignment.py:28-142``, kept here so that the
 port imports nothing of the JAX package.  Semantics follow
 espnet2/train/collate_fn.py:290-385: ``phones_masking`` picks masked phones
 with T5 span statistics and expands them to their aligned frames; frames
@@ -92,3 +91,45 @@ def segment_positions(
         if j < n_text:
             text_pos[j] = j + 1
     return speech_pos, text_pos
+
+
+def duration_reduction(
+    n_frames: int,
+    align_start: np.ndarray,
+    align_end: np.ndarray,
+    n_phones: int,
+    masked_position: np.ndarray,
+    feats_length: int,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Reduced-sequence reordering for the duration-aware TTS variant
+    (espnet2/train/collate_fn.py:290-328): a masked phone keeps only its
+    first frame, which records the phone's duration; unmasked phones keep
+    all their frames.  Returns ``(reordered_index, durations,
+    reduced_length)``: ``reordered_index`` lists the kept frames and then
+    the dropped ones, so its first ``reduced_length`` entries are the
+    reduced sequence.  As in the reference, masked frames before the first
+    phone collapse to position 0 with duration 1, so the durations need
+    not sum to the utterance's frames.
+    """
+    first_idx: list[int] = []
+    last_idx: list[int] = []
+    durations = np.ones(n_frames, dtype=np.int32)
+    e = 0
+    for j in range(int(n_phones)):
+        s, e = int(align_start[j]), int(align_end[j])
+        if j == 0:
+            if masked_position[0:s].sum() == 0:
+                first_idx.extend(range(0, s))
+            else:
+                first_idx.append(0)
+                last_idx.extend(range(1, s))
+        if masked_position[s:e].sum() == 0:
+            first_idx.extend(range(s, e))
+        else:
+            first_idx.append(s)
+            last_idx.extend(range(s + 1, e))
+            durations[s] = e - s
+    reduced_length = len(first_idx) + int(feats_length) - e
+    first_idx.extend(range(e, n_frames))
+    reordered = np.asarray(first_idx + last_idx, dtype=np.int32)
+    return reordered, durations, reduced_length

@@ -273,3 +273,20 @@ def duration_loss(log_pred: torch.Tensor, target_durations: torch.Tensor,
     """Per-position squared error in the log domain (layers.py:325-330)."""
     t = torch.log(target_durations.float() + offset)
     return (log_pred - t) ** 2
+
+
+def length_regulate(hs: torch.Tensor, durations: torch.Tensor, max_len: int):
+    """(B, T, D) states and (B, T) integer durations -> ((B, max_len, D),
+    (B, max_len) valid): frame t copies phone i where cum[i-1] <= t <
+    cum[i]; frames at or past the total are zero and invalid, so a total
+    past ``max_len`` is cut."""
+    cum = torch.cumsum(durations.to(torch.int64), dim=1)
+    t_idx = torch.arange(max_len, device=hs.device)
+    # phone covering frame t = the number of cumulative ends <= t
+    src = torch.searchsorted(cum.contiguous(),
+                             t_idx.expand(cum.shape[0], -1).contiguous(),
+                             right=True)
+    valid = t_idx[None, :] < cum[:, -1:]
+    src = src.clamp(0, hs.shape[1] - 1)
+    out = torch.gather(hs, 1, src[..., None].expand(-1, -1, hs.shape[2]))
+    return out.masked_fill(~valid[..., None], 0.0), valid

@@ -40,7 +40,8 @@ from a3t_tpu_torch.models.conformer import (
     EncoderConfig,
     RelPosEncoding,
 )
-from a3t_tpu_torch.models.layers import MaskedInput, Postnet, dense
+from a3t_tpu_torch.models.layers import (DurationPredictor, MaskedInput,
+                                         Postnet, dense, length_regulate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +88,9 @@ class A3TMLMModel(nn.Module):
         masked_position, speech_mask (B, F) bool; text_mask (B, T) bool;
         speech_segment_pos (B, F), text_segment_pos (B, T) int.
     Returns ``(before_outs, after_outs)``, each (B, F, odim) float32
-    (``after_outs`` is None without a postnet).  In training mode
+    (``after_outs`` is None without a postnet), and with
+    ``return_log_durations=True`` the duration predictor's (B, F) output
+    as a third element (None without a predictor).  In training mode
     ``generator`` (a CPU ``torch.Generator``) seeds every dropout site, the
     JAX model's ``rngs={"dropout": ...}``.
     """
@@ -95,9 +98,6 @@ class A3TMLMModel(nn.Module):
     def __init__(self, config: A3TModelConfig):
         super().__init__()
         c = config
-        if c.duration_predictor_layers:
-            raise NotImplementedError(
-                "the duration-aware variant is not ported (ROADMAP A9)")
         self.config = c
         d = c.encoder.attention_dim
         self.encoder = MLMEncoder(c)
@@ -119,6 +119,10 @@ class A3TMLMModel(nn.Module):
         if c.postnet_layers > 0:
             self.postnet = Postnet(c.odim, c.postnet_layers, c.postnet_chans,
                                    c.postnet_filts, dtype=c.encoder.dtype)
+        if c.duration_predictor_layers > 0:
+            # the JAX variant's fixed n_chans 256, kernel 3, dropout 0.1
+            self.duration_predictor = DurationPredictor(
+                d, n_layers=c.duration_predictor_layers)
 
     def _norm_spemb(self, spemb, batch_size: int, device) -> torch.Tensor:
         """The L2-normalised speaker embedding (epsilon 1e-8), zeros when
@@ -173,30 +177,83 @@ class A3TMLMModel(nn.Module):
         x, pos_full = self.decoder_posenc(x, generator)
         return self.decoder(x, pos_full, mask, generator, n_frames)
 
-    def forward(self, speech, text, masked_position, speech_mask, text_mask,
-                speech_segment_pos, text_segment_pos, spemb=None,
-                generator=None):
-        """``spemb`` (B, spemb_dim): the speaker embedding of a
-        speaker-conditioned model (zeros when None); a model without
-        speaker conditioning ignores it, as the JAX model does."""
-        n_frames = speech.shape[1]
-        hidden, mask = self.encode(
-            speech, text, masked_position, speech_mask, text_mask,
-            speech_segment_pos, text_segment_pos, spemb, generator)
-        se = None
-        if self.config.spemb_dim > 0:
-            se = self._norm_spemb(spemb, speech.shape[0], speech.device)
-            hidden = hidden + dense(self.spemb_proj_mid,
-                                    se.to(hidden.dtype))[:, None, :]
-        if self.config.decoder is not None:
-            hidden = self.decode(hidden, mask, generator, n_frames)
-        before_outs = self.sfc(hidden[:, :n_frames]).float()
+    def _mid(self, hidden, spemb):
+        """The encoder output plus ``spemb_proj_mid``'s projection of the
+        speaker embedding; (hidden, normalised embedding or None)."""
+        if self.config.spemb_dim <= 0:
+            return hidden, None
+        se = self._norm_spemb(spemb, hidden.shape[0], hidden.device)
+        return hidden + dense(self.spemb_proj_mid, se.to(hidden.dtype)
+                              )[:, None, :], se
+
+    def _predict(self, speech_hidden, speech_mask, generator):
+        """Log durations (B, F), 0 at padded frames; the predictor has no
+        compute dtype, so flax promotes a bfloat16 input to float32."""
+        return self.duration_predictor(speech_hidden.float(), ~speech_mask,
+                                       generator)
+
+    def _head(self, speech_hidden, se, generator):
+        """``sfc``, the speaker offset and the postnet: (before, after)."""
+        before_outs = self.sfc(speech_hidden).float()
         if se is not None:
             before_outs = before_outs + self.spemb_out(se).float()[:, None, :]
         after_outs = None
         if self.config.postnet_layers > 0:
             after_outs = before_outs + self.postnet(before_outs, generator)
         return before_outs, after_outs
+
+    def forward(self, speech, text, masked_position, speech_mask, text_mask,
+                speech_segment_pos, text_segment_pos, spemb=None,
+                generator=None, return_log_durations: bool = False):
+        """``spemb`` (B, spemb_dim): the speaker embedding of a
+        speaker-conditioned model (zeros when None); a model without
+        speaker conditioning ignores it, as the JAX model does.  The
+        duration predictor reads the encoder output's speech slice, before
+        the decoder (sedit_model.py:420-428)."""
+        n_frames = speech.shape[1]
+        hidden, mask = self.encode(
+            speech, text, masked_position, speech_mask, text_mask,
+            speech_segment_pos, text_segment_pos, spemb, generator)
+        hidden, se = self._mid(hidden, spemb)
+        log_d = None
+        if self.config.duration_predictor_layers > 0:
+            log_d = self._predict(hidden[:, :n_frames], speech_mask,
+                                  generator)
+        if self.config.decoder is not None:
+            hidden = self.decode(hidden, mask, generator, n_frames)
+        outs = self._head(hidden[:, :n_frames], se, generator)
+        return (*outs, log_d) if return_log_durations else outs
+
+    def tts_forward(self, speech, text, masked_position, speech_mask,
+                    text_mask, speech_segment_pos, text_segment_pos,
+                    durations, out_frames: int, spemb=None, generator=None):
+        """The duration-aware variant's forward (ESPnetMLMTTSModel._forward,
+        sedit_model.py:415-452; JAX ``tts_forward``).
+
+        ``speech``, ``masked_position``, ``speech_mask`` and
+        ``speech_segment_pos`` are the duration-reduced sequence (B, R, ...)
+        (a masked phone collapsed to its first frame); ``durations`` (B, R)
+        the frames of each reduced position.  The encoder runs over the
+        reduced sequence; its speech states, length-regulated by
+        ``durations * speech_mask`` to ``out_frames`` frames, are followed by
+        its text states, and the decoder runs over both with the mask
+        [frame valid, text mask].  Returns (before_outs, after_outs) at
+        ``out_frames`` frames and the (B, R) log durations."""
+        n_red = speech.shape[1]
+        hidden, _ = self.encode(
+            speech, text, masked_position, speech_mask, text_mask,
+            speech_segment_pos, text_segment_pos, spemb, generator)
+        hidden, se = self._mid(hidden, spemb)
+        log_d = self._predict(hidden[:, :n_red], speech_mask, generator)
+        expanded, frame_valid = length_regulate(
+            hidden[:, :n_red], durations * speech_mask, out_frames)
+        hidden = torch.cat([expanded, hidden[:, n_red:]], dim=1)
+        mask = torch.cat([frame_valid, text_mask], dim=1)[:, None, :]
+        if self.config.decoder is not None:
+            hidden = self.decode(hidden, mask, generator, out_frames)
+        before_outs, after_outs = self._head(hidden[:, :out_frames], se,
+                                             generator)
+        return before_outs, after_outs, log_d
 
 
 def _posenc(c: EncoderConfig) -> nn.Module:

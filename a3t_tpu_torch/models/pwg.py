@@ -8,6 +8,8 @@
 
 Parameter names are the ``parallel_wavegan`` package's, which
 ``a3t_tpu/models/pwg.py::convert_pwg_state`` maps onto the flax tree.
+:class:`PWGDiscriminator` (``a3t_tpu/models/pwg.py:243-275``) is the
+vocoder trainer's LSGAN discriminator; its names are the flax tree's.
 :func:`load_pwg_checkpoint` reads that package's checkpoints (a pickle or
 ``.pth`` holding ``model``/``generator``), folding weight norm into plain
 weights (:func:`convert_pwg_state`, ``a3t_tpu/models/pwg.py:278-341``).
@@ -144,10 +146,40 @@ class ParallelWaveGANGenerator(nn.Module):
         return x[:, 0]
 
 
-def init_parameters(model: ParallelWaveGANGenerator,
-                    generator: torch.Generator) -> ParallelWaveGANGenerator:
+class PWGDiscriminator(nn.Module):
+    """Non-causal dilated-conv waveform discriminator: ``layers - 1``
+    kernel-3 convolutions of ``conv_channels`` with dilations 1, 1, 2, ...,
+    ``layers - 2`` and LeakyReLU, then a 1-channel kernel-3 convolution;
+    flax's "SAME" padding (symmetric for an odd kernel).  wav (B, S) ->
+    per-sample logits (B, S)."""
+
+    def __init__(self, layers: int = 10, conv_channels: int = 64,
+                 kernel_size: int = 3, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.convs = nn.ModuleList()
+        in_ch = 1
+        for i in range(layers - 1):
+            dilation = i if i > 0 else 1
+            self.convs.append(nn.Conv1d(
+                in_ch, conv_channels, kernel_size, dilation=dilation,
+                padding=dilation * (kernel_size - 1) // 2))
+            in_ch = conv_channels
+        self.conv_out = nn.Conv1d(in_ch, 1, kernel_size,
+                                  padding=(kernel_size - 1) // 2)
+
+    def forward(self, x):
+        h = x[:, None]
+        for conv in self.convs:
+            h = F.leaky_relu(conv(h), self.negative_slope)
+        return self.conv_out(h)[:, 0]
+
+
+def init_parameters(model: nn.Module,
+                    generator: torch.Generator) -> nn.Module:
     """Seeded random weights: kaiming-normal convs, zero biases, and the
-    upsample smoothing filters at 1/kernel_size (the JAX package's init)."""
+    upsample smoothing filters at 1/kernel_size (the JAX package's init,
+    generator and discriminator)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):

@@ -12,9 +12,11 @@ extractors (``a3t_tpu/models/xvector.py:30-87, 239-427``).
 * :func:`build_spk2xvector` / :func:`build_utt2xvector` — per-speaker means
   and per-utterance embeddings over a corpus, saved as ``.npz``;
 * :func:`make_spemb_extractor` — ``fn(audio, frame_mask) -> (E,)`` for
-  ``SpeechEditor(spemb_fn=...)``, pooling over the unmasked context only.
-
-Training the network (``train_xvector``) is not ported (ROADMAP A9).
+  ``SpeechEditor(spemb_fn=...)``, pooling over the unmasked context only;
+* :func:`train_xvector` — the speaker classifier trained on a data
+  directory (``wav.scp`` + ``utt2spk``) with :func:`sample_crops`'s batches
+  and :func:`xvector_step` (clip 5.0 -> Adam at a constant rate), written
+  by :func:`save_xvector` (``a3t_tpu/models/xvector.py:89-236``).
 """
 
 from __future__ import annotations
@@ -90,11 +92,138 @@ class XVectorNet(nn.Module):
         return emb, logits
 
 
-def train_xvector(*args, **kwargs):
-    """Training the speaker classifier (``a3t_tpu/models/xvector.py:96-236``)
-    is not ported (ROADMAP A9); :func:`load_xvector` reads what it
-    writes."""
-    raise NotImplementedError("train_xvector is not ported (ROADMAP A9)")
+def speaker_classification_loss(logits: torch.Tensor,
+                                speaker_ids: torch.Tensor):
+    """(mean negative log-likelihood, accuracy) of (B, S) logits against
+    (B,) speaker ids."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, speaker_ids[:, None].long())[:, 0]
+    acc = (logits.argmax(-1) == speaker_ids).float().mean()
+    return nll.mean(), acc
+
+
+def sample_crops(items, spk_id: dict, rng: np.random.Generator,
+                 batch_size: int, n_frames: int, n_mels: int):
+    """One training batch ((B, n_frames, n_mels) float32 mels, (B,) int32
+    speaker ids): each row a random ``(speaker, mel)`` of ``items``, tiled
+    when it is not longer than ``n_frames``, cropped at a random start;
+    ``rng``'s draws in JAX's order, so the batches are JAX's."""
+    mel = np.zeros((batch_size, n_frames, n_mels), np.float32)
+    sid = np.zeros((batch_size,), np.int32)
+    for b in range(batch_size):
+        spk, m = items[rng.integers(len(items))]
+        if m.shape[0] <= n_frames:
+            m = np.tile(m, (int(np.ceil(n_frames / max(m.shape[0], 1))), 1))
+        f0 = int(rng.integers(m.shape[0] - n_frames + 1))
+        mel[b] = m[f0: f0 + n_frames]
+        sid[b] = spk_id[spk]
+    return mel, sid
+
+
+def xvector_step(model: XVectorNet, tx, opt_state, mel, sid):
+    """One optimizer step of the classifier on ``mel`` (B, T, n_mels) and
+    ``sid`` (B,) (host arrays or tensors); returns the loss and the
+    accuracy as device tensors."""
+    dev = _device(model)
+    _, logits = model(torch.as_tensor(mel, device=dev))
+    loss, acc = speaker_classification_loss(
+        logits, torch.as_tensor(sid, device=dev))
+    params = list(model.parameters())
+    tx.apply(params, torch.autograd.grad(loss, params), opt_state)
+    return loss.detach(), acc
+
+
+def train_xvector(
+    data_dir: str,
+    frontend,
+    out_dir: str,
+    config: Optional[XVectorConfig] = None,
+    crop_frames: int = 256,
+    batch_size: int = 32,
+    total_steps: int = 3000,
+    lr: float = 1e-3,
+    seed: int = 0,
+    eval_data_dir: Optional[str] = None,
+    log_fn=print,
+    max_utts: Optional[int] = None,
+):
+    """Train the speaker classifier on a data directory (``wav.scp`` +
+    ``utt2spk``) on ``frontend``'s device; returns (model, report) and
+    writes ``xvector.npz`` and ``xvector.json`` into ``out_dir``.
+
+    The log-mels (:func:`extract_corpus_mels`) are normalised by the
+    corpus MVN; each step's crop is 1, 2 or 4 times ``crop_frames`` long,
+    drawn with the crops from ``np.random.default_rng(seed)`` in JAX's
+    order.  Weights start from the JAX package's initialisers seeded with
+    ``seed``.  With ``eval_data_dir`` the report holds the accuracy on its
+    utterances of the training speakers, each whole (padded to a multiple
+    of 64 frames and masked)."""
+    from a3t_tpu_torch.data.fileio import SoundScpReader, read_2column_text
+    from a3t_tpu_torch.dsp.frontend import corpus_mvn, extract_corpus_mels
+    from a3t_tpu_torch.models.mlm import init_parameters
+    from a3t_tpu_torch.train.optim import ClipAdam
+
+    os.makedirs(out_dir, exist_ok=True)
+    dev = frontend.device
+
+    def load_corpus(d, cap=None):
+        reader = SoundScpReader(os.path.join(d, "wav.scp"))
+        utt2spk = read_2column_text(os.path.join(d, "utt2spk"))
+        uids = [u for u in utt2spk if u in reader]
+        if cap is not None and len(uids) > cap:
+            uids = list(np.random.default_rng(0).permutation(uids)[:cap])
+        _, mels = extract_corpus_mels(frontend,
+                                      [reader[u][1] for u in uids])
+        return [(utt2spk[u], m) for u, m in zip(uids, mels)]
+
+    train_items = load_corpus(data_dir, cap=max_utts)
+    mel_mean, mel_std = corpus_mvn([m for _, m in train_items])
+    train_items = [(s, (m - mel_mean) / mel_std) for s, m in train_items]
+    speakers = sorted({s for s, _ in train_items})
+    spk_id = {s: i for i, s in enumerate(speakers)}
+    cfg = dataclasses.replace(
+        config or XVectorConfig(n_mels=frontend.config.n_mels),
+        n_speakers=len(speakers))
+    model = XVectorNet(cfg)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    model.to(dev).train()
+    tx = ClipAdam(lr, 5.0)
+    opt_state = tx.init(model.parameters())
+    rng = np.random.default_rng(seed)
+    crop_lengths = (crop_frames, 2 * crop_frames, 4 * crop_frames)
+    history = []
+    for i in range(1, total_steps + 1):
+        mel, sid = sample_crops(train_items, spk_id, rng, batch_size,
+                                crop_lengths[int(rng.integers(3))],
+                                cfg.n_mels)
+        loss, acc = xvector_step(model, tx, opt_state, mel, sid)
+        if i % 200 == 0 or i == total_steps:
+            history.append({"step": i, "loss": round(float(loss), 4),
+                            "acc": round(float(acc), 4)})
+            log_fn(f"xvector step {i}/{total_steps} "
+                   f"loss {float(loss):.3f} acc {float(acc):.3f}")
+    model.eval()
+
+    report = {"n_speakers": len(speakers), "speakers": speakers,
+              "train_history": history}
+    if eval_data_dir:
+        eval_items = [(s, (m - mel_mean) / mel_std)
+                      for s, m in load_corpus(eval_data_dir) if s in spk_id]
+        max_f = -(-max(m.shape[0] for _, m in eval_items) // 64) * 64
+        correct = 0
+        with torch.inference_mode():
+            for spk, m in eval_items:
+                mel = torch.zeros(1, max_f, cfg.n_mels, device=dev)
+                mel[0, : m.shape[0]] = torch.as_tensor(m, device=dev)
+                mask = torch.arange(max_f, device=dev)[None] < m.shape[0]
+                _, logits = model(mel, mask)
+                correct += int(logits[0].argmax()) == spk_id[spk]
+        report["eval_n"] = len(eval_items)
+        report["eval_acc"] = round(correct / max(len(eval_items), 1), 4)
+        log_fn(f"xvector held-out accuracy: {report['eval_acc']} "
+               f"({correct}/{len(eval_items)})")
+    save_xvector(model, (mel_mean, mel_std), out_dir, report)
+    return model, report
 
 
 def _nested(flat: dict) -> dict:
@@ -129,10 +258,12 @@ def load_xvector(out_dir: str, device=None):
     return model.to(dev).eval(), mvn
 
 
-def save_xvector(model: XVectorNet, mel_mvn, out_dir: str) -> None:
+def save_xvector(model: XVectorNet, mel_mvn, out_dir: str,
+                 report: Optional[dict] = None) -> None:
     """Write ``model`` in :func:`load_xvector`'s format (the flax key paths
-    of ``train_xvector``'s ``xvector.npz`` and its ``xvector.json``), so
-    the JAX package's ``load_xvector`` reads it too."""
+    of ``train_xvector``'s ``xvector.npz`` and its ``xvector.json``, which
+    also holds ``report``'s entries), so the JAX package's ``load_xvector``
+    reads it too."""
     os.makedirs(out_dir, exist_ok=True)
     flat = {}
     for name, t in model.state_dict().items():
@@ -145,7 +276,8 @@ def save_xvector(model: XVectorNet, mel_mvn, out_dir: str) -> None:
         flat[f"['params']['{layer}']['{leaf}']"] = np.ascontiguousarray(v)
     np.savez(os.path.join(out_dir, "xvector.npz"), **flat)
     with open(os.path.join(out_dir, "xvector.json"), "w") as f:
-        json.dump({"config": dataclasses.asdict(model.config),
+        json.dump({**(report or {}),
+                   "config": dataclasses.asdict(model.config),
                    "mel_mean": np.asarray(mel_mvn[0]).tolist(),
                    "mel_std": np.asarray(mel_mvn[1]).tolist(),
                    "n_mels": model.config.n_mels}, f, indent=1)

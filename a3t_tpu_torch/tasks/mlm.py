@@ -9,10 +9,12 @@ returns the trainer and the initial state, so that a caller can hand in
 its own state; :meth:`MLMTask.run` builds and trains.
 
 A speaker-conditioned model (``model.spemb_dim > 0``) takes its batches'
-x-vectors from :meth:`MLMTask._build_spemb_map`.  Not ported, each raising
-with its ROADMAP item: multi-corpus mixtures (``corpora``, A7-rest), the
-duration-aware TTS variant (A9), ``speech_only`` (A6), per-epoch plots
-(``num_plot_examples``, A7-rest), record shards (A7-rest),
+x-vectors from :meth:`MLMTask._build_spemb_map`.  The duration-aware
+variant (``model.duration_predictor_layers > 0``) trains through
+``make_tts_train_step`` on batches with ``duration_collect`` on (training
+batches only, as in JAX).  Not ported, each raising with its ROADMAP item:
+multi-corpus mixtures (``corpora``, A7-rest), ``speech_only`` (A6),
+per-epoch plots (``num_plot_examples``, A7-rest), record shards (A7-rest),
 ``batcher.device_audio`` (A7-rest) and meshes of more than one device (A10).
 """
 
@@ -36,7 +38,8 @@ from a3t_tpu_torch.text import TokenIDConverter, build_token_list
 from a3t_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from a3t_tpu_torch.train.optim import make_optimizer
 from a3t_tpu_torch.train.train_step import (TrainState, create_train_state,
-                                            make_eval_step, make_train_step)
+                                            make_eval_step, make_train_step,
+                                            make_tts_train_step)
 from a3t_tpu_torch.train.trainer import Trainer
 
 logger = logging.getLogger("a3t_tpu_torch")
@@ -48,9 +51,6 @@ def check_supported(cfg: A3TTaskConfig) -> None:
     the dataset, the batcher and the Trainer)."""
     refused = [
         (bool(cfg.corpora), "multi-corpus training (corpora)", "A7-rest"),
-        (cfg.model.duration_predictor_layers > 0,
-         "the duration-aware variant (model.duration_predictor_layers)",
-         "A9"),
         (cfg.num_plot_examples > 0, "per-epoch plots (num_plot_examples)",
          "A7-rest"),
         (cfg.mesh.data_parallel not in (None, 1)
@@ -112,6 +112,10 @@ class MLMTask:
         bcfg = cfg.batcher
         if not train:
             bcfg = dataclasses.replace(bcfg, mlm_prob_factor=1.0)
+        if cfg.model.duration_predictor_layers > 0 and train:
+            # the duration-aware variant collects durations (JAX
+            # tasks/mlm.py:107-110)
+            bcfg = dataclasses.replace(bcfg, duration_collect=True)
         ds = A3TDataset(data_dir, conv, speech_only=cfg.speech_only)
         spemb_map = None
         if cfg.model.spemb_dim > 0:
@@ -229,10 +233,15 @@ class MLMTask:
             except ImportError:  # wandb is optional
                 logger.warning("wandb unavailable; skipping")
 
+        if cfg.model.duration_predictor_layers > 0:
+            train_step = make_tts_train_step(model, fe, device=dev)
+        else:
+            train_step = make_train_step(model, fe, device=dev,
+                                         normalizer=normalizer,
+                                         use_fused=cfg.use_fused_frontend)
         trainer = Trainer(
             cfg.trainer,
-            make_train_step(model, fe, device=dev, normalizer=normalizer,
-                            use_fused=cfg.use_fused_frontend),
+            train_step,
             make_eval_step(model, fe, device=dev, normalizer=normalizer),
             train_factory,
             valid_factory,

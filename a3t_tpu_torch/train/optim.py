@@ -22,7 +22,9 @@ and this module computes the same update in PyTorch:
   row the update is applied all the same.
 
 Everything is computed on the parameters' device, with no device-to-host
-synchronisation: the decision to skip is a ``torch.where``.  The moments
+synchronisation: the decision to skip is a ``torch.where``.  :class:`ClipAdam`
+is the offline trainers' chain: the same clip and Adam at a constant rate,
+with no skipping.  The moments
 are kept as one flat float32 vector each, in the order of the parameter
 list given to :meth:`Optimizer.init`.  Gradient noise and gradient
 accumulation (``accum_grad > 1``, optax.MultiSteps) are not ported.
@@ -138,21 +140,14 @@ class Optimizer:
         """One update of ``params`` (a list of tensors) by ``grads`` (the
         same order), in place; returns the gradients' global norm."""
         c = self.config
-        g = torch.cat([x.reshape(-1).float() for x in grads])
+        g = _flat(grads)
         finite = torch.isfinite(g).all()
-        g_norm = torch.linalg.vector_norm(g)
-        u = torch.where(g_norm < c.grad_clip, g, g / g_norm * c.grad_clip)
+        u, g_norm = clip_by_global_norm(g, c.grad_clip)
         if c.weight_decay > 0:
-            u = u + c.weight_decay * torch.cat(
-                [p.reshape(-1).float() for p in params])
-        b1, b2 = c.adam_b1, c.adam_b2
-        mu = (1 - b1) * u + b1 * state.mu
-        nu = (1 - b2) * (u * u) + b2 * state.nu
-        count_inc = state.count + 1
-        t = count_inc.to(torch.float32)
-        mu_hat = mu / (1 - b1 ** t)
-        nu_hat = nu / (1 - b2 ** t)
-        u = mu_hat / (torch.sqrt(nu_hat) + c.adam_eps)
+            u = u + c.weight_decay * _flat(params)
+        u, mu, nu, count_inc = scale_by_adam(
+            u, state.mu, state.nu, state.count, c.adam_b1, c.adam_b2,
+            c.adam_eps)
         u = -self.schedule(state.count) * u
 
         notfinite = torch.where(finite, torch.zeros_like(state.count),
@@ -165,10 +160,78 @@ class Optimizer:
             finite, state.total_notfinite, state.total_notfinite + 1)
         state.notfinite_count = notfinite
         state.last_finite = finite
-        u = torch.where(accept, u, torch.zeros_like(u))
-        sizes = [p.numel() for p in params]
-        torch._foreach_add_(list(params), [
-            s.view_as(p).to(p.dtype) for s, p in zip(u.split(sizes), params)])
+        _add_(params, torch.where(accept, u, torch.zeros_like(u)))
+        return g_norm
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([x.reshape(-1).float() for x in tensors])
+
+
+def _add_(params, u: torch.Tensor) -> None:
+    """params += the flat update ``u``, split back into their shapes."""
+    params = list(params)
+    sizes = [p.numel() for p in params]
+    torch._foreach_add_(params, [
+        s.view_as(p).to(p.dtype) for s, p in zip(u.split(sizes), params)])
+
+
+def clip_by_global_norm(g: torch.Tensor, max_norm: float):
+    """optax's ``clip_by_global_norm`` on the flat gradient ``g``:
+    ``where(norm < max, g, g / norm * max)``, no epsilon; (clipped,
+    norm)."""
+    g_norm = torch.linalg.vector_norm(g)
+    return torch.where(g_norm < max_norm, g, g / g_norm * max_norm), g_norm
+
+
+def scale_by_adam(u, mu, nu, count, b1: float, b2: float, eps: float):
+    """optax's ``scale_by_adam`` (eps outside the square root, no
+    ``eps_root``): (update, mu, nu, count + 1)."""
+    mu = (1 - b1) * u + b1 * mu
+    nu = (1 - b2) * (u * u) + b2 * nu
+    count_inc = count + 1
+    t = count_inc.to(torch.float32)
+    mu_hat = mu / (1 - b1 ** t)
+    nu_hat = nu / (1 - b2 ** t)
+    return mu_hat / (torch.sqrt(nu_hat) + eps), mu, nu, count_inc
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's moments (flat float32, in the parameters' order) and its
+    step count, on the parameters' device."""
+
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: torch.Tensor
+
+
+class ClipAdam:
+    """``optax.chain(clip_by_global_norm(clip), adam(lr))`` at a constant
+    ``lr``, the offline trainers' optimizer (``a3t_tpu/train/vocoder.py:
+    239-242``, ``a3t_tpu/models/xvector.py:176``): no schedule and no
+    skipping of non-finite steps."""
+
+    def __init__(self, lr: float, clip: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.clip, self.b1, self.b2, self.eps = lr, clip, b1, b2, eps
+
+    def init(self, params) -> AdamState:
+        params = list(params)
+        n = sum(p.numel() for p in params)
+        dev = params[0].device
+        return AdamState(mu=torch.zeros(n, device=dev),
+                         nu=torch.zeros(n, device=dev),
+                         count=torch.zeros((), dtype=torch.int32, device=dev))
+
+    @torch.no_grad()
+    def apply(self, params, grads, state: AdamState) -> torch.Tensor:
+        """Update ``params`` and ``state`` in place; returns the gradients'
+        global norm."""
+        u, g_norm = clip_by_global_norm(_flat(grads), self.clip)
+        u, state.mu, state.nu, state.count = scale_by_adam(
+            u, state.mu, state.nu, state.count, self.b1, self.b2, self.eps)
+        _add_(params, -self.lr * u)
         return g_norm
 
 

@@ -8,7 +8,9 @@ clip -> Adam -> Noam.  On the card every attention block's forward and
 backward run through hand-written kernels: K1 and K2 for rel-pos attention
 (the 24 kHz config), K3, K4 and K5 for windowed attention (the 16 kHz
 longformer config, whose frame buckets must be multiples of the half-window,
-as ``a3t_tpu/tasks/mlm.py:338-347`` requires).
+as ``a3t_tpu/tasks/mlm.py:338-347`` requires).  :func:`make_tts_train_step`
+is the duration-aware variant's step (``a3t_tpu/train/train_step.py:
+336-414``).
 
 Batches are dicts of host (numpy) or torch arrays, as in the JAX package:
 
@@ -27,7 +29,7 @@ waveforms are then gathered from a flat int16 corpus tensor on the device
 Differences from the JAX step: the state is updated in place and returned
 (the JAX step donates its state); ``rng`` is an int seed or a CPU
 ``torch.Generator`` from which every dropout site draws its seed on the
-host.  Mesh sharding, chained dispatch and the TTS step are not ported.
+host.  Mesh sharding and chained dispatch are not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.dsp.frontend import LogMelFrontend
+from a3t_tpu_torch.models.layers import duration_loss
 from a3t_tpu_torch.models.mlm import A3TMLMModel, mlm_loss
 from a3t_tpu_torch.ops.fused_logmel import fused_logmel
 from a3t_tpu_torch.train.optim import Optimizer, OptState
@@ -187,6 +190,7 @@ def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
     """
     _check_device(frontend, device)
     use_mse = model.config.use_mse_loss
+    has_duration = model.config.duration_predictor_layers > 0
 
     def step(state: TrainState, batch: dict, rng):
         m = state.model
@@ -194,17 +198,107 @@ def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
         mb = featurize(frontend, batch, use_fused=use_fused,
                        normalizer=normalizer, corpus=corpus)
         check_bucket(m, mb["speech"].shape[1])
-        before, after = m(**mb, generator=_generator(rng))
+        before, after, log_d = m(**mb, generator=_generator(rng),
+                                 return_log_durations=True)
         loss = mlm_loss(before, after, mb["speech"], mb["masked_position"],
                         use_mse=use_mse)
-        params = state.params
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
-        grad_norm = state.apply_gradients(grads)
-        loss = loss.detach()
-        return state, {"loss_mlm": loss, "loss": loss,
+        stats = {"loss_mlm": loss.detach()}
+        if has_duration and "durations" in batch:
+            # the duration term over the masked frames (JAX :216-221)
+            dl = _masked_mean(duration_loss(log_d, torch.as_tensor(
+                batch["durations"], device=log_d.device)),
+                mb["masked_position"])
+            loss = loss + dl
+            stats["loss_duration"] = dl.detach()
+        grad_norm = _update(state, loss)
+        return state, {**stats, "loss": loss.detach(),
                        "masked_frames": mb["masked_position"].sum(),
+                       "grad_norm": grad_norm,
+                       "notfinite_count": state.opt_state.notfinite_count}
+
+    return step
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    w = mask.to(torch.float32)
+    return (x * w).sum() / (w.sum() + 1e-10)
+
+
+def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """Gradients of ``loss`` (zeros for parameters it does not reach)
+    applied to the state; returns their global norm."""
+    params = state.params
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, params)]
+    return state.apply_gradients(grads)
+
+
+def tts_inputs(mb: dict, batch: dict) -> dict:
+    """The duration-aware variant's reduced inputs (JAX train_step.py:
+    361-379): the featurized batch ``mb`` gathered by the host batch's
+    ``reordered_index``; a reduced position is valid when it lies before
+    ``reduced_lengths`` and its frame is valid; ``durations`` gathered the
+    same way."""
+    dev = mb["speech"].device
+    n_f = mb["speech"].shape[1]
+    ri = torch.as_tensor(batch["reordered_index"], device=dev).long()
+
+    def red(x):
+        return torch.gather(x, 1, ri)
+
+    valid = (torch.arange(n_f, device=dev)[None, :]
+             < torch.as_tensor(batch["reduced_lengths"], device=dev)[:, None]
+             ) & red(mb["speech_mask"])
+    return dict(
+        speech=torch.gather(mb["speech"], 1, ri[..., None].expand(
+            -1, -1, mb["speech"].shape[2])),
+        text=mb["text"],
+        masked_position=red(mb["masked_position"]) & valid,
+        speech_mask=valid,
+        text_mask=mb["text_mask"],
+        speech_segment_pos=red(mb["speech_segment_pos"]),
+        text_segment_pos=mb["text_segment_pos"],
+        durations=red(torch.as_tensor(batch["durations"], device=dev)))
+
+
+def tts_loss(model: A3TMLMModel, mb: dict, batch: dict, generator=None):
+    """(loss, mlm loss, duration loss) of the variant on the featurized
+    batch ``mb`` of host batch ``batch``: :func:`mlm_loss` on the
+    full-resolution mel and mask plus the duration loss averaged over the
+    reduced masked positions."""
+    reduced = tts_inputs(mb, batch)
+    before, after, log_d = model.tts_forward(
+        **reduced, out_frames=mb["speech"].shape[1], generator=generator)
+    loss_mlm = mlm_loss(before, after, mb["speech"], mb["masked_position"],
+                        use_mse=model.config.use_mse_loss)
+    dl = _masked_mean(duration_loss(log_d, reduced["durations"]),
+                      reduced["masked_position"])
+    return loss_mlm + dl, loss_mlm, dl
+
+
+def make_tts_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
+                        device=None, corpus=None):
+    """The duration-aware variant's train step ``(state, batch, rng) ->
+    (state, stats)`` (ESPnetMLMTTSModel, sedit_model.py:454-503; JAX
+    ``make_tts_train_step``).  The batch carries the batcher's
+    ``durations``, ``reordered_index`` and ``reduced_lengths``
+    (``BatcherConfig.duration_collect``); :func:`tts_loss` gives the loss:
+    ``tts_forward`` runs the encoder over the reduced sequence
+    (:func:`tts_inputs`) and the decoder over the length-regulated frames.
+    As in JAX, the step takes the matmul-DFT front-end and no normalizer,
+    and gives the model no ``spemb``.  ``stats``: ``loss``, ``loss_mlm``,
+    ``loss_duration``, ``grad_norm`` and ``notfinite_count``."""
+    _check_device(frontend, device)
+
+    def step(state: TrainState, batch: dict, rng):
+        m = state.model
+        m.train()
+        mb = featurize(frontend, batch, corpus=corpus)
+        loss, loss_mlm, dl = tts_loss(m, mb, batch, _generator(rng))
+        grad_norm = _update(state, loss)
+        return state, {"loss": loss.detach(), "loss_mlm": loss_mlm.detach(),
+                       "loss_duration": dl.detach(),
                        "grad_norm": grad_norm,
                        "notfinite_count": state.opt_state.notfinite_count}
 

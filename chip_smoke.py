@@ -163,6 +163,28 @@ Phases, each printing its elapsed seconds:
    batch with no producer thread running, and medians of 3 after
    a warm-up of the x-vector extraction, the duration function, requests
    with FS2 durations, each baseline and the model loads.
+15. side-train: the side trainers on the trainer's corpus, in the same
+   temporary directory, fp32 at full width: (a) the duration-aware A3T
+   variant, the 24 kHz yaml with model.duration_predictor_layers=2 through
+   bin.train for 8 steps over its two buckets (finite, not skipped, 8 K1
+   per train and eval forward and 8 K2 per step; per-bucket step times on
+   the device's clock and mel-frames/s; the last step profiled), K1/K2
+   against their plain versions at each bucket's reduced encoder mask and
+   length-regulated decoder mask from the batcher's own batches (fp32 and
+   bf16, dropout 0 and 0.2), one dropout-0 step's loss and gradients
+   through the kernels against the plain versions leaf by leaf, and
+   bin.sedit edit on its experiment (8 K1); (b) train_xvector at
+   XVectorConfig() for 30 steps of 32 crops with held-out accuracy on the
+   validation split, its directory feeding make_spemb_extractor; (c)
+   bin.train_vocoder at its 24 kHz defaults (64 x 30 layers x 3 stacks,
+   batch 8, 96-frame crops) for 6 steps, the discriminator from step 3,
+   stopped by an exception after its save at step 3 and resumed (restarts
+   at 3, keeps the stored mel statistics, finite spectral and adversarial
+   losses), load_vocoder's wav of frames x hop samples, and bin.mcd_gate
+   --vocoder DIR on 2 validation utterances (8 K1 each).  Prints the step
+   times (the x-vector's by crop length, the vocoder's spectral and
+   adversarial steps), one profiled call of each kind and the phase's
+   main-path launches.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -1465,12 +1487,10 @@ def train_phase(torch, np, fa, wall_time, label, compute_dtype="float32",
     """make_train_step at full width on the JAX bench's batch, in float32
     (phase train) or bfloat16 (phase train-bf16, the JAX bench's own
     precision)."""
-    import copy
     import dataclasses
 
     from a3t_tpu_torch.dsp import LogMelFrontend
     from a3t_tpu_torch.models import build_model
-    from a3t_tpu_torch.models.attention import RelPositionMultiHeadedAttention
     from a3t_tpu_torch.tasks.config import (FRONTEND_24K, OPTIM_24K,
                                             a3t_conformer_24k)
     from a3t_tpu_torch.train import (create_train_state, featurize,
@@ -1496,17 +1516,9 @@ def train_phase(torch, np, fa, wall_time, label, compute_dtype="float32",
 
     cfg0 = dataclasses.replace(cfg, encoder=no_dropout(cfg.encoder),
                                decoder=no_dropout(cfg.decoder))
-    def plain_copy(model):
-        """The model with every attention on the plain branch."""
-        plain = copy.deepcopy(model)
-        for m in plain.modules():
-            if isinstance(m, RelPositionMultiHeadedAttention):
-                m.use_flash = False
-        return plain
-
     flash = build_model(cfg0, device=device, seed=0)
     flash.postnet.dropout.rate = 0.0
-    plain = plain_copy(flash)
+    plain = _plain_copy(flash)
     results = []
     for model in (flash, plain):
         state = create_train_state(model, make_optimizer(OPTIM_24K),
@@ -1539,7 +1551,7 @@ def train_phase(torch, np, fa, wall_time, label, compute_dtype="float32",
     # only in sum: K1/K2 against the plain attention branch
     flash = build_model(cfg0, device=device, seed=0)
     flash.postnet.dropout.rate = 0.0
-    grad_check(torch, flash, plain_copy(flash), contextlib.nullcontext(),
+    grad_check(torch, flash, _plain_copy(flash), contextlib.nullcontext(),
                lambda: (fa.LAUNCHES, fa.LAUNCHES_BWD), (8, 8),
                featurize(fe, batch),
                TOL_GRADS_F32 if compute_dtype == "float32"
@@ -1594,6 +1606,20 @@ def train_phase(torch, np, fa, wall_time, label, compute_dtype="float32",
                   if "fused_attention_dq_" in name)
         log(f"  in the profiled {what} step: K1 {k1:.2f} ms, K2 {k2:.2f} ms")
     return launches, dict(step_ms=med * 1e3)
+
+
+def _plain_copy(model):
+    """A copy of the model with every rel-pos attention on the plain
+    branch."""
+    import copy
+
+    from a3t_tpu_torch.models.attention import RelPositionMultiHeadedAttention
+
+    plain = copy.deepcopy(model)
+    for m in plain.modules():
+        if isinstance(m, RelPositionMultiHeadedAttention):
+            m.use_flash = False
+    return plain
 
 
 class PlainBanded:
@@ -1661,7 +1687,7 @@ ZERO_GRADIENT = ("linear_k.bias", "depthwise_conv.bias")
 
 
 def grad_check(torch, kern, plain, plain_ctx, launches, expected, mb,
-               tol: float, what: str) -> float:
+               tol: float, what: str, loss_fn=None) -> float:
     """One dropout-0 forward, loss and backward through a path's kernels
     (model ``kern``) against the same through their plain versions (the
     copy ``plain``, run within ``plain_ctx``): the loss, and the gradient
@@ -1672,8 +1698,13 @@ def grad_check(torch, kern, plain, plain_ctx, launches, expected, mb,
     depthwise convolutions' (the BatchNorm after them subtracts the batch
     mean).  They are held to the largest gradient of all leaves instead.  ``launches()`` reads the
     kernels' counts, which must be ``expected`` for the kernel run and 0
-    for the plain one.  Returns the worst ratio."""
+    for the plain one.  ``loss_fn(model, mb, generator)`` replaces the
+    masked L1 loss of the forward.  Returns the worst ratio."""
     from a3t_tpu_torch.models.mlm import mlm_loss
+
+    def mlm(model, mb, gen):
+        before, after = model(**mb, generator=gen)
+        return mlm_loss(before, after, mb["speech"], mb["masked_position"])
 
     runs = []
     for model in (kern, plain):
@@ -1681,14 +1712,13 @@ def grad_check(torch, kern, plain, plain_ctx, launches, expected, mb,
         names, params = zip(*model.named_parameters())
         start = launches()
         with plain_ctx if model is plain else contextlib.nullcontext():
-            before, after = model(**mb,
-                                  generator=torch.Generator().manual_seed(0))
-            loss = mlm_loss(before, after, mb["speech"], mb["masked_position"])
+            loss = (loss_fn or mlm)(model, mb,
+                                    torch.Generator().manual_seed(0))
             grads = torch.autograd.grad(loss, params)
         torch.cuda.synchronize()
         runs.append((float(loss.detach()), dict(zip(names, grads)),
                      tuple(n - n0 for n, n0 in zip(launches(), start))))
-        del before, after, loss, grads
+        del loss, grads
     (lk, gk, nk), (lp, gp, np_) = runs
     top = max(g.abs().max().item() for g in gp.values())
     ratio = {}
@@ -3251,6 +3281,366 @@ def speaker_fs2_phase(torch, np, fa, label, root, train, valid, device="cuda"):
     return launches, errs
 
 
+SIDE_ITERS = 8  # TTS variant steps: two passes of the two buckets' plan
+SIDE_SETS: list = []  # extra bin.train overrides (a CPU rehearsal's widths)
+XV_STEPS = 30  # x-vector training steps
+XV_SETS: dict = {}  # XVectorConfig fields (a CPU rehearsal's widths)
+VOC_STEPS, VOC_STOP = 6, 3  # vocoder steps; the run stops after this save
+VOC_ARGS: list = []  # extra bin.train_vocoder flags (a CPU rehearsal's)
+MCD_VOC_UTTS = 2
+
+
+class _Stop(Exception):
+    pass
+
+
+def _timed(torch, fn, times, key=None):
+    """``fn`` with each call's CUDA-event pair appended to ``times``, with
+    its result and ``key(*args)`` beside it."""
+    def wrapped(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*a, **kw)
+        ev[1].record()
+        times.append((ev, out, key(*a) if key else None))
+        return out
+    return wrapped
+
+
+def _profiled(torch, fn, n, label, what, top=8):
+    """``fn`` whose ``n``-th call (from 1) runs under torch.profiler,
+    recording device activities only: its busy share and the kernels that
+    take its time are logged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [0]
+
+    def wrapped(*a, **kw):
+        calls[0] += 1
+        if calls[0] != n:
+            return fn(*a, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+        busy = device_busy(torch, prof)
+        if busy is None:
+            log(f"  {what} (call {n}) profile: the profiler saw no device "
+                "activity; not measured")
+            return out
+        busy_ms, window, by_name, count = busy
+        log(f"  {what} (call {n}) profile: device busy {busy_ms:.2f} ms of "
+            f"{window:.2f} ms (busy share {busy_ms / window:.4f}), {count} "
+            f"device activities; the kernels by device time [{label}]")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+            log(f"    {ms:9.3f} ms  {name[:100]}")
+        return out
+    return wrapped
+
+
+def _event_ms(torch, times):
+    torch.cuda.synchronize()
+    return [ev[0].elapsed_time(ev[1]) for ev, _, _ in times]
+
+
+def side_train_phase(torch, np, fa, label, root, train, valid, device="cuda"):
+    """The side trainers on the trainer phase's corpus (438 utterances, 8
+    speakers), in fp32 at full width: (a) the duration-aware A3T variant,
+    configs/a3t_conformer_24k.yaml with model.duration_predictor_layers=2
+    through bin.train, K1/K2 against their plain versions at its reduced
+    encoder masks and length-regulated decoder masks, one dropout-0 step's
+    gradients through the kernels against the plain versions, then
+    bin.sedit edit on the experiment; (b) train_xvector at XVectorConfig()
+    feeding make_spemb_extractor; (c) bin.train_vocoder at its 24 kHz
+    defaults, stopped after its save at step 3 and resumed to step 6,
+    load_vocoder, and bin.mcd_gate --vocoder DIR.  Returns the K1 and K2
+    launches of the main path (training and serving of (a), the gate of
+    (c)) and K1's and K2's largest float32 errors at the variant's
+    masks."""
+    import dataclasses
+    import gc
+
+    from a3t_tpu_torch.bin import mcd_gate, sedit
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.bin.train_vocoder import main as train_vocoder_main
+    from a3t_tpu_torch.data.dataset import A3TDataset
+    from a3t_tpu_torch.data.fileio import read_2column_text
+    from a3t_tpu_torch.dsp import LogMelFrontend
+    from a3t_tpu_torch.models import xvector as xv
+    from a3t_tpu_torch.models.layers import length_regulate
+    from a3t_tpu_torch.tasks import mlm as task_mlm
+    from a3t_tpu_torch.tasks.config import load_config
+    from a3t_tpu_torch.train import vocoder
+    from a3t_tpu_torch.train.train_step import featurize, tts_inputs, tts_loss
+
+    out = os.path.join(root, "side")
+    os.makedirs(out, exist_ok=True)
+    texts = read_2column_text(os.path.join(valid, "text"))
+    valid_ds = A3TDataset(valid)
+
+    # (a) the duration-aware variant through bin.train
+    tts_exp = os.path.join(out, "tts")
+    make_step = task_mlm.make_tts_train_step
+    task_mlm.make_tts_train_step = lambda *a, **kw: _profiled(
+        torch, make_step(*a, **kw), SIDE_ITERS, label, "TTS variant step")
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer, state = train_main(_train_argv(
+            train, valid, tts_exp, device,
+            "model.duration_predictor_layers=2", "trainer.max_epoch=1",
+            f"trainer.num_iters_per_epoch={SIDE_ITERS}", *SIDE_SETS))
+    finally:
+        task_mlm.make_tts_train_step = make_step
+    torch.cuda.synchronize()
+    tts_s = time.perf_counter() - t0
+    train_launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    steps = list(trainer.step_log)
+    batcher = trainer.train_iter_factory.batcher
+    n_eval = len(trainer.valid_iter_factory.batcher.batch_plan(1))
+    cfg = state.model.config
+    blocks = cfg.encoder.num_blocks + cfg.decoder.num_blocks
+    buckets = [(b.n_frames, b.batch_size) for b in batcher.buckets]
+    log(f"  bin.train duration_predictor_layers=2: {len(steps)} steps "
+        f"{[(r['frames'], round(r['loss'], 3)) for r in steps]} + {n_eval} "
+        f"eval steps in {tts_s:.2f} s; buckets {buckets}; train losses "
+        f"{trainer.reporter.history[1]['train']}; K1 {train_launches[0]}, "
+        f"K2 {train_launches[1]} [{label}]")
+    check(batcher.config.duration_collect and cfg.duration_predictor_layers
+          == 2, "the variant's batches collect durations")
+    check(len(steps) == SIDE_ITERS and all(
+        np.isfinite(r["loss"]) for r in steps)
+        and int(state.opt_state.total_notfinite) == 0,
+        "every TTS variant step is finite and not skipped")
+    check(train_launches == (blocks * (len(steps) + n_eval),
+                             blocks * len(steps)),
+          f"TTS variant: {blocks} K1 launches per train and eval forward, "
+          f"{blocks} K2 per train step")
+    _bucket_numbers(np, steps, label, "side-train TTS fp32", _fill(batcher))
+
+    fe = LogMelFrontend(load_config(os.path.join(tts_exp, "config.yaml")
+                                    ).frontend, device=device)
+    att = next(m for m in state.model.modules() if hasattr(m, "d_k"))
+    g = torch.Generator().manual_seed(17)
+    errs = [0.0, 0.0]
+    first = None
+    for bi, spec in enumerate(batcher.buckets):
+        host = batcher.make_batch(bi, batcher.bucket_members[bi][
+            : spec.batch_size], np.random.default_rng(bi))
+        mb = featurize(fe, host)
+        red = tts_inputs(mb, host)
+        text_mask = red["text_mask"].bool()
+        _, frames = length_regulate(
+            torch.zeros(*red["durations"].shape, 1, device=mb["speech"].device),
+            red["durations"] * red["speech_mask"], spec.n_frames)
+        n_red = red["speech_mask"].sum(1).float()
+        n_frm = mb["speech_mask"].sum(1).float()
+        log(f"  TTS bucket {spec.n_frames} x {spec.batch_size}: reduced "
+            f"speech keys per row mean {n_red.mean().item():.1f} (min "
+            f"{int(n_red.min())}, max {int(n_red.max())}) of "
+            f"{spec.n_frames}, valid frames mean {n_frm.mean().item():.1f}, "
+            f"length-regulated frames mean "
+            f"{frames.sum(1).float().mean().item():.1f}")
+        for mask, where in (
+                (torch.cat([red["speech_mask"], text_mask], 1),
+                 f"the TTS encoder's reduced mask ({spec.n_frames})"),
+                (torch.cat([frames, text_mask], 1),
+                 f"the TTS decoder's length-regulated mask "
+                 f"({spec.n_frames})")):
+            e = kernel_pair_check(torch, fa, mask, att.h, att.d_k, g, where)
+            errs = [max(a, c) for a, c in zip(errs, e)]
+        first = first or (host, mb)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one dropout-0 step's gradients, kernels against plain versions
+    no_dropout = dict(dropout_rate=0.0, positional_dropout_rate=0.0,
+                      attention_dropout_rate=0.0)
+    cfg0 = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, **no_dropout),
+        decoder=dataclasses.replace(cfg.decoder, **no_dropout))
+    kern = _dropout0_model(cfg0, device)
+    for layer in kern.duration_predictor.conv:
+        layer[3].rate = 0.0
+    host, mb = first
+    grad_check(torch, kern, _plain_copy(kern), contextlib.nullcontext(),
+               lambda: (fa.LAUNCHES, fa.LAUNCHES_BWD), (blocks, blocks), mb,
+               TOL_GRADS_F32, "the TTS variant's step",
+               loss_fn=lambda m, mb, gen: tts_loss(m, mb, host, gen)[0])
+    del kern, first, host, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving the experiment: the edit ignores the predictor
+    uid = next(u for u in sorted(texts) if len(texts[u].split()) >= 24)
+    phones = texts[uid].split()
+    vocab = sorted({p for t in texts.values() for p in t.split()})
+    k = len(phones) // 2 - 1
+    new_edit = " ".join(phones[:k] + vocab[:5] + phones[k + 3:])
+    l1 = fa.LAUNCHES
+    res = sedit.main(["edit", "--exp-dir", tts_exp, "--data-dir", valid,
+                      "--uid", uid, "--new-text", new_edit, "--out",
+                      os.path.join(out, "edit.wav"), "--device", device])
+    serve_k1 = fa.LAUNCHES - l1
+    hop = fe.config.hop_length
+    _wav_length_check(np, res, valid_ds[uid]["audio"], hop, 0,
+                      "sedit on the TTS variant")
+    check(serve_k1 == blocks, f"sedit on the TTS variant: {serve_k1} K1 "
+          f"launches, expected {blocks}")
+    log(f"  bin.sedit edit on the TTS variant's experiment: spans "
+        f"{res.old_span_boundary} -> {res.new_span_boundary}, K1 launches "
+        f"{serve_k1} [{label}]")
+
+    # (b) x-vector training
+    xv_dir = os.path.join(out, "xvector")
+    xv_times = []
+    step_fn = xv.xvector_step
+    xv.xvector_step = _timed(
+        torch, _profiled(torch, step_fn, XV_STEPS, label, "x-vector step"),
+        xv_times, key=lambda model, tx, st, mel, sid: mel.shape[1])
+    try:
+        t0 = time.perf_counter()
+        _, report = xv.train_xvector(
+            train, fe, xv_dir, xv.XVectorConfig(**XV_SETS), batch_size=32,
+            total_steps=XV_STEPS, eval_data_dir=valid,
+            log_fn=lambda msg: None)
+        torch.cuda.synchronize()
+        xv_s = time.perf_counter() - t0
+    finally:
+        xv.xvector_step = step_fn
+    ms = _event_ms(torch, xv_times)[:-1]  # the last call is profiled
+    losses = [float(o[0]) for _, o, _ in xv_times]
+    by_crop = {}
+    for t, (_, _, crop) in zip(ms[3:], xv_times[3:]):
+        by_crop.setdefault(crop, []).append(t)
+    check(len(xv_times) == XV_STEPS and all(np.isfinite(losses)),
+          "every x-vector step is finite")
+    spemb_fn = xv.make_spemb_extractor(xv_dir, fe)
+    audio = valid_ds[uid]["audio"]
+    emb = spemb_fn(audio, np.ones(1 + len(audio) // hop, bool))
+    check(emb.shape == (xv.XVectorConfig(**XV_SETS).embed_dim,)
+          and np.isfinite(emb).all(), "make_spemb_extractor on the trained "
+          "x-vector directory: a finite embedding")
+    log(f"  train_xvector: {XV_STEPS} steps of 32 crops (256/512/1024 "
+        f"frames) in {xv_s:.2f} s with the corpus log-mels; losses "
+        f"{[round(x, 3) for x in losses[:2]]} ... "
+        f"{[round(x, 3) for x in losses[-2:]]}; held-out accuracy "
+        f"{report['eval_acc']} on {report['eval_n']} utterances of "
+        f"{report['n_speakers']} speakers; step median "
+        f"{float(np.median(ms[3:])):.2f} ms on the device's clock (n="
+        f"{len(ms) - 3}, min {min(ms[3:]):.2f}, max {max(ms[3:]):.2f}); by "
+        f"crop: " + ", ".join(
+            f"{c} frames {float(np.median(v)):.2f} ms (n={len(v)})"
+            for c, v in sorted(by_crop.items())) + f" [{label}]")
+
+    # (c) vocoder training, stopped and resumed, then served
+    vdir = os.path.join(out, "vocoder")
+    argv = ["--wav-scp", os.path.join(train, "wav.scp"), "--out", vdir,
+            "--steps", str(VOC_STEPS), "--disc-start", str(VOC_STOP),
+            "--save-interval", str(VOC_STOP), "--corpus-cache",
+            os.path.join(out, "vocoder_corpus.npz"), "--device", device,
+            *VOC_ARGS]
+    spec_t, adv_t = [], []
+    fns = (vocoder.spectral_step, vocoder.adversarial_step,
+           vocoder.save_checkpoint)
+
+    def save_then_stop(out_dir, tree, history):
+        fns[2](out_dir, tree, history)
+        if tree["step"] == VOC_STOP:
+            raise _Stop
+
+    # each kind's first step carries cuDNN's set-up; its last is profiled
+    vocoder.spectral_step = _timed(torch, _profiled(
+        torch, fns[0], VOC_STOP, label, "spectral step"), spec_t)
+    vocoder.adversarial_step = _timed(torch, _profiled(
+        torch, fns[1], VOC_STEPS - VOC_STOP, label, "adversarial step"),
+        adv_t)
+    vocoder.save_checkpoint = save_then_stop
+    try:
+        t0 = time.perf_counter()
+        try:
+            train_vocoder_main(argv)
+            check(False, f"the vocoder run stops at its save of step "
+                  f"{VOC_STOP}")
+        except _Stop:
+            pass
+        first_s = time.perf_counter() - t0
+        with open(os.path.join(vdir, "vocoder.json")) as f:
+            meta = json.load(f)
+        n_first = (len(spec_t), len(adv_t))
+        vocoder.save_checkpoint = fns[2]
+        t0 = time.perf_counter()
+        train_vocoder_main(argv)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+    finally:
+        (vocoder.spectral_step, vocoder.adversarial_step,
+         vocoder.save_checkpoint) = fns
+    with open(os.path.join(vdir, "vocoder.json")) as f:
+        meta2 = json.load(f)
+    with open(os.path.join(vdir, "history.json")) as f:
+        hist = json.load(f)
+    tree = torch.load(os.path.join(vdir, "state.pt"), map_location="cpu",
+                      weights_only=True)
+    spec_ms, adv_ms = _event_ms(torch, spec_t), _event_ms(torch, adv_t)
+    spec_l = [[float(x) for x in o] for _, o, _ in spec_t]
+    adv_l = [[float(x) for x in o] for _, o, _ in adv_t]
+    check(n_first == (VOC_STOP, 0) and len(spec_t) == VOC_STOP
+          and len(adv_t) == VOC_STEPS - VOC_STOP and tree["step"] == VOC_STEPS
+          and int(tree["opt_d"]["count"]) == VOC_STEPS - VOC_STOP,
+          f"the vocoder ran {VOC_STOP} spectral steps, stopped, and resumed "
+          f"at step {VOC_STOP} for {VOC_STEPS - VOC_STOP} adversarial steps")
+    check(meta2["mel_mean"] == meta["mel_mean"]
+          and meta2["mel_std"] == meta["mel_std"],
+          "the resumed vocoder run reuses the stored mel MVN")
+    check(all(np.isfinite(x) for v in spec_l + adv_l for x in v)
+          and [h["step"] for h in hist] == [VOC_STEPS],
+          "finite spectral and adversarial losses")
+    log(f"  bin.train_vocoder (hop 300, 64 x 30 layers x 3 stacks, batch 8, "
+        f"crop 96 frames): first run {first_s:.2f} s ({VOC_STOP} spectral "
+        f"steps, corpus log-mels and cache), resumed run {second_s:.2f} s "
+        f"({VOC_STEPS - VOC_STOP} adversarial steps); spectral (loss, sc, "
+        f"mag) {[[round(x, 3) for x in v] for v in spec_l]}, adversarial "
+        f"(g, sc, mag, adv, d) {[[round(x, 3) for x in v] for v in adv_l]}"
+        f"; spectral step {spec_ms} ms, adversarial step {adv_ms} ms on "
+        f"the device's clock (the first of each with cuDNN's set-up, the "
+        f"last profiled) [{label}]")
+    vocode = vocoder.load_vocoder(vdir, device)
+    mel = fe(audio[None])[0]
+    wav = vocode(mel)
+    check(tuple(wav.shape) == (1, mel.shape[1] * hop)
+          and bool(torch.isfinite(wav).all()),
+          f"load_vocoder: {tuple(wav.shape)} samples for {mel.shape[1]} "
+          f"frames, finite")
+    uids = sorted(texts)[:MCD_VOC_UTTS]
+    l1 = fa.LAUNCHES
+    t0 = time.perf_counter()
+    report = mcd_gate.main(["--exp-dir", tts_exp, "--data-dir", valid,
+                            "--uids", ",".join(uids), "--vocoder", vdir,
+                            "--out", os.path.join(out, "mcd"), "--device",
+                            device])
+    gate_s = time.perf_counter() - t0
+    gate_k1 = fa.LAUNCHES - l1
+    check(report["n"] == MCD_VOC_UTTS and os.path.exists(os.path.join(
+        out, "mcd", "MCD.json")) and math.isfinite(
+            report["vocoder_ceiling_mcd"]),
+        f"mcd_gate --vocoder DIR: n {report['n']}, ceiling "
+        f"{report['vocoder_ceiling_mcd']}")
+    check(gate_k1 == blocks * MCD_VOC_UTTS, f"mcd_gate --vocoder DIR: "
+          f"{gate_k1} K1 launches, expected {blocks} per utterance")
+    log(f"  mcd_gate --vocoder DIR on {MCD_VOC_UTTS} utterances in "
+        f"{gate_s:.2f} s: per utterance {report['per_utt']}, vocoder "
+        f"ceiling {report['vocoder_ceiling_mcd']:.3f} dB (random weights, "
+        f"{VOC_STEPS} vocoder steps) [{label}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = (train_launches[0] + serve_k1 + gate_k1, train_launches[1])
+    log(f"  side-train main path: K1 {launches[0]} (TTS training "
+        f"{train_launches[0]}, sedit {serve_k1}, mcd_gate {gate_k1}), K2 "
+        f"{launches[1]} [{label}]")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -3369,6 +3759,11 @@ def main() -> int:
                 torch, np, fa, label, root,
                 os.path.join(root, "data", "train"), valid)
 
+        with Phase("side-train"):
+            (side_fwd, side_bwd), side_errs = side_train_phase(
+                torch, np, fa, label, root,
+                os.path.join(root, "data", "train"), valid)
+
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -3376,12 +3771,14 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + sp_fwd,
+        + cli_fwd + sp_fwd + side_fwd,
         "launches_serve_cli": cli_fwd,
         "launches_speaker_fs2": sp_fwd,
+        "launches_side_train": side_fwd,
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "max_abs_err_fs2_shapes": fs2_errs[0],
+        "max_abs_err_tts_shapes": side_errs[0],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -3393,12 +3790,15 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
-        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd,
+        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd
+        + side_bwd,
         "launches_serve_cli": cli_bwd,
         "launches_speaker_fs2": sp_bwd,
+        "launches_side_train": side_bwd,
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "max_abs_err_fs2_shapes": fs2_errs[1],
+        "max_abs_err_tts_shapes": side_errs[1],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

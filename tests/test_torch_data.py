@@ -224,8 +224,12 @@ def test_refusals(corpora, monkeypatch, tmp_path):
     with_spemb = BucketBatcher(ds, fe, BatcherConfig(**BATCHER), spemb_map={
         u: np.ones(3, np.float32) for u in ds.uids})
     assert next(with_spemb.epoch_iterator(0))["spemb"].shape[1] == 3
-    with pytest.raises(NotImplementedError, match="A9"):
-        BucketBatcher(ds, fe, BatcherConfig(**BATCHER, duration_collect=True))
+    # duration collection is ported (tests/test_torch_tts_variant.py holds
+    # the batches against JAX's)
+    with_durations = BucketBatcher(ds, fe, BatcherConfig(
+        **BATCHER, duration_collect=True))
+    assert next(with_durations.epoch_iterator(0))["durations"].dtype \
+        == np.int32
     with pytest.raises(NotImplementedError, match="A7-rest"):
         BucketBatcher(ds, fe, BatcherConfig(**BATCHER, device_audio=True))
     batcher = BucketBatcher(ds, fe, BatcherConfig(**BATCHER))

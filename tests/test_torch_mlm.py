@@ -140,11 +140,18 @@ def test_seeded_weights_are_reproducible():
 
 
 def test_unported_variants_raise():
-    """The duration-aware variant raises naming its ROADMAP item; a
-    speaker-conditioned model builds (tests/test_torch_spemb.py holds it
-    against JAX)."""
+    """The speaker-conditioned model and the duration-aware variant build
+    (tests/test_torch_spemb.py and tests/test_torch_tts_variant.py hold
+    them against JAX): the variant's predictor reads the encoder's width
+    at the JAX variant's fixed 256 channels, kernel 3 and dropout 0.1."""
     cfg = port_config(tiny_config())
     model = tm.A3TMLMModel(dataclasses.replace(cfg, spemb_dim=16))
     assert model.spemb_proj.in_features == 16
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.A3TMLMModel(dataclasses.replace(cfg, duration_predictor_layers=2))
+    model = tm.A3TMLMModel(dataclasses.replace(cfg,
+                                               duration_predictor_layers=2))
+    convs = [layer[0] for layer in model.duration_predictor.conv]
+    assert len(convs) == 2 and convs[0].in_channels == \
+        cfg.encoder.attention_dim
+    assert all(c.out_channels == 256 and c.kernel_size == (3,)
+               for c in convs)
+    assert model.duration_predictor.conv[0][3].rate == 0.1

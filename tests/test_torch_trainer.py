@@ -335,8 +335,8 @@ def test_task_refusals(corpus, tmp_path):
                                         postnet_layers=1))
     for extra, item in (
             ({"corpora": [{"name": "x", "data_dir": corpus[0]}]}, "A7-rest"),
-            ({"model": {**base["model"], "duration_predictor_layers": 2}},
-             "A9"),
+            ({"model": {**base["model"], "duration_predictor_layers": 2},
+              "trainer": {"steps_per_dispatch": 2}}, "A6"),
             ({"speech_only": True}, "A6"),
             ({"num_plot_examples": 2}, "A7-rest"),
             ({"batcher": {"device_audio": True}}, "A7-rest"),

@@ -205,5 +205,12 @@ def test_spemb_extractor_matches_jax_and_pools_the_context(nets,
 
 
 def test_train_xvector_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        xv.train_xvector("data", None, "out")
+    """train_xvector is ported (tests/test_torch_xvector_train.py holds it
+    against JAX's): it takes JAX's arguments, in JAX's order, and runs on
+    its front-end's device."""
+    import inspect
+
+    from a3t_tpu.models import xvector as jax_xv
+
+    want = list(inspect.signature(jax_xv.train_xvector).parameters)
+    assert list(inspect.signature(xv.train_xvector).parameters) == want

@@ -301,42 +301,53 @@ def load_state(module: torch.nn.Module, state: dict) -> torch.nn.Module:
 
 
 def _inner_states(opt_state):
-    """(Adam's state, the schedule's state) of ``make_optimizer``'s
-    ``apply_if_finite(chain(...))`` state, found by their fields."""
-    fields = [(s, getattr(s, "_fields", ())) for s in opt_state.inner_state]
+    """(Adam's state, the schedule's state, MultiSteps' state or None) of
+    ``make_optimizer``'s ``apply_if_finite([MultiSteps(]chain(...)[)])``
+    state, found by their fields."""
+    inner = opt_state.inner_state
+    multi = inner if hasattr(inner, "inner_opt_state") else None
+    if multi is not None:
+        inner = multi.inner_opt_state
+    fields = [(s, getattr(s, "_fields", ())) for s in inner]
     adam = [s for s, f in fields if "mu" in f]
     sched = [s for s, f in fields if f == ("count",)]
     if len(adam) != 1 or len(sched) != 1:
-        raise ValueError("not the optax state of a3t_tpu's make_optimizer "
-                         "(without grad noise or accum_grad)")
-    return adam[0], sched[0]
+        raise ValueError("not the optax state of a3t_tpu's make_optimizer")
+    return adam[0], sched[0], multi
 
 
 def load_train_state(state, jax_state):
     """Carry a JAX ``TrainState`` (step, params, batch_stats, opt_state of
     ``make_optimizer``) into the port's ``TrainState`` ``state``, in place:
     weights and running statistics into the model, Adam's ``mu``/``nu``
-    mapped by the same names as the parameters, the chain's count and
-    apply_if_finite's counters.  Returns ``state``."""
+    (and MultiSteps' ``acc_grads``) mapped by the same names as the
+    parameters, the chain's count, MultiSteps' counters and
+    apply_if_finite's.  Returns ``state``."""
     model = state.model
     stats = jax_state.batch_stats
     load_state(model, mlm_state({"params": jax_state.params,
                                  "batch_stats": stats}))
-    adam, sched = _inner_states(jax_state.opt_state)
+    adam, sched, multi = _inner_states(jax_state.opt_state)
     if int(np.asarray(adam.count)) != int(np.asarray(sched.count)):
         raise ValueError("Adam's and the schedule's counts differ")
     names = [n for n, _ in model.named_parameters()]
     os_ = state.opt_state
-    for field, tree in (("mu", adam.mu), ("nu", adam.nu)):
+    flats = [("mu", adam.mu), ("nu", adam.nu)]
+    scalars = [("count", adam.count)]
+    if multi is not None:
+        flats.append(("acc_grads", multi.acc_grads))
+        scalars += [("mini_step", multi.mini_step),
+                    ("gradient_step", multi.gradient_step)]
+    for field, tree in flats:
         mapped = mlm_state({"params": tree, "batch_stats": stats})
         flat = np.concatenate([mapped[n].reshape(-1) for n in names])
         setattr(os_, field, torch.tensor(flat, dtype=torch.float32,
                                          device=os_.mu.device))
     jo = jax_state.opt_state
-    for field, value in (("count", adam.count),
-                         ("notfinite_count", jo.notfinite_count),
-                         ("last_finite", jo.last_finite),
-                         ("total_notfinite", jo.total_notfinite)):
+    scalars += [("notfinite_count", jo.notfinite_count),
+                ("last_finite", jo.last_finite),
+                ("total_notfinite", jo.total_notfinite)]
+    for field, value in scalars:
         old = getattr(os_, field)
         setattr(os_, field, torch.tensor(np.asarray(value), dtype=old.dtype,
                                          device=old.device))

@@ -16,8 +16,14 @@ bit.  With a ``spemb_map`` (uid -> x-vector) batches carry a float32
 duration-aware TTS variant) they carry int32 ``durations`` and
 ``reordered_index`` (B, F) and ``reduced_lengths`` (B,)
 (``masking.duration_reduction``; empty slots keep durations 1, the
-identity order and length 0).  Not ported: device-resident audio (needs
-the record shards of A7-rest) and chained superbatches (A6); each raises.
+identity order and length 0).  A speech-only dataset's batches hold one
+sentinel text token (id 1) and frame spans masked with the reference's
+speech-only settings (collate_fn.py:222-231).  Over record shards
+(``data/records.py``) the int16 audio is copied from the shards; with
+``device_audio`` a batch carries each utterance's ``audio_offset`` in the
+flat corpus instead of its audio, and the train step gathers the audio on
+the device.  :meth:`BucketBatcher.chained_epoch_iterator` groups up to k
+same-bucket batches for chained dispatch (``steps_per_dispatch``).
 """
 
 from __future__ import annotations
@@ -68,7 +74,9 @@ class BatcherConfig:
     # ship audio as int16 PCM (half the host-to-device bytes; lossless for
     # PCM16 corpora); featurize() converts to float on the device
     audio_int16: bool = True
-    device_audio: bool = False  # not ported (record shards, ROADMAP A7-rest)
+    # ship each utterance's offset in the flat corpus instead of its audio
+    # (a dataset with global_offset, i.e. record shards; others ignore it)
+    device_audio: bool = False
 
 
 class BucketBatcher:
@@ -82,10 +90,6 @@ class BucketBatcher:
         n_mels: Optional[int] = None,
         spemb_map: Optional[dict] = None,
     ):
-        if config.device_audio:
-            raise NotImplementedError(
-                "device_audio needs record shards, not ported (ROADMAP "
-                "A7-rest)")
         self.dataset = dataset
         self.fe = frontend
         self.config = config
@@ -96,7 +100,8 @@ class BucketBatcher:
         hop = frontend.hop_length
 
         self._loader = None
-        if config.use_native_loader:
+        # record shards hold no WAV files: their PCM is read directly
+        if config.use_native_loader and hasattr(dataset, "wav"):
             from a3t_tpu_torch.data.native_loader import NativeWavLoader
 
             self._loader = NativeWavLoader(
@@ -159,11 +164,20 @@ class BucketBatcher:
         cfg = self.config
         b = pad_to_batch if pad_to_batch is not None else spec.batch_size
         hop = self.fe.hop_length
-        # the native loader emits int16 PCM codes directly when the batch
-        # ships as int16 (no decode-to-float and re-quantize round trip)
-        pcm16_direct = cfg.audio_int16 and self._loader is not None
-        audio = np.zeros((b, spec.n_samples),
-                         np.int16 if pcm16_direct else np.float32)
+        speech_only = getattr(self.dataset, "speech_only", False)
+        # the native loader and record shards emit int16 PCM codes directly
+        # when the batch ships as int16 (no decode-to-float and re-quantize
+        # round trip)
+        pcm16_direct = cfg.audio_int16 and (
+            self._loader is not None or hasattr(self.dataset, "get_pcm16"))
+        device_audio = cfg.device_audio and hasattr(self.dataset,
+                                                    "global_offset")
+        if device_audio:
+            audio_offset = np.zeros(b, np.int32)
+            audio = None
+        else:
+            audio = np.zeros((b, spec.n_samples),
+                             np.int16 if pcm16_direct else np.float32)
         audio_lengths = np.zeros(b, np.int32)
         text = np.zeros((b, spec.n_text), np.int32)
         text_mask = np.zeros((b, spec.n_text), bool)
@@ -176,16 +190,25 @@ class BucketBatcher:
                                 (b, 1))
             reduced_lengths = np.zeros(b, np.int32)
 
-        if self._loader is not None and uids:
+        if self._loader is not None and uids and not device_audio:
             idx = [self._uid_index[u] for u in uids]
             load = (self._loader.load_batch_i16 if pcm16_direct
                     else self._loader.load_batch)
             load(idx, spec.n_samples, out=audio[: len(idx)])
 
         for i, uid in enumerate(uids):
-            if self._loader is not None:
+            if device_audio:
+                item = self.dataset.get_meta(uid)
+                audio_offset[i] = self.dataset.global_offset(uid)
+                wav_len = min(self.dataset.num_samples(uid), spec.n_samples)
+            elif self._loader is not None:
                 item = self.dataset.get_meta(uid)
                 wav_len = min((self._frames[uid] - 1) * hop, spec.n_samples)
+            elif pcm16_direct:
+                item = self.dataset.get_meta(uid)
+                pcm = self.dataset.get_pcm16(uid)[: spec.n_samples]
+                audio[i, : len(pcm)] = pcm
+                wav_len = len(pcm)
             else:
                 item = self.dataset[uid]
                 wav = item["audio"][: spec.n_samples]
@@ -194,18 +217,29 @@ class BucketBatcher:
             audio_lengths[i] = wav_len
             n_f = 1 + wav_len // hop
 
-            ids = item["text_ids"][: spec.n_text]
-            t_len = len(ids)
-            text[i, :t_len] = ids
-            text_mask[i, :t_len] = True
-            starts = np.minimum(self.fe.seconds_to_frames(
-                item["align_start_sec"])[:t_len], n_f)
-            ends = np.minimum(self.fe.seconds_to_frames(
-                item["align_end_sec"])[:t_len], n_f)
-            masked[i] = phones_masking(
-                spec.n_frames, starts, ends, t_len,
-                cfg.mlm_prob * cfg.mlm_prob_factor, cfg.mean_phn_span, rng,
-                span_boundary=span_boundary)
+            if speech_only:
+                # the sentinel text token; frame spans masked with the
+                # reference's speech-only settings (collate_fn.py:222-231)
+                t_len = 0
+                starts = ends = np.zeros(0, np.int32)
+                text[i, 0] = 1
+                text_mask[i, 0] = True
+                masked[i] = phones_masking(spec.n_frames, starts, ends, 0,
+                                           0.15, 0, rng,
+                                           span_boundary=span_boundary)
+            else:
+                ids = item["text_ids"][: spec.n_text]
+                t_len = len(ids)
+                text[i, :t_len] = ids
+                text_mask[i, :t_len] = True
+                starts = np.minimum(self.fe.seconds_to_frames(
+                    item["align_start_sec"])[:t_len], n_f)
+                ends = np.minimum(self.fe.seconds_to_frames(
+                    item["align_end_sec"])[:t_len], n_f)
+                masked[i] = phones_masking(
+                    spec.n_frames, starts, ends, t_len,
+                    cfg.mlm_prob * cfg.mlm_prob_factor, cfg.mean_phn_span,
+                    rng, span_boundary=span_boundary)
             masked[i, n_f:] = False
             ssp[i], tsp[i] = segment_positions(spec.n_frames, spec.n_text,
                                                starts, ends, t_len)
@@ -214,14 +248,19 @@ class BucketBatcher:
                     duration_reduction(spec.n_frames, starts, ends, t_len,
                                        masked[i], n_f)
 
-        if cfg.audio_int16 and audio.dtype != np.int16:
+        if (audio is not None and cfg.audio_int16
+                and audio.dtype != np.int16):
             # round-to-nearest x32768: the exact inverse of the /32768
             # decode, so PCM16 sources round-trip bit for bit
             audio = np.clip(np.rint(audio * 32768.0), -32768,
                             32767).astype(np.int16)
         out = dict(text=text, text_mask=text_mask, masked_position=masked,
                    speech_segment_pos=ssp, text_segment_pos=tsp,
-                   audio_lengths=audio_lengths, audio=audio)
+                   audio_lengths=audio_lengths)
+        if device_audio:
+            out["audio_offset"] = audio_offset
+        else:
+            out["audio"] = audio
         if self.spemb_map is not None:
             spemb = np.zeros((b, self._spemb_dim), np.float32)
             for i, uid in enumerate(uids):
@@ -238,3 +277,45 @@ class BucketBatcher:
             np.random.SeedSequence([self.config.seed, epoch, 777]))
         for bi, uids in self.batch_plan(epoch, shard):
             yield self.make_batch(bi, uids, rng)
+
+    def chained_plan(self, epoch: int, k: int,
+                     shard: tuple[int, int] = (0, 1)):
+        """The epoch's plan in same-bucket runs of up to ``k`` batches:
+        list of (bucket_idx, [[uids] per batch]).  Runs, not batches, are
+        permuted and sharded round-robin."""
+        rng = np.random.default_rng(self.config.seed + epoch)
+        runs: list[tuple[int, list[list[str]]]] = []
+        for bi, members in enumerate(self.bucket_members):
+            order = list(members)
+            rng.shuffle(order)
+            bs = self.buckets[bi].batch_size
+            chunks = [order[i: i + bs] for i in range(0, len(order), bs)]
+            runs += [(bi, chunks[j: j + k]) for j in range(0, len(chunks), k)]
+        runs = [runs[i] for i in rng.permutation(len(runs))]
+        rank, world = shard
+        return runs[rank::world]
+
+    def chained_epoch_iterator(self, epoch: int, k: int,
+                               shard: tuple[int, int] = (0, 1)):
+        """Yield ("chained", stacked, valid, weights) groups of ``k``
+        (:func:`stack_group`), reproducibly seeded."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.config.seed, epoch, 777]))
+        for bi, chunks in self.chained_plan(epoch, k, shard):
+            yield stack_group([self.make_batch(bi, c, rng) for c in chunks],
+                              k)
+
+
+def stack_group(batches: list, k: int):
+    """Stack up to ``k`` same-shape host batches into one chained group
+    ("chained", stacked, valid, weights): every array gains a leading k
+    axis; a short group is padded by repeating its last batch, with
+    ``valid`` False and weight 0 at the padded entries (the weights are the
+    batches' sizes)."""
+    m = len(batches)
+    weights = np.array([float(len(b["audio_lengths"])) for b in batches]
+                       + [0.0] * (k - m), np.float32)
+    valid = np.array([True] * m + [False] * (k - m))
+    padded = batches + [batches[-1]] * (k - m)
+    stacked = {key: np.stack([b[key] for b in padded]) for key in padded[0]}
+    return ("chained", stacked, valid, weights)

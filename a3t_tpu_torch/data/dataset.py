@@ -8,9 +8,11 @@ port of ``a3t_tpu/data/dataset.py::A3TDataset`` (:123).
         mfa_end       uttid -> "0.34 0.55 ..."
         utt2spk       uttid -> speaker (optional)
 
-The JAX module's feature-source readers (HDF5, ``rand_float``, kaldi ark,
-``NamedSourceDataset``) and speech-only datasets are not ported (ROADMAP
-A7-rest and A6).
+``speech_only=True`` reads ``wav.scp`` alone (speech-only pretraining
+corpora, the reference collate fn's branch without text,
+collate_fn.py:222-231): no phones, ``num_phones`` 0.  The JAX module's
+feature-source readers (HDF5, ``rand_float``, kaldi ark,
+``NamedSourceDataset``) are not ported (ROADMAP A7-rest).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ class A3TDataset:
     """Utterances with audio, phones and alignments for masked
     reconstruction.  Utterances missing from any file, or whose phone and
     alignment counts differ, are dropped (the batch aligner filters these at
-    prep, align_english.py:293-318)."""
+    prep, align_english.py:293-318); a speech-only dataset keeps every
+    utterance of ``wav.scp``."""
 
     def __init__(
         self,
@@ -42,25 +45,23 @@ class A3TDataset:
         start_file: str = "mfa_start",
         end_file: str = "mfa_end",
     ):
-        if speech_only:
-            raise NotImplementedError(
-                "speech-only datasets are not ported (ROADMAP A6)")
         self.data_dir = data_dir
-        self.speech_only = False
+        self.speech_only = speech_only
         self.tokens = token_converter
         self.wav = SoundScpReader(os.path.join(data_dir, wav_scp))
-        self.text = read_2column_text(os.path.join(data_dir, text_file))
-        self.start = load_num_sequence_text(
-            os.path.join(data_dir, start_file), np.float32)
-        self.end = load_num_sequence_text(
-            os.path.join(data_dir, end_file), np.float32)
-        keys = set(self.wav.keys()) & set(self.text) & set(self.start) \
-            & set(self.end)
-        keys = {
-            k for k in keys
-            if len(self.text[k].split()) == len(self.start[k])
-            == len(self.end[k]) and len(self.start[k]) > 0
-        }
+        keys = set(self.wav.keys())
+        if not speech_only:
+            self.text = read_2column_text(os.path.join(data_dir, text_file))
+            self.start = load_num_sequence_text(
+                os.path.join(data_dir, start_file), np.float32)
+            self.end = load_num_sequence_text(
+                os.path.join(data_dir, end_file), np.float32)
+            keys &= set(self.text) & set(self.start) & set(self.end)
+            keys = {
+                k for k in keys
+                if len(self.text[k].split()) == len(self.start[k])
+                == len(self.end[k]) and len(self.start[k]) > 0
+            }
         spk_path = os.path.join(data_dir, "utt2spk")
         self.utt2spk = (read_2column_text(spk_path)
                         if os.path.exists(spk_path) else {})
@@ -71,13 +72,15 @@ class A3TDataset:
 
     def get_meta(self, uid: str) -> dict:
         """Everything except the decoded audio (the native-loader path)."""
-        phones = self.text[uid].split()
-        out = {"uid": uid, "phones": phones}
-        if self.tokens is not None:
-            out["text_ids"] = np.asarray(self.tokens.tokens2ids(phones),
-                                         np.int32)
-        out["align_start_sec"] = self.start[uid]
-        out["align_end_sec"] = self.end[uid]
+        out = {"uid": uid}
+        if not self.speech_only:
+            phones = self.text[uid].split()
+            out["phones"] = phones
+            if self.tokens is not None:
+                out["text_ids"] = np.asarray(self.tokens.tokens2ids(phones),
+                                             np.int32)
+            out["align_start_sec"] = self.start[uid]
+            out["align_end_sec"] = self.end[uid]
         if uid in self.utt2spk:
             out["speaker"] = self.utt2spk[uid]
         return out
@@ -99,4 +102,4 @@ class A3TDataset:
             return w.getnframes()
 
     def num_phones(self, uid: str) -> int:
-        return len(self.start[uid])
+        return 0 if self.speech_only else len(self.start[uid])

@@ -8,7 +8,9 @@ device's steps.  On the card :class:`DeviceTransfer` takes the place of the
 JAX task's ``to_device_batch`` (``a3t_tpu/tasks/mlm.py:205-219``): the
 producer copies each batch from reused pinned buffers on a side stream, and
 the consumer's stream waits on the copy's event, so the copy of batch n + 1
-overlaps step n.
+overlaps step n.  Items are batches (dicts), chained groups
+``("chained", stacked, valid, weights)`` (``chain > 1``) and the
+multi-corpus factory's ``(name, batch)``; only the dicts go to the card.
 """
 
 from __future__ import annotations
@@ -112,8 +114,20 @@ class PrefetchIterator:
         return item if self._finish is None else self._finish(item)
 
 
+def _dict_of(item) -> tuple:
+    """(the item's dict of arrays, a function that puts a replacement
+    dict back in its place) for a batch, a chained group or a (name,
+    batch) pair."""
+    if isinstance(item, dict):
+        return item, lambda d: d
+    if len(item) == 4 and item[0] == "chained":
+        return item[1], lambda d: (item[0], d, *item[2:])
+    return item[1], lambda d: (item[0], d)
+
+
 class DeviceTransfer:
-    """Host batch (dict of numpy arrays) -> batch on a CUDA device.
+    """Host batch (dict of numpy arrays) -> batch on a CUDA device; the
+    dict of a chained group or a (name, batch) pair moves the same way.
 
     ``put`` runs in the producer thread: it copies each array into a pinned
     host buffer, allocated once per (key, shape, dtype) and reused in turns
@@ -147,7 +161,8 @@ class DeviceTransfer:
         np.copyto(buf.numpy(), arr)
         return buf, entry[2], i
 
-    def put(self, batch: dict):
+    def put(self, item):
+        batch, rebuild = _dict_of(item)
         out, marks = {}, []
         with torch.cuda.stream(self.stream):
             for k, v in batch.items():
@@ -158,15 +173,15 @@ class DeviceTransfer:
             done.record(self.stream)
         for events, i in marks:
             events[i] = done
-        return out, done
+        return rebuild(out), done
 
-    def take(self, item):
-        batch, done = item
+    def take(self, put_item):
+        item, done = put_item
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(done)
-        for t in batch.values():
+        for t in _dict_of(item)[0].values():
             t.record_stream(stream)
-        return batch
+        return item
 
 
 class EpochIterFactory:
@@ -177,8 +192,10 @@ class EpochIterFactory:
     reference windows batches across epochs
     (sequence_iter_factory.py:60-101).  ``transfer`` (a
     :class:`DeviceTransfer`) moves each batch to the card in the producer
-    thread.  Chained superbatches (``chain > 1``) are not ported (ROADMAP
-    A6).
+    thread.  With ``chain = k > 1`` the items are chained groups of up to k
+    same-bucket batches (``BucketBatcher.chained_epoch_iterator``) and
+    ``num_iters_per_epoch`` counts their valid sub-steps: the group that
+    crosses it has its tail marked invalid (weight 0).
     """
 
     def __init__(
@@ -190,26 +207,39 @@ class EpochIterFactory:
         transfer: Optional[DeviceTransfer] = None,
         chain: int = 1,
     ):
-        if chain > 1:
-            raise NotImplementedError(
-                "chained dispatch (steps_per_dispatch > 1) is not ported "
-                "(ROADMAP A6)")
         self.batcher = batcher
         self.num_iters = num_iters_per_epoch
         self.shard = shard
         self.prefetch = prefetch
         self.transfer = transfer
+        self.chain = chain
 
     def _batches(self, epoch: int):
         produced = 0
         offset = 0
         while True:
             empty = True
-            for batch in self.batcher.epoch_iterator(epoch + offset,
-                                                     self.shard):
+            if self.chain > 1:
+                items = self.batcher.chained_epoch_iterator(
+                    epoch + offset, self.chain, self.shard)
+            else:
+                items = self.batcher.epoch_iterator(epoch + offset,
+                                                    self.shard)
+            for item in items:
                 empty = False
-                yield batch
-                produced += 1
+                n = 1
+                if self.chain > 1:
+                    tag, stacked, valid, weights = item
+                    n = int(valid.sum())
+                    if (self.num_iters is not None
+                            and produced + n > self.num_iters):
+                        n = self.num_iters - produced
+                        valid, weights = valid.copy(), weights.copy()
+                        valid[n:] = False
+                        weights[n:] = 0.0
+                        item = (tag, stacked, valid, weights)
+                yield item
+                produced += n
                 if self.num_iters is not None and produced >= self.num_iters:
                     return
             if self.num_iters is None or empty:

@@ -21,7 +21,13 @@ missing embedding is zeros), projected by ``spemb_proj`` onto both
 modalities' embeddings, by ``spemb_proj_mid`` onto the encoder's output and
 by the zero-initialised ``spemb_out`` onto the output mel.  ESPnet has no
 names for them, so they keep the JAX tree's names.  The duration-aware
-variant (``duration_predictor_layers > 0``) is not ported (ROADMAP A9).
+variant (``duration_predictor_layers > 0``) adds a duration predictor on
+the encoder's speech states and :meth:`A3TMLMModel.tts_forward`.
+
+``forward(..., speech_only=True)`` is the branch of speech-only corpora
+(the JAX model's :222-224, the reference's conformer/encoder.py:531-537):
+the sentinel text token gets ``segment_emb(0)``, the speech no segment
+embedding.
 """
 
 from __future__ import annotations
@@ -136,7 +142,7 @@ class A3TMLMModel(nn.Module):
 
     def encode(self, speech, text, masked_position, speech_mask, text_mask,
                speech_segment_pos, text_segment_pos, spemb=None,
-               generator=None):
+               generator=None, speech_only: bool = False):
         """((B, F + T, d) encoder states, (B, 1, F + T) mask)."""
         enc = self.encoder
         dt = self.config.encoder.dtype
@@ -154,8 +160,11 @@ class A3TMLMModel(nn.Module):
         h_speech, pos_speech = self.posenc(h_speech, generator)
         h_text, pos_text = self.posenc(h_text, generator)
         if self.config.use_segment_emb:
-            h_speech = h_speech + enc.segment_emb(speech_segment_pos)
-            h_text = h_text + enc.segment_emb(text_segment_pos)
+            if speech_only:
+                h_text = h_text + enc.segment_emb(torch.zeros_like(text))
+            else:
+                h_speech = h_speech + enc.segment_emb(speech_segment_pos)
+                h_text = h_text + enc.segment_emb(text_segment_pos)
         if self.config.spemb_dim > 0:
             se = self._norm_spemb(spemb, speech.shape[0], speech.device)
             # no compute dtype: flax promotes to float32
@@ -204,16 +213,19 @@ class A3TMLMModel(nn.Module):
 
     def forward(self, speech, text, masked_position, speech_mask, text_mask,
                 speech_segment_pos, text_segment_pos, spemb=None,
-                generator=None, return_log_durations: bool = False):
+                generator=None, return_log_durations: bool = False,
+                speech_only: bool = False):
         """``spemb`` (B, spemb_dim): the speaker embedding of a
         speaker-conditioned model (zeros when None); a model without
         speaker conditioning ignores it, as the JAX model does.  The
         duration predictor reads the encoder output's speech slice, before
-        the decoder (sedit_model.py:420-428)."""
+        the decoder (sedit_model.py:420-428).  ``speech_only``: the
+        segment embeddings of speech-only batches (module docstring)."""
         n_frames = speech.shape[1]
         hidden, mask = self.encode(
             speech, text, masked_position, speech_mask, text_mask,
-            speech_segment_pos, text_segment_pos, spemb, generator)
+            speech_segment_pos, text_segment_pos, spemb, generator,
+            speech_only)
         hidden, se = self._mid(hidden, spemb)
         log_d = None
         if self.config.duration_predictor_layers > 0:

@@ -2,20 +2,28 @@
 (the reference's MLMTask, espnet2/tasks/mlm.py:107-680).
 
 Wires token list -> model -> optimizer -> batcher and iterators -> train
-step -> trainer for one corpus on one device, and rebuilds a trained model
-from its experiment directory (``build_model_from_dir``, the reference's
+step -> trainer on one device, and rebuilds a trained model from its
+experiment directory (``build_model_from_dir``, the reference's
 build_model_from_file, tasks/mlm.py:446-496).  :meth:`MLMTask.build`
 returns the trainer and the initial state, so that a caller can hand in
 its own state; :meth:`MLMTask.run` builds and trains.
 
-A speaker-conditioned model (``model.spemb_dim > 0``) takes its batches'
+The training data is a data directory, record shards (a directory with an
+``index.npz``, ``data/records.py``) or, with ``corpora``, a mixture of
+corpora (``data/multi_corpus.py``), each with its own front-end and
+``speech_only`` flag.  ``speech_only`` trains on audio alone.  With
+``batcher.device_audio`` and record shards the flat corpus is uploaded to
+the device once and each batch's audio is gathered there.
+``trainer.steps_per_dispatch = k > 1`` takes k steps per call on chained
+groups of batches (``make_chained_train_step``); like JAX it falls back to
+1, with a warning, for a mixture or the duration-aware variant.  A
+speaker-conditioned model (``model.spemb_dim > 0``) takes its batches'
 x-vectors from :meth:`MLMTask._build_spemb_map`.  The duration-aware
 variant (``model.duration_predictor_layers > 0``) trains through
 ``make_tts_train_step`` on batches with ``duration_collect`` on (training
 batches only, as in JAX).  Not ported, each raising with its ROADMAP item:
-multi-corpus mixtures (``corpora``, A7-rest), ``speech_only`` (A6),
-per-epoch plots (``num_plot_examples``, A7-rest), record shards (A7-rest),
-``batcher.device_audio`` (A7-rest) and meshes of more than one device (A10).
+per-epoch plots (``num_plot_examples``, A7-rest) and meshes of more than
+one device (A10).
 """
 
 from __future__ import annotations
@@ -26,18 +34,26 @@ import os
 
 import numpy as np
 
+import torch
+
 from a3t_tpu_torch.data.batcher import BucketBatcher
 from a3t_tpu_torch.data.dataset import A3TDataset
 from a3t_tpu_torch.data.fileio import read_2column_text
 from a3t_tpu_torch.data.iterator import DeviceTransfer, EpochIterFactory
+from a3t_tpu_torch.data.multi_corpus import (CorpusSpec,
+                                             MultiCorpusIterFactory,
+                                             make_multi_corpus_train_step)
+from a3t_tpu_torch.data.records import RecordDataset
 from a3t_tpu_torch.device import resolve_device
-from a3t_tpu_torch.dsp import LogMelFrontend
+from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
 from a3t_tpu_torch.models.mlm import A3TMLMModel, build_model
-from a3t_tpu_torch.tasks.config import A3TTaskConfig, load_config, save_config
+from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
+                                        save_config)
 from a3t_tpu_torch.text import TokenIDConverter, build_token_list
 from a3t_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from a3t_tpu_torch.train.optim import make_optimizer
 from a3t_tpu_torch.train.train_step import (TrainState, create_train_state,
+                                            make_chained_train_step,
                                             make_eval_step, make_train_step,
                                             make_tts_train_step)
 from a3t_tpu_torch.train.trainer import Trainer
@@ -46,11 +62,8 @@ logger = logging.getLogger("a3t_tpu_torch")
 
 
 def check_supported(cfg: A3TTaskConfig) -> None:
-    """Raise for what the port's task does not do yet (speech-only data,
-    device-resident audio and chained dispatch raise where they are built:
-    the dataset, the batcher and the Trainer)."""
+    """Raise for what the port's task does not do yet."""
     refused = [
-        (bool(cfg.corpora), "multi-corpus training (corpora)", "A7-rest"),
         (cfg.num_plot_examples > 0, "per-epoch plots (num_plot_examples)",
          "A7-rest"),
         (cfg.mesh.data_parallel not in (None, 1)
@@ -105,18 +118,21 @@ class MLMTask:
     @classmethod
     def build_batcher(cls, cfg: A3TTaskConfig, data_dir: str,
                       conv: TokenIDConverter, train: bool) -> BucketBatcher:
+        """The batcher of a data directory or of record shards (a
+        directory with an ``index.npz``).  Validation batches carry their
+        audio: only the train step reads the corpus on the device."""
         if os.path.exists(os.path.join(data_dir, "index.npz")):
-            raise NotImplementedError(
-                f"{data_dir} holds record shards, which are not ported "
-                "(ROADMAP A7-rest)")
+            ds = RecordDataset(data_dir, speech_only=cfg.speech_only)
+        else:
+            ds = A3TDataset(data_dir, conv, speech_only=cfg.speech_only)
         bcfg = cfg.batcher
         if not train:
-            bcfg = dataclasses.replace(bcfg, mlm_prob_factor=1.0)
+            bcfg = dataclasses.replace(bcfg, mlm_prob_factor=1.0,
+                                       device_audio=False)
         if cfg.model.duration_predictor_layers > 0 and train:
             # the duration-aware variant collects durations (JAX
             # tasks/mlm.py:107-110)
             bcfg = dataclasses.replace(bcfg, duration_collect=True)
-        ds = A3TDataset(data_dir, conv, speech_only=cfg.speech_only)
         spemb_map = None
         if cfg.model.spemb_dim > 0:
             spemb_map = cls._build_spemb_map(cfg, ds, data_dir)
@@ -190,29 +206,67 @@ class MLMTask:
         save_config(cfg, os.path.join(cfg.exp_dir, "config.yaml"))
         conv = cls.build_token_converter(cfg)
         conv.save(os.path.join(cfg.exp_dir, "tokens.txt"))
+        transfer = DeviceTransfer(dev) if dev.type == "cuda" else None
 
-        def factory(data_dir, train, num_iters):
+        chain = int(cfg.trainer.steps_per_dispatch)
+        if chain > 1 and (cfg.corpora
+                          or cfg.model.duration_predictor_layers > 0):
+            logger.warning(
+                "steps_per_dispatch=%d unsupported with multi-corpus/TTS "
+                "training; falling back to 1", chain)
+            chain = 1
+        trainer_cfg = dataclasses.replace(cfg.trainer,
+                                          steps_per_dispatch=chain)
+
+        def factory(data_dir, train, num_iters, chain=1):
             batcher = cls.build_batcher(cfg, data_dir, conv, train)
-            transfer = DeviceTransfer(dev) if dev.type == "cuda" else None
             return EpochIterFactory(batcher, num_iters, shard,
-                                    cfg.num_workers_prefetch, transfer)
+                                    cfg.num_workers_prefetch, transfer,
+                                    chain=chain)
 
-        train_factory = factory(cfg.train_data_dir, True,
-                                cfg.trainer.num_iters_per_epoch)
-        batcher = train_factory.batcher
-        logger.info("train buckets: %s (%d utts dropped as overlong)",
-                    [(b.n_frames, b.batch_size) for b in batcher.buckets],
-                    batcher.n_dropped)
+        model = cls.build_model(cfg, len(conv), dev)
+        fe = cls.build_frontend(cfg, dev)
+        normalizer = cls.build_normalizer(cfg)
+        corpus = None
+        if cfg.corpora:
+            train_factory, train_step = cls._build_multi_corpus(
+                cfg, conv, model, dev, shard, transfer)
+        else:
+            train_factory = factory(cfg.train_data_dir, True,
+                                    cfg.trainer.num_iters_per_epoch, chain)
+            batcher = train_factory.batcher
+            logger.info("train buckets: %s (%d utts dropped as overlong)",
+                        [(b.n_frames, b.batch_size) for b in batcher.buckets],
+                        batcher.n_dropped)
+            if cfg.batcher.device_audio and hasattr(batcher.dataset,
+                                                    "flat_pcm"):
+                # the corpus on the device: uploaded once, each batch's
+                # audio gathered there (train_step.gather_audio)
+                pad = max(b.n_samples for b in batcher.buckets)
+                flat = batcher.dataset.flat_pcm(pad_samples=pad)
+                corpus = torch.from_numpy(flat).to(dev)
+                logger.info("device-resident corpus: %.0f MB int16 PCM",
+                            flat.nbytes / 1e6)
+                del flat
+            if cfg.model.duration_predictor_layers > 0:
+                train_step = make_tts_train_step(model, fe, device=dev,
+                                                 corpus=corpus)
+            elif chain > 1:
+                train_step = make_chained_train_step(
+                    model, fe, chain, device=dev, normalizer=normalizer,
+                    use_fused=cfg.use_fused_frontend, corpus=corpus,
+                    speech_only=cfg.speech_only)
+            else:
+                train_step = make_train_step(
+                    model, fe, device=dev, normalizer=normalizer,
+                    use_fused=cfg.use_fused_frontend, corpus=corpus,
+                    speech_only=cfg.speech_only)
         valid_factory = (factory(cfg.valid_data_dir, False, None)
                          if cfg.valid_data_dir else None)
-
-        fe = cls.build_frontend(cfg, dev)
-        model = cls.build_model(cfg, len(conv), dev)
         state = create_train_state(model, make_optimizer(cfg.optim), dev)
         logger.info("model params: %.2fM",
                     sum(p.numel() for p in model.parameters()) / 1e6)
 
-        normalizer = cls.build_normalizer(cfg)
         tb_writer = wandb_run = None
         if cfg.use_tensorboard:
             try:
@@ -233,16 +287,11 @@ class MLMTask:
             except ImportError:  # wandb is optional
                 logger.warning("wandb unavailable; skipping")
 
-        if cfg.model.duration_predictor_layers > 0:
-            train_step = make_tts_train_step(model, fe, device=dev)
-        else:
-            train_step = make_train_step(model, fe, device=dev,
-                                         normalizer=normalizer,
-                                         use_fused=cfg.use_fused_frontend)
         trainer = Trainer(
-            cfg.trainer,
+            trainer_cfg,
             train_step,
-            make_eval_step(model, fe, device=dev, normalizer=normalizer),
+            make_eval_step(model, fe, device=dev, normalizer=normalizer,
+                           speech_only=cfg.speech_only),
             train_factory,
             valid_factory,
             CheckpointManager(os.path.join(cfg.exp_dir, "checkpoints"),
@@ -252,6 +301,41 @@ class MLMTask:
             wandb_run=wandb_run,
         )
         return trainer, state
+
+    @classmethod
+    def _build_multi_corpus(cls, cfg: A3TTaskConfig, conv: TokenIDConverter,
+                            model: A3TMLMModel, dev, shard, transfer):
+        """(train factory, train step) of a ``corpora`` mixture (JAX
+        tasks/mlm.py:399-434): each entry ``{name, data_dir, portion,
+        speech_only, frontend}`` gets its own batcher on its own front-end
+        (the config's when it has none); the step dispatches each
+        ``(name, batch)`` to its corpus's step."""
+        specs, frontends, speech_only = [], {}, {}
+        for entry in cfg.corpora:
+            entry = dict(entry)
+            name = entry["name"]
+            fe_cfg = (_build(LogMelConfig, entry["frontend"],
+                             f"corpora.{name}.frontend", [])
+                      if entry.get("frontend") else cfg.frontend)
+            so = bool(entry.get("speech_only", False))
+            ds = A3TDataset(entry["data_dir"], conv, speech_only=so)
+            batcher = BucketBatcher(ds, fe_cfg, cfg.batcher)
+            logger.info("corpus %s (portion %s%s, %d Hz): buckets %s (%d "
+                        "utts dropped as overlong)", name,
+                        entry.get("portion", 1.0),
+                        ", speech only" if so else "", fe_cfg.fs,
+                        [(b.n_frames, b.batch_size) for b in batcher.buckets],
+                        batcher.n_dropped)
+            specs.append(CorpusSpec(name, batcher,
+                                    float(entry.get("portion", 1.0)),
+                                    speech_only=so))
+            frontends[name] = LogMelFrontend(fe_cfg, device=dev)
+            speech_only[name] = so
+        factory = MultiCorpusIterFactory(
+            specs, cfg.trainer.num_iters_per_epoch or 100, shard,
+            prefetch=cfg.num_workers_prefetch, transfer=transfer)
+        return factory, make_multi_corpus_train_step(
+            model, frontends, speech_only, device=dev)
 
     @classmethod
     def run(cls, cfg: A3TTaskConfig, device=None,

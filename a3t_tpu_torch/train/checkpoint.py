@@ -158,13 +158,17 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_e{epoch}_i{iteration}.pt")
 
     def save_mid_epoch(self, epoch: int, iteration: int, state,
-                       reporter: Reporter):
+                       reporter: Reporter, steps_per_dispatch: int = 1):
         """Save the full state after ``iteration`` steps of ``epoch``; only
         the newest mid-epoch checkpoint is kept, and the epoch checkpoints,
-        the n-best ranking and LATEST stay as they are."""
+        the n-best ranking and LATEST stay as they are.
+        ``steps_per_dispatch`` is recorded: a chained run orders its data in
+        groups and skips whole groups on resume, so a run with another k
+        could not replay up to the saved step."""
         path = self._step_path(epoch, iteration)
         _save(_state_tree(state), path)
         _save_text(json.dumps({"epoch": epoch, "iteration": iteration,
+                               "steps_per_dispatch": steps_per_dispatch,
                                "reporter": reporter.state_dict()}),
                    os.path.join(self.directory, "meta_step.json"))
         for name in os.listdir(self.directory):
@@ -180,10 +184,13 @@ class CheckpointManager:
                 keys.append((int(e), int(i)))
         return max(keys) if keys else None
 
-    def restore_mid_epoch(self, state, reporter: Reporter):
+    def restore_mid_epoch(self, state, reporter: Reporter,
+                          steps_per_dispatch: int = 1):
         """Load the newest mid-epoch checkpoint into ``state``; returns
         (state, epoch, iteration).  The caller resumes that epoch skipping
-        the first ``iteration`` batches."""
+        the first ``iteration`` steps.  A checkpoint saved under another
+        ``steps_per_dispatch`` raises ``ValueError`` before anything is
+        loaded (the caller keeps the epoch restore)."""
         key = self.latest_mid_epoch()
         if key is None:
             raise FileNotFoundError("no mid-epoch checkpoint")
@@ -191,6 +198,13 @@ class CheckpointManager:
         with open(os.path.join(self.directory, "meta_step.json"),
                   encoding="utf-8") as f:
             meta = json.load(f)
+        saved_k = int(meta.get("steps_per_dispatch", 1))
+        if saved_k != steps_per_dispatch:
+            raise ValueError(
+                f"mid-epoch checkpoint was saved with steps_per_dispatch"
+                f"={saved_k} but the run now uses {steps_per_dispatch}; "
+                "the data-stream replay cannot reach the saved sub-step "
+                "boundary — falling back to the epoch checkpoint")
         state = _load_into(state, _read(self._step_path(epoch, iteration)))
         reporter.load_state_dict(meta["reporter"])
         return state, epoch, iteration

@@ -1,13 +1,23 @@
-"""Optimizer: global-norm clip -> Adam -> Noam warmup, skipped on
-non-finite gradients (``a3t_tpu/train/optim.py``).
+"""Optimizer: [gradient noise ->] global-norm clip -> Adam -> Noam warmup,
+[accumulated over k micro-steps,] skipped on non-finite gradients
+(``a3t_tpu/train/optim.py``).
 
 The JAX package builds an optax chain,
 
-    apply_if_finite(chain(clip_by_global_norm, [add_decayed_weights],
-                          scale_by_adam, scale_by_schedule(-lr)))
+    apply_if_finite([MultiSteps(] chain([add_noise], clip_by_global_norm,
+                                        [add_decayed_weights], scale_by_adam,
+                                        scale_by_schedule(-lr)) [, k)])
 
 and this module computes the same update in PyTorch:
 
+* gradient noise (``grad_noise_eta > 0``) comes first, as ``add_noise``:
+  ``std * N(0, 1)`` with ``std = sqrt(eta / (count + 1) ** gamma)``, count
+  being the number of updates applied so far (``add_noise``'s own count
+  moves with Adam's); the draw is :func:`gradient_noise`, a
+  ``torch.Generator`` seeded from ``(0, count)``, so a resumed run draws
+  the same noise without stored generator state.  Its bits are not JAX's.
+  The count is read on the host, one synchronisation per step when noise
+  is on;
 * clipping is optax's ``where(norm < max, g, g / norm * max)`` with no
   epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6, so it is not used);
 * weight decay is L2 added to the gradient before Adam, not AdamW;
@@ -19,21 +29,27 @@ and this module computes the same update in PyTorch:
   ``optax.apply_if_finite`` does: the parameters, the moments and the count
   (so the schedule and Adam's bias correction) stay put, and only
   ``notfinite_count`` moves; after ``max_consecutive_nonfinite`` skips in a
-  row the update is applied all the same.
+  row the update is applied all the same;
+* gradient accumulation (``accum_grad = k > 1``) is ``optax.MultiSteps``
+  inside ``apply_if_finite``: the running mean ``acc + (g - acc) / (m + 1)``
+  of the micro-steps' gradients, the inner chain applied to it at every
+  k-th accepted micro-step (moving Adam's and the schedule's count once)
+  and a zero update at the others; a skipped micro-step leaves the
+  accumulation as it was.
 
 Everything is computed on the parameters' device, with no device-to-host
 synchronisation: the decision to skip is a ``torch.where``.  :class:`ClipAdam`
 is the offline trainers' chain: the same clip and Adam at a constant rate,
 with no skipping.  The moments
 are kept as one flat float32 vector each, in the order of the parameter
-list given to :meth:`Optimizer.init`.  Gradient noise and gradient
-accumulation (``accum_grad > 1``, optax.MultiSteps) are not ported.
+list given to :meth:`Optimizer.init`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -87,9 +103,12 @@ def warmup_lr_schedule(warmup_steps: int, base_lr: float):
 @dataclasses.dataclass
 class OptState:
     """The chain's state.  ``mu``/``nu`` are flat float32 vectors in the
-    parameters' order; ``count`` is the inner chain's step count (Adam's and
-    the schedule's, which move together); the rest is apply_if_finite's.
-    Every field is a tensor on the parameters' device."""
+    parameters' order; ``count`` is the inner chain's step count (Adam's,
+    the schedule's and the noise's, which move together);
+    ``notfinite_count``, ``last_finite`` and ``total_notfinite`` are
+    apply_if_finite's; ``mini_step``, ``gradient_step`` and the flat
+    ``acc_grads`` are MultiSteps' (``acc_grads`` is empty without
+    accumulation).  Every field is a tensor on the parameters' device."""
 
     mu: torch.Tensor
     nu: torch.Tensor
@@ -97,6 +116,19 @@ class OptState:
     notfinite_count: torch.Tensor
     last_finite: torch.Tensor
     total_notfinite: torch.Tensor
+    mini_step: torch.Tensor
+    gradient_step: torch.Tensor
+    acc_grads: torch.Tensor
+
+
+def gradient_noise(count: int, n: int, device) -> torch.Tensor:
+    """The (n,) float32 N(0, 1) draw added (scaled) to the gradients at the
+    update that follows ``count`` applied ones: a ``torch.Generator`` on
+    ``device`` seeded from ``SeedSequence([0, count])`` (optax's key 0)."""
+    s = np.random.SeedSequence([0, int(count)]).generate_state(2)
+    gen = torch.Generator(device=device).manual_seed(
+        int(s[0]) << 32 | int(s[1]))
+    return torch.randn(n, generator=gen, device=device, dtype=torch.float32)
 
 
 class Optimizer:
@@ -105,10 +137,8 @@ class Optimizer:
     the state in place."""
 
     def __init__(self, config: OptimConfig = OptimConfig()):
-        if config.grad_noise_eta > 0:
-            raise NotImplementedError("gradient noise is not ported")
-        if config.accum_grad > 1:
-            raise NotImplementedError("accum_grad > 1 is not ported")
+        if config.accum_grad < 1:
+            raise ValueError(f"accum_grad {config.accum_grad} < 1")
         self.config = config
         if config.scheduler == "noamlr":
             self.schedule = noam_schedule(config.model_size,
@@ -129,39 +159,77 @@ class Optimizer:
         def scalar(value, dtype=torch.int32):
             return torch.tensor(value, dtype=dtype, device=dev)
 
+        k = self.config.accum_grad
         return OptState(
             mu=torch.zeros(n, dtype=torch.float32, device=dev),
             nu=torch.zeros(n, dtype=torch.float32, device=dev),
             count=scalar(0), notfinite_count=scalar(0),
-            last_finite=scalar(True, torch.bool), total_notfinite=scalar(0))
+            last_finite=scalar(True, torch.bool), total_notfinite=scalar(0),
+            mini_step=scalar(0), gradient_step=scalar(0),
+            acc_grads=torch.zeros(n if k > 1 else 0, dtype=torch.float32,
+                                  device=dev))
 
-    @torch.no_grad()
-    def apply(self, params, grads, state: OptState) -> torch.Tensor:
-        """One update of ``params`` (a list of tensors) by ``grads`` (the
-        same order), in place; returns the gradients' global norm."""
+    def _inner(self, u: torch.Tensor, params, state: OptState):
+        """The inner chain on the flat gradient ``u``: (update, mu, nu,
+        count + 1)."""
         c = self.config
-        g = _flat(grads)
-        finite = torch.isfinite(g).all()
-        u, g_norm = clip_by_global_norm(g, c.grad_clip)
+        if c.grad_noise_eta > 0:
+            k = c.accum_grad
+            # the noise of a micro-step that emits no update is thrown away
+            # (MultiSteps), so only an emitting one draws it
+            if k == 1 or int(state.mini_step) == k - 1:
+                count = int(state.count)
+                std = torch.sqrt(c.grad_noise_eta / torch.tensor(
+                    count + 1, dtype=torch.float32) ** c.grad_noise_gamma)
+                u = u + std.to(u.device) * gradient_noise(count, u.numel(),
+                                                          u.device)
+        u, _ = clip_by_global_norm(u, c.grad_clip)
         if c.weight_decay > 0:
             u = u + c.weight_decay * _flat(params)
         u, mu, nu, count_inc = scale_by_adam(
             u, state.mu, state.nu, state.count, c.adam_b1, c.adam_b2,
             c.adam_eps)
-        u = -self.schedule(state.count) * u
+        return -self.schedule(state.count) * u, mu, nu, count_inc
 
+    @torch.no_grad()
+    def apply(self, params, grads, state: OptState) -> torch.Tensor:
+        """One (micro-)step of ``params`` (a list of tensors) by ``grads``
+        (the same order), in place; returns the gradients' global norm."""
+        c = self.config
+        k = c.accum_grad
+        g = _flat(grads)
+        finite = torch.isfinite(g).all()
         notfinite = torch.where(finite, torch.zeros_like(state.count),
                                 state.notfinite_count + 1)
         accept = finite | (notfinite > c.max_consecutive_nonfinite)
-        state.mu = torch.where(accept, mu, state.mu)
-        state.nu = torch.where(accept, nu, state.nu)
-        state.count = torch.where(accept, count_inc, state.count)
+        if k > 1:
+            acc = state.acc_grads + (g - state.acc_grads) / (
+                state.mini_step + 1)
+            emit = state.mini_step == k - 1
+            u, mu, nu, count_inc = self._inner(acc, params, state)
+            # MultiSteps multiplies by emit (0 * NaN stays NaN) and
+            # apply_if_finite selects
+            u = torch.where(accept, emit * u, torch.zeros_like(u))
+            keep = accept & emit
+            state.acc_grads = torch.where(accept, (~emit) * acc,
+                                          state.acc_grads)
+            state.gradient_step = torch.where(
+                keep, state.gradient_step + 1, state.gradient_step)
+            state.mini_step = torch.where(
+                accept, (state.mini_step + 1) % k, state.mini_step)
+        else:
+            u, mu, nu, count_inc = self._inner(g, params, state)
+            u = torch.where(accept, u, torch.zeros_like(u))
+            keep = accept
+        state.mu = torch.where(keep, mu, state.mu)
+        state.nu = torch.where(keep, nu, state.nu)
+        state.count = torch.where(keep, count_inc, state.count)
         state.total_notfinite = torch.where(
             finite, state.total_notfinite, state.total_notfinite + 1)
         state.notfinite_count = notfinite
         state.last_finite = finite
-        _add_(params, torch.where(accept, u, torch.zeros_like(u)))
-        return g_norm
+        _add_(params, u)
+        return torch.linalg.vector_norm(g)
 
 
 def _flat(tensors) -> torch.Tensor:

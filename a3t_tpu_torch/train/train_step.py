@@ -10,7 +10,8 @@ backward run through hand-written kernels: K1 and K2 for rel-pos attention
 longformer config, whose frame buckets must be multiples of the half-window,
 as ``a3t_tpu/tasks/mlm.py:338-347`` requires).  :func:`make_tts_train_step`
 is the duration-aware variant's step (``a3t_tpu/train/train_step.py:
-336-414``).
+336-414``) and :func:`make_chained_train_step` takes k steps per call on
+a stacked group of same-bucket batches (``steps_per_dispatch``).
 
 Batches are dicts of host (numpy) or torch arrays, as in the JAX package:
 
@@ -25,16 +26,21 @@ Batches are dicts of host (numpy) or torch arrays, as in the JAX package:
 A batch may carry ``audio_offset`` (B,) in place of ``audio``: the
 waveforms are then gathered from a flat int16 corpus tensor on the device
 (:func:`gather_audio`), given to ``featurize`` and the steps as ``corpus``.
+A step built with ``frontend=None`` takes batches already featurized (the
+model's inputs: ``speech``, ``speech_mask``, ...) and skips ``featurize``.
+``speech_only=True`` gives the model speech-only batches' segment
+embeddings.
 
 Differences from the JAX step: the state is updated in place and returned
 (the JAX step donates its state); ``rng`` is an int seed or a CPU
 ``torch.Generator`` from which every dropout site draws its seed on the
-host.  Mesh sharding and chained dispatch are not ported.
+host.  Mesh sharding is not ported (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -168,38 +174,56 @@ def _generator(rng) -> torch.Generator:
     return torch.Generator().manual_seed(int(rng))
 
 
-def _check_device(frontend: LogMelFrontend, device) -> None:
+def _check_device(frontend: Optional[LogMelFrontend], device,
+                  model: Optional[torch.nn.Module] = None) -> torch.device:
+    """The step's device; the front-end (or, without one, the model)
+    must be on it."""
     dev = resolve_device(device)
-    if frontend.device != dev:
-        raise ValueError(f"the front-end runs on {frontend.device}, the "
-                         f"step on {dev}")
+    where = (frontend.device if frontend is not None
+             else next(model.parameters()).device)
+    # a parameter's device carries its index (cuda:0), the step's may not
+    if where.type != dev.type or dev.index not in (None, where.index):
+        raise ValueError(f"the {'front-end' if frontend else 'model'} runs "
+                         f"on {where}, the step on {dev}")
+    return dev
 
 
-def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
+def _model_inputs(frontend, batch: dict, dev, **kw) -> dict:
+    """``featurize`` the batch, or with no front-end take it as the
+    model's inputs, on ``dev``."""
+    if frontend is not None:
+        return featurize(frontend, batch, **kw)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def make_train_step(model: A3TMLMModel, frontend: Optional[LogMelFrontend],
                     device=None, normalizer=None, use_fused: bool = True,
-                    corpus=None):
+                    corpus=None, speech_only: bool = False):
     """Build the train step ``(state, batch, rng) -> (state, stats)`` on
     ``device`` (cuda unless the caller asks for the CPU).  ``normalizer``,
     ``use_fused`` and ``corpus`` go to :func:`featurize` (the matmul-DFT
-    front-end by default, as in JAX).
+    front-end by default, as in JAX); ``frontend=None`` takes featurized
+    batches.
 
     ``stats`` holds device tensors: ``loss``, ``loss_mlm``,
     ``masked_frames``, ``grad_norm`` (before clipping) and
     ``notfinite_count``.  BatchNorm running statistics move in the forward,
     as the JAX step's ``batch_stats`` do, also on a skipped step.
     """
-    _check_device(frontend, device)
+    dev = _check_device(frontend, device, model)
     use_mse = model.config.use_mse_loss
     has_duration = model.config.duration_predictor_layers > 0
 
     def step(state: TrainState, batch: dict, rng):
         m = state.model
         m.train()
-        mb = featurize(frontend, batch, use_fused=use_fused,
-                       normalizer=normalizer, corpus=corpus)
+        mb = _model_inputs(frontend, batch, dev, use_fused=use_fused,
+                           normalizer=normalizer, corpus=corpus)
         check_bucket(m, mb["speech"].shape[1])
-        before, after, log_d = m(**mb, generator=_generator(rng),
-                                 return_log_durations=True)
+        before, after, log_d = m(**mb,
+                                 generator=_generator(rng),
+                                 return_log_durations=True,
+                                 speech_only=speech_only)
         loss = mlm_loss(before, after, mb["speech"], mb["masked_position"],
                         use_mse=use_mse)
         stats = {"loss_mlm": loss.detach()}
@@ -215,6 +239,45 @@ def make_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
                        "masked_frames": mb["masked_position"].sum(),
                        "grad_norm": grad_norm,
                        "notfinite_count": state.opt_state.notfinite_count}
+
+    return step
+
+
+def make_chained_train_step(model: A3TMLMModel,
+                            frontend: Optional[LogMelFrontend], k: int,
+                            device=None, normalizer=None,
+                            use_fused: bool = True, corpus=None,
+                            speech_only: bool = False):
+    """``k`` optimizer steps per call (``steps_per_dispatch``; JAX
+    ``make_chained_train_step``): ``(state, stacked, generators, valid) ->
+    (state, stats)``.  Every array of ``stacked`` has a leading k axis
+    (``data.batcher.stack_group``), ``generators[i]`` is sub-step i's
+    dropout generator (or seed) and ``valid`` (k,) host booleans.  The
+    sub-steps run in order through :func:`make_train_step`'s step; a
+    sub-step with ``valid[i]`` False is skipped, which equals the JAX scan's
+    computing it and keeping the old state.  ``stats`` holds each
+    statistic stacked over the k sub-steps, zero at the skipped ones.
+    The duration-aware variant raises, as in JAX."""
+    if model.config.duration_predictor_layers > 0:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 is not wired for the duration/TTS "
+            "train step")
+    inner = make_train_step(model, frontend, device=device,
+                            normalizer=normalizer, use_fused=use_fused,
+                            corpus=corpus, speech_only=speech_only)
+
+    def step(state: TrainState, stacked: dict, generators, valid):
+        per_step = [None] * k
+        for i in range(k):
+            if valid[i]:
+                state, per_step[i] = inner(
+                    state, {key: v[i] for key, v in stacked.items()},
+                    generators[i])
+        first = next(s for s in per_step if s is not None)
+        stats = {key: torch.stack([
+            torch.zeros_like(first[key]) if s is None else s[key]
+            for s in per_step]) for key in first}
+        return state, stats
 
     return step
 
@@ -289,7 +352,7 @@ def make_tts_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
     As in JAX, the step takes the matmul-DFT front-end and no normalizer,
     and gives the model no ``spemb``.  ``stats``: ``loss``, ``loss_mlm``,
     ``loss_duration``, ``grad_norm`` and ``notfinite_count``."""
-    _check_device(frontend, device)
+    _check_device(frontend, device, model)
 
     def step(state: TrainState, batch: dict, rng):
         m = state.model
@@ -305,20 +368,20 @@ def make_tts_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
     return step
 
 
-def make_eval_step(model: A3TMLMModel, frontend: LogMelFrontend,
-                   device=None, normalizer=None):
+def make_eval_step(model: A3TMLMModel, frontend: Optional[LogMelFrontend],
+                   device=None, normalizer=None, speech_only: bool = False):
     """Validation step ``(state, batch) -> stats``: no gradients, running
     BatchNorm statistics, no dropout; the matmul-DFT front-end, as in
-    JAX."""
-    _check_device(frontend, device)
+    JAX (``frontend=None``: featurized batches)."""
+    dev = _check_device(frontend, device, model)
     use_mse = model.config.use_mse_loss
 
     def step(state: TrainState, batch: dict):
         m = state.model
         m.eval()
         with torch.no_grad():
-            mb = featurize(frontend, batch, normalizer=normalizer)
-            before, after = m(**mb)
+            mb = _model_inputs(frontend, batch, dev, normalizer=normalizer)
+            before, after = m(**mb, speech_only=speech_only)
             loss = mlm_loss(before, after, mb["speech"],
                             mb["masked_position"], use_mse=use_mse)
         return {"loss": loss, "loss_mlm": loss}

@@ -20,8 +20,20 @@ flushes: ``Trainer.step_log`` keeps, per step, the batch's shape, the wait
 for the batch on the host (the reporter's ``iter`` time), the host's time
 in the step call, the step's time on the device's clock and, within an
 epoch, the device's clock from the previous step's end to this step's
-start (what the device waited between steps).  Not ported: chained dispatch
-(``steps_per_dispatch > 1``, ROADMAP A6) and per-epoch plots (A7-rest).
+start (what the device waited between steps).
+
+With ``steps_per_dispatch = k > 1`` the iterator yields chained groups
+``("chained", stacked, valid, weights)`` and the train step takes k
+sub-steps per call (``train_step.make_chained_train_step``): each valid
+sub-step registers its own statistics, weighted by ``weights[i]``, and
+counts as a step of the epoch; sub-step i of a group that starts at step
+n draws its dropout from ``step_generator(seed, epoch, n + i)``, so a
+mid-epoch resume, which saves and skips whole groups, lands on a group's
+edge.  A step-log record then covers the group (``steps`` sub-steps).  A
+mid-epoch checkpoint records k; one saved under another k is not resumed
+(the run keeps its epoch restore, with a warning).  Batches of the
+multi-corpus factory come as ``(corpus name, batch)``.  Per-epoch plots
+are not ported (ROADMAP A7-rest).
 """
 
 from __future__ import annotations
@@ -72,7 +84,9 @@ class TrainerConfig:
     init_params_dir: Optional[str] = None
     init_params_grow_vocab: bool = False
     init_params_allow_missing: bool = False
-    steps_per_dispatch: int = 1  # > 1 is not ported (ROADMAP A6)
+    # optimizer steps per call of the train step (chained groups of
+    # same-bucket batches); num_iters, log and save intervals stay in steps
+    steps_per_dispatch: int = 1
 
 
 def step_generator(seed: int, epoch: int, iteration: int) -> torch.Generator:
@@ -81,9 +95,17 @@ def step_generator(seed: int, epoch: int, iteration: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(s[0]) << 32 | int(s[1]))
 
 
+def _chained(batch) -> bool:
+    return (isinstance(batch, tuple) and len(batch) == 4
+            and batch[0] == "chained")
+
+
 def batch_shape(batch) -> tuple[int, int]:
-    """(batch size, frames) of an A3T batch."""
-    b, f = batch["masked_position"].shape
+    """(batch size, frames) of an A3T batch, of a multi-corpus ``(name,
+    batch)`` pair or of a chained group's batches."""
+    if isinstance(batch, tuple):
+        batch = batch[1]
+    b, f = batch["masked_position"].shape[-2:]
     return int(b), int(f)
 
 
@@ -91,7 +113,8 @@ class Trainer:
     """Drives train/valid epochs over iterator factories
     (``factory(epoch) -> iterable of batches``, reseeded per epoch).
     ``batch_shape(batch) -> (batch size, frames)`` weighs each step's
-    statistics and fills the step log (``batch_shape`` for A3T batches)."""
+    statistics and fills the step log (``batch_shape`` for A3T batches);
+    a chained group's sub-steps are weighted by the group's ``weights``."""
 
     def __init__(
         self,
@@ -105,10 +128,6 @@ class Trainer:
         wandb_run=None,
         batch_shape: Callable = batch_shape,
     ):
-        if config.steps_per_dispatch > 1:
-            raise NotImplementedError(
-                "steps_per_dispatch > 1 (chained dispatch) is not ported "
-                "(ROADMAP A6)")
         self.config = config
         self.train_step = train_step
         self.eval_step = eval_step
@@ -137,10 +156,17 @@ class Trainer:
                 logger.info("resumed from epoch %d", latest)
             mid = self.ckpt.latest_mid_epoch()
             if mid is not None and mid[0] >= start_epoch:
-                state, start_epoch, skip_iters = self.ckpt.restore_mid_epoch(
-                    state, self.reporter)
-                logger.info("resumed mid-epoch %d at iter %d", start_epoch,
-                            skip_iters)
+                try:
+                    state, start_epoch, skip_iters = \
+                        self.ckpt.restore_mid_epoch(
+                            state, self.reporter,
+                            steps_per_dispatch=cfg.steps_per_dispatch)
+                    logger.info("resumed mid-epoch %d at iter %d",
+                                start_epoch, skip_iters)
+                except ValueError as e:
+                    # saved under another steps_per_dispatch: the replay
+                    # cannot reach its step, so the epoch restore stands
+                    logger.warning("%s", e)
         if cfg.init_params_dir and start_epoch == 1 and skip_iters == 0:
             warm_start_params(state.model, cfg.init_params_dir,
                               grow_vocab=cfg.init_params_grow_vocab,
@@ -202,15 +228,27 @@ class Trainer:
 
     def _flush(self, sub, pending: list) -> float:
         """Register the pending steps' statistics (one device-to-host copy)
-        and their device times; returns the last step's loss."""
+        and their device times; returns the last step's loss.  An entry is
+        (stats, weights, valid, rec): a step's scalar statistics with
+        ``valid`` None, or a chained group's stacked ones, of which the
+        valid sub-steps register."""
         if not pending:
             return float("nan")
         keys = list(pending[0][0])
-        host = torch.stack([torch.stack([s[k].detach().float() for k in keys])
-                            for s, _, _ in pending]).cpu().numpy()
-        for row, (_, weight, rec) in zip(host, pending):
-            sub.register(dict(zip(keys, row)), weight=weight)
-            rec["loss"] = float(row[keys.index("loss")])
+        host = torch.cat([
+            torch.stack([s[k].detach().float().reshape(-1) for k in keys], 1)
+            for s, _, _, _ in pending]).cpu().numpy()
+        row = 0
+        last = float("nan")
+        for _, weights, valid, rec in pending:
+            n = 1 if valid is None else len(valid)
+            for i in range(n):
+                if valid is None or valid[i]:
+                    w = weights if valid is None else float(weights[i])
+                    sub.register(dict(zip(keys, host[row + i])), weight=w)
+                    last = float(host[row + i][keys.index("loss")])
+            row += n
+            rec["loss"] = last
             events = rec.pop("events", None)
             if events is not None:
                 rec["device_ms"] = events[0].elapsed_time(events[1])
@@ -219,7 +257,7 @@ class Trainer:
                 if prev_end is not None:
                     rec["gap_ms"] = prev_end.elapsed_time(events[0])
         pending.clear()
-        return float(host[-1][keys.index("loss")])
+        return last
 
     def train_one_epoch(self, state, epoch: int, skip_iters: int = 0):
         cfg = self.config
@@ -236,10 +274,13 @@ class Trainer:
                 if (cfg.num_iters_per_epoch is not None
                         and steps_done >= cfg.num_iters_per_epoch):
                     break
+                valid = batch[2] if _chained(batch) else None
+                n_steps = 1 if valid is None else int(np.sum(valid))
                 if steps_done < skip_iters:
                     # mid-epoch resume: replay the epoch-seeded stream
-                    # without stepping
-                    steps_done += 1
+                    # without stepping (a chained run saves and skips
+                    # whole groups)
+                    steps_done += n_steps
                     t_last = time.perf_counter()
                     continue
                 if cfg.profile_dir and epoch == 1:
@@ -257,27 +298,40 @@ class Trainer:
                 b, f = self.batch_shape(batch)
                 rec = {"epoch": epoch, "iteration": steps_done, "batch": b,
                        "frames": f, "iter_wait_s": t0 - t_last}
+                if isinstance(batch, tuple) and not _chained(batch):
+                    rec["corpus"] = batch[0]
                 if on_cuda:
                     rec["events"] = [torch.cuda.Event(enable_timing=True)
                                      for _ in range(2)]
                     rec["events"][0].record()
                     rec["prev_end"], prev_end = prev_end, rec["events"][1]
-                state, stats = self.train_step(
-                    state, batch, step_generator(cfg.seed, epoch, steps_done))
+                if valid is None:
+                    state, stats = self.train_step(
+                        state, batch, step_generator(cfg.seed, epoch,
+                                                     steps_done))
+                    weights = float(b)
+                else:
+                    _, stacked, valid, weights = batch
+                    rec["steps"] = n_steps
+                    state, stats = self.train_step(state, stacked, [
+                        step_generator(cfg.seed, epoch, steps_done + i)
+                        for i in range(len(valid))], valid)
                 if on_cuda:
                     rec["events"][1].record()
-                steps_done += 1
-                self._last_epoch_steps += 1
+                steps_done += n_steps
+                self._last_epoch_steps += n_steps
                 self.step_log.append(rec)
-                pending.append((stats, float(b), rec))
+                pending.append((stats, weights, valid, rec))
                 t_last = time.perf_counter()
                 rec["host_s"] = t_last - t0
-                sub.register_time("step", t_last - t0)
+                # per optimizer step, also for a chained group
+                sub.register_time("step", (t_last - t0) / max(n_steps, 1))
                 if (cfg.save_interval_steps and self.ckpt is not None
                         and steps_done - last_saved
                         >= cfg.save_interval_steps):
-                    self.ckpt.save_mid_epoch(epoch, steps_done, state,
-                                             self.reporter)
+                    self.ckpt.save_mid_epoch(
+                        epoch, steps_done, state, self.reporter,
+                        steps_per_dispatch=cfg.steps_per_dispatch)
                     last_saved = steps_done
                 if steps_done - last_logged >= cfg.log_interval:
                     last_logged = steps_done
@@ -319,5 +373,5 @@ class Trainer:
         pending = []
         for batch in self.valid_iter_factory(epoch):
             pending.append((self.eval_step(state, batch),
-                            float(self.batch_shape(batch)[0]), {}))
+                            float(self.batch_shape(batch)[0]), None, {}))
         self._flush(sub, pending)

@@ -185,6 +185,33 @@ Phases, each printing its elapsed seconds:
    times (the x-vector's by crop length, the vocoder's spectral and
    adversarial steps), one profiled call of each kind and the phase's
    main-path launches.
+16. train-options: the rest of single-device training, in the same
+   temporary directory: (a) configs/a3t_multi_corpus.yaml (a copy whose
+   data directories and exp_dir alone differ) through bin.train for one
+   epoch of 12 steps, libritts and vctk on the trainer's 24 kHz corpus and
+   librispeech, speech-only at 16 kHz, on a generated corpus of 146 + 73
+   utterances (whole batches of the yaml's 256- and 512-frame buckets):
+   8 / 2 / 2 steps by the portions, each finite, 8 K1 per train and eval
+   step and 8 K2 per train step, per-corpus device ms per step and
+   mel-frames/s, K1/K2 against their plain versions at the speech-only
+   masks (one valid text key per utterance; fp32 and bf16, dropout 0 and
+   0.2); (b) the trainer's corpus packed by python -m
+   a3t_tpu_torch.bin.pack_records and trained on with
+   batcher.device_audio=true in bf16 at steps_per_dispatch 1 and 4 (the
+   same launch checks; device ms per step, host ms per call and per step,
+   data wait, idle before each call, and the busy share over a profiled
+   epoch), the audio gathered on the card from the uploaded corpus equal
+   to the host-assembled batch bit for bit for each bucket, and in
+   deterministic mode a dropout-0 chained step over 3 batches and a padded
+   sub-step equal to 3 sequential steps, and make_train_step(model, None)
+   on featurized batches equal to the featurizing step, bit for bit
+   (parameters, BatchNorm statistics, Adam's moments); (c) an fp32 run
+   with optim.accum_grad=2 and optim.grad_noise_eta=0.01 for 4
+   micro-steps: parameters unchanged bit for bit after micro-steps 1 and
+   3, Noam's count 2, and each applied update within 1e-6 (relative to its
+   largest element) of a plain rule written here (the mean of the two
+   gradients plus the noise drawn from SeedSequence([0, count]), clipped,
+   Adam, Noam), computed in float32 as optax computes it.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -1938,47 +1965,51 @@ TRAIN_FILL = ((256, 2 * 146), (512, 2 * 73))  # (bucket frames, utterances)
 ITERS = 4  # steps per epoch of the runs held against each other: one pass
 
 
-def _gen_shard(out_dir, n_utts, seed):
+def _gen_shard(out_dir, n_utts, seed, fs=24000):
     from a3t_tpu_torch.data.miniature import generate_speechlike_corpus
 
     generate_speechlike_corpus(out_dir, n_utts=n_utts, n_speakers=8,
-                               fs=24000, n_phones_range=PHONES, seed=seed,
+                               fs=fs, n_phones_range=PHONES, seed=seed,
                                speaker_seed=0)
 
 
-def _n_frames(path):
+def _n_frames(path, hop=HOP_24K):
     """The batcher's frame count of a wav, from its header."""
     import wave
 
     with wave.open(path) as w:
-        return 1 + w.getnframes() // HOP_24K
+        return 1 + w.getnframes() // hop
 
 
-def make_corpus(root):
-    """(train_dir, valid_dir, seconds, bytes): the shards generated in
-    parallel processes, then merged into one data directory (uids prefixed
-    by shard) that keeps TRAIN_FILL's utterances of each bucket."""
+def make_corpus(root, fs=24000, hop=HOP_24K, fill=TRAIN_FILL,
+                shards=TRAIN_SHARDS, valid_utts=VALID_UTTS, seed=0):
+    """(train_dir, valid_dir, seconds, bytes): the shards (seeds ``seed``,
+    ``seed + 1``, ...) generated in parallel processes, then merged into
+    one data directory (uids prefixed by shard) that keeps ``fill``'s
+    utterances of each bucket; with ``valid_utts`` 0 no validation split
+    (valid_dir None)."""
     import multiprocessing
 
     from a3t_tpu_torch.data.fileio import (read_2column_text,
                                            write_2column_text)
 
     t0 = time.perf_counter()
-    jobs = [(os.path.join(root, f"shard{k}"), SHARD_UTTS, k)
-            for k in range(TRAIN_SHARDS)]
-    valid = os.path.join(root, "valid")
-    jobs.append((valid, VALID_UTTS, 100))
+    jobs = [(os.path.join(root, f"shard{k}"), SHARD_UTTS, seed + k, fs)
+            for k in range(shards)]
+    valid = os.path.join(root, "valid") if valid_utts else None
+    if valid:
+        jobs.append((valid, valid_utts, 100, fs))
     with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
         pool.starmap(_gen_shard, jobs)
     merged = {name: {} for name in ("wav.scp", "text", "mfa_start",
                                     "mfa_end", "utt2spk")}
-    for k, (shard, _, _) in enumerate(jobs[:-1]):
+    for k, (shard, _, _, _) in enumerate(jobs[:shards]):
         for name, table in merged.items():
             for uid, v in read_2column_text(os.path.join(shard, name)).items():
                 table[f"s{k}_{uid}"] = v
-    frames = {u: _n_frames(p) for u, p in merged["wav.scp"].items()}
+    frames = {u: _n_frames(p, hop) for u, p in merged["wav.scp"].items()}
     keep, lo = [], MIN_FRAMES
-    for hi, n in TRAIN_FILL:
+    for hi, n in fill:
         members = sorted(u for u, f in frames.items() if lo < f <= hi)
         check(len(members) >= n, f"the generated corpus holds {n} "
               f"utterances of {lo + 1}-{hi} frames (it holds {len(members)})")
@@ -1989,9 +2020,10 @@ def make_corpus(root):
         write_2column_text(os.path.join(train, name),
                            {u: table[u] for u in sorted(keep)})
     seconds = time.perf_counter() - t0
-    nbytes = sum(os.path.getsize(merged["wav.scp"][u]) for u in keep) + sum(
-        os.path.getsize(os.path.join(d, f))
-        for d, _, fs in os.walk(valid) for f in fs)
+    nbytes = sum(os.path.getsize(merged["wav.scp"][u]) for u in keep)
+    if valid:
+        nbytes += sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, names in os.walk(valid) for f in names)
     return train, valid, seconds, nbytes
 
 
@@ -2034,36 +2066,44 @@ def _fill(batcher):
             for spec, members in zip(batcher.buckets, batcher.bucket_members)}
 
 
-def _bucket_numbers(np, steps, label, what, fill):
-    """Per bucket: median device ms per step (CUDA events around each step),
-    mel-frames/s (B x F over it, and the utterances' own frames by the
-    bucket's ``fill``), the median data wait (the reporter's iter time),
-    the host's time in the step call, and the device's idle time before the
-    step (from the previous step's end event).  Every batch is full; the
-    first step of each bucket is left out."""
+def _bucket_numbers(np, steps, label, what, fill=None):
+    """Per bucket (per corpus and bucket in a multi-corpus run): median
+    device ms per optimizer step (CUDA events around each step call; a
+    chained call covers its ``steps`` sub-steps), mel-frames/s (B x F over
+    it, and with ``fill`` the utterances' own frames), the median data wait
+    (the reporter's iter time), the host's time in the step call (and per
+    step of a chained call), and the device's idle time before the call
+    (from the previous call's end event).  Every batch is full; the first
+    call of each bucket is left out when it is not the only one."""
     out = {}
-    for frames in sorted({r["frames"] for r in steps}):
-        rows = [r for r in steps if r["frames"] == frames][1:]
-        if not rows:
-            continue
-        ms = float(np.median([r["device_ms"] for r in rows]))
+    for corpus, frames in sorted({(r.get("corpus", ""), r["frames"])
+                                  for r in steps}):
+        rows = [r for r in steps
+                if (r.get("corpus", ""), r["frames"]) == (corpus, frames)]
+        rows = rows[1:] or rows
+        n = [r.get("steps", 1) for r in rows]
+        per = [r["device_ms"] / k for r, k in zip(rows, n)]
+        ms = float(np.median(per))
         wait = float(np.median([r["iter_wait_s"] for r in rows])) * 1e3
         host = float(np.median([r["host_s"] for r in rows])) * 1e3
+        host_step = float(np.median([r["host_s"] / k
+                                     for r, k in zip(rows, n)])) * 1e3
         gaps = [r["gap_ms"] for r in rows if "gap_ms" in r]
         gap = float(np.median(gaps)) if gaps else float("nan")
         b = rows[0]["batch"]
-        out[frames] = ms
+        out[(corpus, frames) if corpus else frames] = ms
         rate = b * frames / ms * 1e3
-        log(f"  {what} bucket {frames} frames x {b}: median {ms:.2f} ms per "
-            f"step on the device's clock (n={len(rows)}, min "
-            f"{min(r['device_ms'] for r in rows):.2f}, max "
-            f"{max(r['device_ms'] for r in rows):.2f}), "
-            f"{rate:.1f} mel-frames/s (B*F = {b * frames}), of them the "
-            f"utterances' own {rate * fill[frames]:.1f} (fill "
-            f"{fill[frames]:.4f}), "
-            f"median data wait {wait:.2f} ms, host in the step call "
-            f"{host:.2f} ms, device idle before the step {gap:.2f} ms "
-            f"[{label}]")
+        own = (f", of them the utterances' own {rate * fill[frames]:.1f} "
+               f"(fill {fill[frames]:.4f})" if fill else "")
+        chain = (f" ({host_step:.2f} ms per step, calls of {n} steps)"
+                 if max(n) > 1 else "")
+        log(f"  {what} {corpus + ' ' if corpus else ''}bucket {frames} "
+            f"frames x {b}: median {ms:.2f} ms per step on the device's "
+            f"clock (n={len(rows)}, min {min(per):.2f}, max "
+            f"{max(per):.2f}), {rate:.1f} mel-frames/s (B*F = {b * frames})"
+            f"{own}, median data wait {wait:.2f} ms, host in the step call "
+            f"{host:.2f} ms{chain}, device idle before the step {gap:.2f} ms"
+            f" [{label}]")
     return out
 
 
@@ -2283,6 +2323,29 @@ def transfer_check(torch, np, trainer, epoch):
     check(not bad, "the batches on the card equal the host's bit for bit")
 
 
+@contextlib.contextmanager
+def deterministic_mode(torch):
+    """cuDNN's deterministic algorithms, PyTorch's deterministic
+    implementations and CUBLAS_WORKSPACE_CONFIG, restored on exit."""
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+
 def trainer_phase(torch, np, fa, label, root, device="cuda"):
     """configs/a3t_conformer_24k.yaml, unedited, trained through
     bin/train.main on a 24 kHz corpus generated under ``root``; returns the
@@ -2322,14 +2385,7 @@ def trainer_phase(torch, np, fa, label, root, device="cuda"):
     # with atomics, so two identical passes differ in the embeddings'
     # gradients without them).  Any op without a deterministic
     # implementation would raise here.
-    cudnn = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic_mode(torch):
         # A: two epochs, uninterrupted
         fa.reset_launches()
         exp_a, trainer, state = run("A", "trainer.max_epoch=2", iters)
@@ -2422,14 +2478,6 @@ def trainer_phase(torch, np, fa, label, root, device="cuda"):
         del tc, sc
         _bucket_numbers(np, steps, label, "run A (deterministic mode)",
                         _fill(batcher))
-    finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = cudnn
-        torch.use_deterministic_algorithms(False)
-        if cublas is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3641,6 +3689,404 @@ def side_train_phase(torch, np, fa, label, root, train, valid, device="cuda"):
     return launches, errs
 
 
+OPT_ITERS = 12  # multi-corpus steps: 8 / 2 / 2 by the yaml's portions
+SOAK_ITERS = 8  # record-shard steps at each steps_per_dispatch
+SOAK_K = 4
+ACCUM = (2, 4, 0.01)  # accum_grad, micro-steps, grad_noise_eta
+FILL_16K = ((256, 146), (512, 73))  # whole batches of the yaml's buckets
+SHARDS_16K = 3
+OPT_SETS: list = []  # extra bin.train overrides (a CPU rehearsal's widths)
+CONFIG_MULTI = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "a3t_multi_corpus.yaml")
+TOL_UPDATE = 1e-6  # the accumulated, noised update against the plain rule
+
+
+def _profiled_epoch(torch, trainer, state, epoch, label, what):
+    """One more epoch of the trainer under torch.profiler (device
+    activities only): its busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state = trainer.train_one_epoch(state, epoch)
+        torch.cuda.synchronize()
+    busy = device_busy(torch, prof)
+    if busy is None:
+        log(f"  {what}: the profiler saw no device activity; busy share "
+            "not measured")
+    else:
+        busy_ms, window, _, n = busy
+        log(f"  {what}: over an epoch of {trainer.config.num_iters_per_epoch}"
+            f" steps the device is busy {busy_ms:.2f} ms of {window:.2f} ms "
+            f"(busy share {busy_ms / window:.4f}, idle "
+            f"{1 - busy_ms / window:.4f}), {n} device activities [{label}]")
+    return state
+
+
+def _noise_plain(torch, np, count, n, device):
+    """The port's noise rule, written out: N(0, 1) from a generator on the
+    device seeded from SeedSequence([0, count])."""
+    s = np.random.SeedSequence([0, count]).generate_state(2)
+    gen = torch.Generator(device=device).manual_seed(
+        int(s[0]) << 32 | int(s[1]))
+    return torch.randn(n, generator=gen, device=device, dtype=torch.float32)
+
+
+def _update_plain(torch, np, g1, g2, mu, nu, count, oc, eta, device):
+    """The applied update of an accumulation of two micro-steps, written
+    out in float32 as optax computes it: the mean gradient (MultiSteps'
+    running mean, g1 + (g2 - g1) / 2: Adam's eps amplifies an ulp of a
+    mean that cancels to ~1e-8) plus the noise, clipped to the global
+    norm, Adam bias-corrected at count + 1 and the Noam rate at count + 1."""
+    t = torch.tensor(float(count + 1), dtype=torch.float32, device=device)
+    x = g1 + (g2 - g1) / 2 + torch.sqrt(eta / t ** oc.grad_noise_gamma) * \
+        _noise_plain(torch, np, count, g1.numel(), device)
+    norm = torch.linalg.vector_norm(x)
+    if norm >= oc.grad_clip:
+        x = x / norm * oc.grad_clip
+    mu = oc.adam_b1 * mu + (1 - oc.adam_b1) * x
+    nu = oc.adam_b2 * nu + (1 - oc.adam_b2) * x * x
+    step = (mu / (1 - oc.adam_b1 ** t)) / (
+        torch.sqrt(nu / (1 - oc.adam_b2 ** t)) + oc.adam_eps)
+    lr = oc.lr * oc.model_size ** -0.5 * torch.minimum(
+        t ** -0.5, t * oc.warmup_steps ** -1.5)
+    return -lr * step
+
+
+def train_options_phase(torch, np, fa, label, root, train, valid,
+                        device="cuda"):
+    """The rest of single-device training on the trainer phase's 24 kHz
+    corpus: (a) configs/a3t_multi_corpus.yaml (a copy with only its data
+    directories and exp_dir changed) through bin.train for one epoch of
+    OPT_ITERS steps, librispeech on a generated 16 kHz speech-only corpus;
+    (b) the corpus packed by bin.pack_records and trained on with
+    batcher.device_audio in bf16 at steps_per_dispatch 1 and SOAK_K, the
+    audio gathered on the card, the chained step and the pre-featurized
+    step held bit for bit; (c) an fp32 run with accumulation and gradient
+    noise, its update held against a plain rule.  Returns the K1 and K2
+    launches of the main path (the runs of (a), (b) and (c)) and K1's and
+    K2's largest float32 errors at the speech-only masks."""
+    import collections
+    import copy
+    import dataclasses
+    import gc
+    import subprocess
+
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.data.batcher import BucketBatcher, stack_group
+    from a3t_tpu_torch.data.records import RecordDataset
+    from a3t_tpu_torch.dsp import LogMelFrontend
+    from a3t_tpu_torch.tasks import mlm as task_mlm
+    from a3t_tpu_torch.tasks import yaml_subset
+    from a3t_tpu_torch.tasks.config import load_config
+    from a3t_tpu_torch.train import optim
+    from a3t_tpu_torch.train.train_step import (create_train_state,
+                                                featurize, gather_audio,
+                                                make_chained_train_step,
+                                                make_train_step)
+
+    out = os.path.join(root, "options")
+    os.makedirs(out, exist_ok=True)
+    total = [0, 0]
+
+    def run(argv, what):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        trainer, state = train_main(argv)
+        torch.cuda.synchronize()
+        n = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+        steps = list(trainer.step_log)
+        n_steps = sum(r.get("steps", 1) for r in steps)
+        n_eval = len(trainer.valid_iter_factory.batcher.batch_plan(1))
+        cfg = state.model.config
+        blocks = cfg.encoder.num_blocks + cfg.decoder.num_blocks
+        log(f"  {what}: {n_steps} steps in {len(steps)} calls and {n_eval} "
+            f"eval steps in {time.perf_counter() - t0:.2f} s, losses "
+            f"{[round(r['loss'], 3) for r in steps]}; K1 {n[0]}, K2 {n[1]} "
+            f"[{label}]")
+        check(all(np.isfinite(r["loss"]) for r in steps)
+              and int(state.opt_state.total_notfinite) == 0,
+              f"{what}: every step finite and not skipped")
+        check(n == (blocks * (n_steps + n_eval), blocks * n_steps),
+              f"{what}: {blocks} K1 launches per train and eval step, "
+              f"{blocks} K2 per train step")
+        total[0] += n[0]
+        total[1] += n[1]
+        return trainer, state, steps
+
+    # (a) the multi-corpus yaml, librispeech speech-only at 16 kHz
+    c16, _, secs, nbytes = make_corpus(
+        os.path.join(out, "data16k"), fs=16000, hop=200, fill=FILL_16K,
+        shards=SHARDS_16K, valid_utts=0, seed=200)
+    log(f"  16 kHz corpus: {SHARDS_16K * SHARD_UTTS} utterances generated "
+        f"in {secs:.2f} s, {sum(n for _, n in FILL_16K)} kept "
+        f"({nbytes / 1e6:.1f} MB)")
+    data = yaml_subset.load_file(CONFIG_MULTI)
+    dirs = {"libritts": train, "librispeech": c16, "vctk": train}
+    for entry in data["corpora"]:
+        entry["data_dir"] = dirs[entry["name"]]
+    changed = dict(train_data_dir=train, valid_data_dir=valid,
+                   exp_dir=os.path.join(out, "multi"))
+    data.update(changed)
+    copy_path = os.path.join(out, "a3t_multi_corpus.yaml")
+    with open(copy_path, "w", encoding="utf-8") as f:
+        f.write(yaml_subset.dump(data))
+    orig = yaml_subset.load_file(CONFIG_MULTI)
+    again = yaml_subset.load_file(copy_path)
+    for d in (orig, again):
+        for k in changed:
+            d.pop(k)
+        for entry in d["corpora"]:
+            entry.pop("data_dir")
+    check(orig == again, "the yaml's copy differs only in its data "
+          "directories and exp_dir")
+    argv = ["--config", copy_path, "--device", device]
+    for s in ("trainer.max_epoch=1",
+              f"trainer.num_iters_per_epoch={OPT_ITERS}",
+              "trainer.log_interval=4", *OPT_SETS):
+        argv += ["--set", s]
+    trainer, state, steps = run(argv, "multi-corpus epoch")
+    counts = collections.Counter(r["corpus"] for r in steps)
+    corpora = trainer.train_iter_factory.corpora
+    log(f"  multi-corpus: steps by corpus {dict(counts)}; buckets "
+        + "; ".join(
+        f"{s.name} ({s.batcher.fe.fs} Hz"
+        f"{', speech only' if s.speech_only else ''}) "
+        f"{[(b.n_frames, b.batch_size) for b in s.batcher.buckets]}"
+        for s in corpora))
+    check(dict(counts) == {"libritts": 8, "librispeech": 2, "vctk": 2},
+          "the yaml's portions give 8 / 2 / 2 steps of 12")
+    _bucket_numbers(np, steps, label, "multi-corpus fp32")
+    so = next(s for s in corpora if s.speech_only)
+    check(so.batcher.fe.fs == 16000 and so.batcher.fe.hop_length == 200
+          and [(b.n_frames, len(m)) for b, m in zip(
+              so.batcher.buckets, so.batcher.bucket_members)]
+          == list(FILL_16K), "librispeech: 16 kHz, hop 200, the kept "
+          "utterances in the yaml's first two buckets")
+    att = next(m for m in state.model.modules() if hasattr(m, "d_k"))
+    host = so.batcher.make_batch(0, so.batcher.bucket_members[0][
+        : so.batcher.buckets[0].batch_size], np.random.default_rng(0))
+    keys = host["text_mask"][host["audio_lengths"] > 0].sum(1)
+    check((keys == 1).all(), "a speech-only batch holds one valid text key "
+          "per utterance")
+    errs = trainer_kernel_check(torch, np, fa, so.batcher, att.h, att.d_k,
+                                LogMelFrontend(so.batcher.fe, device=device))
+    del trainer, state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) record shards, the corpus on the card, chained dispatch
+    rec = os.path.join(out, "records")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "a3t_tpu_torch.bin.pack_records",
+                    "--data-dir", train, "--out", rec], check=True,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    mb = sum(os.path.getsize(os.path.join(rec, f))
+             for f in os.listdir(rec)) / 1e6
+    log(f"  bin.pack_records: {len(RecordDataset(rec))} utterances in "
+        f"{time.perf_counter() - t0:.2f} s (with the interpreter's start), "
+        f"{mb:.1f} MB")
+    captured = {}
+    makers = (task_mlm.make_train_step, task_mlm.make_chained_train_step)
+
+    def capture(make):
+        def wrapped(*a, **kw):
+            captured["corpus"] = kw.get("corpus")
+            return make(*a, **kw)
+        return wrapped
+
+    task_mlm.make_train_step, task_mlm.make_chained_train_step = map(
+        capture, makers)
+    try:
+        for k in (1, SOAK_K):
+            trainer, state, steps = run(_train_argv(
+                rec, valid, os.path.join(out, f"soak{k}"), device,
+                f"token_list={os.path.join(rec, 'tokens.txt')}",
+                "trainer.max_epoch=1",
+                f"trainer.num_iters_per_epoch={SOAK_ITERS}",
+                "batcher.device_audio=true",
+                "model.encoder.compute_dtype=bfloat16",
+                "model.decoder.compute_dtype=bfloat16",
+                f"trainer.steps_per_dispatch={k}", *OPT_SETS),
+                f"records bf16 steps_per_dispatch={k}")
+            batcher = trainer.train_iter_factory.batcher
+            check(trainer.config.steps_per_dispatch == k
+                  and isinstance(batcher.dataset, RecordDataset)
+                  and captured["corpus"] is not None
+                  and captured["corpus"].device.type == torch.device(
+                      device).type, f"steps_per_dispatch={k}: record "
+                  "shards, the corpus on the device")
+            _bucket_numbers(np, steps, label, f"records bf16 k={k}")
+            state = _profiled_epoch(torch, trainer, state, 2, label,
+                                    f"records bf16 k={k}")
+            _bucket_numbers(np, list(trainer.step_log)[len(steps):], label,
+                           f"records bf16 k={k} epoch 2 (profiled)")
+            if k == 1:
+                del trainer, state, steps
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        task_mlm.make_train_step, task_mlm.make_chained_train_step = makers
+    corpus = captured["corpus"]
+    log(f"  the corpus on the device: {corpus.numel()} int16 samples "
+        f"({corpus.numel() * 2 / 1e6:.1f} MB)")
+
+    # audio gathered on the card against the host's batch, per bucket
+    host_b = BucketBatcher(batcher.dataset, batcher.fe, dataclasses.replace(
+        batcher.config, device_audio=False))
+    hop = batcher.fe.hop_length
+    for bi, spec in enumerate(batcher.buckets):
+        uids = batcher.bucket_members[bi][: spec.batch_size]
+        x_d = batcher.make_batch(bi, uids, np.random.default_rng(bi))
+        x_h = host_b.make_batch(bi, uids, np.random.default_rng(bi))
+        check("audio" not in x_d and "audio_offset" in x_d,
+              "device_audio batches carry offsets, no audio")
+        got = gather_audio(corpus, {k: torch.as_tensor(v, device=device)
+                                    for k, v in x_d.items()}, hop).cpu()
+        same = got.dtype == torch.int16 and torch.equal(
+            got, torch.from_numpy(x_h["audio"]))
+        log(f"  bucket {spec.n_frames}: audio gathered on the card "
+            f"{tuple(got.shape)} {got.dtype} equals the host-assembled "
+            f"batch bit for bit: {same}")
+        check(same, f"the card's audio of the {spec.n_frames}-frame bucket")
+
+    # the chained step and the pre-featurized step, bit for bit
+    cfg = load_config(os.path.join(out, f"soak{SOAK_K}", "config.yaml"))
+    no_dropout = dict(dropout_rate=0.0, positional_dropout_rate=0.0,
+                      attention_dropout_rate=0.0)
+    cfg0 = dataclasses.replace(
+        state.model.config,
+        encoder=dataclasses.replace(state.model.config.encoder,
+                                    **no_dropout),
+        decoder=dataclasses.replace(state.model.config.decoder,
+                                    **no_dropout))
+    fe = LogMelFrontend(cfg.frontend, device=device)
+    del trainer, state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = batcher.buckets[0]
+    members = batcher.bucket_members[0]
+    chunks = [members[:spec.batch_size], members[spec.batch_size:]
+              [:spec.batch_size], members[:spec.batch_size]]
+    _, stacked, valid_k, _ = stack_group(
+        [batcher.make_batch(0, c, np.random.default_rng(10 + i))
+         for i, c in enumerate(chunks)], SOAK_K)
+    stacked = {k: torch.as_tensor(v, device=device)
+               for k, v in stacked.items()}
+    check(list(valid_k) == [True] * 3 + [False] * (SOAK_K - 3),
+          "the group holds 3 sub-steps and a padded one")
+    base = _dropout0_model(cfg0, device)
+    tx = optim.make_optimizer(cfg.optim)
+
+    def fresh():
+        model = copy.deepcopy(base)
+        return model, create_train_state(model, tx, device)
+
+    with deterministic_mode(torch):
+        model, state = fresh()
+        step = make_chained_train_step(model, fe, SOAK_K, device=device,
+                                       corpus=corpus)
+        t0 = time.perf_counter()
+        state, stats = step(state, stacked, list(range(SOAK_K)), valid_k)
+        torch.cuda.synchronize()
+        chained_s = time.perf_counter() - t0
+        want = _snapshot(state)
+        got_loss = stats["loss"].cpu()
+        del model, state, step
+        model, state = fresh()
+        step = make_train_step(model, fe, device=device, corpus=corpus)
+        losses = []
+        for i in range(3):
+            state, s = step(state, {k: v[i] for k, v in stacked.items()}, i)
+            losses.append(float(s["loss"]))
+        log(f"  chained step (k={SOAK_K}, 3 valid) in {chained_s:.2f} s: "
+            f"losses {got_loss.tolist()}; sequential {losses}")
+        check(got_loss[:3].tolist() == losses and float(got_loss[3]) == 0,
+              "the chained step's losses equal the sequential steps'")
+        _compare(torch, _snapshot(state), want,
+                 "the chained step against 3 sequential steps")
+        del model, state, step
+        # the pre-featurized step against the featurizing step
+        first = {k: v[0] for k, v in stacked.items()}
+        snaps = []
+        for pre in (False, True):
+            model, state = fresh()
+            if pre:
+                step = make_train_step(model, None, device=device)
+                batch = featurize(fe, first, corpus=corpus)
+            else:
+                step = make_train_step(model, fe, device=device,
+                                       corpus=corpus)
+                batch = first
+            state, _ = step(state, batch, 7)
+            snaps.append(_snapshot(state))
+            del model, state, step
+        _compare(torch, snaps[1], snaps[0],
+                 "make_train_step(model, None) on featurized batches "
+                 "against the featurizing step")
+    del base, snaps, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) accumulation and gradient noise, fp32
+    k_acc, n_micro, eta = ACCUM
+    records = []
+    apply0, add0 = optim.Optimizer.apply, optim._add_
+
+    def add_hook(params, u):
+        records[-1]["u"] = u.clone()
+        add0(params, u)
+
+    def apply_hook(self, params, grads, state):
+        params = list(params)
+        rec = {"g": optim._flat(grads).clone(), "mu": state.mu.clone(),
+               "nu": state.nu.clone(), "count": int(state.count),
+               "mini": int(state.mini_step)}
+        before = optim._flat(params)
+        records.append(rec)
+        out = apply0(self, params, grads, state)
+        rec["same"] = torch.equal(optim._flat(params), before)
+        return out
+
+    optim.Optimizer.apply, optim._add_ = apply_hook, add_hook
+    try:
+        trainer, state, _ = run(_train_argv(
+            train, valid, os.path.join(out, "accum"), device,
+            "trainer.max_epoch=1", f"trainer.num_iters_per_epoch={n_micro}",
+            f"optim.accum_grad={k_acc}", f"optim.grad_noise_eta={eta}",
+            *OPT_SETS), f"accum_grad={k_acc} grad_noise_eta={eta} fp32")
+    finally:
+        optim.Optimizer.apply, optim._add_ = apply0, add0
+    os_ = state.opt_state
+    oc = load_config(os.path.join(out, "accum", "config.yaml")).optim
+    log(f"  accumulation: parameters unchanged after micro-steps "
+        f"{[i + 1 for i, r in enumerate(records) if r['same']]}; Noam's "
+        f"count {int(os_.count)}, gradient_step {int(os_.gradient_step)}, "
+        f"mini_step {int(os_.mini_step)}, step {state.step}")
+    check(len(records) == n_micro and [r["same"] for r in records]
+          == [i % k_acc != k_acc - 1 for i in range(n_micro)],
+          "the parameters stay bit for bit at the micro-steps that emit no "
+          "update and move at the others")
+    check(int(os_.count) == n_micro // k_acc == int(os_.gradient_step)
+          and state.step == n_micro, f"Noam's count is {n_micro // k_acc} "
+          f"after {n_micro} micro-steps")
+    for i in range(k_acc - 1, n_micro, k_acc):
+        r0, r1 = records[i - 1], records[i]
+        plain = _update_plain(torch, np, r0["g"], r1["g"], r1["mu"],
+                              r1["nu"], r1["count"], oc, eta, device)
+        rel = ((r1["u"] - plain).abs().max() / plain.abs().max()).item()
+        log(f"  micro-step {i + 1}: the applied update against the plain "
+            f"rule (mean of 2 gradients + noise at count {r1['count']}, "
+            f"clip, Adam, Noam; float32): max|diff|/max|plain| {rel:.3g} "
+            f"(tol {TOL_UPDATE:g}) [{label}]")
+        check(rel <= TOL_UPDATE, f"the update of micro-step {i + 1} "
+              "follows the plain rule")
+    del trainer, state, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  train-options main path: K1 {total[0]}, K2 {total[1]} [{label}]")
+    return tuple(total), errs
+
+
 def main() -> int:
     import torch
 
@@ -3764,6 +4210,11 @@ def main() -> int:
                 torch, np, fa, label, root,
                 os.path.join(root, "data", "train"), valid)
 
+        with Phase("train-options"):
+            (opt_fwd, opt_bwd), opt_errs = train_options_phase(
+                torch, np, fa, label, root,
+                os.path.join(root, "data", "train"), valid)
+
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -3771,14 +4222,16 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + sp_fwd + side_fwd,
+        + cli_fwd + sp_fwd + side_fwd + opt_fwd,
         "launches_serve_cli": cli_fwd,
         "launches_speaker_fs2": sp_fwd,
         "launches_side_train": side_fwd,
+        "launches_train_options": opt_fwd,
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "max_abs_err_fs2_shapes": fs2_errs[0],
         "max_abs_err_tts_shapes": side_errs[0],
+        "max_abs_err_speech_only_shapes": opt_errs[0],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -3791,14 +4244,16 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
         "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd
-        + side_bwd,
+        + side_bwd + opt_bwd,
         "launches_serve_cli": cli_bwd,
         "launches_speaker_fs2": sp_bwd,
         "launches_side_train": side_bwd,
+        "launches_train_options": opt_bwd,
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "max_abs_err_fs2_shapes": fs2_errs[1],
         "max_abs_err_tts_shapes": side_errs[1],
+        "max_abs_err_speech_only_shapes": opt_errs[1],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

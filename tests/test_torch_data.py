@@ -4,7 +4,9 @@ native loader, built from native/loader's sources into the port's _build/,
 decodes what scipy reads; buckets, epoch plans and every array of every
 batch equal JAX's bit for bit over two epochs, with the native loader on
 and off; the prefetch iterator keeps order, re-raises the producer's error
-and stops its producer on close(); and what is not ported raises."""
+and stops its producer on close(); and the options that came later (the
+speech-only dataset, device_audio, chained groups) build, while a failed
+native loader build still raises."""
 
 import filecmp
 import os
@@ -214,8 +216,10 @@ def test_prefetch_iterator_close_stops_the_producer():
 
 def test_refusals(corpora, monkeypatch, tmp_path):
     port_dir = corpora[0]
-    with pytest.raises(NotImplementedError, match="A6"):
-        A3TDataset(port_dir, speech_only=True)
+    # speech-only datasets are ported (tests/test_torch_speech_only.py
+    # holds them against JAX's)
+    assert A3TDataset(port_dir, speech_only=True).num_phones(
+        A3TDataset(port_dir, speech_only=True).uids[0]) == 0
     ds = A3TDataset(port_dir, TokenIDConverter(build_token_list(
         read_2column_text(os.path.join(port_dir, "text")).values())))
     fe = LogMelConfig(**FE)
@@ -230,11 +234,16 @@ def test_refusals(corpora, monkeypatch, tmp_path):
         **BATCHER, duration_collect=True))
     assert next(with_durations.epoch_iterator(0))["durations"].dtype \
         == np.int32
-    with pytest.raises(NotImplementedError, match="A7-rest"):
-        BucketBatcher(ds, fe, BatcherConfig(**BATCHER, device_audio=True))
+    # device_audio needs a dataset with global_offset (record shards,
+    # tests/test_torch_records.py); over wav files the audio is shipped
+    wav_batch = next(BucketBatcher(ds, fe, BatcherConfig(
+        **BATCHER, device_audio=True)).epoch_iterator(0))
+    assert "audio" in wav_batch and "audio_offset" not in wav_batch
+    # chained groups are ported (tests/test_torch_chained.py)
     batcher = BucketBatcher(ds, fe, BatcherConfig(**BATCHER))
-    with pytest.raises(NotImplementedError, match="A6"):
-        EpochIterFactory(batcher, chain=2)
+    tag, stacked, valid, weights = next(iter(
+        EpochIterFactory(batcher, chain=2, prefetch=0)(0)))
+    assert tag == "chained" and stacked["audio"].shape[0] == 2
     # a failed build of the native loader raises; nothing falls back
     monkeypatch.setattr(native_loader, "_lib", None)
     monkeypatch.setattr(native_loader, "BUILD_DIR", str(tmp_path / "build"))

@@ -87,8 +87,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from a3t_tpu_torch.models import (A3TModelConfig, EncoderConfig,
                                       PWGConfig, build_model, build_vocoder)
     from a3t_tpu_torch.text import TokenIDConverter
+    from a3t_tpu_torch.data.multi_corpus import make_multi_corpus_train_step
     from a3t_tpu_torch.train import (create_train_state, make_eval_step,
                                      make_optimizer, make_train_step)
+    from a3t_tpu_torch.train.train_step import make_chained_train_step
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     enc = EncoderConfig(attention_dim=16, attention_heads=2, linear_units=16,
@@ -107,6 +109,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
                  lambda **kw: create_train_state(model, make_optimizer(),
                                                  **kw),
                  lambda **kw: make_train_step(model, fe, **kw),
+                 lambda **kw: make_train_step(model, None, **kw),
+                 lambda **kw: make_chained_train_step(model, fe, 2, **kw),
+                 lambda **kw: make_multi_corpus_train_step(
+                     model, {"a": fe}, {"a": True}, **kw),
                  lambda **kw: make_eval_step(model, fe, **kw),
                  lambda **kw: resolve_device(**kw)):
         with pytest.raises(RuntimeError, match="CUDA"):

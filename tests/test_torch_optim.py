@@ -114,10 +114,13 @@ def test_yaml_optim_and_unported_options():
     assert dataclasses.asdict(OPTIM_24K) == dataclasses.asdict(
         jo.OptimConfig(lr=1.0, model_size=384, warmup_steps=4000,
                        grad_clip=1.0))
-    with pytest.raises(NotImplementedError):
-        to.make_optimizer(to.OptimConfig(grad_noise_eta=0.1))
-    with pytest.raises(NotImplementedError):
-        to.make_optimizer(to.OptimConfig(accum_grad=2))
+    # gradient noise and accumulation are ported
+    # (tests/test_torch_optim_accum.py holds them against optax)
+    st = to.make_optimizer(to.OptimConfig(grad_noise_eta=0.1, accum_grad=2)
+                           ).init([torch.zeros(3), torch.zeros(2)])
+    assert st.acc_grads.shape == (5,) and int(st.mini_step) == 0
+    with pytest.raises(ValueError, match="accum_grad"):
+        to.make_optimizer(to.OptimConfig(accum_grad=0))
 
 
 def test_jax_optimizer_state_layout():

@@ -1,5 +1,5 @@
-"""Audio + phones + forced alignments over a Kaldi-style data directory: the
-port of ``a3t_tpu/data/dataset.py::A3TDataset`` (:123).
+"""Key-addressed datasets over Kaldi-style data directories: the port of
+``a3t_tpu/data/dataset.py``.
 
     <data_dir>/
         wav.scp       uttid -> wav path
@@ -8,24 +8,118 @@ port of ``a3t_tpu/data/dataset.py::A3TDataset`` (:123).
         mfa_end       uttid -> "0.34 0.55 ..."
         utt2spk       uttid -> speaker (optional)
 
-``speech_only=True`` reads ``wav.scp`` alone (speech-only pretraining
-corpora, the reference collate fn's branch without text,
-collate_fn.py:222-231): no phones, ``num_phones`` 0.  The JAX module's
-feature-source readers (HDF5, ``rand_float``, kaldi ark,
-``NamedSourceDataset``) are not ported (ROADMAP A7-rest).
+:class:`A3TDataset` is purpose-built for the A3T task (audio + phones +
+alignments); ``speech_only=True`` reads ``wav.scp`` alone (speech-only
+pretraining corpora, the reference collate fn's branch without text,
+collate_fn.py:222-231): no phones, ``num_phones`` 0.
+:class:`NamedSourceDataset` covers the generic case of the reference's
+ESPnetDataset (espnet2/train/dataset.py:273), over the loader types of
+:data:`LOADERS`.
 """
 
 from __future__ import annotations
 
 import os
 import wave
+import zlib
 from typing import Optional
 
 import numpy as np
 
-from a3t_tpu_torch.data.fileio import (SoundScpReader, load_num_sequence_text,
+from a3t_tpu_torch.data.fileio import (NpyScpReader, SoundScpReader,
+                                       load_num_sequence_text,
                                        read_2column_text)
 from a3t_tpu_torch.text import TokenIDConverter
+
+
+class _H5Reader:
+    """uid-keyed HDF5 file (reference DATA_TYPES 'hdf5', dataset.py:137);
+    h5py is imported when one is opened."""
+
+    def __init__(self, path: str):
+        import h5py
+
+        self.f = h5py.File(path, "r")
+
+    def keys(self):
+        return self.f.keys()
+
+    def __getitem__(self, uid: str) -> np.ndarray:
+        return np.asarray(self.f[uid])
+
+    def close(self):
+        self.f.close()
+
+    def __del__(self):
+        try:
+            self.f.close()
+        except Exception:
+            pass
+
+
+class _RandFloatReader:
+    """uid -> deterministic random float vector; the scp file maps
+    uid -> length (reference DATA_TYPES 'rand_float': dummy inputs).  The
+    seed is the uid's CRC-32, as in JAX, so both draw the same values."""
+
+    def __init__(self, path: str):
+        self.shapes = load_num_sequence_text(path, np.int64)
+
+    def keys(self):
+        return self.shapes.keys()
+
+    def __getitem__(self, uid: str) -> np.ndarray:
+        # stable across processes (builtin str hash is salted per interpreter)
+        rng = np.random.default_rng(zlib.crc32(uid.encode()))
+        return rng.standard_normal(tuple(self.shapes[uid])).astype(np.float32)
+
+
+def _kaldi_ark_loader(path):
+    from a3t_tpu_torch.data.kaldi_ark import KaldiArkReader
+
+    return KaldiArkReader(path)
+
+
+LOADERS = {
+    "sound": SoundScpReader,
+    "npy": NpyScpReader,
+    "text": read_2column_text,
+    "text_int": lambda p: load_num_sequence_text(p, np.int64),
+    "text_float": lambda p: load_num_sequence_text(p, np.float32),
+    "kaldi_ark": _kaldi_ark_loader,
+    "hdf5": _H5Reader,
+    "rand_float": _RandFloatReader,
+}
+
+
+class NamedSourceDataset:
+    """Generic dataset: {name: (path, loader_type)} -> per-utt dict over the
+    uids that every source holds."""
+
+    def __init__(self, sources: dict[str, tuple[str, str]]):
+        self.readers = {
+            name: LOADERS[typ](path) for name, (path, typ) in sources.items()
+        }
+        keysets = [set(r.keys()) for r in self.readers.values()]
+        self.uids = sorted(set.intersection(*keysets)) if keysets else []
+
+    def __len__(self):
+        return len(self.uids)
+
+    def __getitem__(self, uid: str) -> dict:
+        out = {}
+        for name, reader in self.readers.items():
+            v = reader[uid]
+            if isinstance(v, tuple):  # sound -> (fs, wave)
+                out[f"{name}_fs"], out[name] = v
+            else:
+                out[name] = v
+        return out
+
+    def close(self):
+        for reader in self.readers.values():
+            if hasattr(reader, "close"):
+                reader.close()
 
 
 class A3TDataset:

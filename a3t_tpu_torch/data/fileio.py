@@ -2,17 +2,18 @@
 
 The files a data directory holds (egs2/vctk/sedit/, dump/raw/{set}/):
 
-* ``wav.scp``       — ``uttid /path/to/file.wav``
+* ``wav.scp``       — ``uttid /path/to/file.wav`` (sound)
 * ``text``          — ``uttid PHN1 PHN2 ...``
 * ``mfa_start``     — ``uttid 0.12 0.31 ...`` (seconds per phone)
 * ``mfa_end``       — same
 * ``utt2spk``       — ``uttid spk``
+* ``feats.scp``-style npy pointers (npy)
 
-WAV is read with scipy.  FLAC is read only through the native decoder
-(``native/loader/flac.cc`` by way of :mod:`a3t_tpu_torch.data.native_loader`),
-mono only: the JAX package's pure-Python FLAC twin (``a3t_tpu/data/flac.py``),
-its fallback for multi-channel files and failed native decodes, is not
-ported (ROADMAP A7-rest), so those raise here.
+WAV is read with scipy.  FLAC is dispatched on the container magic, so scp
+entries may mix formats: mono files read as float go through the native
+decoder (``native/loader/flac.cc`` by way of
+:mod:`a3t_tpu_torch.data.native_loader`), multi-channel files and integer
+reads through the port's Python codec (:mod:`a3t_tpu_torch.data.flac`).
 """
 
 from __future__ import annotations
@@ -68,20 +69,30 @@ def flac_channels(path: str) -> int:
 
 
 def read_wav(path: str, always_float: bool = True) -> tuple[int, np.ndarray]:
-    """Read a PCM/float WAV or a mono FLAC; returns (fs, float32 in [-1, 1])
-    (or the WAV's own samples with ``always_float=False``).  Dispatches on
-    the container magic, so ``wav.scp`` entries may mix formats."""
+    """Read a PCM/float WAV or a FLAC; returns (fs, float32 in [-1, 1]), or
+    the file's own integer samples with ``always_float=False``.  A
+    multi-channel FLAC comes back as (n, ch), for ``to_mono`` to downmix.
+
+    Mono FLAC read as float goes to the native decoder, which emits channel
+    0 only; other FLAC goes to the Python decoder, as in JAX's ``read_wav``
+    (``a3t_tpu/data/fileio.py:70``).  One difference: where the native
+    decoder fails on a mono file, this raises, while JAX's tries the Python
+    decoder next; a broken build or a file that decoder rejects is not
+    hidden here.
+    """
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"fLaC":
-        if not always_float or flac_channels(path) != 1:
-            raise NotImplementedError(
-                f"{path}: only mono FLAC read as float is supported (the "
-                "native decoder); the Python FLAC decoder is not ported "
-                "(ROADMAP A7-rest)")
-        from a3t_tpu_torch.data.native_loader import read_file
+        if always_float and flac_channels(path) == 1:
+            from a3t_tpu_torch.data.native_loader import read_file
 
-        return read_file(path)
+            return read_file(path)
+        from a3t_tpu_torch.data.flac import read_flac
+
+        fs, data, bps = read_flac(path)
+        if always_float:
+            data = data.astype(np.float32) / float(1 << (bps - 1))
+        return fs, data
 
     from scipy.io import wavfile
 
@@ -114,6 +125,25 @@ class SoundScpReader:
 
     def __getitem__(self, key: str) -> tuple[int, np.ndarray]:
         return read_wav(self.data[key])
+
+    def __contains__(self, key):
+        return key in self.data
+
+    def __len__(self):
+        return len(self.data)
+
+    def keys(self) -> Iterator[str]:
+        return iter(self.data)
+
+
+class NpyScpReader:
+    """scp of .npy paths: reader[uttid] -> ndarray."""
+
+    def __init__(self, path: str):
+        self.data = read_2column_text(path)
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return np.load(self.data[key])
 
     def __contains__(self, key):
         return key in self.data

@@ -243,9 +243,12 @@ class CheckpointManager:
 
 def load_params(path: str) -> dict:
     """The parameters ``{name: tensor}`` (on the CPU) of a port checkpoint
-    file: an ``ave_*`` export's ``params``, or an epoch or mid-epoch
-    checkpoint's model state (BatchNorm statistics included).  It stands
-    where ``a3t_tpu.train.checkpoint.restore_portable`` does."""
+    file: an ``ave_*`` file's ``params``, or an epoch or mid-epoch
+    checkpoint's model state (BatchNorm statistics included); or of a
+    directory written by ``bin.export_params`` (its ``params.pt``).  It
+    stands where ``a3t_tpu.train.checkpoint.restore_portable`` does."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "params.pt")
     tree = _read(path)
     return tree["params"] if "params" in tree else tree["model"]
 

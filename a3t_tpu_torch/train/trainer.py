@@ -79,8 +79,8 @@ class TrainerConfig:
     max_walltime_sec: Optional[float] = None
     resubmit_command: Optional[str] = None
     # warm start, when there is nothing to resume, from the parameters of
-    # a port checkpoint file (ave_*.pt, epoch_N.pt; the reference's
-    # --init_param)
+    # a port checkpoint file (ave_*.pt, epoch_N.pt) or a bin.export_params
+    # directory (the reference's --init_param)
     init_params_dir: Optional[str] = None
     init_params_grow_vocab: bool = False
     init_params_allow_missing: bool = False

@@ -212,6 +212,25 @@ Phases, each printing its elapsed seconds:
    largest element) of a plain rule written here (the mean of the two
    gradients plus the noise drawn from SeedSequence([0, count]), clipped,
    Adam, Noam), computed in float32 as optax computes it.
+17. prep-chain: the data-preparation chain, in the same temporary
+   directory, each stage through its CLI's main(argv) on the card: a 48
+   kHz generate_mini_corpus of 12 + 4 utterances (one source rewritten as
+   a stereo FLAC, the oracle alignments dropped) -> bin.format_data (24 kHz
+   FLAC; every file decodes the same through the native decoder and
+   read_flac; validate_data_dir_fs) -> bin.align (8 iterations, the model
+   saved; one monotone span per phone) -> bin.tokenize_text (the recipe's
+   pinned vocabulary) -> bin.collect_stats (the count is the sum of
+   speech_shape's frames) -> bin.train at the 24 kHz yaml's full width in
+   fp32 with the chain's token list and GlobalMVN statistics, 4 steps
+   (finite, 8 K1 per train and eval step, 8 K2 per train step) ->
+   bin.export_params --dtype float32 (the trained parameters bit for bit)
+   -> a second bin.train warm-started from the export, whose parameters
+   before its step equal the export's bit for bit -> bin.sedit
+   reconstruct (the wav's length) and bin.mcd_gate over the validation
+   split (a finite MCD) -> python -m a3t_tpu_torch.recipes.mini at its toy
+   width; K1/K2 against their plain versions at the chain's bucket (fp32
+   and bf16, dropout 0 and 0.2).  Prints each stage's host seconds, the
+   steps' device times and the phase's launches.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -4087,6 +4106,281 @@ def train_options_phase(torch, np, fa, label, root, train, valid,
     return tuple(total), errs
 
 
+PREP_UTTS = (12, 4)  # training and validation utterances of the sources
+PREP_ITERS = 4  # full-width training steps on the chain's data
+PREP_ALIGN_ITERS = 8  # the aligner's EM iterations (the recipe's)
+PREP_PINS = ["--add-symbol", "<blank>:0", "--add-symbol", "<unk>:1",
+             "--add-symbol", "<sos/eos>:-1"]
+PREP_SETS: list = []  # extra bin.train overrides (a CPU rehearsal's widths)
+PREP_RECIPE = ["--epochs", "1"]
+
+
+def _prep_run(torch, np, fa, train_main, argv, what, label):
+    """bin.train on the chain's data: every step finite and not skipped, 8
+    K1 launches per train and eval step and 8 K2 per train step (per block
+    of a narrower rehearsal).  Returns (trainer, state, (K1, K2))."""
+    l1, l2 = fa.LAUNCHES, fa.LAUNCHES_BWD
+    t0 = time.perf_counter()
+    trainer, state = train_main(argv)
+    torch.cuda.synchronize()
+    n = (fa.LAUNCHES - l1, fa.LAUNCHES_BWD - l2)
+    steps = list(trainer.step_log)
+    n_steps = len(steps)
+    n_eval = len(trainer.valid_iter_factory.batcher.batch_plan(1))
+    cfg = state.model.config
+    blocks = cfg.encoder.num_blocks + cfg.decoder.num_blocks
+    dev = [r["device_ms"] for r in steps if "device_ms" in r]
+    log(f"  {what}: {n_steps} steps of {[(r['batch'], r['frames']) for r in steps]}"
+        f" and {n_eval} eval steps in {time.perf_counter() - t0:.2f} s, "
+        f"losses {[round(r['loss'], 3) for r in steps]}, device ms per step "
+        f"{[round(x, 2) for x in dev]}; K1 {n[0]}, K2 {n[1]} [{label}]")
+    check(all(np.isfinite(r["loss"]) for r in steps)
+          and int(state.opt_state.total_notfinite) == 0,
+          f"{what}: every step finite and not skipped")
+    check(n == (blocks * (n_steps + n_eval), blocks * n_steps),
+          f"{what}: {blocks} K1 launches per train and eval step, "
+          f"{blocks} K2 per train step")
+    return trainer, state, n
+
+
+def prep_chain_phase(torch, np, fa, label, root, device="cuda"):
+    """The data-preparation chain on a 48 kHz mini corpus (PREP_UTTS
+    utterances, one source rewritten as a stereo FLAC), each stage through
+    its CLI's main(argv): format_data (24 kHz FLAC), align, tokenize_text,
+    collect_stats, then bin.train at the yaml's full width on what they
+    wrote, export_params and a warm-started bin.train, bin.sedit
+    reconstruct and bin.mcd_gate on the experiment, and the mini recipe.
+    Returns the K1 and K2 launches of the main path (the training runs, the
+    CLIs and the recipe) and K1's and K2's largest float32 errors at the
+    chain's masks."""
+    import gc
+
+    from a3t_tpu_torch.bin import (align, collect_stats, export_params,
+                                   format_data, mcd_gate, sedit,
+                                   tokenize_text)
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.data import native_loader
+    from a3t_tpu_torch.data.dataset import A3TDataset
+    from a3t_tpu_torch.data.fileio import (load_num_sequence_text,
+                                           read_2column_text, read_wav,
+                                           write_2column_text)
+    from a3t_tpu_torch.data.flac import read_flac, write_flac
+    from a3t_tpu_torch.data.format_wav import validate_data_dir_fs
+    from a3t_tpu_torch.data.miniature import generate_mini_corpus
+    from a3t_tpu_torch.dsp import LogMelFrontend
+    from a3t_tpu_torch.recipes import mini
+    from a3t_tpu_torch.tasks.config import load_config
+    from a3t_tpu_torch.text import TokenIDConverter
+    from a3t_tpu_torch.train import trainer as trainer_mod
+    from a3t_tpu_torch.train.checkpoint import load_params
+
+    out = os.path.join(root, "prep")
+    seconds = {}
+
+    def stage(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    # the sources: 48 kHz, the oracle alignments dropped, one stereo FLAC
+    raw = os.path.join(out, "raw")
+    n_train, n_valid = PREP_UTTS
+    stage("sources", generate_mini_corpus, raw, n_train + n_valid, 48000)
+    for name in ("mfa_start", "mfa_end"):
+        os.remove(os.path.join(raw, name))
+    scp = read_2column_text(os.path.join(raw, "wav.scp"))
+    uids = sorted(scp)
+    fs, pcm = read_wav(scp[uids[1]], always_float=False)
+    scp[uids[1]] = os.path.join(raw, f"{uids[1]}_stereo.flac")
+    write_flac(scp[uids[1]], fs, np.stack([pcm, pcm // 2], axis=1))
+    write_2column_text(os.path.join(raw, "wav.scp"), scp)
+
+    fmt = os.path.join(out, "fmt")
+    report = stage("format_data", format_data.main, [
+        "--data-dir", raw, "--out", fmt, "--fs", "24000", "--audio-format",
+        "flac", "--expected-source-fs", "48000", "--device", device])
+    check(report == {"n_utts": len(uids), "target_fs": 24000,
+                     "source_fs_counts": {48000: len(uids)}},
+          f"format_data's report {report}")
+    formatted = read_2column_text(os.path.join(fmt, "wav.scp"))
+    for uid, path in formatted.items():
+        fs_n, native = native_loader.read_file(path)
+        fs_p, ints, bps = read_flac(path)
+        check(fs_n == fs_p == 24000 and ints.ndim == 1 and np.array_equal(
+            native, ints.astype(np.float32) / float(1 << (bps - 1))),
+            f"{uid}: the native decoder and read_flac give the same 24 kHz "
+            "mono samples")
+    validate_data_dir_fs(fmt, 24000)
+
+    model_path = os.path.join(out, "aligner.bin")
+    stage("align", align.main, [
+        "--data-dir", fmt, "--sample-rate", "24000", "--iters",
+        str(PREP_ALIGN_ITERS), "--save-model", model_path,
+        "--device", device])
+    os.replace(os.path.join(fmt, "mfa_text"), os.path.join(fmt, "text"))
+    texts = read_2column_text(os.path.join(fmt, "text"))
+    starts = load_num_sequence_text(os.path.join(fmt, "mfa_start"))
+    ends = load_num_sequence_text(os.path.join(fmt, "mfa_end"))
+    for uid in uids:
+        s, e = starts.get(uid), ends.get(uid)
+        n_ph = len(texts.get(uid, "").split())
+        check(s is not None and e is not None and n_ph == len(s) == len(e)
+              > 0 and bool((np.diff(s) >= 0).all() and (e >= s).all()),
+              f"{uid}: one span per phone, starts monotone, end >= start")
+
+    tokens = os.path.join(out, "tokens.txt")
+    stage("tokenize_text", tokenize_text.main, [
+        "-i", os.path.join(fmt, "text"), "-o", tokens, "--field", "2-",
+        "--write-vocabulary", *PREP_PINS, "--device", device])
+    conv = TokenIDConverter(tokens)
+    phones = sorted({p for t in texts.values() for p in t.split()})
+    check(conv.token_list[:2] == ["<blank>", "<unk>"]
+          and conv.token_list[-1] == "<sos/eos>"
+          and sorted(conv.token_list[2:-1]) == phones,
+          "the vocabulary: blank, unk, the phones, sos/eos")
+
+    # the training and validation splits of the formatted, aligned data
+    splits = {"train": uids[:n_train], "valid": uids[n_train:]}
+    for split, members in splits.items():
+        for name in ("wav.scp", "text", "mfa_start", "mfa_end", "utt2spk"):
+            table = read_2column_text(os.path.join(fmt, name))
+            write_2column_text(os.path.join(out, split, name),
+                               {u: table[u] for u in members})
+    train, valid = (os.path.join(out, s) for s in ("train", "valid"))
+
+    stats = os.path.join(out, "stats")
+    info = stage("collect_stats", collect_stats.main, [
+        "--config", CONFIG_24K, "--data-dir", train, "--out", stats,
+        "--device", device])
+    shapes = read_2column_text(os.path.join(stats, "speech_shape"))
+    z = np.load(os.path.join(stats, "feats_stats.npz"))
+    check(int(z["count"]) == info["count"] == sum(
+        int(v.split(",")[0]) for v in shapes.values())
+        and len(shapes) == n_train
+        and bool(np.isfinite(z["sum"]).all() and np.isfinite(z["sqsum"]).all()),
+        f"the statistics' count {int(z['count'])} is the sum of speech_shape's "
+        f"frames over {n_train} utterances, sums finite")
+    log(f"  chain: {len(uids)} sources ({n_train} train, {n_valid} valid), "
+        f"{len(phones)} phones, {int(z['count'])} training frames; host "
+        f"seconds per stage {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
+        f" [{label}]")
+
+    sets = (f"token_list={tokens}", "normalize=global_mvn",
+            f"stats_file={os.path.join(stats, 'feats_stats.npz')}",
+            "trainer.max_epoch=1", "trainer.keep_nbest_models=1", *PREP_SETS)
+    fa.reset_launches()
+    exp = os.path.join(out, "exp")
+    t0 = time.perf_counter()
+    trainer, state, _ = _prep_run(
+        torch, np, fa, train_main,
+        _train_argv(train, valid, exp, device, *sets,
+                    f"trainer.num_iters_per_epoch={PREP_ITERS}"),
+        "bin.train on the chain's data", label)
+    seconds["train"] = time.perf_counter() - t0
+    cfg = load_config(os.path.join(exp, "config.yaml"))
+    enc, dec = state.model.config.encoder, state.model.config.decoder
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"  model: d={enc.attention_dim}, {enc.num_blocks} + "
+        f"{dec.num_blocks} blocks, postnet {state.model.config.postnet_layers}"
+        f" x {state.model.config.postnet_chans}, {n_params / 1e6:.2f}M "
+        f"parameters, fp32; normalize {cfg.normalize}")
+    with open(os.path.join(exp, "tokens.txt"), "rb") as f, \
+            open(tokens, "rb") as g:
+        check(f.read() == g.read() and cfg.normalize == "global_mvn",
+              "bin.train took the chain's token list and statistics")
+    check(len(trainer.step_log) == PREP_ITERS, f"{PREP_ITERS} steps")
+    final = {k: v.detach().cpu().clone()
+             for k, v in state.model.named_parameters()}
+    batcher = trainer.train_iter_factory.batcher
+    att = next(m for m in state.model.modules() if hasattr(m, "d_k"))
+    h, d_k = att.h, att.d_k
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stash = os.path.join(out, "stash")
+    stage("export_params", export_params.main, [
+        "--exp", exp, "--out", stash, "--dtype", "float32",
+        "--device", device])
+    exported = load_params(stash)
+    check(sorted(exported) == sorted(final) and all(
+        torch.equal(exported[k], v) for k, v in final.items()),
+        "the float32 export holds the trained parameters bit for bit")
+    seen = {}
+    warm_start = trainer_mod.warm_start_params
+
+    def watched(model, path, **kw):
+        model = warm_start(model, path, **kw)
+        seen.update({k: v.detach().cpu().clone()
+                     for k, v in model.named_parameters()})
+        return model
+
+    trainer_mod.warm_start_params = watched
+    try:
+        t0 = time.perf_counter()
+        trainer, state, _ = _prep_run(
+            torch, np, fa, train_main,
+            _train_argv(train, valid, os.path.join(out, "warm"), device,
+                        *sets, "trainer.num_iters_per_epoch=1",
+                        f"trainer.init_params_dir={stash}"),
+            "bin.train warm-started from the export", label)
+        seconds["train_warm"] = time.perf_counter() - t0
+    finally:
+        trainer_mod.warm_start_params = warm_start
+    bad = [k for k in exported if not torch.equal(seen.get(k), exported[k])]
+    log(f"  warm start: {len(exported) - len(bad)} of {len(exported)} "
+        "parameters equal the export's bit for bit before the first step")
+    check(sorted(seen) == sorted(exported) and not bad,
+          "the warm start equals the export bit for bit")
+    del trainer, state, final, exported, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vtexts = read_2column_text(os.path.join(valid, "text"))
+    uid = max(sorted(vtexts), key=lambda u: len(vtexts[u].split()))
+    l1 = fa.LAUNCHES
+    res = stage("sedit", sedit.main, [
+        "reconstruct", "--exp-dir", exp, "--data-dir", valid, "--uid", uid,
+        "--new-text", mcd_gate.protocol_mask(vtexts[uid]), "--out",
+        os.path.join(out, "reconstruct.wav"), "--device", device])
+    blocks = enc.num_blocks + dec.num_blocks
+    check(fa.LAUNCHES - l1 == blocks,
+          f"sedit reconstruct: {fa.LAUNCHES - l1} K1 launches, {blocks} "
+          "expected")
+    _wav_length_check(np, res, A3TDataset(valid)[uid]["audio"],
+                      cfg.frontend.hop_length, 0, "sedit reconstruct")
+    l1 = fa.LAUNCHES
+    report = stage("mcd_gate", mcd_gate.main, [
+        "--exp-dir", exp, "--data-dir", valid, "--out",
+        os.path.join(out, "mcd"), "--device", device])
+    log(f"  sedit reconstruct {uid} ({len(vtexts[uid].split())} phones): "
+        f"spans {res.old_span_boundary} -> {res.new_span_boundary}; "
+        f"mcd_gate n={report['n']} mean MCD {report['mean_mcd']:.3f} dB "
+        f"(per utterance {json.dumps(report['per_utt'])})")
+    check(report["n"] == n_valid and np.isfinite(report["mean_mcd"])
+          and fa.LAUNCHES - l1 == blocks * n_valid,
+          f"mcd_gate: {n_valid} utterances, a finite MCD, {blocks} K1 "
+          "launches each")
+
+    result = stage("recipe", mini.main, [
+        "--workdir", os.path.join(out, "mini"), "--device", device,
+        *PREP_RECIPE])
+    check(np.isfinite(result["mean_mcd"]) and result["n"] > 0,
+          f"the mini recipe's MCD {result['mean_mcd']:.3f} over "
+          f"{result['n']} utterances is finite")
+    launches = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    log(f"  host seconds per stage {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
+        f"; the main path's launches K1 {launches[0]}, K2 {launches[1]} "
+        f"[{label}]")
+
+    fe = LogMelFrontend(cfg.frontend, device=device)
+    errs = trainer_kernel_check(torch, np, fa, batcher, h, d_k, fe)
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -4215,6 +4509,10 @@ def main() -> int:
                 torch, np, fa, label, root,
                 os.path.join(root, "data", "train"), valid)
 
+        with Phase("prep-chain"):
+            (prep_fwd, prep_bwd), prep_errs = prep_chain_phase(
+                torch, np, fa, label, root)
+
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -4222,16 +4520,18 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + sp_fwd + side_fwd + opt_fwd,
+        + cli_fwd + sp_fwd + side_fwd + opt_fwd + prep_fwd,
         "launches_serve_cli": cli_fwd,
         "launches_speaker_fs2": sp_fwd,
         "launches_side_train": side_fwd,
         "launches_train_options": opt_fwd,
+        "launches_prep_chain": prep_fwd,
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "max_abs_err_fs2_shapes": fs2_errs[0],
         "max_abs_err_tts_shapes": side_errs[0],
         "max_abs_err_speech_only_shapes": opt_errs[0],
+        "max_abs_err_prep_chain_shapes": prep_errs[0],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -4244,16 +4544,18 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
         "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd
-        + side_bwd + opt_bwd,
+        + side_bwd + opt_bwd + prep_bwd,
         "launches_serve_cli": cli_bwd,
         "launches_speaker_fs2": sp_bwd,
         "launches_side_train": side_bwd,
         "launches_train_options": opt_bwd,
+        "launches_prep_chain": prep_bwd,
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "max_abs_err_fs2_shapes": fs2_errs[1],
         "max_abs_err_tts_shapes": side_errs[1],
         "max_abs_err_speech_only_shapes": opt_errs[1],
+        "max_abs_err_prep_chain_shapes": prep_errs[1],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

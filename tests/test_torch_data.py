@@ -108,8 +108,9 @@ def test_native_loader_builds_into_the_port_and_decodes_like_scipy(corpora):
 
 
 def test_native_flac_decode_equals_jax_decoder(tmp_path, rng):
-    """FLAC is read only through the native decoder: mono files equal the
-    JAX package's Python decoder; multi-channel files raise."""
+    """Mono FLAC read through the native decoder equals the JAX package's
+    read; a multi-channel file goes to the port's Python decoder and comes
+    back as (n, ch), equal to JAX's."""
     from a3t_tpu.data.fileio import read_wav as jax_read_wav
     from a3t_tpu.data.flac import write_flac
 
@@ -122,8 +123,10 @@ def test_native_flac_decode_equals_jax_decoder(tmp_path, rng):
     np.testing.assert_array_equal(got, want)
     stereo = str(tmp_path / "s.flac")
     write_flac(stereo, 16000, np.stack([wav, wav], axis=1))
-    with pytest.raises(NotImplementedError, match="A7-rest"):
-        read_wav(stereo)
+    fs, got = read_wav(stereo)
+    want_fs, want = jax_read_wav(stereo)
+    assert fs == want_fs == 16000 and got.shape == (5000, 2)
+    np.testing.assert_array_equal(got, want)
 
 
 def _batchers(corpora, **cfg):

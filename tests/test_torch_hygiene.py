@@ -162,6 +162,32 @@ def test_training_entry_points_need_cuda_unless_asked_for_cpu(
     MLMTask.build(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("module,argv", [
+    ("format_data", ["--data-dir", "D", "--out", "O", "--fs", "24000"]),
+    ("align", ["--data-dir", "D"]),
+    ("tokenize_text", ["-i", "T", "-o", "O"]),
+    ("collect_stats", ["--config", "C", "--out", "O"]),
+    ("export_params", ["--exp", "E", "--out", "O"]),
+])
+def test_prep_clis_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path,
+                                                  module, argv):
+    """The data-preparation CLIs and the mini recipe default to cuda: without
+    a card they raise before they read or write anything."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    main = importlib.import_module(f"a3t_tpu_torch.bin.{module}").main
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv + extra)
+    from a3t_tpu_torch.recipes import mini
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mini.main(["--workdir", str(tmp_path / "w")])
+    assert os.listdir(tmp_path) == []
+
+
 def test_chip_smoke_refuses_to_run_without_cuda():
     """No card: a non-zero exit and no result line."""
     if torch.cuda.is_available():

@@ -74,6 +74,9 @@ class MultiHeadedAttention(nn.Module):
         self.linear_v = nn.Linear(d_model, d_model)
         self.linear_out = nn.Linear(d_model, d_model)
         self.dropout = SeededDropout(dropout_rate)
+        # called with the plain branch's float32 probabilities, before
+        # dropout (the attention plots; JAX sows them, attention.py:90-92)
+        self.capture = None
 
     def heads(self, linear, y):
         """A projection in the compute dtype, split into (..., H, d_k)."""
@@ -88,7 +91,10 @@ class MultiHeadedAttention(nn.Module):
         v = self.heads(self.linear_v, value)
         scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) \
             / math.sqrt(self.d_k)
-        attn = self.dropout(apply_attn_mask(scores, mask), generator)
+        attn = apply_attn_mask(scores, mask)
+        if self.capture is not None:
+            self.capture(attn.detach())
+        attn = self.dropout(attn, generator)
         out = torch.einsum("bhts,bshd->bthd", attn.to(v.dtype), v)
         return dense(self.linear_out, out.reshape(b, t, d_model), dt)
 
@@ -160,6 +166,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         matrix_ac = torch.einsum("bthd,bshd->bhts", q_u.float(), k.float())
         attn = apply_attn_mask((matrix_ac + matrix_bd) / math.sqrt(self.d_k),
                                mask)
+        if self.capture is not None:
+            self.capture(attn.detach())
         # the softmax stays float32; the probabilities are stored, dropped
         # and multiplied with v in the compute dtype
         attn = self.dropout(attn.to(v.dtype), generator)

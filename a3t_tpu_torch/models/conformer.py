@@ -5,11 +5,15 @@ rel-pos self-attention (the 24 kHz A3T block and the published conformer
 FastSpeech2), the "latest" rel-pos variant with its 2T-1 table
 (``rel_selfattn``), plain self-attention (``selfattn``, the transformer
 FastSpeech2) and, for the 16 kHz longformer block, sliding-window attention
-with global text tokens; macaron halves and the conv module are options.
-All are pre-LayerNorm, in float32 or bfloat16 compute.  Attention dilation
-and the chunked longformer path are not ported (ROADMAP A8).
-Module names follow ESPnet's EncoderLayer (conformer/encoder_layer.py) so
-state dicts map onto the JAX package's tree.
+with global text tokens (dilated or not, through the banded kernels or
+JAX's chunked einsums); macaron halves and the conv module are options.
+All blocks are pre-LayerNorm, in float32 or bfloat16 compute;
+``normalize_before: false`` drops only the stack's final LayerNorm, as in
+JAX (conformer.py:271).  ``remat`` recomputes each block in the backward
+pass and ``remat_attention`` the rel-pos self-attention alone
+(:func:`rematerialized`).  Module names follow ESPnet's EncoderLayer
+(conformer/encoder_layer.py) so state dicts map onto the JAX package's
+tree.
 
 Mixed precision follows flax's promotion: LayerNorms keep the float32
 stream, the attention projections, feed-forwards and conv module run in the
@@ -35,6 +39,7 @@ from a3t_tpu_torch.models.layers import (
     ConvolutionModule,
     MultiLayeredConv1d,
     PositionwiseFeedForward,
+    running_stats_frozen,
     sinusoidal_table,
 )
 from a3t_tpu_torch.models.windowed_attention import WindowedSelfAttention
@@ -42,6 +47,7 @@ from a3t_tpu_torch.models.windowed_attention import WindowedSelfAttention
 
 ATTENTION_KINDS = ("legacy_rel_selfattn", "rel_selfattn", "selfattn",
                    "longformer")
+POSITIONWISE_KINDS = ("conv1d", "conv1d_shifted", "linear")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +66,15 @@ class EncoderConfig:
     macaron_style: bool = True
     use_cnn_module: bool = True
     cnn_module_kernel: int = 7
-    positionwise_layer_type: str = "conv1d"  # "conv1d" | "linear"
+    # "conv1d" | "linear" | "conv1d_shifted" (JAX's lowering of conv1d as k
+    # shifted matmuls, the same parameters: here the same convolution)
+    positionwise_layer_type: str = "conv1d"
+    # JAX's lowering of the depthwise convolution as k shifted multiply-adds
+    # (the same parameters: here the same convolution)
+    cnn_module_shifted: bool = False
+    # the conv module's BatchNorm as flax's BatchNorm(dtype=compute dtype)
+    # instead of the float32 round trip (only with a compute dtype)
+    cnn_module_bn_compute_dtype: bool = False
     positionwise_conv_kernel_size: int = 3
     activation_type: str = "swish"
     # "legacy_rel_selfattn" | "rel_selfattn" | "selfattn" | "longformer"
@@ -75,6 +89,10 @@ class EncoderConfig:
     # speech-only pre-encoder blocks before the text concat (A3TMLMModel)
     pre_speech_layers: int = 0
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
+    # recompute each block in the backward pass (torch.utils.checkpoint)
+    remat: bool = False
+    # recompute only the rel-pos self-attention in the backward pass
+    remat_attention: bool = False
 
     @property
     def dtype(self):
@@ -85,18 +103,12 @@ class EncoderConfig:
         kind = self.selfattention_layer_type
         if kind not in ATTENTION_KINDS:
             raise ValueError(f"unknown attention kind {kind!r}")
-        if kind == "longformer" and self.attention_dilation != 1:
-            raise NotImplementedError(
-                "attention dilation is not ported (ROADMAP A8)")
-        if kind == "longformer" and not self.use_pallas_attention:
-            raise NotImplementedError(
-                "the chunked-einsum longformer path is not ported "
-                "(ROADMAP A8)")
+        if self.positionwise_layer_type not in POSITIONWISE_KINDS:
+            raise ValueError("unknown positionwise_layer_type "
+                             f"{self.positionwise_layer_type!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r} is not ported")
-        if not self.normalize_before:
-            raise NotImplementedError("post-LayerNorm stacks are not ported")
 
 
 def rel_pos_table(t: int, d_model: int) -> np.ndarray:
@@ -172,6 +184,45 @@ class AbsPosEncoding(nn.Module):
         return self.dropout(y, generator), None
 
 
+def rematerialized(fn, generator, *tensors):
+    """``fn(*tensors)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward pass instead of stored,
+    as flax's ``nn.remat`` does.  The recomputation must see the same
+    dropout masks and leave the step as it found it, so it starts from the
+    state the step's CPU ``generator`` had before the forward (checkpoint's
+    ``preserve_rng_state`` restores only the global generators, which no
+    dropout site here draws from), gives the generator back its state after
+    the forward, and leaves BatchNorm's running statistics alone, whose
+    second update ``nn.remat`` discards too."""
+    from torch.utils.checkpoint import checkpoint
+
+    before = None if generator is None else generator.get_state()
+    first = True
+
+    def run(*args):
+        nonlocal first
+        if first:
+            first = False
+            return fn(*args)
+        after = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(before)
+        try:
+            with running_stats_frozen():
+                return fn(*args)
+        finally:
+            if generator is not None:
+                generator.set_state(after)
+
+    return checkpoint(run, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _remat_on(module: nn.Module, flag: bool) -> bool:
+    """Rematerialise only where a backward pass will follow."""
+    return flag and module.training and torch.is_grad_enabled()
+
+
 class ConformerBlock(nn.Module):
     """x += 1/2 drop(ff_macaron(LN(x))); x += drop(attn(LN(x)));
     x += drop(conv(LN(x))); x += 1/2 drop(ff(LN(x))); x = LN(x).
@@ -179,7 +230,8 @@ class ConformerBlock(nn.Module):
     The attention is rel-pos MHA (legacy or latest), plain MHA
     (``selfattn``, which takes no positional table), or for ``longformer``
     windowed attention over ``[speech (n_frames) ; text]`` with a flat key
-    mask."""
+    mask.  ``remat_attention`` recomputes the rel-pos attention in the
+    backward pass (JAX applies it to that kind only, conformer.py:205-210)."""
 
     def __init__(self, c: EncoderConfig):
         super().__init__()
@@ -187,15 +239,13 @@ class ConformerBlock(nn.Module):
         d = c.attention_dim
 
         def positionwise():
-            if c.positionwise_layer_type == "conv1d":
-                return MultiLayeredConv1d(d, c.linear_units,
-                                          c.positionwise_conv_kernel_size,
-                                          c.dropout_rate, dtype=c.dtype)
             if c.positionwise_layer_type == "linear":
                 return PositionwiseFeedForward(d, c.linear_units,
                                                c.activation_type,
                                                c.dropout_rate, dtype=c.dtype)
-            raise NotImplementedError(c.positionwise_layer_type)
+            return MultiLayeredConv1d(d, c.linear_units,
+                                      c.positionwise_conv_kernel_size,
+                                      c.dropout_rate, dtype=c.dtype)
 
         self.macaron = c.macaron_style
         self.ff_scale = 0.5 if c.macaron_style else 1.0
@@ -204,10 +254,13 @@ class ConformerBlock(nn.Module):
             self.feed_forward_macaron = positionwise()
         self.norm_mha = nn.LayerNorm(d, eps=1e-5)
         self.kind = c.selfattention_layer_type
+        self.remat_attention = False
         if self.kind == "longformer":
             self.self_attn = WindowedSelfAttention(
                 d, c.attention_heads, c.attention_window,
-                c.attention_dropout_rate, dtype=c.dtype)
+                c.attention_dropout_rate, dtype=c.dtype,
+                dilation=c.attention_dilation,
+                use_banded=c.use_pallas_attention)
         elif self.kind == "selfattn":
             self.self_attn = MultiHeadedAttention(
                 d, c.attention_heads, c.attention_dropout_rate, dtype=c.dtype)
@@ -217,12 +270,13 @@ class ConformerBlock(nn.Module):
                 legacy=self.kind == "legacy_rel_selfattn",
                 use_flash=c.use_flash_attention,
                 dropout_rate=c.attention_dropout_rate, dtype=c.dtype)
+            self.remat_attention = c.remat_attention
         self.use_cnn = c.use_cnn_module
         if c.use_cnn_module:
             self.norm_conv = nn.LayerNorm(d, eps=1e-5)
-            self.conv_module = ConvolutionModule(d, c.cnn_module_kernel,
-                                                 c.activation_type,
-                                                 dtype=c.dtype)
+            self.conv_module = ConvolutionModule(
+                d, c.cnn_module_kernel, c.activation_type, dtype=c.dtype,
+                bn_compute_dtype=c.cnn_module_bn_compute_dtype)
             self.norm_final = nn.LayerNorm(d, eps=1e-5)
         self.norm_ff = nn.LayerNorm(d, eps=1e-5)
         self.feed_forward = positionwise()
@@ -243,6 +297,10 @@ class ConformerBlock(nn.Module):
                                flat_mask, generator)
         elif self.kind == "selfattn":
             h = self.self_attn(h, h, h, mask, generator)
+        elif _remat_on(self, self.remat_attention):
+            h = rematerialized(
+                lambda hh, pe, m: self.self_attn(hh, pe, m, generator),
+                generator, h, pos_emb, mask)
         else:
             h = self.self_attn(h, pos_emb, mask, generator)
         x = x + drop(h)
@@ -258,16 +316,25 @@ class ConformerBlock(nn.Module):
 class ConformerStack(nn.Module):
     """num_blocks ConformerBlocks + the final LayerNorm, which the
     speech-only pre-encoder leaves out (``apply_final_norm=False``,
-    transformer/encoder.py:547-548)."""
+    transformer/encoder.py:547-548) and so does ``normalize_before:
+    false``.  ``remat`` recomputes each block in the backward pass."""
 
     def __init__(self, c: EncoderConfig, apply_final_norm: bool = True):
         super().__init__()
         self.encoders = nn.ModuleList(ConformerBlock(c)
                                       for _ in range(c.num_blocks))
         self.after_norm = (nn.LayerNorm(c.attention_dim, eps=1e-5)
-                           if apply_final_norm else None)
+                           if apply_final_norm and c.normalize_before
+                           else None)
+        self.remat = c.remat
 
     def forward(self, x, pos_emb, mask, generator=None, n_frames=None):
         for block in self.encoders:
-            x = block(x, pos_emb, mask, generator, n_frames)
+            if _remat_on(self, self.remat):
+                x = rematerialized(
+                    lambda xx, pe, m, blk=block: blk(xx, pe, m, generator,
+                                                     n_frames),
+                    generator, x, pos_emb, mask)
+            else:
+                x = block(x, pos_emb, mask, generator, n_frames)
         return x if self.after_norm is None else self.after_norm(x)

@@ -14,7 +14,9 @@ running statistics (the JAX package's ``use_running_average=True``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -83,23 +85,66 @@ def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
                         training=False, eps=bn.eps)
 
 
-def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """flax ``BatchNorm(use_running_average=False, momentum=0.9)`` over
-    (B, C, T) or (B, C, H, W): batch statistics over every axis but C,
-    padding included, with flax's variance E[x^2] - E[x]^2 (clipped at 0,
-    biased); the running statistics move by ``ra = 0.9 * ra + 0.1 * batch``
-    with that biased variance, where torch's own BatchNorm would use the
-    unbiased one."""
-    x = x.float()
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Within this context (in this thread) BatchNorm in training mode
+    normalises with batch statistics but leaves its running statistics as
+    they are: the recomputation of a rematerialised block, whose update
+    flax's ``nn.remat`` discards."""
+    before = getattr(_FROZEN, "on", False)
+    _FROZEN.on = True
+    try:
+        yield
+    finally:
+        _FROZEN.on = before
+
+
+def _batch_stats(bn: nn.BatchNorm1d, x: torch.Tensor):
+    """flax's batch statistics of a float32 ``x`` over every axis but C,
+    padding included: the mean and the variance E[x^2] - E[x]^2 (clipped at
+    0, biased); the running statistics move by ``ra = 0.9 * ra + 0.1 *
+    batch`` with that biased variance, where torch's own BatchNorm would use
+    the unbiased one."""
     dims = (0,) + tuple(range(2, x.dim()))
     mean = x.mean(dim=dims)
     var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
-    with torch.no_grad():
-        bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-        bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+    if not getattr(_FROZEN, "on", False):
+        with torch.no_grad():
+            bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+            bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+    return mean, var
+
+
+def _normalize(bn: nn.BatchNorm1d, x: torch.Tensor, mean, var):
     shape = (-1,) + (1,) * (x.dim() - 2)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+
+
+def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False, momentum=0.9)`` over
+    (B, C, T) or (B, C, H, W) in float32 (:func:`_batch_stats`)."""
+    x = x.float()
+    return _normalize(bn, x, *_batch_stats(bn, x))
+
+
+def batch_norm_compute_dtype(bn: nn.BatchNorm1d, x: torch.Tensor
+                             ) -> torch.Tensor:
+    """flax 0.12's ``BatchNorm(dtype=x.dtype)`` on a compute-dtype ``x``
+    (the JAX conv module's ``bn_compute_dtype``, layers.py:216-220): the
+    statistics are reduced from one float32 copy of ``x``; the normalisation
+    promotes ``x`` against the float32 mean by a second copy, runs in float32
+    and rounds to ``x``'s dtype.  The values equal the float32 round trip's;
+    the gradient does not, since the two copies' gradients reach ``x``
+    rounded to its dtype one by one and are summed there, where the round
+    trip sums them in float32 first.  Running statistics stay float32."""
+    if not bn.training:
+        return batch_norm_eval(bn, x.float()).to(x.dtype)
+    mean, var = _batch_stats(bn, x.float())
+    return _normalize(bn, x.float(), mean, var).to(x.dtype)
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -128,7 +173,8 @@ class PositionwiseFeedForward(nn.Module):
 class MultiLayeredConv1d(nn.Module):
     """Two same-padded Conv1d with ReLU and dropout between (FastSpeech
     position-wise layer, espnet multi_layer_conv.py), in the compute
-    ``dtype`` (None: float32)."""
+    ``dtype`` (None: float32).  JAX's ``conv1d_shifted`` lowering has the
+    same parameters and is this module."""
 
     def __init__(self, d: int, hidden: int, kernel_size: int,
                  dropout_rate: float = 0.0, dtype=None):
@@ -150,10 +196,13 @@ class ConvolutionModule(nn.Module):
     BatchNorm (eps 1e-5) -> activation -> pointwise.  The convolutions, the
     GLU and the activation run in the compute ``dtype`` (None: float32);
     BatchNorm in a float32 round trip (the JAX module's shipped
-    ``bn_compute_dtype=False``)."""
+    ``bn_compute_dtype=False``) or, with ``bn_compute_dtype`` and a compute
+    dtype, as flax's ``BatchNorm(dtype=...)`` does
+    (:func:`batch_norm_compute_dtype`).  JAX's ``shifted`` lowering of the
+    depthwise convolution has the same parameters and is this module."""
 
     def __init__(self, d: int, kernel_size: int, activation: str = "swish",
-                 dtype=None):
+                 dtype=None, bn_compute_dtype: bool = False):
         super().__init__()
         self.pointwise_conv1 = nn.Conv1d(d, 2 * d, 1)
         self.depthwise_conv = nn.Conv1d(d, d, kernel_size,
@@ -162,15 +211,19 @@ class ConvolutionModule(nn.Module):
         self.pointwise_conv2 = nn.Conv1d(d, d, 1)
         self.act = ACTIVATIONS[activation]
         self.dtype = dtype
+        self.bn_compute_dtype = bn_compute_dtype
 
     def forward(self, x):
         dt = self.dtype
         h = conv1d(self.pointwise_conv1, x.transpose(1, 2), dt)
         a, g = h.chunk(2, dim=1)
         h = conv1d(self.depthwise_conv, a * torch.sigmoid(g), dt)
-        h = batch_norm(self.norm, h.float())
-        if dt is not None:
-            h = h.to(dt)
+        if self.bn_compute_dtype and dt is not None:
+            h = batch_norm_compute_dtype(self.norm, h)
+        else:
+            h = batch_norm(self.norm, h.float())
+            if dt is not None:
+                h = h.to(dt)
         return conv1d(self.pointwise_conv2, self.act(h), dt).transpose(1, 2)
 
 

@@ -5,14 +5,8 @@ field names: ``load_config(path, overrides)`` <-> ``save_config(cfg,
 path)``, and ``--set a.b.c=value`` overrides.  YAML is read and written by
 :mod:`a3t_tpu_torch.tasks.yaml_subset`, not PyYAML, and resolves scalars as
 ``yaml.safe_load`` does, overrides included.  Unknown keys raise
-``KeyError``.
-
-Four keys of the JAX ``EncoderConfig`` have no field here
-(``a3t_tpu/models/conformer.py:58-95``): ``cnn_module_shifted``, ``remat``
-and ``remat_attention`` are lowering and memory knobs that leave the
-numerics as they are, so the loader accepts them either way (and logs one
-line when one is on); ``cnn_module_bn_compute_dtype`` changes the numerics,
-so ``true`` is refused.
+``KeyError``, and a boolean field given anything but ``true`` or ``false``
+raises ``ValueError``.
 
 The shipped configurations also stand here as constants (front-end, model
 with its dropout rates, optimizer), equal to what ``load_config`` gives for
@@ -22,7 +16,6 @@ with its dropout rates, optimizer), equal to what ``load_config`` gives for
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import typing
 from typing import Any, Optional
@@ -35,9 +28,6 @@ from a3t_tpu_torch.models.pwg import PWGConfig
 from a3t_tpu_torch.tasks import yaml_subset
 from a3t_tpu_torch.train.optim import OptimConfig
 from a3t_tpu_torch.train.trainer import TrainerConfig
-
-logger = logging.getLogger("a3t_tpu_torch")
-
 
 @dataclasses.dataclass
 class MeshConfig:
@@ -79,30 +69,6 @@ class A3TTaskConfig:
     use_fused_frontend: bool = True
 
 
-# EncoderConfig keys of the JAX package without a field here
-_NUMERICS_NEUTRAL = ("cnn_module_shifted", "remat", "remat_attention")
-_REFUSED_IF_TRUE = "cnn_module_bn_compute_dtype"
-
-
-def _drop_jax_only(data: dict, where: str) -> list[str]:
-    """Remove the JAX-only EncoderConfig keys from ``data``; returns those
-    that were on.  Raises for anything the port cannot honour."""
-    on = []
-    for k in (*_NUMERICS_NEUTRAL, _REFUSED_IF_TRUE):
-        if k not in data:
-            continue
-        v = data.pop(k)
-        if not isinstance(v, bool):
-            raise ValueError(f"{where}.{k}: expected true or false, got {v!r}")
-        if v and k == _REFUSED_IF_TRUE:
-            raise NotImplementedError(
-                f"{where}.{k}: true (BatchNorm in the compute dtype) changes "
-                "the numerics and is not ported (ROADMAP A2)")
-        if v:
-            on.append(f"{where}.{k}")
-    return on
-
-
 def _nested_type(cls, name: str) -> Optional[type]:
     """The dataclass type of field ``name`` of ``cls`` (Optional unwrapped),
     or None."""
@@ -113,24 +79,23 @@ def _nested_type(cls, name: str) -> Optional[type]:
     return t if dataclasses.is_dataclass(t) else None
 
 
-def _build(cls, data: Any, where: str, knobs_on: list):
+def _build(cls, data: Any, where: str):
     """Build the dataclass ``cls`` from a plain dict, recursively; lists
     become tuples."""
     if data is None:
         return cls()
     if not isinstance(data, dict):
         raise TypeError(f"{where}: expected a mapping, got {data!r}")
-    data = dict(data)
-    if cls is EncoderConfig:
-        knobs_on += _drop_jax_only(data, where)
-    fields = {f.name for f in dataclasses.fields(cls)}
+    fields = {f.name: f for f in dataclasses.fields(cls)}
     kwargs = {}
     for k, v in data.items():
         if k not in fields:
             raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        if isinstance(fields[k].default, bool) and not isinstance(v, bool):
+            raise ValueError(f"{where}.{k}: expected true or false, got {v!r}")
         target = _nested_type(cls, k)
         if target is not None and isinstance(v, dict):
-            v = _build(target, v, f"{where}.{k}", knobs_on)
+            v = _build(target, v, f"{where}.{k}")
         elif isinstance(v, list):
             v = tuple(v)
         kwargs[k] = v
@@ -138,13 +103,7 @@ def _build(cls, data: Any, where: str, knobs_on: list):
 
 
 def config_from_dict(data: dict) -> A3TTaskConfig:
-    knobs_on: list[str] = []
-    cfg = _build(A3TTaskConfig, data, "config", knobs_on)
-    if knobs_on:
-        logger.info("config: %s on in the JAX package; a lowering or memory "
-                    "choice with the same numerics, dropped by the port",
-                    ", ".join(knobs_on))
-    return cfg
+    return _build(A3TTaskConfig, data, "config")
 
 
 def load_config(path: str, overrides: Optional[list[str]] = None

@@ -248,7 +248,7 @@ class FS2TaskConfig:
 
 
 def fs2_config_from_dict(data: dict) -> FS2TaskConfig:
-    return _build(FS2TaskConfig, data, "config", [])
+    return _build(FS2TaskConfig, data, "config")
 
 
 def load_fs2_config(path: str, overrides: Optional[list[str]] = None

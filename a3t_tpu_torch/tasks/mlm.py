@@ -21,9 +21,10 @@ speaker-conditioned model (``model.spemb_dim > 0``) takes its batches'
 x-vectors from :meth:`MLMTask._build_spemb_map`.  The duration-aware
 variant (``model.duration_predictor_layers > 0``) trains through
 ``make_tts_train_step`` on batches with ``duration_collect`` on (training
-batches only, as in JAX).  Not ported, each raising with its ROADMAP item:
-per-epoch plots (``num_plot_examples``, A7-rest) and meshes of more than
-one device (A10).
+batches only, as in JAX).  ``num_plot_examples > 0`` with a validation
+set writes per-epoch mel and attention plots of the validation set's first
+batch to ``exp_dir/plots`` (``train/plots.py``).  Not ported, and raising
+with its ROADMAP item: meshes of more than one device (A10).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
 from a3t_tpu_torch.text import TokenIDConverter, build_token_list
 from a3t_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from a3t_tpu_torch.train.optim import make_optimizer
+from a3t_tpu_torch.train.plots import make_attention_plot_fn, make_mel_plot_fn
 from a3t_tpu_torch.train.train_step import (TrainState, create_train_state,
                                             make_chained_train_step,
                                             make_eval_step, make_train_step,
@@ -61,19 +63,23 @@ from a3t_tpu_torch.train.trainer import Trainer
 logger = logging.getLogger("a3t_tpu_torch")
 
 
+def _peek_batch(factory, epoch: int = 0):
+    """The first batch of an epoch, releasing the iterator's prefetch
+    queue (JAX tasks/mlm.py:43-50)."""
+    it = factory(epoch)
+    batch = next(iter(it))
+    if hasattr(it, "close"):
+        it.close()
+    return batch
+
+
 def check_supported(cfg: A3TTaskConfig) -> None:
     """Raise for what the port's task does not do yet."""
-    refused = [
-        (cfg.num_plot_examples > 0, "per-epoch plots (num_plot_examples)",
-         "A7-rest"),
-        (cfg.mesh.data_parallel not in (None, 1)
-         or cfg.mesh.tensor_parallel != 1 or cfg.mesh.sequence_parallel != 1,
-         "a mesh of more than one device", "A10"),
-    ]
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported (ROADMAP {item})")
+    m = cfg.mesh
+    if m.data_parallel not in (None, 1) or m.tensor_parallel != 1 \
+            or m.sequence_parallel != 1:
+        raise NotImplementedError(
+            "a mesh of more than one device is not ported (ROADMAP A10)")
 
 
 class MLMTask:
@@ -287,6 +293,19 @@ class MLMTask:
             except ImportError:  # wandb is optional
                 logger.warning("wandb unavailable; skipping")
 
+        plot_fn = None
+        if cfg.num_plot_examples > 0 and valid_factory is not None:
+            plot_batch = _peek_batch(valid_factory)
+            plot_dir = os.path.join(cfg.exp_dir, "plots")
+            plot_fns = (
+                make_mel_plot_fn(fe, normalizer, plot_batch, plot_dir,
+                                 n_examples=cfg.num_plot_examples),
+                make_attention_plot_fn(fe, normalizer, plot_batch, plot_dir,
+                                       n_examples=cfg.num_plot_examples))
+
+            def plot_fn(state, epoch):
+                return [f(state, epoch) for f in plot_fns]
+
         trainer = Trainer(
             trainer_cfg,
             train_step,
@@ -299,6 +318,7 @@ class MLMTask:
                               criterion=cfg.trainer.best_model_criterion),
             tensorboard_writer=tb_writer,
             wandb_run=wandb_run,
+            plot_fn=plot_fn,
         )
         return trainer, state
 
@@ -315,7 +335,7 @@ class MLMTask:
             entry = dict(entry)
             name = entry["name"]
             fe_cfg = (_build(LogMelConfig, entry["frontend"],
-                             f"corpora.{name}.frontend", [])
+                             f"corpora.{name}.frontend")
                       if entry.get("frontend") else cfg.frontend)
             so = bool(entry.get("speech_only", False))
             ds = A3TDataset(entry["data_dir"], conv, speech_only=so)

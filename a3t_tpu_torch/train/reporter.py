@@ -6,8 +6,8 @@ log lines, answers best-epoch queries for checkpoint retention, and holds
 its history in plain dicts so that it serializes as JSON beside the
 checkpoints.  Statistics arrive as host numbers: the trainer moves a run of
 steps' device statistics to the host in one copy before registering them.
-TensorBoard emission is optional.  ``Reporter.plot`` (matplotlib curves) is
-not ported (ROADMAP A7-rest).
+TensorBoard emission is optional.  ``Reporter.plot`` writes one matplotlib
+curve per metric, importing matplotlib inside the method, as JAX does.
 """
 
 from __future__ import annotations
@@ -125,6 +125,38 @@ class Reporter:
                              mode: str = "min") -> bool:
         best = self.best_epoch(phase, key, mode)
         return best is not None and (self.epoch - best) > patience
+
+    def plot(self, out_dir: str):
+        """Write per-metric matplotlib curves (reporter.py:500-546)."""
+        import os
+
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        os.makedirs(out_dir, exist_ok=True)
+        keys = {
+            (phase, k)
+            for h in self.history.values()
+            for phase, stats in h.items()
+            for k in stats
+        }
+        metrics = sorted({k for _, k in keys})
+        for metric in metrics:
+            fig, ax = plt.subplots()
+            for phase in sorted({p for p, k in keys if k == metric}):
+                xs = sorted(
+                    e for e, h in self.history.items()
+                    if phase in h and metric in h[phase])
+                ys = [self.history[e][phase][metric] for e in xs]
+                if xs:
+                    ax.plot(xs, ys, label=phase)
+            ax.set_xlabel("epoch")
+            ax.set_ylabel(metric)
+            ax.legend()
+            fig.savefig(os.path.join(out_dir, f"{metric}.png"))
+            plt.close(fig)
 
     # -- (de)serialization ----------------------------------------------
     def state_dict(self) -> dict:

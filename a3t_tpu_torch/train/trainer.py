@@ -32,8 +32,10 @@ mid-epoch resume, which saves and skips whole groups, lands on a group's
 edge.  A step-log record then covers the group (``steps`` sub-steps).  A
 mid-epoch checkpoint records k; one saved under another k is not resumed
 (the run keeps its epoch restore, with a warning).  Batches of the
-multi-corpus factory come as ``(corpus name, batch)``.  Per-epoch plots
-are not ported (ROADMAP A7-rest).
+multi-corpus factory come as ``(corpus name, batch)``.  ``plot_fn(state,
+epoch)``, when given, runs after each epoch's validation (the per-epoch
+plots of ``train/plots.py``); an exception in it is logged, not raised, as
+in JAX: plots must never stop training.
 """
 
 from __future__ import annotations
@@ -127,6 +129,7 @@ class Trainer:
         tensorboard_writer=None,
         wandb_run=None,
         batch_shape: Callable = batch_shape,
+        plot_fn: Optional[Callable] = None,
     ):
         self.config = config
         self.train_step = train_step
@@ -135,6 +138,7 @@ class Trainer:
         self.valid_iter_factory = valid_iter_factory
         self.ckpt = checkpoint_manager
         self.batch_shape = batch_shape
+        self.plot_fn = plot_fn
         self.reporter = Reporter()
         self.tb = tensorboard_writer
         self.wandb = wandb_run
@@ -192,6 +196,11 @@ class Trainer:
                 break
             if self.valid_iter_factory is not None and self.eval_step:
                 self.validate_one_epoch(state, epoch)
+            if self.plot_fn is not None:
+                try:
+                    self.plot_fn(state, epoch)
+                except Exception:  # plots must never kill training
+                    logger.exception("plot_fn failed at epoch %d", epoch)
             self.reporter.finish_epoch(self.tb, self.wandb)
             logger.info(self.reporter.log_message())
             if self.ckpt is not None:

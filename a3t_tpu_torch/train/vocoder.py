@@ -50,6 +50,12 @@ from a3t_tpu_torch.models.pwg import (ParallelWaveGANGenerator, PWGConfig,
                                       PWGDiscriminator, init_parameters)
 from a3t_tpu_torch.train.optim import AdamState, ClipAdam
 
+# the JAX package's trained 16 kHz vocoder (artifacts/vocoder) in the
+# port's form: state.pt, vocoder.json and check.npz (a mel, JAX's noise and
+# JAX's wav for them)
+TRAINED_16K = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "weights", "vocoder_16k")
+
 # (n_fft, hop, win) of the upstream MultiResolutionSTFTLoss defaults
 # (parallel_wavegan stft_loss.py), the published vocoders' objective
 STFT_RESOLUTIONS: tuple = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
@@ -360,13 +366,15 @@ def load_vocoder(out_dir: str, device=None):
     to a multiple of 64 and normalised by ``vocoder.json``'s statistics;
     the noise ``z`` (B, F_pad * hop) is drawn from a generator seeded with
     0 in every call unless given.  A directory without ``state.pt`` (the
-    JAX package's orbax ``state/``) raises."""
+    JAX package's orbax ``state/``) raises; the trained 16 kHz vocoder of
+    ``artifacts/vocoder`` is in the port's form in ``TRAINED_16K``."""
     dev = resolve_device(device)
     state_path = os.path.join(out_dir, "state.pt")
     if not os.path.exists(state_path):
         raise NotImplementedError(
             f"{out_dir} holds no state.pt: a vocoder directory of the JAX "
-            "package (orbax) cannot be read by the port (ROADMAP A2)")
+            "package (orbax) cannot be read by the port (ROADMAP A2); the "
+            f"trained 16 kHz vocoder is converted in {TRAINED_16K}")
     with open(os.path.join(out_dir, "vocoder.json")) as f:
         meta = json.load(f)
     names = {f.name for f in dataclasses.fields(PWGConfig)}

@@ -2,7 +2,7 @@
 """Drive the PyTorch port (a3t_tpu_torch) end to end on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --chunked-step   # the measurement of PERF.md §7
+    python3 chip_smoke.py --model-options   # the build and phase 18 alone
 
 Phases, each printing its elapsed seconds:
 
@@ -231,6 +231,35 @@ Phases, each printing its elapsed seconds:
    width; K1/K2 against their plain versions at the chain's bucket (fp32
    and bf16, dropout 0 and 0.2).  Prints each stage's host seconds, the
    steps' device times and the phase's launches.
+18. model-options: the last single-device options, in the same temporary
+   directory.  (a) configs/a3t_longformer_16k.yaml with attention_dilation
+   2 on train-longformer's batch (its pre-encoder dilated too, with no text
+   keys): a dropout-0 step's gradients through K3-K5 against their plain
+   versions leaf by leaf, 2 warm-up and 5 timed steps at the yaml's dropout
+   (6 launches of each kernel a step, peak memory), K3-K5 at the dilated
+   shape (8, 2, 4096, 192) against their plain versions with times beside
+   them, SDPA's and the bounds; then bin.train with
+   --set model.encoder.attention_dilation=2 for 4 steps on a generated 16
+   kHz corpus of whole 1024- and 2048-frame batches.  (b) The chunked path
+   (use_pallas_attention: false) at full width, a dropout-0 step at
+   dilation 1 (its grad_norm beside PR 6's reading through JAX's formula)
+   and 2, no banded kernel launched, and the module against
+   chunked_attention at (4, 2, 8192, 192) in fp32.  (c) The encoder knobs
+   on the 24 kHz bf16 step (bench_batch): remat and remat_attention against
+   the plain step at dropout 0.2, bit for bit in deterministic mode and
+   within TOL_GRADS_BF16_24K otherwise (gradients, BatchNorm statistics,
+   the generator's state), their step times and peak memory (K1 launched
+   twice a block: the forward and its recomputation);
+   cnn_module_bn_compute_dtype, normalize_before false, conv1d_shifted and
+   cnn_module_shifted one step each, the shifted ones' eval outputs bit for
+   bit those of conv1d.  (d) bin.train on the trainer's corpus for one
+   epoch of 2 steps with num_plot_examples=2: the plot arrays on the card,
+   each attention row summing to 1, rendered where matplotlib imports.  (e)
+   The trained 16 kHz vocoder (a3t_tpu_torch/weights/vocoder_16k) on
+   check.npz's mel and JAX's noise against JAX's wav, ms per call and RTF.
+   (f) The LJSpeech and VCTK recipes on tiny corpora in the sources'
+   layouts: every split at the target rate, one span per phone.  Prints
+   each part's seconds and the phase's K1-K5 launches.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -788,7 +817,9 @@ def chunked_attention(torch, q, k, v, kt, vt, txm, spm, window: int):
     """The JAX package's other formula for the same attention, its
     chunked-einsum path (windowed_attention.py:147-177), in float32: phantom
     edge neighbours are zeros, masked scores the float32 minimum, and no
-    stand-in text block.  A measurement, not part of the port."""
+    stand-in text block.  Written here apart from the port, as the oracle
+    that the port's chunked path (use_pallas_attention: false) is held
+    against."""
     b, h, t, d = q.shape
     c = window // 2
     nc = t // c
@@ -1805,42 +1836,6 @@ def longformer_grad_check(torch, ba, cfg0, fe, batch, tol: float,
     return worst
 
 
-def chunked_step(torch, np, ba, device="cuda"):
-    """Measurement of PERF.md §7 (``--chunked-step``, not part of the smoke
-    run): the longformer step at dropout 0 through K3-K5 and the same step
-    with the attention of JAX's chunked formula, which the JAX package runs
-    off the TPU; the two differ only on the padded query rows whose every
-    key is masked."""
-    import a3t_tpu_torch.models.windowed_attention as wa
-    from a3t_tpu_torch.tasks.config import OPTIM_24K
-    from a3t_tpu_torch.train import (create_train_state, make_optimizer,
-                                     make_train_step)
-
-    batch, fe, _, cfg0 = _longformer_setup(torch, np, device)
-
-    def chunked(q, k, v, kt, vt, text_mask, window, speech_mask,
-                dropout_rate, seed):
-        return chunked_attention(torch, q, k, v, kt, vt, text_mask.int(),
-                                 speech_mask.int(), window)[0].to(q.dtype)
-
-    stats = []
-    for attention in (wa.banded_attention, chunked):
-        model = _dropout0_model(cfg0, device)
-        state = create_train_state(model, make_optimizer(OPTIM_24K),
-                                   device=device)
-        wa.banded_attention, banded = attention, wa.banded_attention
-        try:
-            _, st = make_train_step(model, fe, device=device)(state, batch, 0)
-        finally:
-            wa.banded_attention = banded
-        stats.append((float(st["loss"]), float(st["grad_norm"])))
-        del model, state, st
-    log(f"  longformer step at dropout 0: through K3/K4/K5 loss "
-        f"{stats[0][0]:.7g}, grad_norm {stats[0][1]:.7g}; through JAX's "
-        f"chunked formula loss {stats[1][0]:.7g}, grad_norm "
-        f"{stats[1][1]:.7g}")
-
-
 def train_longformer_phase(torch, np, ba, wall_time, label, device="cuda"):
     """make_train_step of configs/a3t_longformer_16k.yaml at full width and
     depth, bf16, on the yaml's largest bucket: 4 utterances of 8192 frames
@@ -1984,11 +1979,11 @@ TRAIN_FILL = ((256, 2 * 146), (512, 2 * 73))  # (bucket frames, utterances)
 ITERS = 4  # steps per epoch of the runs held against each other: one pass
 
 
-def _gen_shard(out_dir, n_utts, seed, fs=24000):
+def _gen_shard(out_dir, n_utts, seed, fs=24000, phones=PHONES):
     from a3t_tpu_torch.data.miniature import generate_speechlike_corpus
 
     generate_speechlike_corpus(out_dir, n_utts=n_utts, n_speakers=8,
-                               fs=fs, n_phones_range=PHONES, seed=seed,
+                               fs=fs, n_phones_range=phones, seed=seed,
                                speaker_seed=0)
 
 
@@ -2001,28 +1996,29 @@ def _n_frames(path, hop=HOP_24K):
 
 
 def make_corpus(root, fs=24000, hop=HOP_24K, fill=TRAIN_FILL,
-                shards=TRAIN_SHARDS, valid_utts=VALID_UTTS, seed=0):
-    """(train_dir, valid_dir, seconds, bytes): the shards (seeds ``seed``,
-    ``seed + 1``, ...) generated in parallel processes, then merged into
-    one data directory (uids prefixed by shard) that keeps ``fill``'s
-    utterances of each bucket; with ``valid_utts`` 0 no validation split
-    (valid_dir None)."""
+                shards=TRAIN_SHARDS, valid_utts=VALID_UTTS, seed=0,
+                phones=PHONES, shard_utts=SHARD_UTTS):
+    """(train_dir, valid_dir, seconds, bytes): the shards of ``shard_utts``
+    utterances of ``phones`` phones (seeds ``seed``, ``seed + 1``, ...)
+    generated in parallel processes, then merged into one data directory
+    (uids prefixed by shard) that keeps ``fill``'s utterances of each
+    bucket; with ``valid_utts`` 0 no validation split (valid_dir None)."""
     import multiprocessing
 
     from a3t_tpu_torch.data.fileio import (read_2column_text,
                                            write_2column_text)
 
     t0 = time.perf_counter()
-    jobs = [(os.path.join(root, f"shard{k}"), SHARD_UTTS, seed + k, fs)
-            for k in range(shards)]
+    jobs = [(os.path.join(root, f"shard{k}"), shard_utts, seed + k, fs,
+             phones) for k in range(shards)]
     valid = os.path.join(root, "valid") if valid_utts else None
     if valid:
-        jobs.append((valid, valid_utts, 100, fs))
+        jobs.append((valid, valid_utts, 100, fs, phones))
     with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
         pool.starmap(_gen_shard, jobs)
     merged = {name: {} for name in ("wav.scp", "text", "mfa_start",
                                     "mfa_end", "utt2spk")}
-    for k, (shard, _, _, _) in enumerate(jobs[:shards]):
+    for k, (shard, *_) in enumerate(jobs[:shards]):
         for name, table in merged.items():
             for uid, v in read_2column_text(os.path.join(shard, name)).items():
                 table[f"s{k}_{uid}"] = v
@@ -4381,6 +4377,654 @@ def prep_chain_phase(torch, np, fa, label, root, device="cuda"):
     return launches, errs
 
 
+# --- model-options: the last single-device options ----------------------------
+
+CONFIG_16K = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "a3t_longformer_16k.yaml")
+DILATION = 2
+# the dilated bin.train corpus at 16 kHz: the yaml's 1024- and 2048-frame
+# buckets hold 36 and 18 utterances a batch (batch_bins 3,000,000 over 80 mel
+# bins); two whole batches of each, from 8 shards of 30 utterances of
+# 40-160 phones (450-1800 frames at hop 200)
+LF_FILL = ((1024, 2 * 36), (2048, 2 * 18))
+LF_PHONES = (40, 160)
+LF_SHARDS = 8
+LF_SHARD_UTTS = 30
+LF_ITERS = 4
+# the full-width longformer step at dropout 0 through JAX's chunked formula,
+# read in PR 6 (PERF.md): the grad_norm the port's chunked path is read beside
+CHUNKED_GRAD_NORM_PR6 = 669.2003
+# the trained vocoder's wav on the card against JAX's on the CPU (check.npz),
+# relative to the wav's peak: fp32 through 30 dilated layers, cuDNN summing
+# its convolutions in its own order (the CPU test holds the port to 1e-4)
+TOL_VOCODER = 1e-4
+PLOT_EXAMPLES = 2
+PLOT_ITERS = 2
+# a CPU rehearsal's widths: extra overrides of the dilated and the plot
+# bin.train runs, and EncoderConfig fields of the knobs' steps
+LF_SETS: list = []
+PLOT_SETS: list = []
+OPTION_STACK: dict = {}
+
+
+def _stack_cfg(cfg, **kw):
+    """``cfg`` with ``kw`` set on its encoder and decoder stacks."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, **kw),
+        decoder=None if cfg.decoder is None
+        else dataclasses.replace(cfg.decoder, **kw))
+
+
+def dilated_kernel_rows(torch, ba, cuda_ms, lengths, window, label):
+    """K3, K4 and K5 at the dilated encoder's shape: each utterance's two
+    phases as two rows (B * 2, 2, T / 2, 192) with ``lengths`` valid frames,
+    64 text keys, bf16, dropout 0: against their plain versions (out and dq
+    on the rows that see a key, dk and dv on the valid keys, each against
+    its own largest value), then times in turns beside SDPA over a dense band
+    mask and the bounds.  Returns {kernel: row}."""
+    g = torch.Generator().manual_seed(3)
+    b, h, t, d, tt = len(lengths), 2, max(lengths), 192, 64
+    c, name = window // 2, "bfloat16"
+    q, k, v, kt, vt, go, txm, spm = _banded_inputs(
+        torch, g, b, h, t, d, tt, torch.bfloat16, lengths)
+    args = (q, k, v, kt, vt, txm, spm, window, 0, 0.0)
+    out, lse = ba.banded_attention_fwd(*args)
+    ref, _ = ba.banded_attention_reference(*args)
+    delta = (go.float() * out.float()).sum(-1)
+    bwd = (0, 0.0, go, lse, delta)
+    got = ba.banded_attention_bwd_dq(*args[:8], *bwd) \
+        + ba.banded_attention_bwd_dkv(q, k, v, spm, window, *bwd)
+    want = ba.banded_attention_bwd_dq_reference(*args[:8], *bwd) \
+        + ba.banded_attention_bwd_dkv_reference(q, k, v, spm, window, *bwd)
+    rows = _masked_rows(torch, ba, txm, spm, c)
+    keys = spm > 0
+    errs = {"K3": _split_rel_err(torch, out, ref, ~rows)[0],
+            "K4": max(_split_rel_err(torch, got[0], want[0], ~rows)[0],
+                      _rel_err(got[1], want[1]), _rel_err(got[2], want[2])),
+            "K5": max(_split_rel_err(torch, got[3], want[3], keys)[0],
+                      _split_rel_err(torch, got[4], want[4], keys)[0])}
+    log(f"  K3/K4/K5 at the dilated shape {(b, h, t, d)} c={c} tt={tt} bf16:"
+        f" max|kernel-plain|/max|plain| " + ", ".join(
+            f"{k_} {e:.3g}" for k_, e in errs.items())
+        + f" (tol {TOL_BWD_BF16:g})")
+    check(all(e <= TOL_BWD_BF16 for e in errs.values()),
+          "K3/K4/K5 against their plain versions at the dilated shape")
+    abs_err = {"K3": (out.float() - ref.float()).abs().max().item(),
+               "K4": max((a.float() - w.float()).abs().max().item()
+                         for a, w in zip(got[:3], want[:3])),
+               "K5": max((a.float() - w.float()).abs().max().item()
+                         for a, w in zip(got[3:], want[3:]))}
+    del ref, got, want
+    ci = torch.arange(t, device=q.device) // c
+    band = (ci[:, None] - ci[None, :]).abs() <= 1
+    mask = torch.cat([band[None] & (spm[:, None, :] > 0),
+                      (txm[:, None, :] > 0).expand(b, t, tt)], dim=-1)[:, None]
+    ka, va = torch.cat([k, kt], 2), torch.cat([v, vt], 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, ka, va))
+    lib_out = sdpa(qs, ks, vs, attn_mask=mask)
+    t_lib_fwd = cuda_ms(lambda: sdpa(q, ka, va, attn_mask=mask), iters=5)
+    t_lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), go, retain_graph=True), iters=5)
+    fns = {"K3": (lambda: ba.banded_attention_fwd(*args),
+                  lambda: ba.banded_attention_reference(*args),
+                  banded_bound_ms(b, h, t, d, c, tt, name), t_lib_fwd),
+           "K4": (lambda: ba.banded_attention_bwd_dq(*args[:8], *bwd),
+                  lambda: ba.banded_attention_bwd_dq_reference(*args[:8],
+                                                               *bwd),
+                  banded_dq_bound_ms(b, h, t, d, c, tt, name), t_lib_bwd),
+           "K5": (lambda: ba.banded_attention_bwd_dkv(q, k, v, spm, window,
+                                                      *bwd),
+                  lambda: ba.banded_attention_bwd_dkv_reference(
+                      q, k, v, spm, window, *bwd),
+                  banded_dkv_bound_ms(b, h, t, d, c, name), t_lib_bwd)}
+    rows_out = {}
+    for kern, (kernel, plain, (bound, by), t_lib) in fns.items():
+        t_kernel = cuda_ms(kernel, iters=10)
+        t_plain = cuda_ms(plain, iters=3, warmup=1)
+        t_kernel2 = cuda_ms(kernel, iters=10)
+        log(f"  {kern} times at the dilated shape {(b, h, t, d)}: kernel "
+            f"{t_kernel:.4f} / {t_kernel2:.4f} ms, plain {t_plain:.4f} ms, "
+            f"sdpa {'forward' if kern == 'K3' else 'backward'} {t_lib:.4f} "
+            f"ms, bound {bound:.5f} ms ({by}) [{label}]")
+        rows_out[kern] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                              bound_ms=bound, bound_by=by,
+                              max_abs_err=abs_err[kern])
+    del q, k, v, kt, vt, go, out, lse, delta, qs, ks, vs, lib_out, mask
+    del band, ka, va, fns, args, bwd
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def dilation_part(torch, np, ba, cuda_ms, wall_time, label, root,
+                  device="cuda"):
+    """configs/a3t_longformer_16k.yaml with attention_dilation 2 at full
+    width (bf16, its 2 speech-only pre-encoder blocks dilated too, with no
+    text keys) on train-longformer's batch: a dropout-0 step's gradients
+    through K3-K5 against their plain versions, 2 warm-up and 5 timed steps
+    at the yaml's dropout (6 launches of each kernel a step), K3-K5 at the
+    dilated shape, then bin.train with the dilation for LF_ITERS steps on a
+    generated 16 kHz corpus of whole 1024- and 2048-frame batches.  Returns
+    the K3-K5 launches of the timed steps and the run, and the kernels'
+    rows at the dilated shape."""
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.models import build_model
+    from a3t_tpu_torch.tasks.config import OPTIM_24K
+    from a3t_tpu_torch.train import (create_train_state, featurize,
+                                     make_optimizer, make_train_step)
+
+    batch, fe, cfg, cfg0 = _longformer_setup(torch, np, device)
+    cfg, cfg0 = (_stack_cfg(x, attention_dilation=DILATION)
+                 for x in (cfg, cfg0))
+    b_size, n_frames = batch["masked_position"].shape
+    n_blocks = cfg.encoder.num_blocks + cfg.encoder.pre_speech_layers
+    longformer_grad_check(torch, ba, cfg0, fe, batch, TOL_GRADS_BF16,
+                          f"dilation {DILATION}, bf16, the batch", device)
+
+    model = build_model(cfg, device=device, seed=0)
+    state = create_train_state(model, make_optimizer(OPTIM_24K),
+                               device=device)
+    step = make_train_step(model, fe, device=device)
+    gen = torch.Generator().manual_seed(0)
+    walls = []
+    ba.reset_launches()
+    for i in range(2 + REPEATS):
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+        before = _banded_launches(ba)
+        (state, stats), dt = wall_time(step, state, batch, gen)
+        n = tuple(a - b for a, b in zip(_banded_launches(ba), before))
+        loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
+        check(np.isfinite(loss) and np.isfinite(gnorm)
+              and int(stats["notfinite_count"]) == 0,
+              f"dilated step {i}: finite loss and grad_norm, no skip")
+        check(n == (n_blocks,) * 3,
+              f"dilated step {i}: launches {n}, expected {n_blocks} each")
+        if i >= 2:
+            walls.append(dt)
+    launches = _banded_launches(ba)
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(walls))
+    log(f"  dilation {DILATION} step: median {med * 1e3:.2f} ms (min "
+        f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}, n={REPEATS}), "
+        f"{b_size * n_frames / med:.1f} mel-frames/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, last loss {loss:.6g}, grad_norm "
+        f"{gnorm:.6g}; K3/K4/K5 launches {launches} [{label}]")
+    flens = featurize(fe, batch)["speech_mask"].sum(1).tolist()
+    del model, state, step, stats
+    torch.cuda.empty_cache()
+    lengths = [max(0, -(-(f - r) // DILATION)) for f in flens
+               for r in range(DILATION)]
+    rows = dilated_kernel_rows(torch, ba, cuda_ms, lengths,
+                               cfg.encoder.attention_window, label)
+
+    # bin.train with the dilation on whole 1024- and 2048-frame batches
+    work = os.path.join(root, "dilated")
+    train, _, secs, _ = make_corpus(
+        work, fs=16000, hop=200, fill=LF_FILL, shards=LF_SHARDS,
+        valid_utts=0, seed=40, phones=LF_PHONES, shard_utts=LF_SHARD_UTTS)
+    argv = ["--config", CONFIG_16K, "--device", device]
+    for s in (f"train_data_dir={train}", "valid_data_dir=",
+              f"exp_dir={os.path.join(work, 'exp')}",
+              f"model.encoder.attention_dilation={DILATION}",
+              "trainer.max_epoch=1", f"trainer.num_iters_per_epoch={LF_ITERS}",
+              "trainer.keep_nbest_models=1", *LF_SETS):
+        argv += ["--set", s]
+    before = _banded_launches(ba)
+    t0 = time.perf_counter()
+    trainer, state = train_main(argv)
+    torch.cuda.synchronize()
+    n = tuple(a - b for a, b in zip(_banded_launches(ba), before))
+    steps = list(trainer.step_log)
+    enc = state.model.config.encoder
+    log(f"  bin.train dilation {enc.attention_dilation}: corpus made in "
+        f"{secs:.2f} s; {len(steps)} steps of "
+        f"{[(r['batch'], r['frames']) for r in steps]} in "
+        f"{time.perf_counter() - t0:.2f} s, losses "
+        f"{[round(r['loss'], 3) for r in steps]}, device ms per step "
+        f"{[round(r.get('device_ms', 0.0), 2) for r in steps]}; K3/K4/K5 {n}"
+        f" [{label}]")
+    blocks = enc.num_blocks + enc.pre_speech_layers
+    check(enc.attention_dilation == DILATION and len(steps) == LF_ITERS
+          and sorted({r["frames"] for r in steps}) == [1024, 2048]
+          and all(np.isfinite(r["loss"]) for r in steps)
+          and int(state.opt_state.total_notfinite) == 0,
+          "bin.train with the dilation: every step finite, both buckets")
+    check(n == (blocks * LF_ITERS,) * 3,
+          f"bin.train with the dilation: {blocks} launches of each of K3, "
+          "K4 and K5 a step")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return tuple(a + b for a, b in zip(launches, n)), rows
+
+
+def chunked_part(torch, np, ba, wall_time, label, device="cuda"):
+    """The chunked-einsum path (use_pallas_attention: false) at full width:
+    a dropout-0 step at dilation 1 and 2 (no K3-K5 launch), at dilation 1
+    beside the same first step with chunked_attention in place of the
+    banded call (the measurement PR 6 made, its reading printed beside), and
+    the module's speech attention against chunked_attention on the same
+    q/k/v."""
+    import a3t_tpu_torch.models.windowed_attention as wa
+    from a3t_tpu_torch.models.windowed_attention import WindowedSelfAttention
+    from a3t_tpu_torch.tasks.config import OPTIM_24K
+    from a3t_tpu_torch.train import (create_train_state, make_optimizer,
+                                     make_train_step)
+
+    def formula(q, k, v, kt, vt, text_mask, window, speech_mask,
+                dropout_rate, seed):
+        return chunked_attention(torch, q, k, v, kt, vt, text_mask.int(),
+                                 speech_mask.int(), window)[0].to(q.dtype)
+
+    batch, fe, _, cfg0 = _longformer_setup(torch, np, device)
+    firsts = {}
+    for dl, chunked in ((1, True), (DILATION, True), (1, False)):
+        model = _dropout0_model(_stack_cfg(
+            cfg0, attention_dilation=dl, use_pallas_attention=not chunked),
+            device)
+        state = create_train_state(model, make_optimizer(OPTIM_24K),
+                                   device=device)
+        step = make_train_step(model, fe, device=device)
+        wa.banded_attention, banded = formula, wa.banded_attention
+        try:
+            _, st = step(state, batch, 0)
+            firsts[(dl, chunked)] = (float(st["loss"]),
+                                     float(st["grad_norm"]))
+            if chunked:
+                torch.cuda.reset_peak_memory_stats()
+                before = _banded_launches(ba)
+                (_, st), dt = wall_time(step, state, batch, 0)
+                n = tuple(a - b for a, b in zip(_banded_launches(ba), before))
+        finally:
+            wa.banded_attention = banded
+        if not chunked:
+            continue
+        loss, gnorm = firsts[(dl, chunked)]
+        log(f"  chunked path, dilation {dl}, dropout 0, first step: loss "
+            f"{loss:.7g}, grad_norm {gnorm:.7g}; the second step "
+            f"{dt * 1e3:.2f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K3/K4/K5 "
+            f"launches {n} [{label}]")
+        check(np.isfinite(loss) and np.isfinite(gnorm) and n == (0, 0, 0),
+              f"chunked path, dilation {dl}: finite, no banded kernel")
+        del model, state, step, st
+        torch.cuda.empty_cache()
+    (lc, gc), (lf, gf) = firsts[(1, True)], firsts[(1, False)]
+    log(f"  the first step through chunked_attention in place of the banded "
+        f"call: loss {lf:.7g}, grad_norm {gf:.7g} (PR 6 read "
+        f"{CHUNKED_GRAD_NORM_PR6}); the port's chunked path: rel "
+        f"{abs(lc - lf) / abs(lf):.3g} and {abs(gc - gf) / gf:.3g} (tol "
+        f"{TOL_LF_LOSS:g} and {TOL_LF_GRAD_NORM:g})")
+    check(abs(lc - lf) <= TOL_LF_LOSS * abs(lf)
+          and abs(gc - gf) <= TOL_LF_GRAD_NORM * gf,
+          "the chunked path's step equals chunked_attention's")
+
+    g = torch.Generator().manual_seed(4)
+    q, k, v, kt, vt, _, txm, spm = _banded_inputs(
+        torch, g, 4, 2, 8192, 192, 64, torch.float32, (8192, 5444, 5133, 6229))
+    mod = WindowedSelfAttention(384, 2, 512, use_banded=False).to(q.device)
+    got = mod.eval()._chunked(q, k, v, spm > 0, kt, vt, txm > 0, None)
+    want, masked = chunked_attention(torch, q, k, v, kt, vt, txm, spm, 512)
+    err = _rel_err(got, want)
+    log(f"  the module's chunked path against chunked_attention, (4, 2, "
+        f"8192, 192), 64 text keys, fp32, {int(masked.sum())} fully masked "
+        f"rows: max|diff|/max|ref| {err:.3g} (tol {TOL_F32:g})")
+    check(err <= TOL_F32, "the chunked path equals chunked_attention")
+    del q, k, v, kt, vt, txm, spm, got, want, masked
+    torch.cuda.empty_cache()
+
+
+def _knob_grads(torch, model, mb):
+    """(loss, {name: gradient}, {name: buffer}, generator state) of one
+    forward and backward in train mode at the model's dropout."""
+    from a3t_tpu_torch.models.mlm import mlm_loss
+
+    model.train()
+    gen = torch.Generator().manual_seed(0)
+    before, after = model(**mb, generator=gen)
+    loss = mlm_loss(before, after, mb["speech"], mb["masked_position"])
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    return (float(loss.detach()), dict(zip(names, grads)),
+            {n: b.clone() for n, b in model.named_buffers()}, gen.get_state())
+
+
+def knobs_part(torch, np, fa, label, device="cuda"):
+    """The encoder knobs on the 24 kHz bf16 step (bench_batch, 88 x (432 +
+    64)) with the yaml's dropout: remat and remat_attention against the
+    plain step (loss, gradients, BatchNorm statistics and the generator's
+    state bit for bit in deterministic mode, within TOL_GRADS_BF16_24K of
+    each leaf's largest gradient otherwise), their step times and peak
+    memory; one step each of cnn_module_bn_compute_dtype,
+    normalize_before false, conv1d_shifted and cnn_module_shifted, the
+    shifted ones' eval outputs bit for bit those of conv1d.  Returns the K1
+    and K2 launches of the steps."""
+    from a3t_tpu_torch.dsp import LogMelFrontend
+    from a3t_tpu_torch.models import build_model
+    from a3t_tpu_torch.tasks.config import (FRONTEND_24K, OPTIM_24K,
+                                            a3t_conformer_24k)
+    from a3t_tpu_torch.train import (create_train_state, featurize,
+                                     make_optimizer, make_train_step)
+
+    batch = bench_batch(torch, np, device)
+    fe = LogMelFrontend(FRONTEND_24K, device=device)
+    mb = featurize(fe, batch)
+    base = _stack_cfg(a3t_conformer_24k(compute_dtype="bfloat16"),
+                      **OPTION_STACK)
+    variants = {"plain": {}, "remat": {"remat": True},
+                "remat_attention": {"remat_attention": True}}
+    models = {name: build_model(_stack_cfg(base, **kw), device=device, seed=0)
+              for name, kw in variants.items()}
+    models["plain"].eval()
+    with torch.no_grad(), deterministic_mode(torch):
+        plain_eval = models["plain"](**mb)
+    with deterministic_mode(torch):
+        runs = {name: _knob_grads(torch, m, mb) for name, m in models.items()}
+    for name in ("remat", "remat_attention"):
+        got, want = runs[name], runs["plain"]
+        same = (got[0] == want[0]
+                and all(torch.equal(got[1][n], g) for n, g in want[1].items())
+                and all(torch.equal(got[2][n], b) for n, b in want[2].items())
+                and torch.equal(got[3], want[3]))
+        log(f"  {name} against the plain step, deterministic mode, dropout "
+            f"0.2: loss {got[0]:.7g} vs {want[0]:.7g}; gradients, BatchNorm "
+            f"statistics and the generator's state bit for bit: {same}")
+        check(same, f"{name} changes nothing in deterministic mode")
+    runs = {name: _knob_grads(torch, m, mb) for name, m in models.items()}
+    top = max(g.abs().max().item() for g in runs["plain"][1].values())
+    for name in ("remat", "remat_attention"):
+        got, want = runs[name], runs["plain"]
+        worst = max((got[1][n] - g).abs().max().item() / max(
+            top if n.endswith(ZERO_GRADIENT) else g.abs().max().item(),
+            1e-30) for n, g in want[1].items())
+        stats = max((got[2][n].float() - b.float()).abs().max().item()
+                    for n, b in want[2].items() if b.is_floating_point())
+        log(f"  {name} against the plain step, default algorithms: loss "
+            f"{got[0]:.7g} vs {want[0]:.7g}, worst leaf max|diff|/max|plain|"
+            f" {worst:.3g} (tol {TOL_GRADS_BF16_24K:g}), BatchNorm statistics"
+            f" max|diff| {stats:.3g} (tol {TOL_LF_STATS:g}), generator state "
+            f"equal {torch.equal(got[3], want[3])}")
+        check(worst <= TOL_GRADS_BF16_24K and stats <= TOL_LF_STATS
+              and torch.equal(got[3], want[3])
+              and abs(got[0] - want[0]) <= TOL_LF_LOSS * abs(want[0]),
+              f"{name} against the plain step")
+    del runs
+
+    l1, l2 = fa.LAUNCHES, fa.LAUNCHES_BWD
+    blocks = base.encoder.num_blocks + base.decoder.num_blocks
+    for name, model in models.items():
+        state = create_train_state(model, make_optimizer(OPTIM_24K),
+                                   device=device)
+        step = make_train_step(model, fe, device=device)
+        gen = torch.Generator().manual_seed(1)
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            k1, k2 = fa.LAUNCHES, fa.LAUNCHES_BWD
+            t0 = time.perf_counter()
+            _, st = step(state, batch, gen)
+            loss = float(st["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            n = (fa.LAUNCHES - k1, fa.LAUNCHES_BWD - k2)
+            check(np.isfinite(loss) and n == (
+                blocks * (1 if name == "plain" else 2), blocks),
+                f"{name} step: finite, launches K1/K2 {n}")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {name} bf16 step: median {np.median(walls) * 1e3:.2f} ms "
+            f"(n=3), peak memory {peak / 2**30:.3f} GiB, of it above the "
+            f"resident state {(peak - base_mem) / 2**30:.3f} GiB; K1/K2 per "
+            f"step {n} [{label}]")
+        del state, step
+    del models
+    torch.cuda.empty_cache()
+
+    for name, kw in (("cnn_module_bn_compute_dtype",
+                      {"cnn_module_bn_compute_dtype": True}),
+                     ("normalize_before false", {"normalize_before": False}),
+                     ("conv1d_shifted",
+                      {"positionwise_layer_type": "conv1d_shifted"}),
+                     ("cnn_module_shifted", {"cnn_module_shifted": True})):
+        model = build_model(_stack_cfg(base, **kw), device=device, seed=0)
+        note = ""
+        if "shifted" in name:
+            model.eval()
+            with torch.no_grad(), deterministic_mode(torch):
+                outs = model(**mb)
+            same = all(torch.equal(a, b) for a, b in zip(outs, plain_eval))
+            note = f", eval outputs bit for bit those of conv1d: {same}"
+            check(same, f"{name}: the outputs of conv1d")
+        state = create_train_state(model, make_optimizer(OPTIM_24K),
+                                   device=device)
+        _, st = make_train_step(model, fe, device=device)(
+            state, batch, torch.Generator().manual_seed(1))
+        loss = float(st["loss"])
+        log(f"  {name}: one bf16 step, loss {loss:.6g}, grad_norm "
+            f"{float(st['grad_norm']):.6g}{note}")
+        check(np.isfinite(loss) and int(st["notfinite_count"]) == 0,
+              f"{name}: a finite step")
+        del model, state, st
+        torch.cuda.empty_cache()
+    return fa.LAUNCHES - l1, fa.LAUNCHES_BWD - l2
+
+
+def plots_part(torch, np, fa, label, root, train, valid, device="cuda"):
+    """bin.train on the trainer's 24 kHz corpus for one epoch of PLOT_ITERS
+    steps with num_plot_examples=PLOT_EXAMPLES: the plot arrays computed on
+    the card (shapes; each attention row sums to 1), rendered where
+    matplotlib imports.  Returns the K1 and K2 launches of the run."""
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.train import plots
+
+    captured = {}
+    real = (plots.mel_plot_arrays, plots.attention_plot_arrays)
+
+    def record(key, fn):
+        def wrapped(*a):
+            captured[key] = fn(*a)
+            return captured[key]
+        return wrapped
+
+    plots.mel_plot_arrays = record("mel", real[0])
+    plots.attention_plot_arrays = record("attention", real[1])
+    exp = os.path.join(root, "plots_exp")
+    l1, l2 = fa.LAUNCHES, fa.LAUNCHES_BWD
+    try:
+        trainer, state = train_main(_train_argv(
+            train, valid, exp, device, "trainer.max_epoch=1",
+            f"trainer.num_iters_per_epoch={PLOT_ITERS}",
+            f"num_plot_examples={PLOT_EXAMPLES}", *PLOT_SETS))
+    finally:
+        plots.mel_plot_arrays, plots.attention_plot_arrays = real
+    torch.cuda.synchronize()
+    n = (fa.LAUNCHES - l1, fa.LAUNCHES_BWD - l2)
+    target, pred, masked, valid_frames = captured["mel"]
+    entries = captured["attention"]
+    cfg = state.model.config
+    blocks = cfg.encoder.num_blocks + cfg.decoder.num_blocks
+    n_eval = len(trainer.valid_iter_factory.batcher.batch_plan(1))
+    b, f, odim = target.shape
+    on_card = all(a.device.type == torch.device(device).type
+                  for a in (target, pred, masked, valid_frames,
+                            *(a for _, a in entries)))
+    sums = max((a.sum(-1) - 1).abs().max().item() for _, a in entries)
+    log(f"  plots: mel arrays {tuple(target.shape)} / {tuple(pred.shape)} / "
+        f"{tuple(masked.shape)} / {tuple(valid_frames.shape)} on the card "
+        f"{on_card}; {len(entries)} attention maps of "
+        f"{tuple(entries[0][1].shape)}, rows sum to 1 within {sums:.3g}; K1 "
+        f"{n[0]}, K2 {n[1]} ({PLOT_ITERS} steps, {n_eval} eval steps, one "
+        f"mel-plot forward)")
+    check(on_card and odim == cfg.odim and b >= PLOT_EXAMPLES
+          and pred.shape == target.shape and masked.shape == (b, f)
+          and valid_frames.shape == (b, f) and len(entries) == blocks
+          and all(a.shape[:2] == (PLOT_EXAMPLES, 2)
+                  and a.shape[2] == a.shape[3] for _, a in entries)
+          and sums <= 1e-5, "the plot arrays")
+    check(n == (blocks * (PLOT_ITERS + n_eval + 1), blocks * PLOT_ITERS),
+          "the plot run's launches: the mel plot through K1, the attention "
+          "plot through the plain attention")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        log("  matplotlib is not installed here: the plot arrays were "
+            "computed on the card and nothing was rendered")
+    else:
+        files = sorted(os.listdir(os.path.join(exp, "plots")))
+        log(f"  matplotlib rendered {files}")
+        check(files == sorted(f"{p}epoch1_utt{i}.png" for p in ("", "att_")
+                              for i in range(PLOT_EXAMPLES)),
+              "the plots were written")
+    del trainer, state, captured, entries
+    torch.cuda.empty_cache()
+    return n
+
+
+def vocoder_part(torch, np, cuda_ms, label, device="cuda"):
+    """The trained 16 kHz vocoder (weights/vocoder_16k, converted from the
+    JAX package's artifacts/vocoder) on check.npz's mel with JAX's noise,
+    against JAX's wav; ms per call and the real-time factor."""
+    from a3t_tpu_torch.train.vocoder import TRAINED_16K, load_vocoder
+
+    data = np.load(os.path.join(TRAINED_16K, "check.npz"))
+    t0 = time.perf_counter()
+    vocode = load_vocoder(TRAINED_16K, device=device)
+    load_s = time.perf_counter() - t0
+    mel = torch.as_tensor(data["mel"], device=device)
+    z = torch.as_tensor(data["z"], device=device)
+    wav = vocode(mel, z=z).cpu().numpy()
+    want = data["wav"]
+    peak = float(np.abs(want).max())
+    err = float(np.abs(wav - want).max()) / peak
+    ms = cuda_ms(lambda: vocode(mel, z=z), iters=10, warmup=2)
+    secs = want.shape[1] / 16000
+    log(f"  trained vocoder: load {load_s:.2f} s; {tuple(mel.shape)} mel -> "
+        f"{wav.shape[1]} samples ({secs:.3f} s); max|card - JAX|/peak "
+        f"{err:.3g} (tol {TOL_VOCODER:g}, peak {peak:.4f}); {ms:.3f} ms per "
+        f"call, RTF {ms / 1e3 / secs:.5f} [{label}]")
+    check(wav.shape == want.shape and err <= TOL_VOCODER,
+          "the trained vocoder's wav equals JAX's")
+
+
+def _buzz(np, rng, fs, n_words):
+    """Speech-ish buzz of ``n_words`` 0.6 s words: a pulse train with a
+    4 Hz envelope and noise (tests/test_prepare_recipes.py's)."""
+    t = np.arange(int(0.6 * fs)) / fs
+    parts = []
+    for _ in range(n_words):
+        f0 = rng.uniform(100, 220)
+        w = 0.2 * np.sign(np.sin(2 * np.pi * f0 * t)) \
+            * np.sin(2 * np.pi * 4 * t) ** 2
+        parts.append(w + 0.02 * rng.standard_normal(len(t)))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def recipes_part(torch, np, label, root, device="cuda"):
+    """The LJSpeech and VCTK recipes on tiny corpora in the sources' layouts
+    (LJSpeech's metadata.csv + wavs/ at 22.05 kHz to 16 kHz, VCTK's txt/ +
+    wav48/ at 48 kHz to 24 kHz with one held-out speaker): every split at
+    the target rate and one monotone span per phone."""
+    import csv
+
+    from a3t_tpu_torch.data.fileio import (load_num_sequence_text,
+                                           read_2column_text, write_wav)
+    from a3t_tpu_torch.data.format_wav import validate_data_dir_fs
+    from a3t_tpu_torch.recipes import ljspeech, vctk
+
+    rng = np.random.default_rng(0)
+    base = os.path.join(root, "recipes")
+    lj = os.path.join(base, "LJSpeech-1.1")
+    os.makedirs(os.path.join(lj, "wavs"))
+    texts = ["CALL STELLA NOW", "Ask her, please!", "bring these things",
+             "with her from the store", "six spoons", "of fresh snow peas"]
+    with open(os.path.join(lj, "metadata.csv"), "w", newline="") as f:
+        w = csv.writer(f, delimiter="|")
+        for i, text in enumerate(texts):
+            uid = f"LJ001-{i:04d}"
+            write_wav(os.path.join(lj, "wavs", f"{uid}.wav"), 22050,
+                      _buzz(np, rng, 22050, 2))
+            w.writerow([uid, "text", text])
+    vc = os.path.join(base, "VCTK-Corpus")
+    words = ["PLEASE", "CALL", "STELLA", "ASK", "HER"]
+    for spk in ("p225", "p226", "p227"):
+        os.makedirs(os.path.join(vc, "wav48", spk))
+        os.makedirs(os.path.join(vc, "txt", spk))
+        for i in range(3):
+            uid = f"{spk}_{i:03d}"
+            write_wav(os.path.join(vc, "wav48", spk, f"{uid}.wav"), 48000,
+                      _buzz(np, rng, 48000, 2))
+            with open(os.path.join(vc, "txt", spk, f"{uid}.txt"), "w") as f:
+                f.write(" ".join(words[i:i + 2]) + "\n")
+    runs = (("ljspeech", ljspeech, lj, ["--dev-utts", "1", "--eval-utts", "1",
+                                        "--fs", "16000"], 16000,
+             ("tr_no_dev", "dev", "eval1")),
+            ("vctk", vctk, vc, ["--unseen-speakers", "p227",
+                                "--dev-per-spk", "1", "--target-fs",
+                                "24000"], 24000,
+             ("tr_no_dev", "dev", "eval_unseen")))
+    for name, module, corpus, argv, fs, splits in runs:
+        out = os.path.join(base, f"{name}_out")
+        t0 = time.perf_counter()
+        module.main(["--corpus", corpus, "--out", out, *argv,
+                     "--device", device])
+        secs = time.perf_counter() - t0
+        counts = []
+        for split in splits:
+            d = os.path.join(out, split)
+            validate_data_dir_fs(d, fs)
+            scp = read_2column_text(os.path.join(d, "wav.scp"))
+            phones = read_2column_text(os.path.join(d, "mfa_text"))
+            starts = load_num_sequence_text(os.path.join(d, "mfa_start"))
+            ends = load_num_sequence_text(os.path.join(d, "mfa_end"))
+            for uid in scp:
+                s, e = starts.get(uid), ends.get(uid)
+                n_ph = len(phones.get(uid, "").split())
+                check(s is not None and e is not None
+                      and n_ph == len(s) == len(e) > 0
+                      and bool((np.diff(s) >= 0).all() and (e >= s).all()),
+                      f"{name} {split} {uid}: one span per phone, starts "
+                      "monotone")
+            counts.append((split, len(scp)))
+        log(f"  recipe {name}: {secs:.2f} s, splits {counts} at {fs} Hz, "
+            f"every phone aligned")
+
+
+def model_options_phase(torch, np, fa, ba, cuda_ms, wall_time, label, root,
+                        train, valid, device="cuda"):
+    """Dilation through K3-K5 (and bin.train with it), the chunked path, the
+    encoder knobs, the plots, the trained vocoder and the recipes, each
+    part's seconds printed.  Returns the K1-K5 launches of the phase's main
+    path (the dilated steps and run, the knobs' steps and the plot run)."""
+    seconds = {}
+
+    def part(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    banded, rows = part("dilation", dilation_part, torch, np, ba, cuda_ms,
+                        wall_time, label, root, device)
+    part("chunked", chunked_part, torch, np, ba, wall_time, label, device)
+    knobs = part("knobs", knobs_part, torch, np, fa, label, device)
+    plotted = part("plots", plots_part, torch, np, fa, label, root, train,
+                   valid, device)
+    part("vocoder", vocoder_part, torch, np, cuda_ms, label, device)
+    part("recipes", recipes_part, torch, np, label, root, device)
+    launches = (knobs[0] + plotted[0], knobs[1] + plotted[1], *banded)
+    log(f"  model-options seconds per part "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}; "
+        f"launches K1-K5 {launches} [{label}]")
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -4441,9 +5085,14 @@ def main() -> int:
                     log(f"  ptxas {name}: {line.strip()}")
         check_tensor_cores(native, paths)
 
-    if sys.argv[1:] == ["--chunked-step"]:
-        with Phase("chunked-step"):
-            chunked_step(torch, np, ba)
+    if sys.argv[1:] == ["--model-options"]:
+        # the model-options phase alone, on a trainer corpus of its own
+        with tempfile.TemporaryDirectory(prefix="a3t_options_") as root:
+            with Phase("corpus"):
+                train, valid, _, _ = make_corpus(os.path.join(root, "data"))
+            with Phase("model-options"):
+                model_options_phase(torch, np, fa, ba, cuda_ms, wall_time,
+                                    label, root, train, valid)
         return 0
 
     with Phase("kernel"):
@@ -4513,6 +5162,11 @@ def main() -> int:
             (prep_fwd, prep_bwd), prep_errs = prep_chain_phase(
                 torch, np, fa, label, root)
 
+        with Phase("model-options"):
+            mo_launches, dilated_rows = model_options_phase(
+                torch, np, fa, ba, cuda_ms, wall_time, label, root,
+                os.path.join(root, "data", "train"), valid)
+
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -4520,12 +5174,13 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + sp_fwd + side_fwd + opt_fwd + prep_fwd,
+        + cli_fwd + sp_fwd + side_fwd + opt_fwd + prep_fwd + mo_launches[0],
         "launches_serve_cli": cli_fwd,
         "launches_speaker_fs2": sp_fwd,
         "launches_side_train": side_fwd,
         "launches_train_options": opt_fwd,
         "launches_prep_chain": prep_fwd,
+        "launches_model_options": mo_launches[0],
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "max_abs_err_fs2_shapes": fs2_errs[0],
@@ -4544,12 +5199,13 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
         "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd
-        + side_bwd + opt_bwd + prep_bwd,
+        + side_bwd + opt_bwd + prep_bwd + mo_launches[1],
         "launches_serve_cli": cli_bwd,
         "launches_speaker_fs2": sp_bwd,
         "launches_side_train": side_bwd,
         "launches_train_options": opt_bwd,
         "launches_prep_chain": prep_bwd,
+        "launches_model_options": mo_launches[1],
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "max_abs_err_fs2_shapes": fs2_errs[1],
@@ -4562,19 +5218,24 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
     }]
-    for kern, name, line, n, note in (
+    for i, (kern, name, line, n, note) in enumerate((
             ("K3", "banded_attention_fwd", 90, lf_launches[0],
              {"note": "redesigned: bf16 on wgmma"}),
             ("K4", "banded_attention_bwd_dq", 172, lf_launches[1],
              {"note": "redesigned PR 9"}),
             ("K5", "banded_attention_bwd_dkv", 286, lf_launches[2],
-             {"note": "redesigned PR 9"})):
-        row = banded[kern]
+             {"note": "redesigned PR 9"}))):
+        row, dil = banded[kern], dilated_rows[kern]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"a3t_tpu_torch/csrc/{name}.cu",
             "replaces": f"a3t_tpu/ops/banded_attention.py:{line}", **note,
-            "launches": n, **{k: row[k] for k in (
+            "launches": n + mo_launches[2 + i],
+            "launches_model_options": mo_launches[2 + i],
+            **{k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            **{f"{k}_dilated": dil[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
     kernels.append({
@@ -4582,7 +5243,8 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_logmel.cu",
         "replaces": "a3t_tpu/ops/fused_logmel.py:93",
         "note": "redesigned: an fp32 FFT in shared memory",
-        "launches": logmel_launches, **{k: logmel[k] for k in (
+        "launches": logmel_launches, "launches_model_options": 0,
+        **{k: logmel[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}})
     log(f"done in {time.perf_counter() - T0:.1f} s")

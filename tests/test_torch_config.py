@@ -10,7 +10,6 @@ held the same way against JAX's ``_build(FS2TaskConfig, ...)``."""
 
 import dataclasses
 import glob
-import logging
 import math
 import os
 
@@ -30,25 +29,10 @@ SHIPPED = sorted(set(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
 STASHED = [os.path.join(ROOT, "artifacts", n, "config.yaml")
            for n in ("soak12k_params", "spemb_params")]
 ALL = SHIPPED + STASHED
-JAX_ONLY = ("cnn_module_shifted", "cnn_module_bn_compute_dtype", "remat",
-            "remat_attention")
 
 
 def _rel(path):
     return os.path.relpath(path, ROOT)
-
-
-def _without_jax_only(d):
-    """A JAX config dict without the four EncoderConfig keys the port has
-    no field for."""
-    d = dict(d)
-    model = dict(d["model"])
-    for stack in ("encoder", "decoder"):
-        if model.get(stack) is not None:
-            model[stack] = {k: v for k, v in model[stack].items()
-                            if k not in JAX_ONLY}
-    d["model"] = model
-    return d
 
 
 def test_all_five_config_files_are_present():
@@ -77,7 +61,7 @@ def test_reader_equals_safe_load_on_jax_save_config(path, tmp_path):
 
 @pytest.mark.parametrize("path", ALL, ids=_rel)
 def test_port_config_equals_jax_config(path):
-    want = _without_jax_only(jax_config._to_dict(jax_config.load_config(path)))
+    want = jax_config._to_dict(jax_config.load_config(path))
     assert port_config._to_dict(port_config.load_config(path)) == want
 
 
@@ -105,7 +89,7 @@ def test_fs2_config_equals_jax_config(path, tmp_path):
     def jax_load(p):
         return jax_config._build(FS2TaskConfig, jax_config.load_yaml_dict(p))
 
-    want = _without_jax_only(jax_config._to_dict(jax_load(path)))
+    want = jax_config._to_dict(jax_load(path))
     assert port_config._to_dict(load_fs2_config(path)) == want
     jax_out = tmp_path / "jax.yaml"
     jax_config.save_config(jax_load(path), str(jax_out))
@@ -171,25 +155,25 @@ def test_constants_equal_the_loaded_yamls():
         a3t_longformer_16k()
 
 
-def test_numerics_neutral_jax_knobs_are_accepted_and_logged(caplog):
+def test_numerics_neutral_jax_knobs_are_accepted_and_logged():
+    """The JAX EncoderConfig's lowering, memory and BatchNorm knobs are
+    fields of the port's EncoderConfig, read like any other key and equal
+    to what JAX's loader reads."""
     knobs = ["model.encoder.cnn_module_shifted=true",
-             "model.decoder.remat=true", "model.encoder.remat_attention=false",
-             "model.encoder.cnn_module_bn_compute_dtype=false"]
-    with caplog.at_level(logging.INFO, logger="a3t_tpu_torch"):
-        cfg = port_config.load_config(SHIPPED[0], knobs)
-    lines = [r.getMessage() for r in caplog.records if "dropped" in
-             r.getMessage()]
-    assert len(lines) == 1
-    assert "config.model.encoder.cnn_module_shifted" in lines[0]
-    assert "config.model.decoder.remat" in lines[0]
-    assert "remat_attention" not in lines[0]
-    assert cfg.model.encoder == port_config.load_config(SHIPPED[0]).model.encoder
+             "model.decoder.remat=true", "model.encoder.remat_attention=true",
+             "model.encoder.positionwise_layer_type=conv1d_shifted",
+             "model.decoder.cnn_module_bn_compute_dtype=true"]
+    cfg = port_config.load_config(SHIPPED[0], knobs)
+    enc, dec = cfg.model.encoder, cfg.model.decoder
+    assert enc.cnn_module_shifted and enc.remat_attention and not enc.remat
+    assert enc.positionwise_layer_type == "conv1d_shifted"
+    assert dec.remat and dec.cnn_module_bn_compute_dtype
+    assert not dec.cnn_module_shifted
+    assert port_config._to_dict(cfg) == jax_config._to_dict(
+        jax_config.load_config(SHIPPED[0], knobs))
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        port_config.load_config(
-            SHIPPED[0], ["model.decoder.cnn_module_bn_compute_dtype=true"])
     with pytest.raises(ValueError, match="true or false"):
         port_config.load_config(SHIPPED[0], ["model.encoder.remat=1"])
     with pytest.raises(KeyError, match="no_such_key"):

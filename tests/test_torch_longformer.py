@@ -169,17 +169,25 @@ def test_windowed_attention_matches_chunked_path(n_text, pad):
 
 
 def test_unported_longformer_options_raise():
+    """Dilation and the chunked path are ported
+    (tests/test_torch_dilation.py); a float16 compute dtype and bad windows,
+    dilations and frame counts raise."""
     base = dict(selfattention_layer_type="longformer", attention_window=8,
                 macaron_style=False, use_cnn_module=False)
-    for bad in (dict(attention_dilation=2), dict(use_pallas_attention=False),
-                dict(compute_dtype="float16")):
-        with pytest.raises(NotImplementedError):
-            tc.ConformerBlock(tc.EncoderConfig(**base, **bad))
+    for ok in (dict(attention_dilation=2), dict(use_pallas_attention=False)):
+        tc.ConformerBlock(tc.EncoderConfig(**base, **ok))
+    with pytest.raises(NotImplementedError):
+        tc.ConformerBlock(tc.EncoderConfig(**base, compute_dtype="float16"))
     with pytest.raises(ValueError, match="window"):
         WindowedSelfAttention(32, 2, 0)
+    with pytest.raises(ValueError, match="dilation"):
+        WindowedSelfAttention(32, 2, 8, dilation=0)
     mod = WindowedSelfAttention(32, 2, 8)
     with pytest.raises(ValueError, match="multiple of half-window"):
         mod(torch.zeros(1, 12, 32), 10)
+    with pytest.raises(ValueError, match="x dilation 2"):
+        WindowedSelfAttention(32, 2, 8, dilation=2)(torch.zeros(1, 12, 32),
+                                                     12)
 
 
 # ---------------------------------------------------------------------------

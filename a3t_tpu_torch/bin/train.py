@@ -5,10 +5,16 @@ mlm_train analogue).
         --set train_data_dir=dump/raw/tr_no_dev \
         --set valid_data_dir=dump/raw/dev --set exp_dir=exp/a3t
 
-Trains on the CUDA card unless ``--device cpu`` is given.  The JAX CLI's
-``--prng`` (JAX's PRNG implementations) and ``--coordinator`` /
-``--num-hosts`` / ``--host-id`` (multi-host training, ROADMAP A10) are not
-ported; passing them raises.
+Trains on the CUDA card unless ``--device cpu`` is given.  Data-parallel
+training runs one process per card, each with the JAX CLI's
+``--coordinator host:port --num-hosts W --host-id r`` (``bin.launch``
+appends them): ``--num-hosts`` counts processes, one per card, not
+machines.  The processes form a ``torch.distributed`` group (NCCL on the
+card, gloo with ``--device cpu``) and rank r trains on
+``cuda:{r mod cards}`` (``parallel/``).  Every process must see the same
+``exp_dir`` (a file system shared by the machines): rank 0 writes the
+checkpoints and every rank reads them on resume.  The JAX CLI's
+``--prng`` (JAX's PRNG implementations) is not ported; passing it raises.
 
 A resumed run (epoch or mid-epoch) equals an uninterrupted one bit for bit
 on the CPU.  On the card it does so only when the caller first sets
@@ -43,13 +49,20 @@ def main(argv=None):
                              "op that produced a NaN (debug only, slow)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
-    for flag in ("--prng", "--coordinator", "--num-hosts", "--host-id"):
-        parser.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0 (data-parallel only)")
+    parser.add_argument("--num-hosts", type=int, default=None,
+                        help="number of processes, one per card")
+    parser.add_argument("--host-id", type=int, default=None,
+                        help="this process's rank")
+    parser.add_argument("--prng", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    for flag in ("prng", "coordinator", "num_hosts", "host_id"):
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag.replace('_', '-')} is not ported "
-                         "(JAX-only or multi-host, ROADMAP A10)")
+    if args.prng is not None:
+        parser.error("--prng is not ported (JAX's PRNG implementations)")
+    multihost = (args.coordinator, args.num_hosts, args.host_id)
+    if any(v is not None for v in multihost) \
+            and any(v is None for v in multihost):
+        parser.error("--coordinator, --num-hosts and --host-id go together")
 
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper()),
@@ -70,7 +83,19 @@ def main(argv=None):
         import torch
 
         torch.autograd.set_detect_anomaly(True)
-    return MLMTask.run(load_config(args.config, args.set), device=args.device)
+    cfg = load_config(args.config, args.set)
+    if args.coordinator is None:
+        return MLMTask.run(cfg, device=args.device)
+    import torch.distributed as dist
+
+    from a3t_tpu_torch.parallel.mesh import initialize_multihost
+
+    initialize_multihost(args.coordinator, args.num_hosts, args.host_id,
+                         device=args.device)
+    try:
+        return MLMTask.run(cfg, device=args.device)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

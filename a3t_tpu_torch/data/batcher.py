@@ -24,6 +24,15 @@ speech-only settings (collate_fn.py:222-231).  Over record shards
 flat corpus instead of its audio, and the train step gathers the audio on
 the device.  :meth:`BucketBatcher.chained_epoch_iterator` groups up to k
 same-bucket batches for chained dispatch (``steps_per_dispatch``).
+
+Over the W ranks of the data axis every rank walks the same unsharded
+plan, at ``batch_multiple = W``, and ``rows = (r, W)`` gives rank r the row
+block ``[r B / W, (r + 1) B / W)`` of each global batch
+(``parallel.mesh.row_block``), equal to the global batch's rows bit for
+bit: the span masks are drawn row after row from one epoch-wide generator,
+so :meth:`BucketBatcher.make_batch` draws them (and the segment positions)
+for every row of the global batch, which takes the utterances' metadata
+alone, and reads or decodes audio only for the rank's own rows.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from a3t_tpu_torch.data.dataset import A3TDataset
 from a3t_tpu_torch.dsp.frontend import LogMelConfig
 from a3t_tpu_torch.masking import (duration_reduction, phones_masking,
                                    segment_positions)
+from a3t_tpu_torch.parallel.mesh import row_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,12 +167,15 @@ class BucketBatcher:
         rng: np.random.Generator,
         span_boundary: Optional[np.ndarray] = None,
         pad_to_batch: Optional[int] = None,
+        rows: Optional[tuple[int, int]] = None,
     ) -> dict:
         """Assemble one host batch with the bucket's static shapes; slots
-        past ``len(uids)`` stay zero (no text, nothing masked)."""
+        past ``len(uids)`` stay zero (no text, nothing masked).  ``rows =
+        (r, W)``: rank r's row block of that batch, its audio alone read."""
         spec = self.buckets[bucket_idx]
         cfg = self.config
         b = pad_to_batch if pad_to_batch is not None else spec.batch_size
+        own = row_block(b, *rows) if rows is not None else slice(0, b)
         hop = self.fe.hop_length
         speech_only = getattr(self.dataset, "speech_only", False)
         # the native loader and record shards emit int16 PCM codes directly
@@ -176,7 +189,8 @@ class BucketBatcher:
             audio_offset = np.zeros(b, np.int32)
             audio = None
         else:
-            audio = np.zeros((b, spec.n_samples),
+            # the rank's rows only (own.start is row 0 of the array)
+            audio = np.zeros((own.stop - own.start, spec.n_samples),
                              np.int16 if pcm16_direct else np.float32)
         audio_lengths = np.zeros(b, np.int32)
         text = np.zeros((b, spec.n_text), np.int32)
@@ -190,13 +204,15 @@ class BucketBatcher:
                                 (b, 1))
             reduced_lengths = np.zeros(b, np.int32)
 
-        if self._loader is not None and uids and not device_audio:
-            idx = [self._uid_index[u] for u in uids]
+        own_uids = uids[own]
+        if self._loader is not None and own_uids and not device_audio:
+            idx = [self._uid_index[u] for u in own_uids]
             load = (self._loader.load_batch_i16 if pcm16_direct
                     else self._loader.load_batch)
             load(idx, spec.n_samples, out=audio[: len(idx)])
 
         for i, uid in enumerate(uids):
+            mine = own.start <= i < own.stop
             if device_audio:
                 item = self.dataset.get_meta(uid)
                 audio_offset[i] = self.dataset.global_offset(uid)
@@ -204,15 +220,19 @@ class BucketBatcher:
             elif self._loader is not None:
                 item = self.dataset.get_meta(uid)
                 wav_len = min((self._frames[uid] - 1) * hop, spec.n_samples)
+            elif not mine:
+                # another rank's row: its span mask needs its length only
+                item = self.dataset.get_meta(uid)
+                wav_len = min(self.dataset.num_samples(uid), spec.n_samples)
             elif pcm16_direct:
                 item = self.dataset.get_meta(uid)
                 pcm = self.dataset.get_pcm16(uid)[: spec.n_samples]
-                audio[i, : len(pcm)] = pcm
+                audio[i - own.start, : len(pcm)] = pcm
                 wav_len = len(pcm)
             else:
                 item = self.dataset[uid]
                 wav = item["audio"][: spec.n_samples]
-                audio[i, : len(wav)] = wav
+                audio[i - own.start, : len(wav)] = wav
                 wav_len = len(wav)
             audio_lengths[i] = wav_len
             n_f = 1 + wav_len // hop
@@ -269,14 +289,19 @@ class BucketBatcher:
         if cfg.duration_collect:
             out.update(durations=durations, reordered_index=reordered,
                        reduced_lengths=reduced_lengths)
+        if rows is not None:
+            # every array but the audio (already the rank's rows)
+            out = {k: v if k == "audio" else v[own] for k, v in out.items()}
         return out
 
-    def epoch_iterator(self, epoch: int, shard: tuple[int, int] = (0, 1)):
-        """Yield host batches for one epoch (reproducibly seeded)."""
+    def epoch_iterator(self, epoch: int, shard: tuple[int, int] = (0, 1),
+                       rows: Optional[tuple[int, int]] = None):
+        """Yield host batches for one epoch (reproducibly seeded); with
+        ``rows = (r, W)`` rank r's row block of each."""
         rng = np.random.default_rng(
             np.random.SeedSequence([self.config.seed, epoch, 777]))
         for bi, uids in self.batch_plan(epoch, shard):
-            yield self.make_batch(bi, uids, rng)
+            yield self.make_batch(bi, uids, rng, rows=rows)
 
     def chained_plan(self, epoch: int, k: int,
                      shard: tuple[int, int] = (0, 1)):

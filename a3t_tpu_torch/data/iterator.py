@@ -195,7 +195,10 @@ class EpochIterFactory:
     thread.  With ``chain = k > 1`` the items are chained groups of up to k
     same-bucket batches (``BucketBatcher.chained_epoch_iterator``) and
     ``num_iters_per_epoch`` counts their valid sub-steps: the group that
-    crosses it has its tail marked invalid (weight 0).
+    crosses it has its tail marked invalid (weight 0).  ``rows = (r, W)``:
+    rank r's row block of each batch of the unsharded plan
+    (``BucketBatcher.make_batch``), one rank of the data axis; it takes no
+    chained groups.
     """
 
     def __init__(
@@ -206,8 +209,14 @@ class EpochIterFactory:
         prefetch: int = 2,
         transfer: Optional[DeviceTransfer] = None,
         chain: int = 1,
+        rows: Optional[tuple[int, int]] = None,
     ):
+        if rows is not None and chain > 1:
+            raise NotImplementedError(
+                "chained groups of a rank's row blocks (steps_per_dispatch "
+                "> 1 over several ranks)")
         self.batcher = batcher
+        self.rows = rows
         self.num_iters = num_iters_per_epoch
         self.shard = shard
         self.prefetch = prefetch
@@ -224,7 +233,7 @@ class EpochIterFactory:
                     epoch + offset, self.chain, self.shard)
             else:
                 items = self.batcher.epoch_iterator(epoch + offset,
-                                                    self.shard)
+                                                    self.shard, self.rows)
             for item in items:
                 empty = False
                 n = 1

@@ -9,7 +9,11 @@ iterations, 16 kHz overrides, speech-only corpora; espnet2/tasks/mlm.py:
 batch)`` with the corpora interleaved by portion, and
 :func:`make_multi_corpus_train_step` hands each batch to the step built
 for its corpus's front-end and ``speech_only`` flag.  The schedule and the
-batches equal the JAX package's bit for bit.
+batches equal the JAX package's bit for bit.  Over the W ranks of the data
+axis every rank walks the same schedule and takes its row block of each
+batch (``rows``, as ``EpochIterFactory`` does; the task gives each
+corpus's batcher ``batch_multiple = max(W, ...)``), and each corpus's step
+is ``make_train_step``'s, which reduces over the ranks.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ class MultiCorpusIterFactory:
     in an order shuffled by ``SeedSequence([seed, epoch, 4242])``; a corpus
     that runs out restarts its plan at ``epoch + 1000 n``.  ``transfer`` (a
     :class:`DeviceTransfer`) moves each batch to the card in the producer
-    thread."""
+    thread.  ``rows = (r, W)``: rank r's row block of each batch."""
 
     def __init__(
         self,
@@ -49,6 +53,7 @@ class MultiCorpusIterFactory:
         prefetch: int = 2,
         seed: int = 0,
         transfer: Optional[DeviceTransfer] = None,
+        rows: Optional[tuple[int, int]] = None,
     ):
         total = sum(c.portion for c in corpora)
         self.corpora = corpora
@@ -58,12 +63,14 @@ class MultiCorpusIterFactory:
         self.prefetch = prefetch
         self.seed = seed
         self.transfer = transfer
+        self.rows = rows
 
     def _corpus_batches(self, spec: CorpusSpec, epoch: int):
         offset = 0
         while True:
             produced = False
-            for b in spec.batcher.epoch_iterator(epoch + offset, self.shard):
+            for b in spec.batcher.epoch_iterator(epoch + offset, self.shard,
+                                                 self.rows):
                 produced = True
                 yield b
             if not produced:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from a3t_tpu_torch.models.dropout import SeededDropout
+from a3t_tpu_torch.parallel.mesh import global_sum, world
 
 # flax BatchNorm(momentum=0.9) keeps 0.9 of the running statistics per step
 # (torch's momentum=0.1 convention is the other way round)
@@ -107,10 +108,21 @@ def _batch_stats(bn: nn.BatchNorm1d, x: torch.Tensor):
     padding included: the mean and the variance E[x^2] - E[x]^2 (clipped at
     0, biased); the running statistics move by ``ra = 0.9 * ra + 0.1 *
     batch`` with that biased variance, where torch's own BatchNorm would use
-    the unbiased one."""
+    the unbiased one.  Over W ranks (``parallel/mesh.py``) the sums of x and
+    x^2 are reduced over the ranks, differentiably, and divided by the
+    global count, as GSPMD reduces flax's statistics over the data axis: the
+    running statistics stay equal on every rank."""
     dims = (0,) + tuple(range(2, x.dim()))
-    mean = x.mean(dim=dims)
-    var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+    w = world()
+    if w > 1:
+        count = w * (x.numel() // x.shape[1])
+        sums = global_sum(torch.stack([x.sum(dim=dims),
+                                       (x * x).sum(dim=dims)]))
+        mean, mean_sq = sums[0] / count, sums[1] / count
+    else:
+        mean = x.mean(dim=dims)
+        mean_sq = (x * x).mean(dim=dims)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     if not getattr(_FROZEN, "on", False):
         with torch.no_grad():
             bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)

@@ -48,6 +48,7 @@ from a3t_tpu_torch.models.conformer import (
 )
 from a3t_tpu_torch.models.layers import (DurationPredictor, MaskedInput,
                                          Postnet, dense, length_regulate)
+from a3t_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,7 +283,11 @@ def mlm_loss(before_outs, after_outs, target, masked_position,
              use_mse: bool = False):
     """Masked reconstruction loss (sedit_model.py:320-340): per-frame L1
     (or MSE) summed over the mel bins, before plus after the postnet,
-    averaged over the masked frames."""
+    averaged over the masked frames.  The denominator is the masked count
+    of the global batch, summed over the data axis's ranks (``parallel/
+    mesh.py``; this rank's own count at world size 1): the ranks' losses
+    then sum to the global batch's, as GSPMD's mean over the data axis
+    gives in JAX."""
     def err(out):
         d = out - target
         return (d * d if use_mse else d.abs()).sum(dim=-1)
@@ -291,7 +296,7 @@ def mlm_loss(before_outs, after_outs, target, masked_position,
     if after_outs is not None:
         loss = loss + err(after_outs)
     w = masked_position.to(loss.dtype)
-    return (loss * w).sum() / (w.sum() + 1e-10)
+    return (loss * w).sum() / (all_reduce_sum(w.sum()) + 1e-10)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:

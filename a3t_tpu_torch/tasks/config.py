@@ -32,8 +32,11 @@ from a3t_tpu_torch.train.trainer import TrainerConfig
 @dataclasses.dataclass
 class MeshConfig:
     """The JAX package's device-mesh settings (``a3t_tpu/parallel/mesh.py``).
-    The port trains on one card: anything but one device per axis raises
-    when a task is built (ROADMAP A10)."""
+    The port's data axis is one process per card (``parallel/``):
+    ``data_parallel`` None means every process of the group and any other
+    value must equal their number.  ``tensor_parallel`` and
+    ``sequence_parallel`` above 1 raise when a task is built (ROADMAP A10b,
+    A10c)."""
 
     data_parallel: Optional[int] = None
     tensor_parallel: int = 1

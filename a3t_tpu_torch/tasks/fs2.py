@@ -34,6 +34,7 @@ from a3t_tpu_torch.dsp.pitch import (average_by_duration, extract_energy,
 from a3t_tpu_torch.models.fastspeech2 import (FastSpeech2, FastSpeech2Config,
                                               build_fs2, fastspeech2_loss)
 from a3t_tpu_torch.models.xvector import load_spk2xvector
+from a3t_tpu_torch.parallel.mesh import world
 from a3t_tpu_torch.tasks import yaml_subset
 from a3t_tpu_torch.tasks.config import _build, apply_overrides, save_config
 from a3t_tpu_torch.text import TokenIDConverter, build_token_list
@@ -157,10 +158,12 @@ class _EpochPlan:
         self.batcher = batcher
         self.eos_id = eos_id
 
-    def epoch_iterator(self, epoch: int, shard: tuple[int, int] = (0, 1)):
-        if shard != (0, 1):
+    def epoch_iterator(self, epoch: int, shard: tuple[int, int] = (0, 1),
+                       rows=None):
+        if shard != (0, 1) or rows is not None:
             raise NotImplementedError(
-                "sharded FastSpeech2 batches (ROADMAP A10)")
+                "FastSpeech2 trains on one device, as in JAX (whose "
+                "FS2Task.run has no mesh): its batches are not sharded")
         return self.batcher.epoch_iterator(epoch, self.eos_id)
 
 
@@ -291,7 +294,12 @@ class FS2Task:
               device=None) -> tuple[Trainer, TrainState]:
         """Write config.yaml and tokens.txt to ``exp_dir`` and assemble the
         trainer and the initial state on ``device`` (cuda unless the caller
-        asks for the CPU)."""
+        asks for the CPU).  FastSpeech2 trains on one device, as in JAX:
+        in a group of several processes this raises."""
+        if world() > 1:
+            raise NotImplementedError(
+                "FastSpeech2 trains on one device, as in JAX (whose "
+                "FS2Task.run has no mesh)")
         dev = resolve_device(device)
         os.makedirs(cfg.exp_dir, exist_ok=True)
         save_config(cfg, os.path.join(cfg.exp_dir, "config.yaml"))

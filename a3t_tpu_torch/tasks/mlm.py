@@ -23,8 +23,19 @@ variant (``model.duration_predictor_layers > 0``) trains through
 ``make_tts_train_step`` on batches with ``duration_collect`` on (training
 batches only, as in JAX).  ``num_plot_examples > 0`` with a validation
 set writes per-epoch mel and attention plots of the validation set's first
-batch to ``exp_dir/plots`` (``train/plots.py``).  Not ported, and raising
-with its ROADMAP item: meshes of more than one device (A10).
+batch to ``exp_dir/plots`` (``train/plots.py``).
+
+The JAX mesh's ``data`` axis is one process per card (``parallel/``): in a
+group of W > 1 processes every rank builds the same unsharded plan with
+bucket batch sizes at ``batch_multiple = W`` (JAX's ``batch_multiple=dp``),
+takes its row block of every training and validation batch on its own
+card (``cuda:{rank mod cards}``), uploads a device-resident corpus whole,
+and steps through the rank-aware step, optimizer, trainer and checkpoints;
+chained dispatch falls back to one step per call, as JAX's does on a mesh.
+Rank 0 alone writes ``config.yaml``, ``tokens.txt``, the checkpoints, the
+plots and the tensorboard and wandb logs.  Still raising with their
+ROADMAP items: the ``model`` axis (``mesh.tensor_parallel > 1``, A10b) and
+the ``seq`` axis (``mesh.sequence_parallel > 1``, A10c).
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ from a3t_tpu_torch.data.multi_corpus import (CorpusSpec,
                                              make_multi_corpus_train_step)
 from a3t_tpu_torch.data.records import RecordDataset
 from a3t_tpu_torch.device import resolve_device
+from a3t_tpu_torch.parallel.mesh import (barrier, data_parallel, rank,
+                                         rank_device)
 from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
 from a3t_tpu_torch.models.mlm import A3TMLMModel, build_model
 from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
@@ -73,25 +86,34 @@ def _peek_batch(factory, epoch: int = 0):
     return batch
 
 
-def check_supported(cfg: A3TTaskConfig) -> None:
-    """Raise for what the port's task does not do yet."""
+def check_supported(cfg: A3TTaskConfig) -> int:
+    """Raise for what the port's task does not do yet; returns the data
+    axis's size (the number of processes)."""
     m = cfg.mesh
-    if m.data_parallel not in (None, 1) or m.tensor_parallel != 1 \
-            or m.sequence_parallel != 1:
+    if m.tensor_parallel != 1:
         raise NotImplementedError(
-            "a mesh of more than one device is not ported (ROADMAP A10)")
+            "mesh.tensor_parallel > 1 (the model axis) is not ported "
+            "(ROADMAP A10b)")
+    if m.sequence_parallel != 1:
+        raise NotImplementedError(
+            "mesh.sequence_parallel > 1 (the seq axis) is not ported "
+            "(ROADMAP A10c)")
+    return data_parallel(m.data_parallel)
 
 
 class MLMTask:
     @classmethod
-    def build_token_converter(cls, cfg: A3TTaskConfig) -> TokenIDConverter:
+    def build_token_converter(cls, cfg: A3TTaskConfig,
+                              write: bool = True) -> TokenIDConverter:
+        """The token list of ``cfg.token_list``, or one built from the
+        training text and saved there when ``write``."""
         if cfg.token_list and os.path.exists(cfg.token_list):
             return TokenIDConverter(cfg.token_list)
         # build from the training text (recipe stage 5, mlm.sh:257-260)
         texts = read_2column_text(
             os.path.join(cfg.train_data_dir, "text")).values()
         conv = TokenIDConverter(build_token_list(texts))
-        if cfg.token_list:
+        if cfg.token_list and write:
             conv.save(cfg.token_list)
         return conv
 
@@ -123,10 +145,13 @@ class MLMTask:
 
     @classmethod
     def build_batcher(cls, cfg: A3TTaskConfig, data_dir: str,
-                      conv: TokenIDConverter, train: bool) -> BucketBatcher:
+                      conv: TokenIDConverter, train: bool,
+                      batch_multiple: int = 1) -> BucketBatcher:
         """The batcher of a data directory or of record shards (a
         directory with an ``index.npz``).  Validation batches carry their
-        audio: only the train step reads the corpus on the device."""
+        audio: only the train step reads the corpus on the device.
+        ``batch_multiple > 1`` (the data axis's size) replaces the
+        config's."""
         if os.path.exists(os.path.join(data_dir, "index.npz")):
             ds = RecordDataset(data_dir, speech_only=cfg.speech_only)
         else:
@@ -135,6 +160,8 @@ class MLMTask:
         if not train:
             bcfg = dataclasses.replace(bcfg, mlm_prob_factor=1.0,
                                        device_audio=False)
+        if batch_multiple > 1:
+            bcfg = dataclasses.replace(bcfg, batch_multiple=batch_multiple)
         if cfg.model.duration_predictor_layers > 0 and train:
             # the duration-aware variant collects durations (JAX
             # tasks/mlm.py:107-110)
@@ -194,9 +221,11 @@ class MLMTask:
               shard: tuple[int, int] = (0, 1)) -> tuple[Trainer, TrainState]:
         """Write config.yaml and tokens.txt to ``exp_dir`` and assemble the
         trainer and the initial train state on ``device`` (cuda unless the
-        caller asks for the CPU)."""
-        check_supported(cfg)
-        dev = resolve_device(device)
+        caller asks for the CPU; over W ranks, this rank's card)."""
+        w = check_supported(cfg)
+        r = rank()
+        dev = rank_device(device)
+        rows = (r, w) if w > 1 else None
         # longformer buckets must be multiples of the half-window (the
         # pad_to_longformer_att_window invariant, collate_fn.py:241-247)
         enc = cfg.model.encoder
@@ -209,26 +238,31 @@ class MLMTask:
                     f"dilation {c} (required by longformer attention)")
 
         os.makedirs(cfg.exp_dir, exist_ok=True)
-        save_config(cfg, os.path.join(cfg.exp_dir, "config.yaml"))
-        conv = cls.build_token_converter(cfg)
-        conv.save(os.path.join(cfg.exp_dir, "tokens.txt"))
+        if r == 0:
+            conv = cls.build_token_converter(cfg)
+            save_config(cfg, os.path.join(cfg.exp_dir, "config.yaml"))
+            conv.save(os.path.join(cfg.exp_dir, "tokens.txt"))
+        barrier()  # a token list that rank 0 built is whole on disk
+        if r != 0:
+            conv = cls.build_token_converter(cfg, write=False)
         transfer = DeviceTransfer(dev) if dev.type == "cuda" else None
 
         chain = int(cfg.trainer.steps_per_dispatch)
-        if chain > 1 and (cfg.corpora
+        if chain > 1 and (w > 1 or cfg.corpora
                           or cfg.model.duration_predictor_layers > 0):
             logger.warning(
-                "steps_per_dispatch=%d unsupported with multi-corpus/TTS "
-                "training; falling back to 1", chain)
+                "steps_per_dispatch=%d unsupported with mesh/multi-corpus/"
+                "TTS training; falling back to 1", chain)
             chain = 1
         trainer_cfg = dataclasses.replace(cfg.trainer,
                                           steps_per_dispatch=chain)
 
         def factory(data_dir, train, num_iters, chain=1):
-            batcher = cls.build_batcher(cfg, data_dir, conv, train)
+            batcher = cls.build_batcher(cfg, data_dir, conv, train,
+                                        batch_multiple=w)
             return EpochIterFactory(batcher, num_iters, shard,
                                     cfg.num_workers_prefetch, transfer,
-                                    chain=chain)
+                                    chain=chain, rows=rows)
 
         model = cls.build_model(cfg, len(conv), dev)
         fe = cls.build_frontend(cfg, dev)
@@ -236,7 +270,7 @@ class MLMTask:
         corpus = None
         if cfg.corpora:
             train_factory, train_step = cls._build_multi_corpus(
-                cfg, conv, model, dev, shard, transfer)
+                cfg, conv, model, dev, shard, transfer, rows)
         else:
             train_factory = factory(cfg.train_data_dir, True,
                                     cfg.trainer.num_iters_per_epoch, chain)
@@ -274,7 +308,7 @@ class MLMTask:
                     sum(p.numel() for p in model.parameters()) / 1e6)
 
         tb_writer = wandb_run = None
-        if cfg.use_tensorboard:
+        if cfg.use_tensorboard and r == 0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -282,7 +316,7 @@ class MLMTask:
                     os.path.join(cfg.exp_dir, "tensorboard"))
             except ImportError:  # tensorboard is optional
                 logger.warning("tensorboard unavailable; skipping")
-        if cfg.use_wandb:
+        if cfg.use_wandb and r == 0:
             try:
                 import wandb
 
@@ -294,7 +328,8 @@ class MLMTask:
                 logger.warning("wandb unavailable; skipping")
 
         plot_fn = None
-        if cfg.num_plot_examples > 0 and valid_factory is not None:
+        if cfg.num_plot_examples > 0 and valid_factory is not None \
+                and r == 0:
             plot_batch = _peek_batch(valid_factory)
             plot_dir = os.path.join(cfg.exp_dir, "plots")
             plot_fns = (
@@ -324,12 +359,15 @@ class MLMTask:
 
     @classmethod
     def _build_multi_corpus(cls, cfg: A3TTaskConfig, conv: TokenIDConverter,
-                            model: A3TMLMModel, dev, shard, transfer):
+                            model: A3TMLMModel, dev, shard, transfer,
+                            rows=None):
         """(train factory, train step) of a ``corpora`` mixture (JAX
         tasks/mlm.py:399-434): each entry ``{name, data_dir, portion,
         speech_only, frontend}`` gets its own batcher on its own front-end
         (the config's when it has none); the step dispatches each
-        ``(name, batch)`` to its corpus's step."""
+        ``(name, batch)`` to its corpus's step.  ``rows = (r, W)``: each
+        batcher at ``batch_multiple = max(W, the config's)`` and rank r's
+        row blocks."""
         specs, frontends, speech_only = [], {}, {}
         for entry in cfg.corpora:
             entry = dict(entry)
@@ -339,7 +377,11 @@ class MLMTask:
                       if entry.get("frontend") else cfg.frontend)
             so = bool(entry.get("speech_only", False))
             ds = A3TDataset(entry["data_dir"], conv, speech_only=so)
-            batcher = BucketBatcher(ds, fe_cfg, cfg.batcher)
+            bcfg = cfg.batcher
+            if rows is not None:
+                bcfg = dataclasses.replace(bcfg, batch_multiple=max(
+                    rows[1], bcfg.batch_multiple))
+            batcher = BucketBatcher(ds, fe_cfg, bcfg)
             logger.info("corpus %s (portion %s%s, %d Hz): buckets %s (%d "
                         "utts dropped as overlong)", name,
                         entry.get("portion", 1.0),
@@ -353,7 +395,7 @@ class MLMTask:
             speech_only[name] = so
         factory = MultiCorpusIterFactory(
             specs, cfg.trainer.num_iters_per_epoch or 100, shard,
-            prefetch=cfg.num_workers_prefetch, transfer=transfer)
+            prefetch=cfg.num_workers_prefetch, transfer=transfer, rows=rows)
         return factory, make_multi_corpus_train_step(
             model, frontends, speech_only, device=dev)
 

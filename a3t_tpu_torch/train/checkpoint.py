@@ -17,6 +17,17 @@ A checkpoint directory holds
 There is no orbax: the format is the port's own.  Every file is written to
 a temporary name and moved into place with ``os.replace``, so a crash never
 leaves half a checkpoint under a checkpoint's name.
+
+Over the W ranks of the data axis (``parallel/``) the files do not depend
+on W: every rank takes part in gathering the optimizer's moment slices
+(``mu``, ``nu``, ``acc_grads``) into whole vectors, rank 0 alone writes
+the same files one process writes, and every rank waits at a barrier
+before it goes on.  A restore reads the whole vectors on every rank and
+keeps each rank's slice, so a checkpoint written at one world size
+resumes at another.  Every rank must therefore see the directory rank 0
+writes (``exp_dir`` on a file system the machines share), which
+:meth:`CheckpointManager.check_shared` verifies; where to resume and which
+epochs to average are rank 0's decisions.
 """
 
 from __future__ import annotations
@@ -24,11 +35,15 @@ from __future__ import annotations
 import json
 import logging
 import os
+import socket
+import time
 from typing import Optional
 
 import torch
 
-from a3t_tpu_torch.train.optim import OptState
+from a3t_tpu_torch.parallel.mesh import agree, barrier, every, rank, world
+from a3t_tpu_torch.parallel.sharding import all_gather_flat, shard_flat
+from a3t_tpu_torch.train.optim import SHARDED_FIELDS, OptState
 from a3t_tpu_torch.train.reporter import Reporter
 
 logger = logging.getLogger("a3t_tpu_torch")
@@ -57,19 +72,29 @@ def _save_text(text: str, path: str) -> None:
 
 
 def _state_tree(state) -> dict:
+    """The state's tree, each moment slice gathered into its whole vector
+    (a collective: every rank calls this)."""
     os_ = state.opt_state
+    n = sum(p.numel() for p in state.model.parameters())
+
+    def whole(k):
+        v = getattr(os_, k)
+        return all_gather_flat(v, n) if k in SHARDED_FIELDS and v.numel() \
+            else v
+
     return {"step": state.step, "model": state.model.state_dict(),
-            "opt_state": {k: getattr(os_, k) for k in
-                          OptState.__dataclass_fields__}}
+            "opt_state": {k: whole(k) for k in OptState.__dataclass_fields__}}
 
 
 def _load_into(state, tree: dict):
     """Restore ``tree`` into the live TrainState ``state`` (in place),
-    keeping each tensor's device."""
+    keeping each tensor's device and this rank's slice of each moment."""
     state.model.load_state_dict(tree["model"], strict=True)
     os_ = state.opt_state
     for k, v in tree["opt_state"].items():
         old = getattr(os_, k)
+        if k in SHARDED_FIELDS and v.numel():
+            v = shard_flat(v)
         setattr(os_, k, v.to(device=old.device, dtype=old.dtype))
     state.step = int(tree["step"])
     return state
@@ -87,6 +112,34 @@ class CheckpointManager:
         self.keep_nbest = keep_nbest
         self.criterion = tuple(criterion)
 
+    def check_shared(self):
+        """Over several ranks, raise on every rank unless every rank sees
+        the file rank 0 writes here; nothing at world size 1.  Rank 0 alone
+        writes the checkpoints and every rank reads them on resume, so the
+        directory must be on a file system all the ranks share.  A
+        collective: every rank calls it."""
+        if world() == 1:
+            return
+        path = os.path.join(self.directory, ".rank0")
+        token = agree(f"{socket.gethostname()}:{os.getpid()}:"
+                      f"{time.time_ns()}")
+        if rank() == 0:
+            _save_text(token, path)
+        barrier()
+        try:
+            with open(path, encoding="utf-8") as f:
+                seen = f.read() == token
+        except OSError:
+            seen = False
+        blind = [r for r, ok in enumerate(every(seen)) if not ok]
+        if rank() == 0:
+            os.remove(path)
+        if blind:
+            raise RuntimeError(
+                f"rank(s) {blind} do not see rank 0's checkpoint directory "
+                f"{self.directory}: every rank must see the same exp_dir, "
+                "on a file system the machines share")
+
     def _epoch_path(self, epoch: int) -> str:
         return os.path.join(self.directory, f"epoch_{epoch}.pt")
 
@@ -102,12 +155,15 @@ class CheckpointManager:
     def save_epoch(self, epoch: int, state, reporter: Reporter):
         """Save the full state after ``epoch``, the reporter's history and
         the LATEST pointer, then prune to the n best."""
-        _save(_state_tree(state), self._epoch_path(epoch))
-        _save_text(json.dumps({"epoch": epoch,
-                               "reporter": reporter.state_dict()}),
-                   os.path.join(self.directory, "meta.json"))
-        _save_text(str(epoch), os.path.join(self.directory, "LATEST"))
-        self._prune(reporter)
+        tree = _state_tree(state)
+        if rank() == 0:
+            _save(tree, self._epoch_path(epoch))
+            _save_text(json.dumps({"epoch": epoch,
+                                   "reporter": reporter.state_dict()}),
+                       os.path.join(self.directory, "meta.json"))
+            _save_text(str(epoch), os.path.join(self.directory, "LATEST"))
+            self._prune(reporter)
+        barrier()
 
     def _prune(self, reporter: Reporter):
         phase, key, mode = self.criterion
@@ -121,6 +177,11 @@ class CheckpointManager:
                 os.remove(os.path.join(self.directory, name))
 
     def latest_epoch(self) -> Optional[int]:
+        """The newest epoch with a checkpoint, as rank 0 sees it (a
+        collective over several ranks)."""
+        return agree(self._latest_epoch() if rank() == 0 else None)
+
+    def _latest_epoch(self) -> Optional[int]:
         marker = os.path.join(self.directory, "LATEST")
         if not os.path.exists(marker):
             return None
@@ -143,8 +204,7 @@ class CheckpointManager:
         meta_path = os.path.join(self.directory, "meta.json")
         if not os.path.exists(meta_path):
             return None
-        with open(meta_path, encoding="utf-8") as f:
-            meta = json.load(f)
+        meta = self._read_json("meta.json")
         reporter.load_state_dict(meta["reporter"])
         epoch = int(meta["epoch"])
         if up_to_epoch is not None and epoch > up_to_epoch:
@@ -154,6 +214,10 @@ class CheckpointManager:
         return epoch
 
     # -- mid-epoch checkpoints ---------------------------------------------
+    def _read_json(self, name: str):
+        with open(os.path.join(self.directory, name), encoding="utf-8") as f:
+            return json.load(f)
+
     def _step_path(self, epoch: int, iteration: int) -> str:
         return os.path.join(self.directory, f"step_e{epoch}_i{iteration}.pt")
 
@@ -166,17 +230,25 @@ class CheckpointManager:
         groups and skips whole groups on resume, so a run with another k
         could not replay up to the saved step."""
         path = self._step_path(epoch, iteration)
-        _save(_state_tree(state), path)
-        _save_text(json.dumps({"epoch": epoch, "iteration": iteration,
-                               "steps_per_dispatch": steps_per_dispatch,
-                               "reporter": reporter.state_dict()}),
-                   os.path.join(self.directory, "meta_step.json"))
-        for name in os.listdir(self.directory):
-            if name.startswith("step_") and name != os.path.basename(path):
-                os.remove(os.path.join(self.directory, name))
+        tree = _state_tree(state)
+        if rank() == 0:
+            _save(tree, path)
+            _save_text(json.dumps({"epoch": epoch, "iteration": iteration,
+                                   "steps_per_dispatch": steps_per_dispatch,
+                                   "reporter": reporter.state_dict()}),
+                       os.path.join(self.directory, "meta_step.json"))
+            for name in os.listdir(self.directory):
+                if name.startswith("step_") and \
+                        name != os.path.basename(path):
+                    os.remove(os.path.join(self.directory, name))
+        barrier()
 
     def latest_mid_epoch(self) -> Optional[tuple[int, int]]:
-        """(epoch, iteration) of the newest mid-epoch checkpoint, if any."""
+        """(epoch, iteration) of the newest mid-epoch checkpoint, if any, as
+        rank 0 sees it (a collective over several ranks)."""
+        return agree(self._latest_mid_epoch() if rank() == 0 else None)
+
+    def _latest_mid_epoch(self) -> Optional[tuple[int, int]]:
         keys = []
         for name in os.listdir(self.directory):
             if name.startswith("step_e") and name.endswith(".pt"):
@@ -195,9 +267,8 @@ class CheckpointManager:
         if key is None:
             raise FileNotFoundError("no mid-epoch checkpoint")
         epoch, iteration = key
-        with open(os.path.join(self.directory, "meta_step.json"),
-                  encoding="utf-8") as f:
-            meta = json.load(f)
+        meta = agree(self._read_json("meta_step.json") if rank() == 0
+                     else None)
         saved_k = int(meta.get("steps_per_dispatch", 1))
         if saved_k != steps_per_dispatch:
             raise ValueError(
@@ -211,16 +282,31 @@ class CheckpointManager:
 
     def clear_mid_epoch(self):
         """Drop mid-epoch checkpoints (once their epoch completes)."""
-        for name in os.listdir(self.directory):
-            if name.startswith("step_") or name == "meta_step.json":
-                os.remove(os.path.join(self.directory, name))
+        if rank() == 0:
+            for name in os.listdir(self.directory):
+                if name.startswith("step_") or name == "meta_step.json":
+                    os.remove(os.path.join(self.directory, name))
+        barrier()
 
     # -- n-best averaging ----------------------------------------------------
     def average_nbest(self, reporter: Reporter, model: torch.nn.Module,
                       n: Optional[int] = None):
         """Write ``ave_<k>best.pt``: the mean (in float64, cast back to each
         parameter's dtype) of the parameters of the k <= n best epochs that
-        still have checkpoints.  Returns ({name: tensor}, epochs)."""
+        still have checkpoints.  Returns ({name: tensor}, epochs).  Over
+        several ranks rank 0 alone chooses, reads and writes (a ValueError
+        when no ranked epoch has a checkpoint is rank 0's) and the others
+        wait; they return (None, None)."""
+        if rank() != 0:
+            barrier()
+            return None, None
+        try:
+            return self._average_nbest(reporter, model, n)
+        finally:
+            barrier()
+
+    def _average_nbest(self, reporter: Reporter, model: torch.nn.Module,
+                       n: Optional[int]):
         phase, key, mode = self.criterion
         n = n if n is not None else self.keep_nbest
         epochs = [e for e in reporter.sort_epochs(phase, key, mode)[:n]

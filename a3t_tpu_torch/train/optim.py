@@ -43,6 +43,17 @@ is the offline trainers' chain: the same clip and Adam at a constant rate,
 with no skipping.  The moments
 are kept as one flat float32 vector each, in the order of the parameter
 list given to :meth:`Optimizer.init`.
+
+Over the W ranks of the data axis (``parallel/``) the chain is ZeRO-1, as
+JAX's ``shard_opt_state`` shards it: rank r keeps only its slice
+(``parallel.sharding.flat_slice``, ``ceil(n / W)`` elements) of ``mu``,
+``nu`` and ``acc_grads``.  A step sums the flat gradients over the ranks
+and keeps the owned slice, reduces the squared norm and the count of
+non-finite elements over the ranks (so the skip, the clip and the reported
+norm are global and equal on every rank), adds its slice of the full noise
+draw and of the weight decay, applies Adam and the schedule to the slice,
+and gathers the slices of the update onto every rank's parameters.  At W =
+1 no collective runs and every slice is the whole vector.
 """
 
 from __future__ import annotations
@@ -51,6 +62,10 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from a3t_tpu_torch.parallel.mesh import all_reduce_sum, world
+from a3t_tpu_torch.parallel.sharding import (all_gather_flat, flat_slice,
+                                             reduce_scatter_flat, shard_flat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +118,9 @@ def warmup_lr_schedule(warmup_steps: int, base_lr: float):
 @dataclasses.dataclass
 class OptState:
     """The chain's state.  ``mu``/``nu`` are flat float32 vectors in the
-    parameters' order; ``count`` is the inner chain's step count (Adam's,
-    the schedule's and the noise's, which move together);
+    parameters' order (this rank's slice of them over W ranks); ``count``
+    is the inner chain's step count (Adam's, the schedule's and the
+    noise's, which move together);
     ``notfinite_count``, ``last_finite`` and ``total_notfinite`` are
     apply_if_finite's; ``mini_step``, ``gradient_step`` and the flat
     ``acc_grads`` are MultiSteps' (``acc_grads`` is empty without
@@ -119,6 +135,10 @@ class OptState:
     mini_step: torch.Tensor
     gradient_step: torch.Tensor
     acc_grads: torch.Tensor
+
+
+# the state's flat vectors that each rank of the data axis holds a slice of
+SHARDED_FIELDS = ("mu", "nu", "acc_grads")
 
 
 def gradient_noise(count: int, n: int, device) -> torch.Tensor:
@@ -154,7 +174,8 @@ class Optimizer:
     def init(self, params) -> OptState:
         params = list(params)
         dev = params[0].device
-        n = sum(p.numel() for p in params)
+        owned = flat_slice(sum(p.numel() for p in params))
+        n = owned.stop - owned.start
 
         def scalar(value, dtype=torch.int32):
             return torch.tensor(value, dtype=dtype, device=dev)
@@ -169,9 +190,9 @@ class Optimizer:
             acc_grads=torch.zeros(n if k > 1 else 0, dtype=torch.float32,
                                   device=dev))
 
-    def _inner(self, u: torch.Tensor, params, state: OptState):
-        """The inner chain on the flat gradient ``u``: (update, mu, nu,
-        count + 1)."""
+    def _inner(self, u: torch.Tensor, params, state: OptState, n: int):
+        """The inner chain on (this rank's slice of) the flat gradient
+        ``u`` of ``n`` elements: (update, mu, nu, count + 1)."""
         c = self.config
         if c.grad_noise_eta > 0:
             k = c.accum_grad
@@ -181,11 +202,11 @@ class Optimizer:
                 count = int(state.count)
                 std = torch.sqrt(c.grad_noise_eta / torch.tensor(
                     count + 1, dtype=torch.float32) ** c.grad_noise_gamma)
-                u = u + std.to(u.device) * gradient_noise(count, u.numel(),
-                                                          u.device)
-        u, _ = clip_by_global_norm(u, c.grad_clip)
+                u = u + std.to(u.device) * shard_flat(
+                    gradient_noise(count, n, u.device))
+        u, _ = clip_by_global_norm(u, c.grad_clip, _sharded_norm(u))
         if c.weight_decay > 0:
-            u = u + c.weight_decay * _flat(params)
+            u = u + c.weight_decay * shard_flat(_flat(params))
         u, mu, nu, count_inc = scale_by_adam(
             u, state.mu, state.nu, state.count, c.adam_b1, c.adam_b2,
             c.adam_eps)
@@ -194,11 +215,19 @@ class Optimizer:
     @torch.no_grad()
     def apply(self, params, grads, state: OptState) -> torch.Tensor:
         """One (micro-)step of ``params`` (a list of tensors) by ``grads``
-        (the same order), in place; returns the gradients' global norm."""
+        (the same order; over W ranks each rank's share, summed here), in
+        place; returns the gradients' global norm."""
         c = self.config
         k = c.accum_grad
-        g = _flat(grads)
-        finite = torch.isfinite(g).all()
+        params = list(params)
+        n = sum(p.numel() for p in params)
+        g = reduce_scatter_flat(_flat(grads))
+        if world() > 1:
+            sq, bad = all_reduce_sum(torch.stack([
+                (g * g).sum(), (~torch.isfinite(g)).sum().float()]))
+            g_norm, finite = torch.sqrt(sq), bad == 0
+        else:
+            g_norm, finite = None, torch.isfinite(g).all()
         notfinite = torch.where(finite, torch.zeros_like(state.count),
                                 state.notfinite_count + 1)
         accept = finite | (notfinite > c.max_consecutive_nonfinite)
@@ -206,7 +235,7 @@ class Optimizer:
             acc = state.acc_grads + (g - state.acc_grads) / (
                 state.mini_step + 1)
             emit = state.mini_step == k - 1
-            u, mu, nu, count_inc = self._inner(acc, params, state)
+            u, mu, nu, count_inc = self._inner(acc, params, state, n)
             # MultiSteps multiplies by emit (0 * NaN stays NaN) and
             # apply_if_finite selects
             u = torch.where(accept, emit * u, torch.zeros_like(u))
@@ -218,7 +247,7 @@ class Optimizer:
             state.mini_step = torch.where(
                 accept, (state.mini_step + 1) % k, state.mini_step)
         else:
-            u, mu, nu, count_inc = self._inner(g, params, state)
+            u, mu, nu, count_inc = self._inner(g, params, state, n)
             u = torch.where(accept, u, torch.zeros_like(u))
             keep = accept
         state.mu = torch.where(keep, mu, state.mu)
@@ -228,8 +257,8 @@ class Optimizer:
             finite, state.total_notfinite, state.total_notfinite + 1)
         state.notfinite_count = notfinite
         state.last_finite = finite
-        _add_(params, u)
-        return torch.linalg.vector_norm(g)
+        _add_(params, all_gather_flat(u, n))
+        return torch.linalg.vector_norm(g) if g_norm is None else g_norm
 
 
 def _flat(tensors) -> torch.Tensor:
@@ -244,11 +273,21 @@ def _add_(params, u: torch.Tensor) -> None:
         s.view_as(p).to(p.dtype) for s, p in zip(u.split(sizes), params)])
 
 
-def clip_by_global_norm(g: torch.Tensor, max_norm: float):
+def _sharded_norm(x: torch.Tensor) -> torch.Tensor:
+    """The norm of the flat vector whose slices the ranks hold (``x`` is
+    this rank's)."""
+    if world() == 1:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(all_reduce_sum((x * x).sum()))
+
+
+def clip_by_global_norm(g: torch.Tensor, max_norm: float,
+                        g_norm: torch.Tensor = None):
     """optax's ``clip_by_global_norm`` on the flat gradient ``g``:
     ``where(norm < max, g, g / norm * max)``, no epsilon; (clipped,
-    norm)."""
-    g_norm = torch.linalg.vector_norm(g)
+    norm).  ``g_norm`` is the norm when ``g`` is a slice of the vector."""
+    if g_norm is None:
+        g_norm = torch.linalg.vector_norm(g)
     return torch.where(g_norm < max_norm, g, g / g_norm * max_norm), g_norm
 
 

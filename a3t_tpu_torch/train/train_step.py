@@ -34,7 +34,16 @@ embeddings.
 Differences from the JAX step: the state is updated in place and returned
 (the JAX step donates its state); ``rng`` is an int seed or a CPU
 ``torch.Generator`` from which every dropout site draws its seed on the
-host.  Mesh sharding is not ported (ROADMAP A10).
+host.
+
+Over the W ranks of the data axis (``parallel/``, one process per card)
+each rank steps on its row block of the global batch; the steps keep the
+JAX mesh's single-controller semantics: the masked means divide by the
+global batch's count, BatchNorm reduces its statistics over the ranks, the
+optimizer sums the gradients (ZeRO-1, ``train/optim.py``), and every
+statistic is the global batch's, equal on every rank.  The chained step
+takes one rank only, as JAX's mesh step has no chained form.  The ``model``
+and ``seq`` axes are not ported (ROADMAP A10b, A10c).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from a3t_tpu_torch.dsp.frontend import LogMelFrontend
 from a3t_tpu_torch.models.layers import duration_loss
 from a3t_tpu_torch.models.mlm import A3TMLMModel, mlm_loss
 from a3t_tpu_torch.ops.fused_logmel import fused_logmel
+from a3t_tpu_torch.parallel.mesh import all_reduce_sum, world
 from a3t_tpu_torch.train.optim import Optimizer, OptState
 
 
@@ -235,9 +245,9 @@ def make_train_step(model: A3TMLMModel, frontend: Optional[LogMelFrontend],
             loss = loss + dl
             stats["loss_duration"] = dl.detach()
         grad_norm = _update(state, loss)
-        return state, {**stats, "loss": loss.detach(),
-                       "masked_frames": mb["masked_position"].sum(),
-                       "grad_norm": grad_norm,
+        stats = _global({**stats, "loss": loss.detach(),
+                         "masked_frames": mb["masked_position"].sum()})
+        return state, {**stats, "grad_norm": grad_norm,
                        "notfinite_count": state.opt_state.notfinite_count}
 
     return step
@@ -257,7 +267,11 @@ def make_chained_train_step(model: A3TMLMModel,
     sub-step with ``valid[i]`` False is skipped, which equals the JAX scan's
     computing it and keeping the old state.  ``stats`` holds each
     statistic stacked over the k sub-steps, zero at the skipped ones.
-    The duration-aware variant raises, as in JAX."""
+    The duration-aware variant and world sizes above 1 raise, as in JAX
+    (whose mesh step has no chained form)."""
+    if world() > 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 is not wired for a data-parallel step")
     if model.config.duration_predictor_layers > 0:
         raise NotImplementedError(
             "steps_per_dispatch > 1 is not wired for the duration/TTS "
@@ -283,8 +297,20 @@ def make_chained_train_step(model: A3TMLMModel,
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over ``mask``, whose count is the global batch's
+    over W ranks (each rank's share then sums to the global mean)."""
     w = mask.to(torch.float32)
-    return (x * w).sum() / (w.sum() + 1e-10)
+    return (x * w).sum() / (all_reduce_sum(w.sum()) + 1e-10)
+
+
+def _global(stats: dict) -> dict:
+    """The global batch's statistics from the ranks' shares (sums; one
+    all_reduce), each in its own dtype; ``stats`` itself at W = 1."""
+    if world() == 1:
+        return stats
+    keys = list(stats)
+    total = all_reduce_sum(torch.stack([stats[k].float() for k in keys]))
+    return {k: total[i].to(stats[k].dtype) for i, k in enumerate(keys)}
 
 
 def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
@@ -329,7 +355,7 @@ def tts_loss(model: A3TMLMModel, mb: dict, batch: dict, generator=None):
     """(loss, mlm loss, duration loss) of the variant on the featurized
     batch ``mb`` of host batch ``batch``: :func:`mlm_loss` on the
     full-resolution mel and mask plus the duration loss averaged over the
-    reduced masked positions."""
+    reduced masked positions, both over the global batch's counts."""
     reduced = tts_inputs(mb, batch)
     before, after, log_d = model.tts_forward(
         **reduced, out_frames=mb["speech"].shape[1], generator=generator)
@@ -360,9 +386,9 @@ def make_tts_train_step(model: A3TMLMModel, frontend: LogMelFrontend,
         mb = featurize(frontend, batch, corpus=corpus)
         loss, loss_mlm, dl = tts_loss(m, mb, batch, _generator(rng))
         grad_norm = _update(state, loss)
-        return state, {"loss": loss.detach(), "loss_mlm": loss_mlm.detach(),
-                       "loss_duration": dl.detach(),
-                       "grad_norm": grad_norm,
+        stats = _global({"loss": loss.detach(), "loss_mlm": loss_mlm.detach(),
+                         "loss_duration": dl.detach()})
+        return state, {**stats, "grad_norm": grad_norm,
                        "notfinite_count": state.opt_state.notfinite_count}
 
     return step
@@ -384,6 +410,7 @@ def make_eval_step(model: A3TMLMModel, frontend: Optional[LogMelFrontend],
             before, after = m(**mb, speech_only=speech_only)
             loss = mlm_loss(before, after, mb["speech"],
                             mb["masked_position"], use_mse=use_mse)
+            loss = _global({"loss": loss})["loss"]
         return {"loss": loss, "loss_mlm": loss}
 
     return step

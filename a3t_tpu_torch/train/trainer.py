@@ -36,6 +36,16 @@ multi-corpus factory come as ``(corpus name, batch)``.  ``plot_fn(state,
 epoch)``, when given, runs after each epoch's validation (the per-epoch
 plots of ``train/plots.py``); an exception in it is logged, not raised, as
 in JAX: plots must never stop training.
+
+Over the W ranks of the data axis (``parallel/``) every rank runs this
+loop on its row blocks of the same plan: a step's dropout generator also
+folds in the rank (ranks must not draw one mask for different rows; W = 1
+keeps the seeds above), the statistics and the validation loss are the
+global batch's on every rank, the decisions taken before a collective (the
+non-finite stop, early stopping, the walltime budget) are rank 0's, and
+the checkpoint manager gathers the moments and writes on rank 0.  The
+task gives tensorboard, wandb and ``plot_fn`` to rank 0 alone; rank 0
+alone writes the profile.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from a3t_tpu_torch.parallel.mesh import agree, rank, world
 from a3t_tpu_torch.train.checkpoint import CheckpointManager, warm_start_params
 from a3t_tpu_torch.train.reporter import Reporter
 
@@ -91,10 +102,22 @@ class TrainerConfig:
     steps_per_dispatch: int = 1
 
 
-def step_generator(seed: int, epoch: int, iteration: int) -> torch.Generator:
-    """The dropout generator of step ``iteration`` (0-based) of ``epoch``."""
-    s = np.random.SeedSequence([seed, epoch, iteration]).generate_state(2)
+def step_generator(seed: int, epoch: int, iteration: int,
+                   rank: Optional[int] = None) -> torch.Generator:
+    """The dropout generator of step ``iteration`` (0-based) of ``epoch``;
+    with ``rank`` (world size > 1) that rank's."""
+    key = [seed, epoch, iteration] + ([] if rank is None else [rank])
+    s = np.random.SeedSequence(key).generate_state(2)
     return torch.Generator().manual_seed(int(s[0]) << 32 | int(s[1]))
+
+
+def rank_step_generator(seed: int, epoch: int,
+                        iteration: int) -> torch.Generator:
+    """This process's dropout generator of a step: over W > 1 ranks its
+    rank is folded in, so that ranks draw their own masks for their rows;
+    one process keeps :func:`step_generator`'s seeds."""
+    return step_generator(seed, epoch, iteration,
+                          rank() if world() > 1 else None)
 
 
 def _chained(batch) -> bool:
@@ -151,6 +174,8 @@ class Trainer:
     def run(self, state):
         cfg = self.config
         start_epoch, skip_iters = 1, 0
+        if self.ckpt is not None:
+            self.ckpt.check_shared()
         if cfg.resume and self.ckpt is not None:
             latest = self.ckpt.latest_epoch()
             if latest is not None:
@@ -187,8 +212,8 @@ class Trainer:
             skip_iters = 0
             # the one read of the device per epoch besides the statistics
             before, notfinite = notfinite, int(state.opt_state.total_notfinite)
-            if (self._last_epoch_steps > 0
-                    and notfinite - before >= self._last_epoch_steps):
+            if agree(self._last_epoch_steps > 0
+                     and notfinite - before >= self._last_epoch_steps):
                 logger.warning(
                     "the gradients at all %d steps of epoch %d were "
                     "non-finite — something is wrong; stopping training",
@@ -208,20 +233,23 @@ class Trainer:
                 self.ckpt.clear_mid_epoch()
 
             phase, key, mode = cfg.best_model_criterion
-            if cfg.patience is not None and self.reporter.check_early_stopping(
-                    cfg.patience, phase, key, mode):
+            if cfg.patience is not None and agree(
+                    self.reporter.check_early_stopping(cfg.patience, phase,
+                                                       key, mode)):
                 logger.info("early stopping at epoch %d", epoch)
                 break
             max_epoch_sec = max(max_epoch_sec, time.perf_counter() - epoch_t0)
             if cfg.max_walltime_sec is not None:
                 remaining = cfg.max_walltime_sec - (
                     time.perf_counter() - run_t0)
-                if remaining < max_epoch_sec and epoch < cfg.max_epoch:
+                # rank 0's clock decides for every rank
+                if agree(remaining < max_epoch_sec
+                         and epoch < cfg.max_epoch):
                     logger.info(
                         "walltime: %.0fs remain < longest epoch %.0fs — "
                         "stopping for resubmission after epoch %d",
                         remaining, max_epoch_sec, epoch)
-                    if cfg.resubmit_command:
+                    if cfg.resubmit_command and rank() == 0:
                         subprocess.Popen(cfg.resubmit_command, shell=True,
                                          start_new_session=True)
                         logger.info("resubmitted: %s", cfg.resubmit_command)
@@ -292,7 +320,7 @@ class Trainer:
                     steps_done += n_steps
                     t_last = time.perf_counter()
                     continue
-                if cfg.profile_dir and epoch == 1:
+                if cfg.profile_dir and epoch == 1 and rank() == 0:
                     if it == 10:
                         prof = torch.profiler.profile(activities=[
                             torch.profiler.ProfilerActivity.CPU,
@@ -316,8 +344,8 @@ class Trainer:
                     rec["prev_end"], prev_end = prev_end, rec["events"][1]
                 if valid is None:
                     state, stats = self.train_step(
-                        state, batch, step_generator(cfg.seed, epoch,
-                                                     steps_done))
+                        state, batch, rank_step_generator(cfg.seed, epoch,
+                                                          steps_done))
                     weights = float(b)
                 else:
                     _, stacked, valid, weights = batch

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Which collectives the card's torch.distributed backends take on CUDA
+tensors, and their times at the 24 kHz model's flat-vector size.
+
+    python3 chip_collectives.py
+
+Two processes on cuda:0 over gloo (NCCL takes one rank per device) try
+all_reduce, broadcast, barrier, all_gather, all_gather_into_tensor and
+reduce_scatter_tensor on a small tensor, then time all_reduce,
+reduce_scatter_tensor and all_gather_into_tensor of 67.7M float32 (271 MB,
+the port's ZeRO-1 step; mean of 3 after one warm-up, host clock around
+synchronised calls); then one process tries the same small calls in an
+NCCL group of one.  Each line names its backend, rank and collective.
+"""
+
+import os
+import socket
+import sys
+import time
+
+N = 67_700_000  # the 24 kHz model's parameters
+
+
+def _timed(torch, fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _work(r, port, backend, world):
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=r)
+    dev = torch.device("cuda:0")
+    x = torch.arange(6, dtype=torch.float32, device=dev) + r
+    tests = [
+        ("all_reduce", lambda: dist.all_reduce(x.clone())),
+        ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+        ("barrier", dist.barrier),
+        ("all_gather", lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x)),
+        ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+            torch.empty(6 * world, device=dev), x)),
+        ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+            torch.empty(6 // world, device=dev), x.clone())),
+    ]
+    for name, fn in tests:
+        try:
+            fn()
+            torch.cuda.synchronize()
+            print(f"{backend} W={world} rank {r} {name}: ok", flush=True)
+        except Exception as e:  # report what the backend refuses
+            print(f"{backend} W={world} rank {r} {name}: FAIL "
+                  f"{type(e).__name__}: {str(e)[:200]}", flush=True)
+    if world > 1:
+        big = torch.randn(N, device=dev)
+        part = torch.empty(N // world, device=dev)
+        for name, fn in (
+                ("all_reduce", lambda: dist.all_reduce(big)),
+                ("reduce_scatter_tensor",
+                 lambda: dist.reduce_scatter_tensor(part, big)),
+                ("all_gather_into_tensor",
+                 lambda: dist.all_gather_into_tensor(big, part))):
+            print(f"{backend} rank {r} {name} of {4 * N / 1e6:.1f} MB: "
+                  f"{_timed(torch, fn):.1f} ms", flush=True)
+    dist.destroy_process_group()
+
+
+def _port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def main() -> int:
+    import torch
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available():
+        print("chip_collectives: no CUDA device", file=sys.stderr)
+        return 1
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda,
+          torch.cuda.get_device_name(0), flush=True)
+    os.system("nvidia-smi --query-gpu=name,power.limit "
+              "--format=csv,noheader")
+    mp.spawn(_work, args=(_port(), "gloo", 2), nprocs=2)
+    mp.spawn(_work, args=(_port(), "nccl", 1), nprocs=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

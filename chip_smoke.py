@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --model-options   # the build and phase 18 alone
+    python3 chip_smoke.py --data-parallel   # the build and phase 19 alone
+    python3 chip_smoke.py --data-parallel-cards   # on a machine of 2+ cards:
+        # the build and one rank per card over NCCL against one process
 
 Phases, each printing its elapsed seconds:
 
@@ -260,6 +263,27 @@ Phases, each printing its elapsed seconds:
    (f) The LJSpeech and VCTK recipes on tiny corpora in the sources'
    layouts: every split at the target rate, one span per phone.  Prints
    each part's seconds and the phase's K1-K5 launches.
+19. data-parallel: the data axis as one process per rank, on the
+   trainer's corpus and the unedited 24 kHz yaml in fp32 under
+   deterministic algorithms, 4 steps a run, each rank a process of this
+   script (``--dp-rank``) around bin.train's main.  (a) ``python3 -m
+   a3t_tpu_torch.bin.launch --launcher local --hosts localhost -- ...``,
+   one rank over NCCL, against a plain bin.train run: losses, parameters,
+   BatchNorm statistics and epoch_1.pt bit for bit.  (b) Two ranks on the
+   one card over gloo (NCCL takes one rank per device) at dropout 0,
+   against one process on the same global batches (batch_multiple 2): the
+   losses within 1e-5 at each step, the parameters by JAX's cross-mesh
+   rule (tests/test_train.py:218-237, its bound summed over the steps'
+   learning rates), the BatchNorm statistics equal on both ranks bit for
+   bit and, in units of each channel's spread, within 1e-4 of one
+   process's at the first step and after the run (TOL_DP_BN_STEP0,
+   TOL_DP_BN), where a control (two ranks with each rank's local
+   statistics) must read past both gates; each rank holding half of
+   Adam's moments; the two-rank run's mid-epoch checkpoint resumed by one
+   process gives the next losses within 1e-5.  Every rank counts its own K1/K2
+   launches (8 K2 a train step, 8 K1 a train and eval step) and reports
+   its peak memory; the two-rank step times are gloo's, through the host,
+   on one card.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -2061,7 +2085,8 @@ def _snapshot(state):
     return out
 
 
-def _compare(torch, got, want, what):
+def _compare(torch, got, want, what,
+             claim="the resumed run equals the uninterrupted run"):
     """Check bit equality; on a difference print each differing tensor's
     largest |difference| before failing."""
     bad = [(k, (got[k].double() - want[k].double()).abs().max().item())
@@ -2070,7 +2095,7 @@ def _compare(torch, got, want, what):
         log(f"    {what}: {k} differs, max|diff| {d:.3g}")
     log(f"  {what}: {len(want) - len(bad)} of {len(want)} tensors "
         f"(parameters, BatchNorm statistics, Adam moments) equal bit for bit")
-    check(not bad, f"{what}: the resumed run equals the uninterrupted run")
+    check(not bad, f"{what}: {claim}")
 
 
 def _fill(batcher):
@@ -5025,6 +5050,582 @@ def model_options_phase(torch, np, fa, ba, cuda_ms, wall_time, label, root,
     return launches, rows
 
 
+# --- data-parallel: bin.launch -> bin.train, one process per rank -----------
+
+DP_ITERS = 4  # steps of each run: one epoch
+DP_SAVE = 3  # the two-rank run's mid-epoch save, resumed by one process
+TOL_DP_LOSS = 1e-5  # JAX's cross-mesh loss tolerance (tests/test_train.py)
+# BatchNorm statistics, W ranks against one process, in units of each
+# channel's own spread (:func:`_bn_gaps`): the batch statistics of the
+# first step (identical parameters, so the reduction alone) and the running
+# statistics after the run (the parameters' drift included).  Each gate
+# lies between the sound reading and control run L's, whose ranks take
+# their local statistics (both read on each run of the phase; on an H100:
+# 5.75e-6 and 0.207 at the first step, 1.34e-6 and 0.054 after 4 steps)
+TOL_DP_BN_STEP0 = 1e-4
+TOL_DP_BN = 1e-4
+BN_EPS = 1e-5  # flax's BatchNorm epsilon
+
+
+def dp_rank_main(argv) -> int:
+    """One process of the data-parallel phase (``RANK_MAIN``): ``--dp-rank
+    OUT [--dropout0] [--keep-mid DIR [--then JSON]] [--profile-step K] --
+    <bin.train arguments>`` (bin.launch appends the group's flags).  Trains
+    in deterministic mode with TF32 off and writes
+    ``OUT_r<rank>.pt``: the step log, the K1/K2 launches counted in this
+    process, peak memory, the moment slices' bytes, the history, the
+    model's state and every BatchNorm's batch statistics at the first
+    step.  ``--gloo``: the group over gloo (two ranks on one card, which
+    NCCL refuses); ``--local-bn``: each rank's BatchNorm statistics over
+    its own rows alone (the control).  ``--keep-mid DIR``: rank 0 copies the checkpoints at the
+    mid-epoch save of step DP_SAVE to DIR; ``--dropout0``: every dropout
+    site at 0; ``--profile-step K``: step K (0-based) under torch.profiler,
+    its collectives' time (gloo's work on the host, NCCL's kernels on the
+    device) and the device's busy time.  ``--then JSON`` (``{"out", "exp",
+    "argv"}``): rank 0 then resumes the kept checkpoints alone, in this
+    process with no group, as a second run into ``exp``."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.models import layers
+    from a3t_tpu_torch.models.dropout import SeededDropout
+    from a3t_tpu_torch.ops import fused_attention as fa
+    from a3t_tpu_torch.parallel import mesh
+    from a3t_tpu_torch.parallel import rank as dp_rank
+    from a3t_tpu_torch.tasks.mlm import MLMTask
+    from a3t_tpu_torch.train.checkpoint import CheckpointManager
+    from a3t_tpu_torch.train.trainer import Trainer
+
+    split = argv.index("--")
+    opts, train_argv = argv[:split], argv[split + 1:]
+    out = opts[opts.index("--dp-rank") + 1]
+    r = (int(train_argv[train_argv.index("--host-id") + 1])
+         if "--host-id" in train_argv else 0)
+    on_cuda = train_argv[train_argv.index("--device") + 1] != "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    if "--gloo" in opts:
+        join = mesh.initialize_multihost
+
+        def join_gloo(*a, **kw):
+            return join(*a, **{**kw, "backend": "gloo"})
+
+        mesh.initialize_multihost = join_gloo
+    if "--local-bn" in opts:
+        layers.world = lambda: 1
+    if "--dropout0" in opts:
+        build = MLMTask.build_model.__func__
+
+        def no_dropout(cls, *a, **kw):
+            model = build(cls, *a, **kw)
+            for m in model.modules():
+                if isinstance(m, SeededDropout):
+                    m.rate = 0.0
+            return model
+
+        MLMTask.build_model = classmethod(no_dropout)
+    if "--keep-mid" in opts:
+        keep = opts[opts.index("--keep-mid") + 1]
+        save = CheckpointManager.save_mid_epoch
+
+        def save_and_keep(self, epoch, iteration, *a, **kw):
+            save(self, epoch, iteration, *a, **kw)
+            if (epoch, iteration) == (1, DP_SAVE) and dp_rank() == 0:
+                shutil.copytree(self.directory, keep)
+
+        CheckpointManager.save_mid_epoch = save_and_keep
+    profile, bn_first, recording = {}, [], [False]
+    stats_fn = layers._batch_stats
+
+    def recorded(bn, x):
+        mean, var = stats_fn(bn, x)
+        if recording[0]:
+            bn_first.append((mean.detach().clone(), var.detach().clone()))
+        return mean, var
+
+    layers._batch_stats = recorded
+    at = (int(opts[opts.index("--profile-step") + 1])
+          if "--profile-step" in opts else None)
+    init = Trainer.__init__
+
+    def init_observed(self, *a, **kw):
+        init(self, *a, **kw)
+        step, calls = self.train_step, []
+
+        def observed(*sa, **skw):
+            calls.append(1)
+            recording[0] = len(calls) == 1
+            try:
+                if at is None or len(calls) != at + 1:
+                    return step(*sa, **skw)
+                acts = [torch.profiler.ProfilerActivity.CPU] + (
+                    [torch.profiler.ProfilerActivity.CUDA] if on_cuda else [])
+                with torch.profiler.profile(activities=acts) as prof:
+                    out = step(*sa, **skw)
+                    if on_cuda:
+                        torch.cuda.synchronize()
+                profile.update(_collective_profile(torch, prof))
+                return out
+            finally:
+                recording[0] = False
+
+        self.train_step = observed
+
+    Trainer.__init__ = init_observed
+
+    def run(train_argv, out):
+        profile.clear()
+        bn_first.clear()
+        fa.reset_launches()
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats()
+        trainer, state = train_main(train_argv)
+        if on_cuda:
+            torch.cuda.synchronize()
+        os_ = state.opt_state
+        torch.save({
+            "rank": r,
+            "steps": [{k: v for k, v in rec.items()
+                       if k not in ("events", "prev_end")}
+                      for rec in trainer.step_log],
+            "launches": (fa.LAUNCHES, fa.LAUNCHES_BWD),
+            "peak_bytes": (torch.cuda.max_memory_allocated() if on_cuda
+                           else 0),
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for t in (os_.mu, os_.nu, os_.acc_grads)),
+            "history": trainer.reporter.history,
+            "model": {k: v.detach().cpu() for k, v in
+                      state.model.state_dict().items()},
+            "device": str(next(state.model.parameters()).device),
+            "profile": dict(profile),
+            "bn_first": [(m.cpu(), v.cpu()) for m, v in bn_first],
+        }, f"{out}_r{r}.pt")
+
+    run(train_argv, out)
+    if "--then" in opts and r == 0:
+        with open(opts[opts.index("--then") + 1]) as f:
+            then = json.load(f)
+        shutil.copytree(keep, os.path.join(then["exp"], "checkpoints"))
+        run(then["argv"], then["out"])
+    return 0
+
+
+def _collective_profile(torch, prof) -> dict:
+    """ms of a profiled step: gloo's collectives (their work on the host,
+    waits for the other ranks included), NCCL's kernels (device), the
+    device's busy time and window (:func:`device_busy`), and the count of
+    the collectives' profiler events."""
+    out = {"gloo_ms": 0.0, "nccl_ms": 0.0, "calls": 0}
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.0)
+        if e.key.startswith("gloo:"):
+            out["gloo_ms"] += e.cpu_time_total / 1e3
+            out["calls"] += e.count
+        elif "nccl" in e.key.lower() and dev:
+            out["nccl_ms"] += dev / 1e3
+            out["calls"] += e.count
+    busy = device_busy(torch, prof)
+    if busy is not None:
+        out["busy_ms"], out["window_ms"] = busy[0], busy[1]
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# a rank's command before its arguments: dp_rank_main in a fresh process
+RANK_MAIN = [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.dp_rank_main(sys.argv[1:]))"]
+
+
+def _dp_argv(train, valid, exp, device, *sets):
+    argv = ["--config", CONFIG_24K, "--device", device]
+    for s in (f"train_data_dir={train}", f"valid_data_dir={valid}",
+              f"exp_dir={exp}", "trainer.max_epoch=1",
+              f"trainer.num_iters_per_epoch={DP_ITERS}",
+              f"trainer.log_interval={DP_ITERS}",
+              "trainer.average_nbest_at_end=false", *sets):
+        argv += ["--set", s]
+    return argv
+
+
+def _dp_run(name, cmd, log_dir, env):
+    """Start ``cmd`` with its output in ``log_dir/<name>.log``."""
+    import subprocess
+
+    f = open(os.path.join(log_dir, f"{name}.log"), "w")
+    proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return name, proc, f
+
+
+def _dp_wait(runs, timeout):
+    """Wait for every run; fail with the end of the log of each run that
+    did not exit 0 (a run past ``timeout`` is killed)."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    bad = []
+    for name, proc, f in runs:
+        try:
+            rc = proc.wait(max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        f.close()
+        if rc != 0:
+            bad.append(name)
+            with open(f.name) as g:
+                tail = g.read()[-4000:]
+            log(f"  run {name} exited {rc}; its log ends:\n{tail}")
+    check(not bad, f"the data-parallel runs {bad} exit 0")
+
+
+def _jax_rule(np, base, other, max_update, what):
+    """tests/test_train.py:225-237, JAX's cross-mesh rule, over every
+    parameter: each element within ``max_update``, fewer than 0.2% of the
+    elements past 1e-5 and 2e-4 of their value."""
+    n_bad = n_total = 0
+    worst = 0.0
+    for name, a in base.items():
+        if "running_" in name or name.endswith("num_batches_tracked"):
+            continue
+        a = a.double().numpy()
+        d = np.abs(a - other[name].double().numpy())
+        worst = max(worst, float(d.max()))
+        n_bad += int(((d > 1e-5) & (d > 2e-4 * np.abs(a))).sum())
+        n_total += a.size
+    log(f"  {what}: largest parameter difference {worst:.3g} (bound "
+        f"{max_update:.3g}), {n_bad} of {n_total} elements past 1e-5 and "
+        f"2e-4 of their value")
+    check(worst < max_update and n_bad / n_total < 2e-3,
+          f"{what}: the parameters by JAX's cross-mesh rule")
+
+
+def data_parallel_phase(torch, np, label, root, train, valid,
+                        device="cuda", sets=()):
+    """(a) one rank over NCCL through bin.launch against a plain bin.train,
+    bit for bit; (b) two ranks on the one card over gloo against one
+    process on the same global batches, and the two-rank run's mid-epoch
+    checkpoint resumed by one process.  ``sets`` go to every run.  Returns
+    the K1 and K2 launches counted in every rank's process, {run: [(K1,
+    K2) per rank]}."""
+    from a3t_tpu_torch.tasks.config import load_config
+    from a3t_tpu_torch.train.optim import noam_schedule
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "data_parallel")
+    os.makedirs(d)
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [here, os.environ.get("PYTHONPATH", "")])}
+
+    def rank_cmd(tag, *opts):
+        return RANK_MAIN + ["--dp-rank", os.path.join(d, tag), *opts, "--"]
+
+    def argv(tag, *more):
+        return _dp_argv(train, valid, exp(tag), device, *sets, *more)
+
+    def launch(hosts):
+        return [sys.executable, "-m", "a3t_tpu_torch.bin.launch",
+                "--launcher", "local", "--hosts", hosts, "--port",
+                str(_free_port()), "--"]
+
+    def exp(tag):
+        return os.path.join(d, f"exp_{tag}")
+
+    def load(tag, world=1):
+        return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    same_plan = "batcher.batch_multiple=2"  # the two-rank run's buckets
+    mid = f"trainer.save_interval_steps={DP_SAVE}"
+    profile = ("--profile-step", str(DP_ITERS - 1))  # the last step
+    # run C: rank 0 of run B, once its group is gone, resumes B's
+    # mid-epoch checkpoint alone
+    then = os.path.join(d, "then_C.json")
+    with open(then, "w") as f:
+        json.dump({"out": os.path.join(d, "C"), "exp": exp("C"),
+                   "argv": argv("C", same_plan)}, f)
+
+    # (a)'s plain run P and one-rank launch A together on the card, then
+    # (b)'s one-process reference Q alone (its step times are compared)
+    t0 = time.perf_counter()
+    _dp_wait([
+        _dp_run("P", rank_cmd("P") + argv("P"), d, env),
+        _dp_run("A", launch("localhost") + rank_cmd("A") + argv("A"), d,
+                env),
+    ], 400)
+    log(f"  runs P and A (one process each, side by side): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("Q", rank_cmd("Q", "--dropout0", *profile)
+                      + argv("Q", same_plan), d, env)], 400)
+    log(f"  run Q (one process): {time.perf_counter() - t0:.2f} s")
+    # (b): two ranks on the card over gloo, then one process resuming the
+    # two-rank run's mid-epoch checkpoint
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("B", launch("localhost,localhost")
+                      + rank_cmd("B", "--dropout0", "--gloo", *profile,
+                                 "--keep-mid", os.path.join(d, "mid"),
+                                 "--then", then)
+                      + argv("B", mid), d, env)], 400)
+    log(f"  run B (two ranks over gloo) and run C (its rank 0 alone, "
+        f"resuming B at step {DP_SAVE}): {time.perf_counter() - t0:.2f} s")
+    # (b)'s control L: two ranks, each with its local BatchNorm statistics
+    # (alone: beside P and A the card's memory runs out in the full smoke)
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("L", launch("localhost,localhost")
+                      + rank_cmd("L", "--dropout0", "--gloo", "--local-bn")
+                      + argv("L"), d, env)], 400)
+    log(f"  run L (two ranks, local BatchNorm statistics): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    (p,), (a,), (q,), (c,) = load("P"), load("A"), load("Q"), load("C")
+    b, control = load("B", 2), load("L", 2)
+    runs = {"P": [p], "A": [a], "Q": [q], "B": b, "C": [c], "L": control}
+    cfg = load_config(CONFIG_24K, list(sets))
+    _dp_report(runs, cfg, label)
+
+    # (a) one rank over NCCL is the plain run bit for bit
+    check([s["loss"] for s in a["steps"]] == [s["loss"] for s in p["steps"]],
+          "(a) the one-rank launch's losses equal the plain run's")
+    _compare(torch, a["model"], p["model"],
+             "(a) one rank over NCCL vs plain bin.train (final state)",
+             "bit for bit")
+    files = {}
+    for tag in ("P", "A"):
+        tree = torch.load(os.path.join(exp(tag), "checkpoints", "epoch_1.pt"),
+                          map_location="cpu", weights_only=True)
+        files[tag] = {**{f"model.{k}": v for k, v in tree["model"].items()},
+                      **{f"opt.{k}": v for k, v in tree["opt_state"].items()}}
+    _compare(torch, files["A"], files["P"],
+             "(a) epoch_1.pt of the one-rank launch vs the plain run's",
+             "bit for bit")
+
+    # (b) two ranks over gloo against one process on the same batches
+    _dp_against_one(torch, np, q, b, cfg, "(b)", "two ranks on one card, "
+                    "the collectives through the host over gloo, not a "
+                    "multi-card figure", label, control=control[0])
+    # the mid-epoch checkpoint of two ranks, resumed by one process
+    tail = [s for s in b[0]["steps"] if s["iteration"] >= DP_SAVE]
+    check([(s["epoch"], s["iteration"]) for s in c["steps"]]
+          == [(s["epoch"], s["iteration"]) for s in tail],
+          f"run C resumed at step {DP_SAVE}")
+    for s, sb in zip(c["steps"], tail):
+        rel = abs(s["loss"] - sb["loss"]) / abs(sb["loss"])
+        log(f"  resumed by one process, step {s['iteration']}: loss "
+            f"{s['loss']:.7f}, the two-rank run {sb['loss']:.7f}, relative "
+            f"difference {rel:.3g}")
+        check(rel <= TOL_DP_LOSS, "a two-rank checkpoint resumed by one "
+              "process: the next losses within the tolerance")
+    return {name: [x["launches"] for x in ranks]
+            for name, ranks in runs.items()}
+
+
+def _dp_report(runs, cfg, label):
+    """Log each rank's steps, launches, peak memory and moments; check
+    that every rank's process launched K2 once a block a train step and K1
+    once a block a train and eval step."""
+    blocks = cfg.model.encoder.num_blocks + cfg.model.decoder.num_blocks
+    for name, ranks in runs.items():
+        for x in ranks:
+            n_train = len(x["steps"])
+            log(f"  run {name} rank {x['rank']} on {x['device']}: "
+                f"{n_train} steps, losses "
+                f"{[round(s['loss'], 6) for s in x['steps']]}, K1 "
+                f"{x['launches'][0]} K2 {x['launches'][1]} launches, peak "
+                f"{x['peak_bytes'] / 2 ** 30:.3f} GiB, moments "
+                f"{x['moment_bytes'] / 1e6:.3f} MB [{label}]")
+            check(x["launches"][1] == blocks * n_train
+                  and x["launches"][0] > x["launches"][1],
+                  f"run {name} rank {x['rank']}: {blocks} K2 launches per "
+                  f"step and {blocks} K1 per train and eval step, in this "
+                  "rank's process")
+
+
+def _dp_times(np, x) -> str:
+    """A run's device and host ms per step (no device clock on a CPU), and
+    the median of the steps between the first (warm-up) and the last
+    (profiled)."""
+    dev = [round(s.get("device_ms", math.nan), 2) for s in x["steps"]]
+    host = [round(1e3 * s["host_s"], 2) for s in x["steps"]]
+    return (f"{dev} ms on the device's clock (steps 1-{DP_ITERS - 2}: "
+            f"median {float(np.median(dev[1:DP_ITERS - 1])):.2f}), {host} ms "
+            f"on the host's, in deterministic mode")
+
+
+def _dp_prof(x) -> str:
+    p = x["profile"]
+    return (f"step {DP_ITERS - 1} under torch.profiler: {p['calls']} "
+            f"collective events, gloo's work {p['gloo_ms']:.2f} ms on the "
+            f"host, NCCL {p['nccl_ms']:.2f} ms on the device; the device "
+            f"busy {p.get('busy_ms', math.nan):.2f} of "
+            f"{p.get('window_ms', math.nan):.2f} ms")
+
+
+def _bn_gaps(pairs):
+    """((gap, name) of the means, (gap, name) of the variances) over
+    ``pairs`` [(name, (mean, var) of one process, (mean, var) of another)]:
+    the largest |mean - mean'| / sqrt(var + eps) and |var - var'| / (var +
+    eps) over the channels, a gap in units of each channel's own spread.  A
+    sum's rounding stays far below 1 there, also where a channel's mean is
+    small beside its spread; statistics of other rows do not."""
+    gm = gv = (-1.0, None)
+    for name, (mq, vq), (mo, vo) in pairs:
+        s = vq.double() + BN_EPS
+        gm = max(gm, (float(((mo.double() - mq.double()).abs()
+                             / s.sqrt()).max()), name))
+        gv = max(gv, (float(((vo.double() - vq.double()).abs() / s).max()),
+                      name))
+    return gm, gv
+
+
+def _bn_readings(q, x):
+    """The gaps (:func:`_bn_gaps`) of run ``x``'s rank against one process
+    ``q``: the first step's batch statistics, one pair per BatchNorm call
+    in call order, and the running statistics after the run."""
+    check(len(x["bn_first"]) == len(q["bn_first"]) > 0,
+          "the first step's BatchNorm calls recorded alike")
+    first = _bn_gaps([(f"call {i}", a, b) for i, (a, b) in
+                      enumerate(zip(q["bn_first"], x["bn_first"]))])
+    tail = ".running_mean"
+    end = _bn_gaps([
+        (k[:-len(tail)], (q["model"][k], q["model"][k[:-4] + "var"]),
+         (x["model"][k], x["model"][k[:-4] + "var"]))
+        for k in q["model"] if k.endswith(tail)])
+    return first, end
+
+
+def _dp_against_one(torch, np, q, ranks, cfg, what, note, label,
+                    control=None):
+    """W ranks against one process ``q`` on the same global batches: the
+    losses within TOL_DP_LOSS at each step, equal on every rank; the
+    parameters and BatchNorm statistics equal on every rank bit for bit,
+    the BatchNorm statistics within TOL_DP_BN_STEP0 (first step) and
+    TOL_DP_BN (after the run) of one process's (:func:`_bn_readings`),
+    where the ``control`` rank (local statistics) must read above both
+    gates, and the parameters by JAX's cross-mesh rule; each rank holding
+    1/W of Adam's moments; the step times and the profiled step's
+    collectives."""
+    from a3t_tpu_torch.train.optim import noam_schedule
+
+    w = len(ranks)
+    check([s["batch"] for s in ranks[0]["steps"]]
+          == [s["batch"] // w for s in q["steps"]],
+          f"{what} each rank steps on 1/{w} of each global batch")
+    for i, sq in enumerate(q["steps"]):
+        got = [x["steps"][i]["loss"] for x in ranks]
+        rel = abs(got[0] - sq["loss"]) / abs(sq["loss"])
+        log(f"  {what} step {i}: loss {got[0]:.7f} on every rank, one "
+            f"process {sq['loss']:.7f}, relative difference {rel:.3g}")
+        check(len(set(got)) == 1 and rel <= TOL_DP_LOSS,
+              f"{what} step {i}: the ranks' global loss within "
+              f"{TOL_DP_LOSS} of one process's")
+    check(all(torch.equal(x["model"][k], ranks[0]["model"][k])
+              for x in ranks for k in x["model"]),
+          f"{what} the ranks' parameters and BatchNorm statistics equal bit "
+          "for bit")
+    readings = {"": _bn_readings(q, ranks[0])}
+    if control is not None:
+        readings[" (control L: local statistics)"] = _bn_readings(q, control)
+    for tag, (first, end) in readings.items():
+        log(f"  {what}{tag} BatchNorm vs one process, in units of each "
+            f"channel's spread: the first step's batch statistics "
+            f"({len(q['bn_first'])} calls) mean {first[0][0]:.3g} "
+            f"({first[0][1]}), variance {first[1][0]:.3g} ({first[1][1]}); "
+            f"the running statistics after {DP_ITERS} steps mean "
+            f"{end[0][0]:.3g} ({end[0][1]}), variance {end[1][0]:.3g} "
+            f"({end[1][1]}) [{label}]")
+    first, end = readings[""]
+    if control is not None:
+        cf, ce = readings[" (control L: local statistics)"]
+        check(max(cf[0][0], cf[1][0]) > TOL_DP_BN_STEP0
+              and max(ce[0][0], ce[1][0]) > TOL_DP_BN,
+              f"{what} the control's local BatchNorm statistics read past "
+              f"both gates ({TOL_DP_BN_STEP0:g}, {TOL_DP_BN:g})")
+    check(max(first[0][0], first[1][0]) <= TOL_DP_BN_STEP0,
+          f"{what} the first step's BatchNorm statistics within "
+          f"{TOL_DP_BN_STEP0:g} of one process's")
+    check(max(end[0][0], end[1][0]) <= TOL_DP_BN,
+          f"{what} the BatchNorm running statistics within {TOL_DP_BN:g} "
+          "of one process's")
+    oc = cfg.optim
+    sched = noam_schedule(oc.model_size, oc.warmup_steps, oc.lr)
+    _jax_rule(np, q["model"], ranks[0]["model"],
+              2.5 * sum(float(sched(k)) for k in range(DP_ITERS)),
+              f"{what} {w} ranks vs one process after {DP_ITERS} steps")
+    check(all(w * x["moment_bytes"] - q["moment_bytes"] in range(0, 4 * w + 1)
+              for x in ranks),
+          f"{what} each rank holds 1/{w} of Adam's moments (ZeRO-1)")
+    for x in ranks:
+        log(f"  {what} rank {x['rank']}: steps {_dp_times(np, x)}; "
+            f"{_dp_prof(x)}: {note} [{label}]")
+    log(f"  one process: steps {_dp_times(np, q)}; {_dp_prof(q)} [{label}]")
+
+
+def data_parallel_cards_phase(torch, np, label, root, train, valid,
+                              cards: int, device="cuda", sets=()):
+    """One rank per card over NCCL (bin.launch --hosts localhost x cards)
+    against one process on the same global batches (batch_multiple =
+    cards), at dropout 0: the multi-card counterpart of phase
+    data-parallel's (b).  Returns {run: [(K1, K2) per rank]}."""
+    from a3t_tpu_torch.tasks.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "data_parallel_cards")
+    os.makedirs(d)
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [here, os.environ.get("PYTHONPATH", "")])}
+    profile = ("--profile-step", str(DP_ITERS - 1))
+
+    def argv(tag):
+        return _dp_argv(train, valid, os.path.join(d, f"exp_{tag}"), device,
+                        *sets, f"batcher.batch_multiple={cards}")
+
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("Q", RANK_MAIN + ["--dp-rank", os.path.join(d, "Q"),
+                                        "--dropout0", *profile, "--"]
+                      + argv("Q"), d, env)], 400)
+    log(f"  run Q (one process): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("N", [sys.executable, "-m", "a3t_tpu_torch.bin.launch",
+                            "--launcher", "local", "--hosts",
+                            ",".join(["localhost"] * cards), "--port",
+                            str(_free_port()), "--"]
+                      + RANK_MAIN + ["--dp-rank", os.path.join(d, "N"),
+                                     "--dropout0", *profile, "--"]
+                      + argv("N"), d, env)], 400)
+    log(f"  run N ({cards} ranks, one per card): "
+        f"{time.perf_counter() - t0:.2f} s")
+    q = torch.load(os.path.join(d, "Q_r0.pt"), weights_only=False)
+    n = [torch.load(os.path.join(d, f"N_r{r}.pt"), weights_only=False)
+         for r in range(cards)]
+    if device != "cpu":
+        check([x["device"] for x in n]
+              == [f"cuda:{r}" for r in range(cards)], "rank r trains on "
+              "cuda:r")
+    cfg = load_config(CONFIG_24K, list(sets))
+    _dp_report({"Q": [q], "N": n}, cfg, label)
+    _dp_against_one(torch, np, q, n, cfg, f"({cards} cards)",
+                    f"{cards} ranks, one per card, NCCL", label)
+    return {"Q": [q["launches"]], "N": [x["launches"] for x in n]}
+
+
 def main() -> int:
     import torch
 
@@ -5084,6 +5685,28 @@ def main() -> int:
                         or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
         check_tensor_cores(native, paths)
+
+    if sys.argv[1:] == ["--data-parallel"]:
+        # the data-parallel phase alone, on a trainer corpus of its own
+        with tempfile.TemporaryDirectory(prefix="a3t_dp_") as root:
+            with Phase("corpus"):
+                train, valid, _, _ = make_corpus(os.path.join(root, "data"))
+            with Phase("data-parallel"):
+                data_parallel_phase(torch, np, label, root, train, valid)
+        return 0
+
+    if sys.argv[1:] == ["--data-parallel-cards"]:
+        # one rank per card over NCCL against one process (several cards)
+        cards = torch.cuda.device_count()
+        check(cards > 1, f"--data-parallel-cards needs several cards; "
+              f"{cards} here")
+        with tempfile.TemporaryDirectory(prefix="a3t_dpc_") as root:
+            with Phase("corpus"):
+                train, valid, _, _ = make_corpus(os.path.join(root, "data"))
+            with Phase("data-parallel-cards"):
+                data_parallel_cards_phase(torch, np, label, root, train,
+                                          valid, cards)
+        return 0
 
     if sys.argv[1:] == ["--model-options"]:
         # the model-options phase alone, on a trainer corpus of its own
@@ -5167,6 +5790,14 @@ def main() -> int:
                 torch, np, fa, ba, cuda_ms, wall_time, label, root,
                 os.path.join(root, "data", "train"), valid)
 
+        with Phase("data-parallel"):
+            dp = data_parallel_phase(torch, np, label, root,
+                                     os.path.join(root, "data", "train"),
+                                     valid)
+    # every rank's own count, over every run of the phase
+    dp_fwd = sum(k1 for ranks in dp.values() for k1, _ in ranks)
+    dp_bwd = sum(k2 for ranks in dp.values() for _, k2 in ranks)
+
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -5174,13 +5805,17 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + sp_fwd + side_fwd + opt_fwd + prep_fwd + mo_launches[0],
+        + cli_fwd + sp_fwd + side_fwd + opt_fwd + prep_fwd + mo_launches[0]
+        + dp_fwd,
         "launches_serve_cli": cli_fwd,
         "launches_speaker_fs2": sp_fwd,
         "launches_side_train": side_fwd,
         "launches_train_options": opt_fwd,
         "launches_prep_chain": prep_fwd,
         "launches_model_options": mo_launches[0],
+        "launches_data_parallel": dp_fwd,
+        "launches_data_parallel_ranks": {k: [k1 for k1, _ in v]
+                                         for k, v in dp.items()},
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "max_abs_err_fs2_shapes": fs2_errs[0],
@@ -5199,13 +5834,16 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
         "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd
-        + side_bwd + opt_bwd + prep_bwd + mo_launches[1],
+        + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd,
         "launches_serve_cli": cli_bwd,
         "launches_speaker_fs2": sp_bwd,
         "launches_side_train": side_bwd,
         "launches_train_options": opt_bwd,
         "launches_prep_chain": prep_bwd,
         "launches_model_options": mo_launches[1],
+        "launches_data_parallel": dp_bwd,
+        "launches_data_parallel_ranks": {k: [k2 for _, k2 in v]
+                                         for k, v in dp.items()},
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "max_abs_err_fs2_shapes": fs2_errs[1],

@@ -1,10 +1,12 @@
-"""Data-parallel launcher: the port of ``a3t_tpu/bin/launch.py`` (the
+"""Mesh launcher: the port of ``a3t_tpu/bin/launch.py`` (the
 espnet2.bin.launch analogue, launch.py:93-310).
 
 Fans a training command out as one process per card, appending the flags
 that ``a3t_tpu_torch.bin.train`` turns into a ``torch.distributed`` group
 (``--coordinator`` / ``--num-hosts`` / ``--host-id``).  Each entry of
-``--hosts`` is one process, so a machine with k cards is listed k times.
+``--hosts`` is one process, so a machine with k cards is listed k times;
+a mesh of ``dp x tp`` takes ``dp * tp`` entries, and ranks ``d * tp ..
+d * tp + tp - 1`` form a model group, so list a machine's cards together.
 Three dispatch modes:
 
 * ``ssh``   — one ``ssh host 'cd <cwd> && <cmd>'`` per entry (the

@@ -5,15 +5,20 @@ mlm_train analogue).
         --set train_data_dir=dump/raw/tr_no_dev \
         --set valid_data_dir=dump/raw/dev --set exp_dir=exp/a3t
 
-Trains on the CUDA card unless ``--device cpu`` is given.  Data-parallel
-training runs one process per card, each with the JAX CLI's
+Trains on the CUDA card unless ``--device cpu`` is given.  Training on a
+mesh runs one process per card, each with the JAX CLI's
 ``--coordinator host:port --num-hosts W --host-id r`` (``bin.launch``
 appends them): ``--num-hosts`` counts processes, one per card, not
-machines.  The processes form a ``torch.distributed`` group (NCCL on the
+machines: ``dp * tp`` of them for the config's ``mesh.data_parallel`` dp
+and ``mesh.tensor_parallel`` tp (``--set mesh.tensor_parallel=2`` splits a
+Conformer model's heads and feed-forward units over pairs of adjacent
+ranks).  The processes form a ``torch.distributed`` group (NCCL on the
 card, gloo with ``--device cpu``) and rank r trains on
-``cuda:{r mod cards}`` (``parallel/``).  Every process must see the same
-``exp_dir`` (a file system shared by the machines): rank 0 writes the
-checkpoints and every rank reads them on resume.  The JAX CLI's
+``cuda:{r mod cards}`` (``parallel/``).  NCCL cannot put two ranks of one
+group on one card, so a layout with more ranks than cards is refused at
+start.  Every process must see the same ``exp_dir`` (a file system shared
+by the machines): rank 0 writes the checkpoints and every rank reads them
+on resume.  The JAX CLI's
 ``--prng`` (JAX's PRNG implementations) is not ported; passing it raises.
 
 A resumed run (epoch or mid-epoch) equals an uninterrupted one bit for bit

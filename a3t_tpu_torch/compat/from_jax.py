@@ -26,6 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from a3t_tpu_torch.parallel.sharding import (FlatLayout, shard_flat,
+                                             shard_state)
+
 
 def _np(x) -> np.ndarray:
     return np.asarray(x).astype(np.float32)
@@ -291,7 +294,13 @@ def pwg_discriminator_state(variables) -> dict:
 
 def load_state(module: torch.nn.Module, state: dict) -> torch.nn.Module:
     """Load a ``{name: array}`` state strictly into ``module``, keeping each
-    parameter's device and dtype."""
+    parameter's device and dtype.  A model-axis slice of a model
+    (``module.shard``) takes its slices of the full ``state``
+    (``parallel.sharding.shard_state``)."""
+    layout = FlatLayout.of(module)
+    if layout.tp > 1:
+        state = shard_state({k: torch.as_tensor(np.asarray(v))
+                             for k, v in state.items()}, layout.t, layout.tp)
     own = module.state_dict()
     module.load_state_dict({
         k: torch.tensor(np.asarray(v)).to(own[k].dtype) if k in own
@@ -338,11 +347,13 @@ def load_train_state(state, jax_state):
         flats.append(("acc_grads", multi.acc_grads))
         scalars += [("mini_step", multi.mini_step),
                     ("gradient_step", multi.gradient_step)]
+    layout = FlatLayout.of(model)
     for field, tree in flats:
         mapped = mlm_state({"params": tree, "batch_stats": stats})
-        flat = np.concatenate([mapped[n].reshape(-1) for n in names])
-        setattr(os_, field, torch.tensor(flat, dtype=torch.float32,
-                                         device=os_.mu.device))
+        mapped = shard_state({n: torch.as_tensor(np.asarray(mapped[n]))
+                              for n in names}, layout.t, layout.tp)
+        flat = torch.cat([mapped[n].reshape(-1).float() for n in names])
+        setattr(os_, field, shard_flat(flat).to(os_.mu.device))
     jo = jax_state.opt_state
     scalars += [("notfinite_count", jo.notfinite_count),
                 ("last_finite", jo.last_finite),

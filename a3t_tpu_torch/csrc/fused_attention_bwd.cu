@@ -51,7 +51,7 @@
 //     holds 4 rows x 12 columns of dq, key tiles of 32 double buffered.
 //
 // Dropout is the forward kernel's rule: keep iff hash(row * L + col, seed,
-// b * 4096 + h) >= uint32(rate * 0xFFFFFFFF), so the mask regenerates bit
+// b * 4096 + head0 + h) >= uint32(rate * 0xFFFFFFFF), so the mask regenerates bit
 // for bit; dp is scaled by keep / (1 - rate) while ds uses the undropped p.
 //
 // Bound at the training shape (B=88, H=2, L=496, d=192):
@@ -81,7 +81,7 @@ struct Args {
   const void* g;
   const float *lse, *delta;
   void *dq, *dk, *dv, *dbias;
-  int B, H, L, d, vec;
+  int B, H, L, d, vec, head0;
   float scale;
   uint32_t seed, threshold;
   float keep_scale;
@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
   const int col0 = blockIdx.x * BT;
   const size_t mat = (size_t)bh * L * d;
   const size_t sq = (size_t)bh * L * L;
-  const uint32_t lane_id = (uint32_t)(b * 4096 + h);
+  const uint32_t lane_id = (uint32_t)(b * 4096 + a.head0 + h);
   const bool vc = a.vec != 0;
   auto sw = [](int r, int c) { return sw64(r, c, BT); };
   auto brow = [](int r, int c) { return (uint32_t)((r * BSB + c) * 2); };
@@ -340,7 +340,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
   const int col0 = blockIdx.x * BT;
   const size_t mat = (size_t)bh * L * d;
   const size_t sq = (size_t)bh * L * L;
-  const uint32_t lane_id = (uint32_t)(b * 4096 + h);
+  const uint32_t lane_id = (uint32_t)(b * 4096 + a.head0 + h);
   const bool vc = a.vec != 0;
   const float* qb = static_cast<const float*>(a.q) + mat;
   const float* gb = static_cast<const float*>(a.g) + mat;
@@ -617,21 +617,23 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 // q, k, v, g: (B, H, L, d) contiguous; bias: (B, H, L, L); mask: (B, L)
 // int32; lse, delta: (B, H, L) fp32.  dq, dk, dv, dbias in the input type.
-// dtype 0 = float32, 1 = bfloat16.  Two launches on `stream` (dk/dv/dbias,
-// then dq).  Returns the CUDA error code (0 = ok).
+// dtype 0 = float32, 1 = bfloat16; head0: the global index of head 0 in the
+// dropout lanes.  Two launches on `stream` (dk/dv/dbias, then dq).  Returns
+// the CUDA error code (0 = ok).
 extern "C" int a3t_fused_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const int32_t* mask, const void* g, const float* lse, const float* delta,
     void* dq, void* dk, void* dv, void* dbias, int B, int H, int L, int d,
-    int dtype, float scale, uint32_t seed, uint32_t threshold,
+    int dtype, int head0, float scale, uint32_t seed, uint32_t threshold,
     float keep_scale, int dropout, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || B * H > 65535)
+  if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || B * H > 65535 ||
+      head0 < 0 || head0 + H > 4096)
     return (int)cudaErrorInvalidValue;
   const int chunk = dtype == 0 ? 4 : 8;  // elements per 16 bytes
   const int vec = d % chunk == 0 && L % chunk == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(g) && aligned16(bias) && aligned16(dbias);
   const Args a{q, k, v, bias, mask, g, lse, delta, dq, dk, dv, dbias, B, H, L, d, vec,
-               scale, seed, threshold, keep_scale, dropout,
+               head0, scale, seed, threshold, keep_scale, dropout,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) {
     if (d <= 64) return run_f32<64, 64>(a);

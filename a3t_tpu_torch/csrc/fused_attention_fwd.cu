@@ -52,7 +52,9 @@
 // is not split.
 //
 // Dropout is the TPU kernel's interpret-mode rule (fused_attention.py:69-80):
-// an xxhash-style mix of counter row*L + col, seed and lane b*4096 + h; keep
+// an xxhash-style mix of counter row*L + col, seed and lane b*4096 + head0 + h
+// (head0: the global index of the call's first head, non-zero where the
+// heads are a model-axis rank's slice of a layer's); keep
 // iff bits >= uint32(rate * 0xFFFFFFFF).  The counter depends on position
 // only, so neither tiling nor splitting changes the mask.  The denominator
 // stays undropped.
@@ -134,7 +136,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
     const bf16* __restrict__ v, const bf16* __restrict__ bias,
     const int32_t* __restrict__ mask, bf16* __restrict__ out,
     float* __restrict__ lse, float* __restrict__ part, int H, int L, int d,
-    int kps, int vec, float scale, uint32_t seed, uint32_t threshold,
+    int kps, int vec, int head0, float scale, uint32_t seed, uint32_t threshold,
     float keep_scale, int dropout) {
   constexpr int TILE = 64 * DPAD * 2;  // bytes of one 64-row tile
   constexpr int STAGE = 2 * TILE + 1024;  // K, V and the key flags
@@ -153,7 +155,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
   const bf16* vb = v + mat;
   const bf16* bb = bias + (size_t)bh * L * L;
   const int32_t* mb = mask + (size_t)b * L;
-  const uint32_t lane_id = (uint32_t)(b * 4096 + h);
+  const uint32_t lane_id = (uint32_t)(b * 4096 + head0 + h);
   const bool vc = vec != 0;
   auto sw = [](int r, int c) { return sw64(r, c, 64); };
 
@@ -324,7 +326,7 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
     const float* __restrict__ v, const float* __restrict__ bias,
     const int32_t* __restrict__ mask, float* __restrict__ out,
     float* __restrict__ lse, float* __restrict__ part, int H, int L, int d,
-    int kps, int vec, float scale, uint32_t seed, uint32_t threshold,
+    int kps, int vec, int head0, float scale, uint32_t seed, uint32_t threshold,
     float keep_scale, int dropout) {
   constexpr int NG = DMAX / 64;  // float4 column groups of O per thread
   constexpr int NJ = BN / 16;    // keys of S per thread
@@ -351,7 +353,7 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
   const float* vb = v + mat;
   const float* bb = bias + (size_t)bh * L * L;
   const int32_t* mb = mask + (size_t)b * L;
-  const uint32_t lane_id = (uint32_t)(b * 4096 + h);
+  const uint32_t lane_id = (uint32_t)(b * 4096 + head0 + h);
   const bool vc = vec != 0;
   auto rowd = [](int r, int c) { return (uint32_t)((r * DP + c) * 4); };
   auto rowp = [](int r, int c) { return (uint32_t)((r * PS + c) * 4); };
@@ -551,7 +553,7 @@ struct Args {
   const int32_t* mask;
   void* out;
   float *lse, *part;
-  int B, H, L, d, splits, kps, vec;
+  int B, H, L, d, splits, kps, vec, head0;
   float scale;
   uint32_t seed, threshold;
   float keep_scale;
@@ -573,7 +575,7 @@ int launch_bf16(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.bias), a.mask,
       static_cast<bf16*>(a.out), a.lse, a.splits > 1 ? a.part : nullptr, a.H, a.L,
-      a.d, a.kps, a.vec, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
+      a.d, a.kps, a.vec, a.head0, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
   return (int)cudaGetLastError();
 }
 
@@ -589,7 +591,7 @@ int launch_f32(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.bias), a.mask,
       static_cast<float*>(a.out), a.lse, a.splits > 1 ? a.part : nullptr, a.H, a.L,
-      a.d, a.kps, a.vec, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
+      a.d, a.kps, a.vec, a.head0, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
   return (int)cudaGetLastError();
 }
 
@@ -627,14 +629,15 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // out: (B, H, L, d) in the input type; lse: (B, H, L) fp32.  splits > 1
 // splits the keys into ranges of kps keys (a multiple of 16), each range's
 // partials going to part, (splits * B * H * L * (d + 2)) fp32, which a second
-// launch combines.  dtype 0 = float32, 1 = bfloat16.  Returns the CUDA error
-// code (0 = ok).
+// launch combines.  dtype 0 = float32, 1 = bfloat16.  head0: the global index
+// of head 0 in the dropout lanes.  Returns the CUDA error code (0 = ok).
 extern "C" int a3t_fused_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     const int32_t* mask, void* out, float* lse, float* part, int B, int H,
-    int L, int d, int dtype, int splits, int kps, float scale, uint32_t seed,
-    uint32_t threshold, float keep_scale, int dropout, void* stream) {
+    int L, int d, int dtype, int splits, int kps, int head0, float scale,
+    uint32_t seed, uint32_t threshold, float keep_scale, int dropout, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || B * H > 65535 ||
+      head0 < 0 || head0 + H > 4096 ||
       (dtype != 0 && dtype != 1) || splits < 1 || splits > 65535 ||
       (splits > 1 && (part == nullptr || kps <= 0 || kps % 16 != 0 ||
                       (long long)(splits - 1) * kps >= L)))
@@ -643,7 +646,7 @@ extern "C" int a3t_fused_attention_fwd(
   const int vec = d % chunk == 0 && L % chunk == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(bias);
   Args a{q, k, v, bias, mask, out, lse, part, B, H, L, d, splits,
-         splits > 1 ? kps : L, vec, scale, seed, threshold, keep_scale, dropout,
+         splits > 1 ? kps : L, vec, head0, scale, seed, threshold, keep_scale, dropout,
          static_cast<cudaStream_t>(stream)};
   return run(a, dtype);
 }

@@ -15,6 +15,15 @@ the positional biases take it, the score products accumulate in float32,
 the kernels take q, k, v and the bias in bfloat16, and the plain branch
 keeps the softmax in float32 and stores, drops and multiplies the
 probabilities in bfloat16 (attention.py:122-191).
+
+On a ``shard`` of the model axis (``parallel/sharding.py``) a module runs
+its rank's H / tp heads, ``head0 .. head0 + H / tp - 1``: q, k, v and
+``linear_pos`` hold their rows, ``pos_bias_u``/``pos_bias_v`` their rows,
+``linear_out`` their columns, whose partial products the model group sums
+before the bias (``layers.row_parallel``).  The positional scores and their
+shift run on those heads alone; K1/K2 draw the dropout lanes of the
+global heads (``head0``), and the plain branch keeps the matching slice of
+one process's mask.
 """
 
 from __future__ import annotations
@@ -25,8 +34,9 @@ import torch
 from torch import nn
 
 from a3t_tpu_torch.models.dropout import SeededDropout, draw_seed
-from a3t_tpu_torch.models.layers import dense
+from a3t_tpu_torch.models.layers import dense, row_parallel
 from a3t_tpu_torch.ops.fused_attention import fused_attention
+from a3t_tpu_torch.parallel.tensor import ModelShard, copy_to_model
 
 
 def legacy_rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -64,16 +74,21 @@ class MultiHeadedAttention(nn.Module):
     training mode.  No fused kernel: the JAX module has none either."""
 
     def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0,
-                 dtype=None):
+                 dtype=None, shard: ModelShard = ModelShard()):
         super().__init__()
         self.dtype = dtype
-        self.h = n_head
+        self.h = shard.part(n_head, "attention_heads")  # this rank's heads
+        self.head0 = shard.rank * self.h
+        self.tp = shard.size
         self.d_k = d_model // n_head
-        self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(d_model, d_model)
-        self.linear_v = nn.Linear(d_model, d_model)
-        self.linear_out = nn.Linear(d_model, d_model)
-        self.dropout = SeededDropout(dropout_rate)
+        width = self.h * self.d_k
+        self.linear_q = nn.Linear(d_model, width)
+        self.linear_k = nn.Linear(d_model, width)
+        self.linear_v = nn.Linear(d_model, width)
+        self.linear_out = nn.Linear(width, d_model)
+        # the probabilities (B, H, T1, T2) hold this rank's heads
+        self.dropout = SeededDropout(dropout_rate,
+                                     (1, shard.rank, shard.size))
         # called with the plain branch's float32 probabilities, before
         # dropout (the attention plots; JAX sows them, attention.py:90-92)
         self.capture = None
@@ -84,8 +99,14 @@ class MultiHeadedAttention(nn.Module):
         return y.view(*y.shape[:-1], self.h, self.d_k)
 
     def forward(self, query, key, value, mask=None, generator=None):
-        b, t, d_model = query.shape
+        b, t, _ = query.shape
         dt = self.dtype
+        if self.tp > 1:
+            if key is query and value is query:  # self-attention: one copy
+                query = key = value = copy_to_model(query, self.tp)
+            else:
+                query, key, value = (copy_to_model(x, self.tp)
+                                     for x in (query, key, value))
         q = self.heads(self.linear_q, query)
         k = self.heads(self.linear_k, key)
         v = self.heads(self.linear_v, value)
@@ -96,7 +117,8 @@ class MultiHeadedAttention(nn.Module):
             self.capture(attn.detach())
         attn = self.dropout(attn, generator)
         out = torch.einsum("bhts,bshd->bthd", attn.to(v.dtype), v)
-        return dense(self.linear_out, out.reshape(b, t, d_model), dt)
+        return row_parallel(self.linear_out,
+                            out.reshape(b, t, self.h * self.d_k), dt, self.tp)
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):
@@ -111,20 +133,22 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
     def __init__(self, d_model: int, n_head: int, legacy: bool = True,
                  use_flash: bool = True, dropout_rate: float = 0.0,
-                 dtype=None):
-        super().__init__(d_model, n_head, dropout_rate, dtype)
+                 dtype=None, shard: ModelShard = ModelShard()):
+        super().__init__(d_model, n_head, dropout_rate, dtype, shard)
         self.legacy = legacy
         self.use_flash = use_flash
-        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
-        self.pos_bias_u = nn.Parameter(torch.zeros(n_head, self.d_k))
-        self.pos_bias_v = nn.Parameter(torch.zeros(n_head, self.d_k))
+        self.linear_pos = nn.Linear(d_model, self.h * self.d_k, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(self.h, self.d_k))
+        self.pos_bias_v = nn.Parameter(torch.zeros(self.h, self.d_k))
 
     def forward(self, x, pos_emb, mask=None, generator=None):
-        b, t, d_model = x.shape
+        b, t, _ = x.shape
+        width = self.h * self.d_k
 
         dt = self.dtype
         if dt is not None:
             pos_emb = pos_emb.to(dt)
+        x = copy_to_model(x, self.tp)
 
         q = self.heads(self.linear_q, x)
         k = self.heads(self.linear_k, x)
@@ -159,9 +183,9 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
                 q_u.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous(),
                 matrix_bd.to(q_u.dtype).contiguous(), flat_mask,
-                dropout_rate=rate, seed=seed)
-            out = out.to(v.dtype).transpose(1, 2).reshape(b, t, d_model)
-            return dense(self.linear_out, out, dt)
+                dropout_rate=rate, seed=seed, head0=self.head0)
+            out = out.to(v.dtype).transpose(1, 2).reshape(b, t, width)
+            return row_parallel(self.linear_out, out, dt, self.tp)
 
         matrix_ac = torch.einsum("bthd,bshd->bhts", q_u.float(), k.float())
         attn = apply_attn_mask((matrix_ac + matrix_bd) / math.sqrt(self.d_k),
@@ -171,5 +195,5 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         # the softmax stays float32; the probabilities are stored, dropped
         # and multiplied with v in the compute dtype
         attn = self.dropout(attn.to(v.dtype), generator)
-        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, d_model)
-        return dense(self.linear_out, out, dt)
+        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, width)
+        return row_parallel(self.linear_out, out, dt, self.tp)

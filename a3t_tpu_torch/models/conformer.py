@@ -15,6 +15,14 @@ pass and ``remat_attention`` the rel-pos self-attention alone
 (conformer/encoder_layer.py) so state dicts map onto the JAX package's
 tree.
 
+On a ``shard`` of the model axis (``parallel/``) a block runs its rank's
+slice of the attention heads and of both feed-forwards' hidden units; each
+of the three begins with the model group's copy and ends with its
+all-reduce (``parallel/tensor.py``), and the conv module, the LayerNorms
+and every residual stay replicated.  Under ``remat`` each rank of a model
+group replays its block's collectives in the same order.  The longformer
+kind takes no model axis yet (ROADMAP A10c).
+
 Mixed precision follows flax's promotion: LayerNorms keep the float32
 stream, the attention projections, feed-forwards and conv module run in the
 compute dtype (BatchNorm in a float32 round trip), and each residual sum
@@ -43,6 +51,7 @@ from a3t_tpu_torch.models.layers import (
     sinusoidal_table,
 )
 from a3t_tpu_torch.models.windowed_attention import WindowedSelfAttention
+from a3t_tpu_torch.parallel.tensor import ModelShard
 
 
 ATTENTION_KINDS = ("legacy_rel_selfattn", "rel_selfattn", "selfattn",
@@ -99,10 +108,25 @@ class EncoderConfig:
         """The compute dtype, None for float32 (flax's convention)."""
         return None if self.compute_dtype == "float32" else torch.bfloat16
 
-    def check_supported(self) -> None:
+    def check_supported(self, tensor_parallel: int = 1) -> None:
+        """Raise for what the port does not take, over a model axis of
+        ``tensor_parallel`` ranks."""
         kind = self.selfattention_layer_type
         if kind not in ATTENTION_KINDS:
             raise ValueError(f"unknown attention kind {kind!r}")
+        if tensor_parallel > 1:
+            if kind == "longformer":
+                raise NotImplementedError(
+                    "mesh.tensor_parallel > 1 with longformer attention is "
+                    "not ported: the banded kernels' dropout lanes need the "
+                    "global heads, which comes with the seq axis (ROADMAP "
+                    "A10c)")
+            for what, n in (("attention_heads", self.attention_heads),
+                            ("linear_units", self.linear_units)):
+                if n % tensor_parallel:
+                    raise ValueError(
+                        f"mesh.tensor_parallel={tensor_parallel} does not "
+                        f"divide {what}={n}")
         if self.positionwise_layer_type not in POSITIONWISE_KINDS:
             raise ValueError("unknown positionwise_layer_type "
                              f"{self.positionwise_layer_type!r}")
@@ -231,21 +255,24 @@ class ConformerBlock(nn.Module):
     (``selfattn``, which takes no positional table), or for ``longformer``
     windowed attention over ``[speech (n_frames) ; text]`` with a flat key
     mask.  ``remat_attention`` recomputes the rel-pos attention in the
-    backward pass (JAX applies it to that kind only, conformer.py:205-210)."""
+    backward pass (JAX applies it to that kind only, conformer.py:205-210).
+    ``shard``: the block's place on the model axis (module docstring)."""
 
-    def __init__(self, c: EncoderConfig):
+    def __init__(self, c: EncoderConfig, shard: ModelShard = ModelShard()):
         super().__init__()
-        c.check_supported()
+        c.check_supported(shard.size)
         d = c.attention_dim
 
         def positionwise():
             if c.positionwise_layer_type == "linear":
                 return PositionwiseFeedForward(d, c.linear_units,
                                                c.activation_type,
-                                               c.dropout_rate, dtype=c.dtype)
+                                               c.dropout_rate, dtype=c.dtype,
+                                               shard=shard)
             return MultiLayeredConv1d(d, c.linear_units,
                                       c.positionwise_conv_kernel_size,
-                                      c.dropout_rate, dtype=c.dtype)
+                                      c.dropout_rate, dtype=c.dtype,
+                                      shard=shard)
 
         self.macaron = c.macaron_style
         self.ff_scale = 0.5 if c.macaron_style else 1.0
@@ -263,13 +290,15 @@ class ConformerBlock(nn.Module):
                 use_banded=c.use_pallas_attention)
         elif self.kind == "selfattn":
             self.self_attn = MultiHeadedAttention(
-                d, c.attention_heads, c.attention_dropout_rate, dtype=c.dtype)
+                d, c.attention_heads, c.attention_dropout_rate, dtype=c.dtype,
+                shard=shard)
         else:
             self.self_attn = RelPositionMultiHeadedAttention(
                 d, c.attention_heads,
                 legacy=self.kind == "legacy_rel_selfattn",
                 use_flash=c.use_flash_attention,
-                dropout_rate=c.attention_dropout_rate, dtype=c.dtype)
+                dropout_rate=c.attention_dropout_rate, dtype=c.dtype,
+                shard=shard)
             self.remat_attention = c.remat_attention
         self.use_cnn = c.use_cnn_module
         if c.use_cnn_module:
@@ -317,11 +346,13 @@ class ConformerStack(nn.Module):
     """num_blocks ConformerBlocks + the final LayerNorm, which the
     speech-only pre-encoder leaves out (``apply_final_norm=False``,
     transformer/encoder.py:547-548) and so does ``normalize_before:
-    false``.  ``remat`` recomputes each block in the backward pass."""
+    false``.  ``remat`` recomputes each block in the backward pass.
+    ``shard``: the blocks' place on the model axis."""
 
-    def __init__(self, c: EncoderConfig, apply_final_norm: bool = True):
+    def __init__(self, c: EncoderConfig, apply_final_norm: bool = True,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
-        self.encoders = nn.ModuleList(ConformerBlock(c)
+        self.encoders = nn.ModuleList(ConformerBlock(c, shard)
                                       for _ in range(c.num_blocks))
         self.after_norm = (nn.LayerNorm(c.attention_dim, eps=1e-5)
                            if apply_final_norm and c.normalize_before

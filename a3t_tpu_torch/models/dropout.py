@@ -15,6 +15,13 @@ The bytes come from a ``torch.Generator`` seeded per call, so they differ
 from JAX's bits: this module is held to its rule and its statistics, not to
 JAX's masks.  Seeds are drawn on the host from the step's CPU generator
 (:func:`draw_seed`), so no dropout site waits for the card.
+
+A site on a tensor that the model axis splits (the feed-forward's hidden
+units, the plain attention's heads; ``parallel/sharding.py``) takes a
+``part = (dim, t, tp)``: it draws the byte mask of the full width from its
+seed and keeps slice t of tp along ``dim``, so that its mask is the
+matching slice of one process's.  Every site draws its seed at any tp, so
+the draws from the step's generator stay in step.
 """
 
 from __future__ import annotations
@@ -39,38 +46,51 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
 
 
-def keep_mask(shape, seed: int, rate: float, device) -> torch.Tensor:
+def keep_mask(shape, seed: int, rate: float, device,
+              part=None) -> torch.Tensor:
     """Bool keep-mask of ``shape`` drawn from a generator seeded with
-    ``seed`` on ``device``."""
+    ``seed`` on ``device``; with ``part = (dim, t, tp)``, slice t of tp
+    along ``dim`` of the mask of the full shape (``shape[dim] * tp``)."""
+    shape = list(shape)
+    if part is not None:
+        dim, t, tp = part
+        dim %= len(shape)
+        n = shape[dim]
+        shape[dim] = n * tp
     gen = torch.Generator(device=device).manual_seed(seed)
     bits = torch.randint(0, 256, tuple(shape), generator=gen, device=device,
                          dtype=torch.uint8)
+    if part is not None:
+        bits = bits.narrow(dim, t * n, n)
     return bits < _threshold(rate)
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    keep = keep_mask(x.shape, seed, rate, x.device)
+def _apply(x: torch.Tensor, seed: int, rate: float, part) -> torch.Tensor:
+    keep = keep_mask(x.shape, seed, rate, x.device, part)
     return torch.where(keep, x * (1.0 / realized_keep_prob(rate)),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _SeededDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed: int, rate: float):
-        ctx.seed, ctx.rate = seed, rate
-        return _apply(x, seed, rate)
+    def forward(ctx, x, seed: int, rate: float, part):
+        ctx.seed, ctx.rate, ctx.part = seed, rate, part
+        return _apply(x, seed, rate, part)
 
     @staticmethod
     def backward(ctx, g):
-        return _apply(g, ctx.seed, ctx.rate), None, None
+        return _apply(g, ctx.seed, ctx.rate, ctx.part), None, None, None
 
 
-def seeded_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def seeded_dropout(x: torch.Tensor, seed: int, rate: float,
+                   part=None) -> torch.Tensor:
     """Unbiased byte dropout; identity when the rate is below the byte
-    grain (``rate <= 1/512``)."""
+    grain (``rate <= 1/512``).  ``part``: see :func:`keep_mask`."""
     if rate <= 1.0 / 512.0:
         return x
-    return _SeededDropout.apply(x, seed, rate)
+    if part is not None and part[2] == 1:
+        part = None
+    return _SeededDropout.apply(x, seed, rate, part)
 
 
 class SeededDropout(nn.Module):
@@ -79,15 +99,18 @@ class SeededDropout(nn.Module):
     ``forward(x, generator)`` draws this call's seed from ``generator`` (the
     step's CPU generator); a module in training mode with a rate above the
     byte grain needs one, as the JAX module needs a "dropout" rng.
+    ``part = (dim, t, tp)``: ``x`` is slice t of tp along ``dim`` of the
+    full tensor (:func:`keep_mask`).
     """
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, part=None):
         super().__init__()
         self.rate = float(rate)
+        self.part = part
 
     def forward(self, x, generator=None):
         if not self.training or self.rate <= 1.0 / 512.0:
             return x
         if generator is None:
             raise ValueError("dropout in training mode needs a generator")
-        return seeded_dropout(x, draw_seed(generator), self.rate)
+        return seeded_dropout(x, draw_seed(generator), self.rate, self.part)

@@ -10,6 +10,11 @@ draws its seeds from the ``generator`` passed to ``forward``, and BatchNorm
 normalises with batch statistics and updates its running statistics by
 flax's rule.  In eval mode dropout is the identity and BatchNorm uses its
 running statistics (the JAX package's ``use_running_average=True``).
+
+The feed-forwards take a ``shard`` (``parallel/tensor.py``): on the model
+axis's rank t of tp they hold slice t of the hidden units, ``w_1`` split by
+output and ``w_2`` by input (:func:`row_parallel`), and their dropout keeps
+the matching slice of one process's mask.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from a3t_tpu_torch.models.dropout import SeededDropout
-from a3t_tpu_torch.parallel.mesh import global_sum, world
+from a3t_tpu_torch.parallel.mesh import data_world, global_sum
+from a3t_tpu_torch.parallel.tensor import (ModelShard, copy_to_model,
+                                           reduce_from_model)
 
 # flax BatchNorm(momentum=0.9) keeps 0.9 of the running statistics per step
 # (torch's momentum=0.1 convention is the other way round)
@@ -64,20 +71,38 @@ def _compute_dtype(x: torch.Tensor, dtype) -> torch.dtype:
         else dtype
 
 
-def dense(linear: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+def dense(linear: nn.Linear, x: torch.Tensor, dtype=None,
+          bias: bool = True) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to the
-    compute dtype (the float32 parameters stay the master copy)."""
+    compute dtype (the float32 parameters stay the master copy);
+    ``bias=False`` leaves the bias out."""
     dt = _compute_dtype(x, dtype)
-    bias = None if linear.bias is None else linear.bias.to(dt)
-    return F.linear(x.to(dt), linear.weight.to(dt), bias)
+    b = None if linear.bias is None or not bias else linear.bias.to(dt)
+    return F.linear(x.to(dt), linear.weight.to(dt), b)
 
 
-def conv1d(conv: nn.Conv1d, x: torch.Tensor, dtype=None) -> torch.Tensor:
+def conv1d(conv: nn.Conv1d, x: torch.Tensor, dtype=None,
+           bias: bool = True) -> torch.Tensor:
     """flax ``Conv(dtype=dtype)`` on (B, C, T): as :func:`dense`."""
     dt = _compute_dtype(x, dtype)
-    bias = None if conv.bias is None else conv.bias.to(dt)
-    return F.conv1d(x.to(dt), conv.weight.to(dt), bias, conv.stride,
+    b = None if conv.bias is None or not bias else conv.bias.to(dt)
+    return F.conv1d(x.to(dt), conv.weight.to(dt), b, conv.stride,
                     conv.padding, conv.dilation, conv.groups)
+
+
+def row_parallel(linear, x: torch.Tensor, dtype=None, tp: int = 1
+                 ) -> torch.Tensor:
+    """:func:`dense` or :func:`conv1d` of a layer split by input over the
+    model axis's ``tp`` ranks: the partial products are summed over the
+    model group (``parallel/tensor.py``), then the whole bias is added
+    once.  At tp = 1 the layer's own :func:`dense` or :func:`conv1d`."""
+    conv = isinstance(linear, nn.Conv1d)
+    op = conv1d if conv else dense
+    if tp == 1:
+        return op(linear, x, dtype)
+    y = reduce_from_model(op(linear, x, dtype, bias=False), tp)
+    b = linear.bias.to(y.dtype)
+    return y + (b[:, None] if conv else b)
 
 
 def batch_norm_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -108,12 +133,14 @@ def _batch_stats(bn: nn.BatchNorm1d, x: torch.Tensor):
     padding included: the mean and the variance E[x^2] - E[x]^2 (clipped at
     0, biased); the running statistics move by ``ra = 0.9 * ra + 0.1 *
     batch`` with that biased variance, where torch's own BatchNorm would use
-    the unbiased one.  Over W ranks (``parallel/mesh.py``) the sums of x and
-    x^2 are reduced over the ranks, differentiably, and divided by the
-    global count, as GSPMD reduces flax's statistics over the data axis: the
-    running statistics stay equal on every rank."""
+    the unbiased one.  Over the W ranks of the data axis (``parallel/
+    mesh.py``) the sums of x and x^2 are reduced over the data group,
+    differentiably, and divided by the global count, as GSPMD reduces
+    flax's statistics over the data axis: the running statistics stay
+    equal on every rank.  The model axis's ranks hold the same rows, so
+    they take no part."""
     dims = (0,) + tuple(range(2, x.dim()))
-    w = world()
+    w = data_world()
     if w > 1:
         count = w * (x.numel() // x.shape[1])
         sums = global_sum(torch.stack([x.sum(dim=dims),
@@ -166,41 +193,54 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
 
 class PositionwiseFeedForward(nn.Module):
     """Linear -> activation -> dropout -> Linear, in the compute ``dtype``
-    (None: float32)."""
+    (None: float32); on a ``shard`` of the model axis, its slice of the
+    hidden units."""
 
     def __init__(self, d: int, hidden: int, activation: str = "swish",
-                 dropout_rate: float = 0.0, dtype=None):
+                 dropout_rate: float = 0.0, dtype=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
-        self.w_1 = nn.Linear(d, hidden)
-        self.w_2 = nn.Linear(hidden, d)
+        h = shard.part(hidden, "linear_units")
+        self.w_1 = nn.Linear(d, h)
+        self.w_2 = nn.Linear(h, d)
         self.act = ACTIVATIONS[activation]
-        self.dropout = SeededDropout(dropout_rate)
+        self.dropout = SeededDropout(dropout_rate,
+                                     (-1, shard.rank, shard.size))
         self.dtype = dtype
+        self.tp = shard.size
 
     def forward(self, x, generator=None):
+        x = copy_to_model(x, self.tp)
         h = self.dropout(self.act(dense(self.w_1, x, self.dtype)), generator)
-        return dense(self.w_2, h, self.dtype)
+        return row_parallel(self.w_2, h, self.dtype, self.tp)
 
 
 class MultiLayeredConv1d(nn.Module):
     """Two same-padded Conv1d with ReLU and dropout between (FastSpeech
     position-wise layer, espnet multi_layer_conv.py), in the compute
-    ``dtype`` (None: float32).  JAX's ``conv1d_shifted`` lowering has the
-    same parameters and is this module."""
+    ``dtype`` (None: float32); on a ``shard`` of the model axis, its slice
+    of the hidden channels.  JAX's ``conv1d_shifted`` lowering has the same
+    parameters and is this module."""
 
     def __init__(self, d: int, hidden: int, kernel_size: int,
-                 dropout_rate: float = 0.0, dtype=None):
+                 dropout_rate: float = 0.0, dtype=None,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         pad = (kernel_size - 1) // 2
-        self.w_1 = nn.Conv1d(d, hidden, kernel_size, padding=pad)
-        self.w_2 = nn.Conv1d(hidden, d, kernel_size, padding=pad)
-        self.dropout = SeededDropout(dropout_rate)
+        h = shard.part(hidden, "linear_units")
+        self.w_1 = nn.Conv1d(d, h, kernel_size, padding=pad)
+        self.w_2 = nn.Conv1d(h, d, kernel_size, padding=pad)
+        # the hidden tensor is channel-first, (B, hidden, T)
+        self.dropout = SeededDropout(dropout_rate,
+                                     (1, shard.rank, shard.size))
         self.dtype = dtype
+        self.tp = shard.size
 
     def forward(self, x, generator=None):
+        x = copy_to_model(x, self.tp)
         h = F.relu(conv1d(self.w_1, x.transpose(1, 2), self.dtype))
         h = self.dropout(h, generator)
-        return conv1d(self.w_2, h, self.dtype).transpose(1, 2)
+        return row_parallel(self.w_2, h, self.dtype, self.tp).transpose(1, 2)
 
 
 class ConvolutionModule(nn.Module):

@@ -24,6 +24,12 @@ names for them, so they keep the JAX tree's names.  The duration-aware
 variant (``duration_predictor_layers > 0``) adds a duration predictor on
 the encoder's speech states and :meth:`A3TMLMModel.tts_forward`.
 
+``A3TMLMModel(config, shard)`` is the model's slice on rank t of the mesh's
+model axis (``parallel/``): every Conformer block holds its rank's heads
+and hidden units and everything else is whole.  :func:`build_model` builds
+the slice of the live mesh's rank from the seeded initialisation of the
+whole model, so the weights at tp = 2 are the slices of tp = 1's.
+
 ``forward(..., speech_only=True)`` is the branch of speech-only corpora
 (the JAX model's :222-224, the reference's conformer/encoder.py:531-537):
 the sentinel text token gets ``segment_emb(0)``, the speech no segment
@@ -48,7 +54,9 @@ from a3t_tpu_torch.models.conformer import (
 )
 from a3t_tpu_torch.models.layers import (DurationPredictor, MaskedInput,
                                          Postnet, dense, length_regulate)
-from a3t_tpu_torch.parallel.mesh import all_reduce_sum
+from a3t_tpu_torch.parallel.mesh import all_reduce_sum, model_rank, model_world
+from a3t_tpu_torch.parallel.sharding import shard_state
+from a3t_tpu_torch.parallel.tensor import ModelShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +85,8 @@ class MLMEncoder(ConformerStack):
     MLMEncoder: speech_embed = [MaskedInput, Linear, LayerNorm] (+ ReLU),
     text_embed = [Embedding], segment_emb."""
 
-    def __init__(self, c: A3TModelConfig):
-        super().__init__(c.encoder)
+    def __init__(self, c: A3TModelConfig, shard: ModelShard = ModelShard()):
+        super().__init__(c.encoder, shard=shard)
         d = c.encoder.attention_dim
         self.speech_embed = nn.ModuleList([
             MaskedInput(c.odim), nn.Linear(c.odim, d), nn.LayerNorm(d, eps=1e-5)])
@@ -99,15 +107,18 @@ class A3TMLMModel(nn.Module):
     ``return_log_durations=True`` the duration predictor's (B, F) output
     as a third element (None without a predictor).  In training mode
     ``generator`` (a CPU ``torch.Generator``) seeds every dropout site, the
-    JAX model's ``rngs={"dropout": ...}``.
+    JAX model's ``rngs={"dropout": ...}``.  ``shard``: the model's place on
+    the mesh's model axis (module docstring).
     """
 
-    def __init__(self, config: A3TModelConfig):
+    def __init__(self, config: A3TModelConfig,
+                 shard: ModelShard = ModelShard()):
         super().__init__()
         c = config
         self.config = c
+        self.shard = shard
         d = c.encoder.attention_dim
-        self.encoder = MLMEncoder(c)
+        self.encoder = MLMEncoder(c, shard)
         if c.spemb_dim > 0:
             self.spemb_proj = nn.Linear(c.spemb_dim, d)
             self.spemb_proj_mid = nn.Linear(c.spemb_dim, d)
@@ -118,10 +129,10 @@ class A3TMLMModel(nn.Module):
             self.pre_speech_encoders = ConformerStack(
                 dataclasses.replace(c.encoder,
                                     num_blocks=c.encoder.pre_speech_layers),
-                apply_final_norm=False)
+                apply_final_norm=False, shard=shard)
         if c.decoder is not None:
             self.decoder_posenc = _posenc(c.decoder)
-            self.decoder = ConformerStack(c.decoder)
+            self.decoder = ConformerStack(c.decoder, shard=shard)
         self.sfc = nn.Linear(d, c.odim)
         if c.postnet_layers > 0:
             self.postnet = Postnet(c.odim, c.postnet_layers, c.postnet_chans,
@@ -285,9 +296,10 @@ def mlm_loss(before_outs, after_outs, target, masked_position,
     (or MSE) summed over the mel bins, before plus after the postnet,
     averaged over the masked frames.  The denominator is the masked count
     of the global batch, summed over the data axis's ranks (``parallel/
-    mesh.py``; this rank's own count at world size 1): the ranks' losses
+    mesh.py``; this rank's own count at dp = 1): the data ranks' losses
     then sum to the global batch's, as GSPMD's mean over the data axis
-    gives in JAX."""
+    gives in JAX.  The model axis's ranks hold the same rows and the same
+    loss."""
     def err(out):
         d = out - target
         return (d * d if use_mse else d.abs()).sum(dim=-1)
@@ -321,10 +333,19 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_model(config: A3TModelConfig, device=None, seed: int = 0) -> A3TMLMModel:
+def build_model(config: A3TModelConfig, device=None, seed: int = 0,
+                shard: Optional[ModelShard] = None) -> A3TMLMModel:
     """An A3TMLMModel with seeded random weights, in eval mode on ``device``
-    (cuda unless the caller asks for the CPU)."""
+    (cuda unless the caller asks for the CPU).  ``shard`` None is this
+    rank's place on the live mesh's model axis (the whole model without
+    one): the slice of the whole model's seeded weights."""
     dev = resolve_device(device)
     model = A3TMLMModel(config)
     init_parameters(model, torch.Generator().manual_seed(seed))
+    if shard is None:
+        shard = ModelShard(model_rank(), model_world())
+    if shard.size > 1:
+        full = model.state_dict()
+        model = A3TMLMModel(config, shard)
+        model.load_state_dict(shard_state(full, shard.rank, shard.size))
     return model.to(dev).eval()

@@ -29,9 +29,12 @@ through the kernels.
 
 Dropout follows the TPU kernel's interpret-mode rule (fused_attention.py
 :69-80): keep iff ``hash(row * L + col, seed, lane) >= uint32(rate *
-0xFFFFFFFF)`` with lane ``b * 4096 + h``; kept probabilities are scaled by
-1 / (1 - rate) and the softmax denominator stays undropped.  Both kernels
-draw the same bits, so the backward regenerates the forward's mask.
+0xFFFFFFFF)`` with lane ``b * 4096 + head0 + h``; kept probabilities are
+scaled by 1 / (1 - rate) and the softmax denominator stays undropped.  Both
+kernels draw the same bits, so the backward regenerates the forward's mask.
+``head0`` is the global index of the call's first head: a rank of the
+model axis that holds heads ``head0 .. head0 + H - 1`` of a layer
+(``parallel/sharding.py``) draws the masks one process draws for them.
 """
 
 from __future__ import annotations
@@ -93,11 +96,12 @@ def threshold(rate: float) -> int:
 
 
 def keep_mask(b: int, h: int, l: int, seed: int, rate: float,
-              device=None) -> torch.Tensor:
-    """(b, h, l, l) bool dropout keep-mask of the kernel's rule."""
+              device=None, head0: int = 0) -> torch.Tensor:
+    """(b, h, l, l) bool dropout keep-mask of the kernel's rule, for heads
+    ``head0 .. head0 + h - 1``."""
     ctr = torch.arange(l * l, dtype=torch.int64, device=device).view(1, 1, l, l)
     lane = (torch.arange(b, dtype=torch.int64, device=device).view(b, 1, 1, 1)
-            * 4096 + torch.arange(h, dtype=torch.int64,
+            * 4096 + torch.arange(head0, head0 + h, dtype=torch.int64,
                                   device=device).view(1, h, 1, 1))
     return hash_bits(ctr, seed, lane) >= threshold(rate)
 
@@ -107,10 +111,11 @@ def _flat_mask(mask: torch.Tensor, b: int, l: int) -> torch.Tensor:
 
 
 def fused_attention_reference(q_u, k, v, bias, mask, seed: int = 0,
-                              rate: float = 0.0):
+                              rate: float = 0.0, head0: int = 0):
     """Plain PyTorch version: (out (B,H,L,d) in q's dtype, lse (B,H,1,L) f32).
 
-    q_u/k/v (B,H,L,d); bias (B,H,L,L); mask (B,L) or (B,1,L), nonzero = valid.
+    q_u/k/v (B,H,L,d); bias (B,H,L,L); mask (B,L) or (B,1,L), nonzero = valid;
+    ``head0`` the global index of head 0 (the dropout lanes).
     """
     b, h, l, d = q_u.shape
     scale = float(np.float32(1.0 / np.sqrt(d)))
@@ -123,7 +128,8 @@ def fused_attention_reference(q_u, k, v, bias, mask, seed: int = 0,
     denom = e.sum(dim=-1, keepdim=True)
     p = torch.where(valid, e / denom, torch.zeros_like(e))
     if rate > 0.0:
-        keep = keep_mask(b, h, l, seed, rate, device=q_u.device)
+        keep = keep_mask(b, h, l, seed, rate, device=q_u.device,
+                         head0=head0)
         p = p * (keep.float() * float(np.float32(1.0 / (1.0 - rate))))
     out = torch.einsum("bhlm,bhmd->bhld", p, v.float()).to(q_u.dtype)
     lse = (m + torch.log(denom))[..., 0][:, :, None, :]
@@ -131,7 +137,7 @@ def fused_attention_reference(q_u, k, v, bias, mask, seed: int = 0,
 
 
 def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
-                                  lse, g):
+                                  lse, g, head0: int = 0):
     """Plain PyTorch version of the backward: (dq, dk, dv, dbias), each in
     its input's dtype, from the forward's inputs, ``out``, ``lse`` and the
     output gradient ``g`` (``_bwd_call``, fused_attention.py:135-191)."""
@@ -147,7 +153,8 @@ def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
     dp = torch.einsum("bhld,bhmd->bhlm", gf, vf)
     p_d = p
     if rate > 0.0:
-        keep = keep_mask(b, h, l, seed, rate, device=q_u.device).float() \
+        keep = keep_mask(b, h, l, seed, rate, device=q_u.device,
+                         head0=head0).float() \
             * float(np.float32(1.0 / (1.0 - rate)))
         p_d = p * keep
         dp = dp * keep
@@ -163,14 +170,14 @@ def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
 def _entry():
     """K1's C entry point, built and loaded on first use."""
     return native.bind("fused_attention", LIBRARIES["fused_attention"],
-                       "a3t_fused_attention_fwd", 8, 7)
+                       "a3t_fused_attention_fwd", 8, 8)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry_bwd():
     """K2's C entry point, built and loaded on first use."""
     return native.bind("fused_attention_bwd", LIBRARIES["fused_attention_bwd"],
-                       "a3t_fused_attention_bwd", 12, 5)
+                       "a3t_fused_attention_bwd", 12, 6)
 
 
 def _check(q_u, named):
@@ -193,6 +200,7 @@ def _check(q_u, named):
 
 
 def _launch(fn, ptrs, ints, q_u, seed: int, rate: float, what: str):
+    """``ints`` follow B, H, L, d and the dtype (the last is head0)."""
     b, h, l, d = q_u.shape
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
@@ -226,7 +234,8 @@ def _fwd_plan(b: int, h: int, l: int, sms: int = 132,
     return (1, l) if splits == 1 else (splits, kps)
 
 
-def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float):
+def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float,
+                head0: int = 0):
     global LAUNCHES
     b, h, l, d = q_u.shape
     _check(q_u, (("k", k, (b, h, l, d)), ("v", v, (b, h, l, d)),
@@ -245,12 +254,13 @@ def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float):
     _launch(_entry(), (q_u.data_ptr(), k.data_ptr(), v.data_ptr(),
                        bias.data_ptr(), m.data_ptr(), out.data_ptr(),
                        lse.data_ptr(), 0 if part is None else part.data_ptr()),
-            (splits, kps), q_u, seed, rate, "fused_attention")
+            (splits, kps, head0), q_u, seed, rate, "fused_attention")
     LAUNCHES += 1
     return out, lse
 
 
-def _kernel_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out, lse, g):
+def _kernel_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out, lse, g,
+                head0: int = 0):
     global LAUNCHES_BWD
     b, h, l, d = q_u.shape
     mat = (b, h, l, d)
@@ -271,7 +281,7 @@ def _kernel_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out, lse, g):
                            bias.data_ptr(), m.data_ptr(), g.data_ptr(),
                            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), dbias.data_ptr()),
-            (), q_u, seed, rate, "fused_attention backward")
+            (head0,), q_u, seed, rate, "fused_attention backward")
     LAUNCHES_BWD += 1
     return dq, dk, dv, dbias
 
@@ -286,21 +296,31 @@ def _on_device(q_u, rate: float) -> str:
     return q_u.device.type
 
 
+def _check_head0(head0: int, h: int) -> None:
+    if not 0 <= head0 <= 4096 - h:
+        raise ValueError(f"head0 {head0} with {h} heads outside the lanes' "
+                         "4096 heads")
+
+
 def fused_attention_fwd(q_u, k, v, bias, mask, seed: int = 0,
-                        rate: float = 0.0):
+                        rate: float = 0.0, head0: int = 0):
     """(out, lse): the plain version for CPU tensors, K1 for CUDA."""
+    _check_head0(head0, q_u.shape[1])
     if _on_device(q_u, rate) == "cpu":
-        return fused_attention_reference(q_u, k, v, bias, mask, seed, rate)
-    return _kernel_fwd(q_u, k, v, bias, mask, seed, rate)
+        return fused_attention_reference(q_u, k, v, bias, mask, seed, rate,
+                                         head0)
+    return _kernel_fwd(q_u, k, v, bias, mask, seed, rate, head0)
 
 
 def fused_attention_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out,
-                        lse, g):
+                        lse, g, head0: int = 0):
     """(dq, dk, dv, dbias): the plain version for CPU tensors, K2 for CUDA."""
+    _check_head0(head0, q_u.shape[1])
     if _on_device(q_u, rate) == "cpu":
         return fused_attention_bwd_reference(q_u, k, v, bias, mask, seed,
-                                             rate, out, lse, g)
-    return _kernel_bwd(q_u, k, v, bias, mask, seed, rate, out, lse, g)
+                                             rate, out, lse, g, head0)
+    return _kernel_bwd(q_u, k, v, bias, mask, seed, rate, out, lse, g,
+                       head0)
 
 
 class FusedAttention(torch.autograd.Function):
@@ -310,10 +330,12 @@ class FusedAttention(torch.autograd.Function):
     from the int seed."""
 
     @staticmethod
-    def forward(ctx, q_u, k, v, bias, mask, seed: int, rate: float):
-        out, lse = fused_attention_fwd(q_u, k, v, bias, mask, seed, rate)
+    def forward(ctx, q_u, k, v, bias, mask, seed: int, rate: float,
+                head0: int):
+        out, lse = fused_attention_fwd(q_u, k, v, bias, mask, seed, rate,
+                                       head0)
         ctx.save_for_backward(q_u, k, v, bias, mask, out, lse)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.seed, ctx.rate, ctx.head0 = seed, rate, head0
         return out
 
     @staticmethod
@@ -321,17 +343,19 @@ class FusedAttention(torch.autograd.Function):
         q_u, k, v, bias, mask, out, lse = ctx.saved_tensors
         dq, dk, dv, dbias = fused_attention_bwd(
             q_u, k, v, bias, mask, ctx.seed, ctx.rate, out, lse,
-            g.contiguous())
-        return dq, dk, dv, dbias, None, None, None
+            g.contiguous(), ctx.head0)
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 def fused_attention(q_u, k, v, bias, mask, dropout_rate: float = 0.0,
-                    seed: int = 0):
+                    seed: int = 0, head0: int = 0):
     """Fused softmax(+dropout)+PV attention output (B, H, L, d), with its
     backward through K2.
 
     Args mirror ``a3t_tpu.ops.fused_attention.fused_attention``, except that
-    dropout takes an int ``seed`` (the JAX wrapper draws it from its rng).
+    dropout takes an int ``seed`` (the JAX wrapper draws it from its rng)
+    and ``head0``, the global index of head 0 (its dropout lane), which is
+    0 unless the heads are a slice of a layer's.
     """
     return FusedAttention.apply(q_u, k, v, bias, mask, int(seed),
-                                float(dropout_rate))
+                                float(dropout_rate), int(head0))

@@ -1,26 +1,36 @@
-"""The data axis as one process per card: the port of
+"""The mesh's ``data`` and ``model`` axes as process groups: the port of
 ``a3t_tpu/parallel/mesh.py``.
 
-The JAX package's ``data`` mesh axis splits one global batch by rows over
-its devices, and GSPMD reduces the loss's denominator, BatchNorm's
-statistics and the gradients over the axis, so that a step on W devices
-computes what one device computes on the whole batch.  The port runs one
-process per card in a ``torch.distributed`` group of world size W (NCCL
-on the card, gloo on the CPU) and keeps those single-controller semantics
-on purpose:
+The JAX package lays its devices out as ``devices.reshape(dp, tp)`` with
+the axes ``(data, model)``.  The ``data`` axis splits one global batch by
+rows, and GSPMD reduces the loss's denominator, BatchNorm's statistics and
+the gradients over it, so that a step on dp devices computes what one
+device computes on the whole batch.  The ``model`` axis splits the
+attention heads and the feed-forward hidden units (``parallel/
+sharding.py``), and GSPMD inserts the all-reduces that put the halves
+back together (``parallel/tensor.py``).  The port runs one process per
+card in a ``torch.distributed`` group of ``dp * tp`` processes (NCCL on the
+card, gloo on the CPU) and keeps those single-controller semantics on
+purpose:
 
-* every rank builds the same global batch plan, and rank r takes the rows
-  :func:`row_block` ``[r B / W, (r + 1) B / W)`` of each global batch;
+* process ``r`` is ``(d, t) = (r // tp, r % tp)``, as the reshape lays the
+  devices out: the tp ranks of one model group are adjacent, so on one
+  machine they are neighbours on NVLink;
+* :func:`make_mesh` builds the two kinds of subgroup: the data group of
+  the ranks with the same ``t`` (size dp) and the model group of the ranks
+  with the same ``d`` (size tp);
+* every rank builds the same global batch plan, and data rank d takes the
+  rows :func:`row_block` ``[d B / dp, (d + 1) B / dp)`` of each global
+  batch; the tp ranks of one data rank take the same rows;
 * the loss divides each rank's numerator by the global masked count, and
-  BatchNorm reduces its sums over the ranks through :func:`global_sum`,
-  which is differentiable, so that the rank's gradients sum to the
-  gradient of the global loss;
-* the optimizer sums the gradients over the ranks (``parallel/
+  BatchNorm reduces its sums over the data group through
+  :func:`global_sum`, which is differentiable, so that the data ranks'
+  gradients sum to the gradient of the global loss;
+* the optimizer sums the gradients over the data group (``parallel/
   sharding.py``, ``train/optim.py``).
 
-World size 1, with or without a group, runs no collective at all: every
-helper here is the identity there.  The ``model`` and ``seq`` axes are not
-ported (ROADMAP A10b, A10c).
+A group of one, or no group at all, runs no collective: every helper here
+is the identity there.  The ``seq`` axis is not ported (ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -31,14 +41,87 @@ import torch.distributed as dist
 from a3t_tpu_torch.device import resolve_device
 
 
+# the layout of make_mesh: tp, and this rank's (data group, model group);
+# a group of None is the whole world, where the other axis has size 1
+_MESH = {"tp": 1, "data": None, "model": None}
+# every subgroup made so far, by tp: new_group is a collective of the whole
+# world, so each layout's groups are made once
+_GROUPS: dict = {}
+
+
 def world() -> int:
-    """The data axis's size: the group's world size, 1 without a group."""
+    """The number of processes: the group's world size, 1 without a
+    group."""
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def rank() -> int:
-    """This process's place on the data axis, 0 without a group."""
+    """This process's rank in the whole group, 0 without a group."""
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def model_world() -> int:
+    """The model axis's size, tp (1 without a group)."""
+    return _MESH["tp"] if dist.is_initialized() else 1
+
+
+def model_rank() -> int:
+    """This process's place on the model axis, ``rank % tp``."""
+    return rank() % model_world()
+
+
+def data_world() -> int:
+    """The data axis's size, dp = world / tp."""
+    return world() // model_world()
+
+
+def data_rank() -> int:
+    """This process's place on the data axis, ``rank // tp``."""
+    return rank() // model_world()
+
+
+def data_group():
+    """The group of this rank's data axis (the ranks with its model
+    index); None is the whole world."""
+    return _MESH["data"]
+
+
+def model_group():
+    """The group of this rank's model axis (the ranks with its data
+    index)."""
+    return _MESH["model"]
+
+
+def make_mesh(data_parallel=None, tensor_parallel: int = 1) -> int:
+    """Lay the group out as ``(data, model)`` for a config's
+    ``mesh.data_parallel`` and ``mesh.tensor_parallel`` and return dp: None
+    means every rank left (JAX ``make_mesh``), and ``dp * tp`` must equal
+    the number of processes.  A collective when tp > 1 is new: every rank
+    calls it with the same values."""
+    w, tp = world(), int(tensor_parallel)
+    if tp < 1 or w % tp:
+        raise ValueError(
+            f"mesh.tensor_parallel={tp} does not divide the {w} "
+            "process(es) (one per card)")
+    dp = w // tp if data_parallel is None else int(data_parallel)
+    if dp * tp != w:
+        raise ValueError(
+            f"mesh.data_parallel={data_parallel} x mesh.tensor_parallel="
+            f"{tp} does not cover the {w} process(es) (one per card); set "
+            "data_parallel to their number over tensor_parallel, or leave "
+            "it null")
+    if tp == 1 or not dist.is_initialized():
+        _MESH.update(tp=1, data=None, model=None)
+        return dp
+    if tp not in _GROUPS:
+        # every rank makes every group, in the same order
+        data = [dist.new_group([d * tp + t for d in range(dp)])
+                for t in range(tp)]
+        model = [dist.new_group([d * tp + t for t in range(tp)])
+                 for d in range(dp)]
+        _GROUPS[tp] = (data[rank() % tp], model[rank() // tp])
+    _MESH.update(tp=tp, data=_GROUPS[tp][0], model=_GROUPS[tp][1])
+    return dp
 
 
 def initialize_multihost(coordinator: str, num_processes: int,
@@ -57,39 +140,49 @@ def initialize_multihost(coordinator: str, num_processes: int,
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+    host, port = coordinator.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), num_processes, process_id == 0)
+    if backend == "nccl":
+        _one_rank_per_card(store, num_processes, process_id)
+    dist.init_process_group(backend, store=store, world_size=num_processes,
+                            rank=process_id)
+    _GROUPS.clear()
+    _MESH.update(tp=1, data=None, model=None)
+
+
+def _one_rank_per_card(store, n: int, r: int) -> None:
+    """Raise unless every rank has a card of its own: NCCL cannot put two
+    ranks of one communicator on one card.  Each rank posts its host and
+    card to the group's store and reads the others'."""
+    import socket
+
+    mine = f"{socket.gethostname()}:{torch.cuda.current_device()}"
+    store.set(f"a3t_card_{r}", mine)
+    cards = [store.get(f"a3t_card_{q}").decode() for q in range(n)]
+    same = [q for q in range(n) if cards[q] == mine]
+    if len(same) > 1:
+        raise RuntimeError(
+            f"ranks {same} share the card {mine}; NCCL cannot put two ranks "
+            "of one group on one card: give each rank a card of its own")
 
 
 def rank_device(device=None) -> torch.device:
     """The device this rank trains on: ``cuda:{rank mod cards}`` for cuda
-    at world size > 1, else ``device`` as :func:`resolve_device` gives it
-    (cuda unless the caller asks for the CPU; no card raises)."""
+    over several processes, else ``device`` as :func:`resolve_device`
+    gives it (cuda unless the caller asks for the CPU; no card raises)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and world() > 1 and dev.index is None:
         return torch.device("cuda", rank() % torch.cuda.device_count())
     return dev
 
 
-def data_parallel(requested) -> int:
-    """The data axis's size for a config's ``mesh.data_parallel``: None
-    means every rank (JAX ``make_mesh``); any other value must equal the
-    world size."""
-    w = world()
-    if requested is not None and int(requested) != w:
-        raise ValueError(
-            f"mesh.data_parallel={requested} but {w} process(es) train; "
-            "set it to the number of processes (one per card) or leave it "
-            "null")
-    return w
-
-
 def row_block(batch_size: int, r=None, w=None) -> slice:
-    """Rank ``r``'s rows ``[r B / W, (r + 1) B / W)`` of a global batch of
-    ``batch_size`` rows (JAX's ``P("data")`` split); B must be a multiple
-    of W, as the batcher's ``batch_multiple = W`` makes it."""
-    r = rank() if r is None else r
-    w = world() if w is None else w
+    """Data rank ``r``'s rows ``[r B / W, (r + 1) B / W)`` of a global batch
+    of ``batch_size`` rows over W data ranks (JAX's ``P("data")`` split); B
+    must be a multiple of W, as the batcher's ``batch_multiple = W`` makes
+    it."""
+    r = data_rank() if r is None else r
+    w = data_world() if w is None else w
     if batch_size % w:
         raise ValueError(f"a batch of {batch_size} rows does not split over "
                          f"{w} ranks")
@@ -98,35 +191,37 @@ def row_block(batch_size: int, r=None, w=None) -> slice:
 
 
 class _GlobalSum(torch.autograd.Function):
-    """all_reduce(sum) whose backward is the all_reduce of the gradient:
-    every rank's term reaches every rank's result."""
+    """all_reduce(sum) over the data group whose backward is the all_reduce
+    of the gradient: every data rank's term reaches every data rank's
+    result."""
 
     @staticmethod
     def forward(ctx, x):
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=data_group())
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=data_group())
         return grad
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable; ``x`` itself at
-    world size 1."""
-    return _GlobalSum.apply(x) if world() > 1 else x
+    """The sum of ``x`` over the data axis, differentiable; ``x`` itself
+    at dp = 1."""
+    return _GlobalSum.apply(x) if data_world() > 1 else x
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks (no gradient); ``x`` at world size
-    1."""
-    if world() == 1:
+def all_reduce_sum(x: torch.Tensor, group="data") -> torch.Tensor:
+    """The sum of ``x`` (no gradient) over the data axis, or over the
+    model axis with ``group="model"``; ``x`` where the axis has size 1."""
+    if (data_world() if group == "data" else model_world()) == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=data_group() if group == "data"
+                    else model_group())
     return out
 
 

@@ -32,10 +32,12 @@ from a3t_tpu_torch.train.trainer import TrainerConfig
 @dataclasses.dataclass
 class MeshConfig:
     """The JAX package's device-mesh settings (``a3t_tpu/parallel/mesh.py``).
-    The port's data axis is one process per card (``parallel/``):
-    ``data_parallel`` None means every process of the group and any other
-    value must equal their number.  ``tensor_parallel`` and
-    ``sequence_parallel`` above 1 raise when a task is built (ROADMAP A10b,
+    The port's mesh is one process per card (``parallel/``), ``dp * tp`` of
+    them: ``data_parallel`` None means the number of processes over
+    ``tensor_parallel``, and any other value must cover them with it.
+    ``tensor_parallel`` splits a Conformer model's heads and feed-forward
+    units; ``sequence_parallel`` above 1, and the longformer under
+    ``tensor_parallel`` above 1, raise when a task is built (ROADMAP
     A10c)."""
 
     data_parallel: Optional[int] = None

@@ -25,17 +25,20 @@ batches only, as in JAX).  ``num_plot_examples > 0`` with a validation
 set writes per-epoch mel and attention plots of the validation set's first
 batch to ``exp_dir/plots`` (``train/plots.py``).
 
-The JAX mesh's ``data`` axis is one process per card (``parallel/``): in a
-group of W > 1 processes every rank builds the same unsharded plan with
-bucket batch sizes at ``batch_multiple = W`` (JAX's ``batch_multiple=dp``),
-takes its row block of every training and validation batch on its own
-card (``cuda:{rank mod cards}``), uploads a device-resident corpus whole,
-and steps through the rank-aware step, optimizer, trainer and checkpoints;
-chained dispatch falls back to one step per call, as JAX's does on a mesh.
-Rank 0 alone writes ``config.yaml``, ``tokens.txt``, the checkpoints, the
-plots and the tensorboard and wandb logs.  Still raising with their
-ROADMAP items: the ``model`` axis (``mesh.tensor_parallel > 1``, A10b) and
-the ``seq`` axis (``mesh.sequence_parallel > 1``, A10c).
+The JAX mesh is one process per card (``parallel/``): a group of ``dp *
+tp`` processes laid out as ``(data, model)``.  Every rank builds the same
+unsharded plan with bucket batch sizes at ``batch_multiple = dp`` (JAX's
+``batch_multiple=dp``), takes its data rank's row block of every training
+and validation batch on its own card (``cuda:{rank mod cards}``), uploads
+a device-resident corpus whole, holds its model-axis slice of a Conformer
+model (``mesh.tensor_parallel``: the heads and feed-forward units split
+over tp ranks), and steps through the rank-aware step, optimizer, trainer
+and checkpoints; chained dispatch falls back to one step per call, as
+JAX's does on a mesh.  Rank 0 alone writes ``config.yaml``, ``tokens.txt``,
+the checkpoints, the plots and the tensorboard and wandb logs.  Still
+raising with their ROADMAP item: the ``seq`` axis
+(``mesh.sequence_parallel > 1``) and the longformer on the model axis
+(A10c).
 """
 
 from __future__ import annotations
@@ -57,8 +60,8 @@ from a3t_tpu_torch.data.multi_corpus import (CorpusSpec,
                                              make_multi_corpus_train_step)
 from a3t_tpu_torch.data.records import RecordDataset
 from a3t_tpu_torch.device import resolve_device
-from a3t_tpu_torch.parallel.mesh import (barrier, data_parallel, rank,
-                                         rank_device)
+from a3t_tpu_torch.parallel.mesh import (barrier, data_rank, make_mesh,
+                                         rank, rank_device)
 from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
 from a3t_tpu_torch.models.mlm import A3TMLMModel, build_model
 from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
@@ -87,18 +90,19 @@ def _peek_batch(factory, epoch: int = 0):
 
 
 def check_supported(cfg: A3TTaskConfig) -> int:
-    """Raise for what the port's task does not do yet; returns the data
-    axis's size (the number of processes)."""
+    """Raise for what the port's task does not do yet; lay the group out
+    as the config's mesh (``parallel.mesh.make_mesh``) and return the data
+    axis's size."""
     m = cfg.mesh
-    if m.tensor_parallel != 1:
-        raise NotImplementedError(
-            "mesh.tensor_parallel > 1 (the model axis) is not ported "
-            "(ROADMAP A10b)")
     if m.sequence_parallel != 1:
         raise NotImplementedError(
             "mesh.sequence_parallel > 1 (the seq axis) is not ported "
             "(ROADMAP A10c)")
-    return data_parallel(m.data_parallel)
+    tp = int(m.tensor_parallel)
+    for stack in (cfg.model.encoder, cfg.model.decoder):
+        if stack is not None:
+            stack.check_supported(tp)
+    return make_mesh(m.data_parallel, tp)
 
 
 class MLMTask:
@@ -221,11 +225,11 @@ class MLMTask:
               shard: tuple[int, int] = (0, 1)) -> tuple[Trainer, TrainState]:
         """Write config.yaml and tokens.txt to ``exp_dir`` and assemble the
         trainer and the initial train state on ``device`` (cuda unless the
-        caller asks for the CPU; over W ranks, this rank's card)."""
-        w = check_supported(cfg)
+        caller asks for the CPU; over several ranks, this rank's card)."""
+        w = check_supported(cfg)  # the data axis's size
         r = rank()
         dev = rank_device(device)
-        rows = (r, w) if w > 1 else None
+        rows = (data_rank(), w) if w > 1 else None
         # longformer buckets must be multiples of the half-window (the
         # pad_to_longformer_att_window invariant, collate_fn.py:241-247)
         enc = cfg.model.encoder
@@ -328,15 +332,19 @@ class MLMTask:
                 logger.warning("wandb unavailable; skipping")
 
         plot_fn = None
+        # rank 0 plots; the other ranks of its model group take part in the
+        # forward's all-reduces
         if cfg.num_plot_examples > 0 and valid_factory is not None \
-                and r == 0:
+                and data_rank() == 0:
             plot_batch = _peek_batch(valid_factory)
             plot_dir = os.path.join(cfg.exp_dir, "plots")
             plot_fns = (
                 make_mel_plot_fn(fe, normalizer, plot_batch, plot_dir,
-                                 n_examples=cfg.num_plot_examples),
+                                 n_examples=cfg.num_plot_examples,
+                                 render=r == 0),
                 make_attention_plot_fn(fe, normalizer, plot_batch, plot_dir,
-                                       n_examples=cfg.num_plot_examples))
+                                       n_examples=cfg.num_plot_examples,
+                                       render=r == 0))
 
             def plot_fn(state, epoch):
                 return [f(state, epoch) for f in plot_fns]

@@ -18,16 +18,18 @@ There is no orbax: the format is the port's own.  Every file is written to
 a temporary name and moved into place with ``os.replace``, so a crash never
 leaves half a checkpoint under a checkpoint's name.
 
-Over the W ranks of the data axis (``parallel/``) the files do not depend
-on W: every rank takes part in gathering the optimizer's moment slices
-(``mu``, ``nu``, ``acc_grads``) into whole vectors, rank 0 alone writes
-the same files one process writes, and every rank waits at a barrier
-before it goes on.  A restore reads the whole vectors on every rank and
-keeps each rank's slice, so a checkpoint written at one world size
-resumes at another.  Every rank must therefore see the directory rank 0
-writes (``exp_dir`` on a file system the machines share), which
-:meth:`CheckpointManager.check_shared` verifies; where to resume and which
-epochs to average are rank 0's decisions.
+Over the ranks of the mesh (``parallel/``) the files do not depend on its
+layout ``(dp, tp)``: every rank takes part in gathering the model axis's
+slices of the parameters into whole tensors and the optimizer's moment
+slices (``mu``, ``nu``, ``acc_grads``, sliced over both axes) into whole
+vectors in one process's order, rank 0 alone writes the same files one
+process writes, and every rank waits at a barrier before it goes on.  A
+restore reads the whole state on every rank and keeps each rank's slices,
+so a checkpoint written at one layout resumes at another.  Every rank
+must therefore see the directory rank 0 writes (``exp_dir`` on a file
+system the machines share), which :meth:`CheckpointManager.check_shared`
+verifies; where to resume and which epochs to average are rank 0's
+decisions.
 """
 
 from __future__ import annotations
@@ -42,7 +44,10 @@ from typing import Optional
 import torch
 
 from a3t_tpu_torch.parallel.mesh import agree, barrier, every, rank, world
-from a3t_tpu_torch.parallel.sharding import all_gather_flat, shard_flat
+from a3t_tpu_torch.parallel.sharding import (FlatLayout, all_gather_flat,
+                                             all_gather_flat_model,
+                                             all_gather_state, shard_flat,
+                                             shard_state)
 from a3t_tpu_torch.train.optim import SHARDED_FIELDS, OptState
 from a3t_tpu_torch.train.reporter import Reporter
 
@@ -72,29 +77,36 @@ def _save_text(text: str, path: str) -> None:
 
 
 def _state_tree(state) -> dict:
-    """The state's tree, each moment slice gathered into its whole vector
-    (a collective: every rank calls this)."""
+    """The state's tree, the model's slices gathered into whole tensors and
+    each moment slice into its whole vector (a collective: every rank
+    calls this)."""
     os_ = state.opt_state
-    n = sum(p.numel() for p in state.model.parameters())
+    layout = FlatLayout.of(state.model)
 
     def whole(k):
         v = getattr(os_, k)
-        return all_gather_flat(v, n) if k in SHARDED_FIELDS and v.numel() \
-            else v
+        if k not in SHARDED_FIELDS or not v.numel():
+            return v
+        return all_gather_flat_model(all_gather_flat(v, layout.n_local),
+                                     layout)
 
-    return {"step": state.step, "model": state.model.state_dict(),
+    return {"step": state.step,
+            "model": all_gather_state(state.model.state_dict()),
             "opt_state": {k: whole(k) for k in OptState.__dataclass_fields__}}
 
 
 def _load_into(state, tree: dict):
     """Restore ``tree`` into the live TrainState ``state`` (in place),
-    keeping each tensor's device and this rank's slice of each moment."""
-    state.model.load_state_dict(tree["model"], strict=True)
+    keeping each tensor's device and this rank's slices of the model and
+    of each moment."""
+    layout = FlatLayout.of(state.model)
+    state.model.load_state_dict(
+        shard_state(tree["model"], layout.t, layout.tp), strict=True)
     os_ = state.opt_state
     for k, v in tree["opt_state"].items():
         old = getattr(os_, k)
         if k in SHARDED_FIELDS and v.numel():
-            v = shard_flat(v)
+            v = shard_flat(layout.local_of(v))
         setattr(os_, k, v.to(device=old.device, dtype=old.dtype))
     state.step = int(tree["step"])
     return state
@@ -353,6 +365,9 @@ def warm_start_params(model: torch.nn.Module, path: str,
     model lacks always raise."""
     buffers = dict(model.named_buffers())  # BatchNorm statistics
     loaded = {k: v for k, v in load_params(path).items() if k not in buffers}
+    # a model-axis slice of a model takes its slices of the parameters
+    layout = FlatLayout.of(model)
+    loaded = shard_state(loaded, layout.t, layout.tp)
     own = dict(model.named_parameters())
     extra = sorted(set(loaded) - set(own))
     if extra:

@@ -47,13 +47,22 @@ list given to :meth:`Optimizer.init`.
 Over the W ranks of the data axis (``parallel/``) the chain is ZeRO-1, as
 JAX's ``shard_opt_state`` shards it: rank r keeps only its slice
 (``parallel.sharding.flat_slice``, ``ceil(n / W)`` elements) of ``mu``,
-``nu`` and ``acc_grads``.  A step sums the flat gradients over the ranks
-and keeps the owned slice, reduces the squared norm and the count of
-non-finite elements over the ranks (so the skip, the clip and the reported
-norm are global and equal on every rank), adds its slice of the full noise
-draw and of the weight decay, applies Adam and the schedule to the slice,
-and gathers the slices of the update onto every rank's parameters.  At W =
-1 no collective runs and every slice is the whole vector.
+``nu`` and ``acc_grads``.  A step sums the flat gradients over the data
+group and keeps the owned slice, reduces the squared norm and the count of
+non-finite elements (so the skip, the clip and the reported norm are
+global and equal on every rank), adds its slice of the full noise draw and
+of the weight decay, applies Adam and the schedule to the slice, and
+gathers the slices of the update onto every rank's parameters.
+
+Over the tp ranks of the model axis each rank's flat vector holds its own
+parameters, the slices of the split ones (``parallel.sharding.
+FlatLayout``), so its moments are laid out like that slice, as JAX's
+``moment_partition_spec`` keeps the parameter's layout.  The squared norm
+and the non-finite count sum the split parameters' terms over the model
+group and count each replicated parameter once; the noise is the full
+vector's draw, of which each rank keeps its elements, so every element
+gets the noise of one process.  With no axis above 1 no collective runs and
+every slice is the whole vector.
 """
 
 from __future__ import annotations
@@ -64,8 +73,9 @@ import numpy as np
 import torch
 
 from a3t_tpu_torch.parallel.mesh import all_reduce_sum, world
-from a3t_tpu_torch.parallel.sharding import (all_gather_flat, flat_slice,
-                                             reduce_scatter_flat, shard_flat)
+from a3t_tpu_torch.parallel.sharding import (FlatLayout, all_gather_flat,
+                                             flat_slice, reduce_scatter_flat,
+                                             shard_flat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +182,7 @@ class Optimizer:
             raise ValueError(f"unknown scheduler {config.scheduler!r}")
 
     def init(self, params) -> OptState:
+        """The state for ``params`` (a model-axis rank's: its slice)."""
         params = list(params)
         dev = params[0].device
         owned = flat_slice(sum(p.numel() for p in params))
@@ -190,7 +201,8 @@ class Optimizer:
             acc_grads=torch.zeros(n if k > 1 else 0, dtype=torch.float32,
                                   device=dev))
 
-    def _inner(self, u: torch.Tensor, params, state: OptState, n: int):
+    def _inner(self, u: torch.Tensor, params, state: OptState, n: int,
+               layout, split):
         """The inner chain on (this rank's slice of) the flat gradient
         ``u`` of ``n`` elements: (update, mu, nu, count + 1)."""
         c = self.config
@@ -202,9 +214,12 @@ class Optimizer:
                 count = int(state.count)
                 std = torch.sqrt(c.grad_noise_eta / torch.tensor(
                     count + 1, dtype=torch.float32) ** c.grad_noise_gamma)
-                u = u + std.to(u.device) * shard_flat(
-                    gradient_noise(count, n, u.device))
-        u, _ = clip_by_global_norm(u, c.grad_clip, _sharded_norm(u))
+                noise = gradient_noise(count, n if layout is None
+                                       else layout.n_full, u.device)
+                if layout is not None:
+                    noise = layout.local_of(noise)
+                u = u + std.to(u.device) * shard_flat(noise)
+        u, _ = clip_by_global_norm(u, c.grad_clip, _global_norm(u, split)[0])
         if c.weight_decay > 0:
             u = u + c.weight_decay * shard_flat(_flat(params))
         u, mu, nu, count_inc = scale_by_adam(
@@ -213,21 +228,27 @@ class Optimizer:
         return -self.schedule(state.count) * u, mu, nu, count_inc
 
     @torch.no_grad()
-    def apply(self, params, grads, state: OptState) -> torch.Tensor:
+    def apply(self, params, grads, state: OptState,
+              layout: FlatLayout = None) -> torch.Tensor:
         """One (micro-)step of ``params`` (a list of tensors) by ``grads``
         (the same order; over W ranks each rank's share, summed here), in
-        place; returns the gradients' global norm."""
+        place; returns the gradients' global norm.  ``layout`` places the
+        parameters in the full flat vector when they are a model-axis
+        rank's slice (``FlatLayout.of(model)``); None when they are whole."""
         c = self.config
         k = c.accum_grad
         params = list(params)
         n = sum(p.numel() for p in params)
+        layout = layout if layout is not None and layout.tp > 1 else None
+        if layout is not None and layout.n_local != n:
+            raise ValueError("the layout does not describe the parameters")
+        # this rank's slice of the split elements' mask (ZeRO-1 slices it
+        # like the moments)
+        split = (None if layout is None else
+                 shard_flat(layout.split_mask(params[0].device)))
         g = reduce_scatter_flat(_flat(grads))
-        if world() > 1:
-            sq, bad = all_reduce_sum(torch.stack([
-                (g * g).sum(), (~torch.isfinite(g)).sum().float()]))
-            g_norm, finite = torch.sqrt(sq), bad == 0
-        else:
-            g_norm, finite = None, torch.isfinite(g).all()
+        g_norm, bad = _global_norm(g, split)
+        finite = bad == 0 if g_norm is not None else torch.isfinite(g).all()
         notfinite = torch.where(finite, torch.zeros_like(state.count),
                                 state.notfinite_count + 1)
         accept = finite | (notfinite > c.max_consecutive_nonfinite)
@@ -235,7 +256,8 @@ class Optimizer:
             acc = state.acc_grads + (g - state.acc_grads) / (
                 state.mini_step + 1)
             emit = state.mini_step == k - 1
-            u, mu, nu, count_inc = self._inner(acc, params, state, n)
+            u, mu, nu, count_inc = self._inner(acc, params, state, n,
+                                               layout, split)
             # MultiSteps multiplies by emit (0 * NaN stays NaN) and
             # apply_if_finite selects
             u = torch.where(accept, emit * u, torch.zeros_like(u))
@@ -247,7 +269,8 @@ class Optimizer:
             state.mini_step = torch.where(
                 accept, (state.mini_step + 1) % k, state.mini_step)
         else:
-            u, mu, nu, count_inc = self._inner(g, params, state, n)
+            u, mu, nu, count_inc = self._inner(g, params, state, n,
+                                               layout, split)
             u = torch.where(accept, u, torch.zeros_like(u))
             keep = accept
         state.mu = torch.where(keep, mu, state.mu)
@@ -259,6 +282,29 @@ class Optimizer:
         state.last_finite = finite
         _add_(params, all_gather_flat(u, n))
         return torch.linalg.vector_norm(g) if g_norm is None else g_norm
+
+
+def _global_norm(x: torch.Tensor, split):
+    """(norm, count of non-finite elements) of the full flat vector of one
+    process, whose slice over the axes this rank holds in ``x``; ``split``
+    marks the elements of ``x`` that the model axis splits (None: none).
+    (None, None) in a process alone, where the caller reads ``x`` itself."""
+    if world() == 1:
+        return None, None
+    sq, bad = x * x, (~torch.isfinite(x)).float()
+    if split is None:
+        s = all_reduce_sum(torch.stack([sq.sum(), bad.sum()]))
+        return torch.sqrt(s[0]), s[1]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    s = all_reduce_sum(torch.stack([
+        torch.where(split, sq, zero).sum(),
+        torch.where(split, bad, zero).sum(),
+        torch.where(split, zero, sq).sum(),
+        torch.where(split, zero, bad).sum()]))
+    # the split elements' sums over the model group; the replicated ones
+    # are the same on every rank of it and count once
+    s_split = all_reduce_sum(s[:2], "model")
+    return torch.sqrt(s_split[0] + s[2]), s_split[1] + s[3]
 
 
 def _flat(tensors) -> torch.Tensor:
@@ -273,19 +319,12 @@ def _add_(params, u: torch.Tensor) -> None:
         s.view_as(p).to(p.dtype) for s, p in zip(u.split(sizes), params)])
 
 
-def _sharded_norm(x: torch.Tensor) -> torch.Tensor:
-    """The norm of the flat vector whose slices the ranks hold (``x`` is
-    this rank's)."""
-    if world() == 1:
-        return torch.linalg.vector_norm(x)
-    return torch.sqrt(all_reduce_sum((x * x).sum()))
-
-
 def clip_by_global_norm(g: torch.Tensor, max_norm: float,
                         g_norm: torch.Tensor = None):
     """optax's ``clip_by_global_norm`` on the flat gradient ``g``:
     ``where(norm < max, g, g / norm * max)``, no epsilon; (clipped,
-    norm).  ``g_norm`` is the norm when ``g`` is a slice of the vector."""
+    norm).  ``g_norm`` is the norm when ``g`` is a slice of the vector
+    (None: ``g``'s own)."""
     if g_norm is None:
         g_norm = torch.linalg.vector_norm(g)
     return torch.where(g_norm < max_norm, g, g / g_norm * max_norm), g_norm

@@ -17,6 +17,11 @@ branch (JAX's plot model turns its kernels off, tasks/mlm.py:357-368) and
 captures each module's (B, H, T1, T2) float32 probabilities; afterwards
 the modules take their kernels again.  Windowed (longformer) attention
 captures nothing, and the plot is skipped with a log line (plots.py:111-117).
+
+On the mesh's model axis (``parallel/``) every rank of a model group runs
+the plot's forward, whose all-reduces it takes part in; the attention maps
+are gathered from the group's ranks into every head's, and one rank
+renders (``render=False`` on the others).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from a3t_tpu_torch.models.attention import (MultiHeadedAttention,
                                             RelPositionMultiHeadedAttention)
+from a3t_tpu_torch.parallel.mesh import model_group, model_world
 from a3t_tpu_torch.train.train_step import featurize
 
 logger = logging.getLogger("a3t_tpu_torch")
@@ -91,11 +97,21 @@ def capture_attention(model):
 def attention_plot_arrays(model, frontend, normalizer, batch: dict) -> list:
     """[(module name, (B, H, T1, T2) probabilities on the device)] of an
     eval forward through the plain attention; empty for a model whose
-    attention materialises no probabilities (windowed attention)."""
+    attention materialises no probabilities (windowed attention).  On the
+    model axis each module's heads are gathered from the model group's
+    ranks (a collective of the group)."""
     with capture_attention(model) as entries, _eval(model):
         if any(isinstance(m, MultiHeadedAttention) for m in model.modules()):
             model(**featurize(frontend, batch, use_fused=False,
                               normalizer=normalizer))
+    tp = model_world()
+    if tp > 1:
+        import torch.distributed as dist
+
+        for i, (name, a) in enumerate(entries):
+            parts = [torch.empty_like(a) for _ in range(tp)]
+            dist.all_gather(parts, a.contiguous(), group=model_group())
+            entries[i] = (name, torch.cat(parts, dim=1))
     return entries
 
 
@@ -165,25 +181,27 @@ def render_attention(entries, out_dir: str, epoch: int,
 
 
 def make_mel_plot_fn(frontend, normalizer, batch: dict, out_dir: str,
-                     n_examples: int = 3):
+                     n_examples: int = 3, render: bool = True):
     """plot_fn(state, epoch): the first ``n_examples`` utterances of a
     fixed validation batch, target against reconstruction; returns the
-    arrays."""
+    arrays (rendered unless ``render`` is False)."""
     batch = _host(batch)
 
     def plot_fn(state, epoch: int):
         arrays = mel_plot_arrays(state.model, frontend, normalizer, batch)
-        _render(render_mel, arrays, out_dir, epoch, n_examples)
+        if render:
+            _render(render_mel, arrays, out_dir, epoch, n_examples)
         return arrays
 
     return plot_fn
 
 
 def make_attention_plot_fn(frontend, normalizer, batch: dict, out_dir: str,
-                           n_examples: int = 1):
+                           n_examples: int = 1, render: bool = True):
     """plot_fn(state, epoch): per-layer attention maps of the first
     ``n_examples`` utterances (the batch is cut before the forward, so the
-    captured probabilities stay small); returns the captured entries."""
+    captured probabilities stay small); returns the captured entries
+    (rendered unless ``render`` is False)."""
     batch = {k: v[:n_examples] for k, v in _host(batch).items()}
 
     def plot_fn(state, epoch: int):
@@ -193,7 +211,8 @@ def make_attention_plot_fn(frontend, normalizer, batch: dict, out_dir: str,
             logger.info("no attention probabilities captured; skipping "
                         "attention plots")
             return entries
-        _render(render_attention, entries, out_dir, epoch, n_examples)
+        if render:
+            _render(render_attention, entries, out_dir, epoch, n_examples)
         return entries
 
     return plot_fn

@@ -39,11 +39,13 @@ host.
 Over the W ranks of the data axis (``parallel/``, one process per card)
 each rank steps on its row block of the global batch; the steps keep the
 JAX mesh's single-controller semantics: the masked means divide by the
-global batch's count, BatchNorm reduces its statistics over the ranks, the
-optimizer sums the gradients (ZeRO-1, ``train/optim.py``), and every
-statistic is the global batch's, equal on every rank.  The chained step
-takes one rank only, as JAX's mesh step has no chained form.  The ``model``
-and ``seq`` axes are not ported (ROADMAP A10b, A10c).
+global batch's count, BatchNorm reduces its statistics over the data
+group, the optimizer sums the gradients (ZeRO-1, ``train/optim.py``), and
+every statistic is the global batch's, equal on every rank.  The tp ranks
+of the model axis step on the same rows with their slices of the model
+(``models/mlm.py``), so the statistics are summed over the data group
+alone.  The chained step takes one process only, as JAX's mesh step has
+no chained form.  The ``seq`` axis is not ported (ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -58,19 +60,23 @@ from a3t_tpu_torch.dsp.frontend import LogMelFrontend
 from a3t_tpu_torch.models.layers import duration_loss
 from a3t_tpu_torch.models.mlm import A3TMLMModel, mlm_loss
 from a3t_tpu_torch.ops.fused_logmel import fused_logmel
-from a3t_tpu_torch.parallel.mesh import all_reduce_sum, world
+from a3t_tpu_torch.parallel.mesh import all_reduce_sum, data_world, world
+from a3t_tpu_torch.parallel.sharding import FlatLayout
 from a3t_tpu_torch.train.optim import Optimizer, OptState
 
 
 @dataclasses.dataclass
 class TrainState:
     """step (host int), the model (its parameters and BatchNorm running
-    statistics) and the optimizer's state."""
+    statistics), the optimizer's state and, for a model-axis rank's slice
+    of the model, where its parameters lie in the whole model's
+    (``FlatLayout``)."""
 
     step: int
     model: A3TMLMModel
     opt_state: OptState
     tx: Optimizer
+    layout: FlatLayout = None
 
     @property
     def params(self) -> list:
@@ -79,7 +85,8 @@ class TrainState:
     def apply_gradients(self, grads) -> torch.Tensor:
         """Update the parameters in place; returns the gradients' global
         norm.  The step count moves even when the update is skipped."""
-        g_norm = self.tx.apply(self.params, grads, self.opt_state)
+        g_norm = self.tx.apply(self.params, grads, self.opt_state,
+                               self.layout)
         self.step += 1
         return g_norm
 
@@ -87,10 +94,11 @@ class TrainState:
 def create_train_state(model: A3TMLMModel, tx: Optimizer,
                        device=None) -> TrainState:
     """Move ``model`` (with its initial weights) to ``device`` (cuda unless
-    the caller asks for the CPU) and start the optimizer's state there."""
+    the caller asks for the CPU) and start the optimizer's state there,
+    laid out like the model's slice of the model axis."""
     model.to(resolve_device(device))
-    return TrainState(step=0, model=model,
-                      opt_state=tx.init(model.parameters()), tx=tx)
+    return TrainState(step=0, model=model, opt_state=tx.init(
+        model.parameters()), tx=tx, layout=FlatLayout.of(model))
 
 
 def gather_audio(corpus: torch.Tensor, batch: dict,
@@ -271,7 +279,7 @@ def make_chained_train_step(model: A3TMLMModel,
     (whose mesh step has no chained form)."""
     if world() > 1:
         raise NotImplementedError(
-            "steps_per_dispatch > 1 is not wired for a data-parallel step")
+            "steps_per_dispatch > 1 is not wired for a step on a mesh")
     if model.config.duration_predictor_layers > 0:
         raise NotImplementedError(
             "steps_per_dispatch > 1 is not wired for the duration/TTS "
@@ -298,15 +306,17 @@ def make_chained_train_step(model: A3TMLMModel,
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over ``mask``, whose count is the global batch's
-    over W ranks (each rank's share then sums to the global mean)."""
+    over the W data ranks (each data rank's share then sums to the global
+    mean)."""
     w = mask.to(torch.float32)
     return (x * w).sum() / (all_reduce_sum(w.sum()) + 1e-10)
 
 
 def _global(stats: dict) -> dict:
-    """The global batch's statistics from the ranks' shares (sums; one
-    all_reduce), each in its own dtype; ``stats`` itself at W = 1."""
-    if world() == 1:
+    """The global batch's statistics from the data ranks' shares (sums;
+    one all_reduce over the data group), each in its own dtype; ``stats``
+    itself at dp = 1."""
+    if data_world() == 1:
         return stats
     keys = list(stats)
     total = all_reduce_sum(torch.stack([stats[k].float() for k in keys]))

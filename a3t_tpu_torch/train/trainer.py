@@ -39,8 +39,10 @@ in JAX: plots must never stop training.
 
 Over the W ranks of the data axis (``parallel/``) every rank runs this
 loop on its row blocks of the same plan: a step's dropout generator also
-folds in the rank (ranks must not draw one mask for different rows; W = 1
-keeps the seeds above), the statistics and the validation loss are the
+folds in the data rank (ranks must not draw one mask for different rows;
+W = 1 keeps the seeds above), while the tp ranks of one data rank draw the
+same seeds, as their replicated activations must stay equal, the
+statistics and the validation loss are the
 global batch's on every rank, the decisions taken before a collective (the
 non-finite stop, early stopping, the walltime budget) are rank 0's, and
 the checkpoint manager gathers the moments and writes on rank 0.  The
@@ -61,7 +63,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from a3t_tpu_torch.parallel.mesh import agree, rank, world
+from a3t_tpu_torch.parallel.mesh import agree, data_rank, data_world, rank
 from a3t_tpu_torch.train.checkpoint import CheckpointManager, warm_start_params
 from a3t_tpu_torch.train.reporter import Reporter
 
@@ -113,11 +115,12 @@ def step_generator(seed: int, epoch: int, iteration: int,
 
 def rank_step_generator(seed: int, epoch: int,
                         iteration: int) -> torch.Generator:
-    """This process's dropout generator of a step: over W > 1 ranks its
-    rank is folded in, so that ranks draw their own masks for their rows;
-    one process keeps :func:`step_generator`'s seeds."""
+    """This process's dropout generator of a step: over W > 1 data ranks
+    its data rank is folded in, so that ranks draw their own masks for
+    their rows; the model axis's ranks of one data rank draw the same
+    seeds, and dp = 1 keeps :func:`step_generator`'s seeds."""
     return step_generator(seed, epoch, iteration,
-                          rank() if world() > 1 else None)
+                          data_rank() if data_world() > 1 else None)
 
 
 def _chained(batch) -> bool:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Which collectives the card's torch.distributed backends take on CUDA
-tensors, and their times at the 24 kHz model's flat-vector size.
+tensors, and their times at the 24 kHz model's flat-vector size and at the
+model axis's activation sizes.
 
     python3 chip_collectives.py
 
@@ -9,8 +10,13 @@ all_reduce, broadcast, barrier, all_gather, all_gather_into_tensor and
 reduce_scatter_tensor on a small tensor, then time all_reduce,
 reduce_scatter_tensor and all_gather_into_tensor of 67.7M float32 (271 MB,
 the port's ZeRO-1 step; mean of 3 after one warm-up, host clock around
-synchronised calls); then one process tries the same small calls in an
-NCCL group of one.  Each line names its backend, rank and collective.
+synchronised calls), and all_reduce of the model group's activations, R
+rows x L positions x 384 channels (ACTIVATIONS: chip_smoke.py's
+tensor-parallel (a), 16 x 264 in float32 and bfloat16, and (d), a data
+rank's rows of the trainer's full batches); then one process tries the
+same small calls in an NCCL group of one, and with two cards or more two
+processes, one a card, time the activations' all_reduce over NCCL.  Each
+line names its backend, rank and collective.
 """
 
 import os
@@ -19,9 +25,13 @@ import sys
 import time
 
 N = 67_700_000  # the 24 kHz model's parameters
+# (rows, positions, dtype) of the model axis's all-reduces: 384 channels
+ACTIVATIONS = ((16, 264, "float32"), (16, 264, "bfloat16"),
+               (73, 264, "float32"), (36, 520, "float32"))
 
 
 def _timed(torch, fn, reps=3):
+    """Mean ms of ``fn`` over ``reps`` calls after one warm-up."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -31,14 +41,28 @@ def _timed(torch, fn, reps=3):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def _work(r, port, backend, world):
+def _activations(torch, dist, backend, r, dev):
+    for rows, length, dt in ACTIVATIONS:
+        x = torch.randn(rows, length, 384, device=dev).to(getattr(torch, dt))
+        print(f"{backend} rank {r} all_reduce of {rows} x {length} x 384 "
+              f"{dt} ({x.numel() * x.element_size() / 1e6:.2f} MB): "
+              f"{_timed(torch, lambda: dist.all_reduce(x), reps=10):.3f} ms",
+              flush=True)
+
+
+def _work(r, port, backend, world, one_card=True):
     import torch
     import torch.distributed as dist
 
-    torch.cuda.set_device(0)
+    card = 0 if one_card else r
+    torch.cuda.set_device(card)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=r)
-    dev = torch.device("cuda:0")
+    dev = torch.device("cuda", card)
+    if not one_card:
+        _activations(torch, dist, backend, r, dev)
+        dist.destroy_process_group()
+        return
     x = torch.arange(6, dtype=torch.float32, device=dev) + r
     tests = [
         ("all_reduce", lambda: dist.all_reduce(x.clone())),
@@ -70,6 +94,8 @@ def _work(r, port, backend, world):
                  lambda: dist.all_gather_into_tensor(big, part))):
             print(f"{backend} rank {r} {name} of {4 * N / 1e6:.1f} MB: "
                   f"{_timed(torch, fn):.1f} ms", flush=True)
+        del big, part
+        _activations(torch, dist, backend, r, dev)
     dist.destroy_process_group()
 
 
@@ -92,6 +118,8 @@ def main() -> int:
               "--format=csv,noheader")
     mp.spawn(_work, args=(_port(), "gloo", 2), nprocs=2)
     mp.spawn(_work, args=(_port(), "nccl", 1), nprocs=1)
+    if torch.cuda.device_count() >= 2:
+        mp.spawn(_work, args=(_port(), "nccl", 2, False), nprocs=2)
     return 0
 
 

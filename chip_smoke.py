@@ -5,7 +5,9 @@
     python3 chip_smoke.py --model-options   # the build and phase 18 alone
     python3 chip_smoke.py --data-parallel   # the build and phase 19 alone
     python3 chip_smoke.py --data-parallel-cards   # on a machine of 2+ cards:
-        # the build and one rank per card over NCCL against one process
+        # the build and one rank per card over NCCL against one process;
+        # with 4+ cards also a (cards / 2) x 2 data x model mesh
+    python3 chip_smoke.py --tensor-parallel   # the build and phase 20 alone
 
 Phases, each printing its elapsed seconds:
 
@@ -284,6 +286,26 @@ Phases, each printing its elapsed seconds:
    launches (8 K2 a train step, 8 K1 a train and eval step) and reports
    its peak memory; the two-rank step times are gloo's, through the host,
    on one card.
+20. tensor-parallel: the mesh's model axis (tp = 2: each rank one of the
+   two heads and half of every feed-forward's units) on the trainer's
+   corpus and the 24 kHz yaml at full width with its dropout rates, in
+   deterministic mode, batches cut in rows only to 16 rows (8 at 512
+   frames).  (a) Two ranks on the one card over gloo (bin.launch, bin.train,
+   the ranks' group patched to gloo), fp32, 4 steps, against one process: the losses within
+   1e-5 at each step and equal on both ranks, each rank's K1/K2 launches (8
+   K2 a train step, 8 K1 a train and eval step) on its one head at head0 =
+   its model index, 36,421,056 parameters a rank, 48 all-reduces of the
+   model group a step (their bytes reported), the gathered parameters by
+   JAX's cross-mesh rule, the BatchNorm statistics within 1e-4 in units of
+   each channel's spread; the two-rank run's mid-epoch checkpoint resumed by
+   one process within 1e-5; the ranks' step times, collectives and peak
+   memory; bin.train over NCCL with two ranks on the card exits non-zero,
+   naming the reason.  (b) The same in bf16 for 2 steps: losses within
+   1e-2.  (c) K1 and K2 at one rank's shape (88, 1, 496, 192) with head0 =
+   1 and dropout 0.2, in fp32 and bf16: K1's keep-masks read back equal the
+   plain rule's head 1 of the two-head call bit for bit, out, lse and K2's
+   gradients against their plain versions; the times beside the two-head
+   call's.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -4076,14 +4098,14 @@ def train_options_phase(torch, np, fa, label, root, train, valid,
         records[-1]["u"] = u.clone()
         add0(params, u)
 
-    def apply_hook(self, params, grads, state):
+    def apply_hook(self, params, grads, state, layout=None):
         params = list(params)
         rec = {"g": optim._flat(grads).clone(), "mu": state.mu.clone(),
                "nu": state.nu.clone(), "count": int(state.count),
                "mini": int(state.mini_step)}
         before = optim._flat(params)
         records.append(rec)
-        out = apply0(self, params, grads, state)
+        out = apply0(self, params, grads, state, layout)
         rec["same"] = torch.equal(optim._flat(params), before)
         return out
 
@@ -5075,9 +5097,12 @@ def dp_rank_main(argv) -> int:
     ``OUT_r<rank>.pt``: the step log, the K1/K2 launches counted in this
     process, peak memory, the moment slices' bytes, the history, the
     model's state and every BatchNorm's batch statistics at the first
-    step.  ``--gloo``: the group over gloo (two ranks on one card, which
-    NCCL refuses); ``--local-bn``: each rank's BatchNorm statistics over
-    its own rows alone (the control).  ``--keep-mid DIR``: rank 0 copies the checkpoints at the
+    step, the heads K1/K2 ran on, the parameter count and each train
+    step's all-reduces of the model group (calls, bytes).  ``--gloo``: the
+    group over gloo (ranks that share a card, which NCCL refuses);
+    ``--local-bn``:
+    each rank's BatchNorm statistics over its own rows alone (the
+    control).  ``--keep-mid DIR``: rank 0 copies the checkpoints at the
     mid-epoch save of step DP_SAVE to DIR; ``--dropout0``: every dropout
     site at 0; ``--profile-step K``: step K (0-based) under torch.profiler,
     its collectives' time (gloo's work on the host, NCCL's kernels on the
@@ -5095,6 +5120,7 @@ def dp_rank_main(argv) -> int:
     from a3t_tpu_torch.ops import fused_attention as fa
     from a3t_tpu_torch.parallel import mesh
     from a3t_tpu_torch.parallel import rank as dp_rank
+    from a3t_tpu_torch.parallel import tensor as tp_tensor
     from a3t_tpu_torch.tasks.mlm import MLMTask
     from a3t_tpu_torch.train.checkpoint import CheckpointManager
     from a3t_tpu_torch.train.trainer import Trainer
@@ -5118,7 +5144,7 @@ def dp_rank_main(argv) -> int:
 
         mesh.initialize_multihost = join_gloo
     if "--local-bn" in opts:
-        layers.world = lambda: 1
+        layers.data_world = lambda: 1
     if "--dropout0" in opts:
         build = MLMTask.build_model.__func__
 
@@ -5140,6 +5166,26 @@ def dp_rank_main(argv) -> int:
                 shutil.copytree(self.directory, keep)
 
         CheckpointManager.save_mid_epoch = save_and_keep
+    # the heads K1/K2 run on, (kernel, H, head0), and the model axis's
+    # all-reduces (calls, bytes) of each train step
+    heads, comm, tp_comm = set(), [0, 0], []
+    k1, k2, reduce_fn = fa._kernel_fwd, fa._kernel_bwd, tp_tensor._all_reduce
+
+    def k1_seen(*a):
+        heads.add(("K1", a[0].shape[1], a[7]))
+        return k1(*a)
+
+    def k2_seen(*a):
+        heads.add(("K2", a[0].shape[1], a[10]))
+        return k2(*a)
+
+    def reduce_counted(x):
+        comm[0] += 1
+        comm[1] += x.numel() * x.element_size()
+        return reduce_fn(x)
+
+    fa._kernel_fwd, fa._kernel_bwd = k1_seen, k2_seen
+    tp_tensor._all_reduce = reduce_counted
     profile, bn_first, recording = {}, [], [False]
     stats_fn = layers._batch_stats
 
@@ -5161,6 +5207,7 @@ def dp_rank_main(argv) -> int:
         def observed(*sa, **skw):
             calls.append(1)
             recording[0] = len(calls) == 1
+            before = list(comm)
             try:
                 if at is None or len(calls) != at + 1:
                     return step(*sa, **skw)
@@ -5174,6 +5221,7 @@ def dp_rank_main(argv) -> int:
                 return out
             finally:
                 recording[0] = False
+                tp_comm.append((comm[0] - before[0], comm[1] - before[1]))
 
         self.train_step = observed
 
@@ -5182,6 +5230,8 @@ def dp_rank_main(argv) -> int:
     def run(train_argv, out):
         profile.clear()
         bn_first.clear()
+        heads.clear()
+        tp_comm.clear()
         fa.reset_launches()
         if on_cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -5205,6 +5255,9 @@ def dp_rank_main(argv) -> int:
             "device": str(next(state.model.parameters()).device),
             "profile": dict(profile),
             "bn_first": [(m.cpu(), v.cpu()) for m, v in bn_first],
+            "heads": sorted(heads),
+            "n_params": sum(p.numel() for p in state.model.parameters()),
+            "tp_comm": list(tp_comm),
         }, f"{out}_r{r}.pt")
 
     run(train_argv, out)
@@ -5582,7 +5635,11 @@ def data_parallel_cards_phase(torch, np, label, root, train, valid,
     """One rank per card over NCCL (bin.launch --hosts localhost x cards)
     against one process on the same global batches (batch_multiple =
     cards), at dropout 0: the multi-card counterpart of phase
-    data-parallel's (b).  Returns {run: [(K1, K2) per rank]}."""
+    data-parallel's (b); with 4 cards or more, also (phase
+    tensor-parallel's (d)) a mesh of cards / 2 x 2 over NCCL, each model
+    group two neighbouring cards, against one process at its plan's
+    batch_multiple, cards / 2 (the task's batch_multiple is dp, as JAX's).
+    Returns {run: [(K1, K2) per rank]}."""
     from a3t_tpu_torch.tasks.config import load_config
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5612,18 +5669,377 @@ def data_parallel_cards_phase(torch, np, label, root, train, valid,
                       + argv("N"), d, env)], 400)
     log(f"  run N ({cards} ranks, one per card): "
         f"{time.perf_counter() - t0:.2f} s")
+    mesh = cards >= 2 * TP and cards % TP == 0
+    if mesh:
+        dp = cards // TP
+
+        def mesh_argv(tag, *more):
+            return _dp_argv(train, valid, os.path.join(d, f"exp_{tag}"),
+                            device, *sets, f"batcher.batch_multiple={dp}",
+                            *more)
+
+        t0 = time.perf_counter()
+        _dp_wait([_dp_run("Q2", RANK_MAIN + [
+            "--dp-rank", os.path.join(d, "Q2"), "--dropout0", *profile,
+            "--"] + mesh_argv("Q2"), d, env)], 400)
+        log(f"  run Q2 (one process, batch_multiple {dp}): "
+            f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        _dp_wait([_dp_run("T", [
+            sys.executable, "-m", "a3t_tpu_torch.bin.launch", "--launcher",
+            "local", "--hosts", ",".join(["localhost"] * cards), "--port",
+            str(_free_port()), "--"]
+            + RANK_MAIN + ["--dp-rank", os.path.join(d, "T"), "--dropout0",
+                           *profile, "--"]
+            + mesh_argv("T", f"mesh.tensor_parallel={TP}"), d, env)], 400)
+        log(f"  run T ({dp} x {TP} mesh, one rank per card): "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    def load(tag):
+        return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
+                           weights_only=False) for r in range(cards)]
+
     q = torch.load(os.path.join(d, "Q_r0.pt"), weights_only=False)
-    n = [torch.load(os.path.join(d, f"N_r{r}.pt"), weights_only=False)
-         for r in range(cards)]
-    if device != "cpu":
-        check([x["device"] for x in n]
-              == [f"cuda:{r}" for r in range(cards)], "rank r trains on "
-              "cuda:r")
+    n = load("N")
+    runs = {"Q": [q], "N": n}
+    if mesh:
+        runs["Q2"] = [torch.load(os.path.join(d, "Q2_r0.pt"),
+                                 weights_only=False)]
+        runs["T"] = load("T")
+    for name in runs:
+        if device != "cpu" and len(runs[name]) > 1:
+            check([x["device"] for x in runs[name]]
+                  == [f"cuda:{r}" for r in range(cards)],
+                  f"run {name}: rank r trains on cuda:r")
     cfg = load_config(CONFIG_24K, list(sets))
-    _dp_report({"Q": [q], "N": n}, cfg, label)
+    _dp_report(runs, cfg, label)
     _dp_against_one(torch, np, q, n, cfg, f"({cards} cards)",
                     f"{cards} ranks, one per card, NCCL", label)
-    return {"Q": [q["launches"]], "N": [x["launches"] for x in n]}
+    if mesh:
+        _tp_against_one(torch, np, runs["Q2"][0], runs["T"], TP, cfg,
+                        f"(d) {cards // TP} x {TP} on {cards} cards",
+                        "the model groups over NCCL between neighbouring "
+                        "cards (NVLink)", label)
+    return {name: [x["launches"] for x in ranks]
+            for name, ranks in runs.items()}
+
+
+TP = 2  # the model axis's ranks: the 24 kHz model has 2 heads
+# phase tensor-parallel's batches, cut in rows only: the bins of 16 rows of
+# 256 frames (8 rows at 512), so that gloo's traffic through the host stays
+# within the phase's time (48 all-reduces of R x L x 384 x 4 bytes a step)
+TP_BINS = 16 * 256 * 80
+TP_BF16_ITERS = 2
+TOL_TP_LOSS = 1e-5  # JAX's cross-mesh loss tolerance, as TOL_DP_LOSS
+# bf16: each rank rounds its partial product of every split-by-input
+# projection (24 sites a forward) to bf16 before the model group sums them,
+# where one process rounds the whole sum once; one bf16 rounding is 2^-9
+# relative, and the masked mean over ~10^5 frames averages them out, so the
+# two losses stay far inside 1e-2 (2.6 bf16 ulps, 2^-8 = 3.9e-3 each)
+TOL_TP_LOSS_BF16 = 1e-2
+TP_RANK_PARAMS = 36_421_056  # each rank's parameters at tp = 2 (24 kHz yaml)
+TP_SEED = 24680
+
+
+def tp_kernel_rows(torch, fa, cuda_ms, label):
+    """(c) K1 and K2 at one model-axis rank's shape (88, 1, 496, 192) with
+    head0 = 1 and dropout 0.2, in fp32 and bf16: K1's keep-masks read back
+    through one-hot values equal the plain rule's masks of head 1 of the
+    (88, 2, 496, 192) call bit for bit; out, lse and K2's gradients against
+    their plain versions with head0 = 1; the times beside the two-head
+    call's.  Returns {dtype: (K1 max abs err, K2 max abs err)}."""
+    g = torch.Generator().manual_seed(TP_SEED)
+    dev = torch.device("cuda")
+    b, l, d = 88, 496, 192
+    mask = torch.ones(b, l, dtype=torch.bool)
+    mask[-1, l - l // 5:] = False
+    mask = mask.to(dev)
+    check(fa._fwd_plan(b, 1, l)[0] == 1, "K1 at (88, 1, 496) fills the card "
+          "without splitting its keys")
+    want_keep = (fa.keep_mask(b, 2, l, TP_SEED, 0.2, device=dev)[:, 1:2]
+                 & mask.view(b, 1, 1, l))
+    out_errs = {}
+    for dt, tol, btol in ((torch.float32, TOL_F32, TOL_BWD_F32),
+                          (torch.bfloat16, TOL_BF16, TOL_BWD_BF16)):
+        name = str(dt)[6:]
+        zeros = torch.zeros(b, 1, l, d, device=dev, dtype=dt)
+        bias = torch.zeros(b, 1, l, l, device=dev, dtype=dt)
+        got = torch.zeros(b, 1, l, l, dtype=torch.bool, device=dev)
+        for c0 in range(0, l, d):
+            v = torch.zeros(b, 1, l, d, device=dev, dtype=dt)
+            n = min(d, l - c0)
+            v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1
+            out, _ = fa.fused_attention_fwd(zeros, zeros, v, bias, mask,
+                                            TP_SEED, 0.2, head0=1)
+            got[..., c0:c0 + n] = out[..., :n] != 0
+        n_diff = int((got != want_keep).sum())
+        log(f"  K1 (88, 1, 496, 192) head0=1 {name} dropout 0.2: "
+            f"{n_diff} of {got.numel()} keep bits differ from the plain "
+            f"rule's head 1 of the (88, 2, 496, 192) call")
+        check(n_diff == 0, f"K1's head0=1 keep-mask bits ({name})")
+        del zeros, bias, got, v, out
+        q, k, v, go = (torch.randn(b, 1, l, d, generator=g).to(dev, dt)
+                       for _ in range(4))
+        bias = torch.randn(b, 1, l, l, generator=g).to(dev, dt)
+        out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, TP_SEED, 0.2,
+                                          head0=1)
+        ref, ref_lse = fa.fused_attention_reference(q, k, v, bias, mask,
+                                                    TP_SEED, 0.2, head0=1)
+        err = (out.float() - ref.float()).abs().max().item()
+        lerr = (lse - ref_lse).abs().max().item()
+        grads = fa.fused_attention_bwd(q, k, v, bias, mask, TP_SEED, 0.2,
+                                       out, lse, go, head0=1)
+        want = fa.fused_attention_bwd_reference(q, k, v, bias, mask, TP_SEED,
+                                                0.2, out, lse, go, head0=1)
+        torch.cuda.synchronize()
+        errs = [_rel_err(a, w) for a, w in zip(grads, want)]
+        log(f"  K1 (88, 1, 496, 192) head0=1 {name}: max|out-plain| "
+            f"{err:.3g}, max|lse-plain| {lerr:.3g} (tol {tol:g}); K2 "
+            f"max|grad-plain|/max|plain| dq {errs[0]:.3g}, dk {errs[1]:.3g}, "
+            f"dv {errs[2]:.3g}, dbias {errs[3]:.3g} (tol {btol:g})")
+        check(err <= tol and lerr <= tol, f"K1 head0=1 {name} vs plain")
+        check(max(errs) <= btol, f"K2 head0=1 {name} vs plain")
+        out_errs[name] = (err, max((a.float() - w.float()).abs().max().item()
+                                   for a, w in zip(grads, want)))
+        # one rank's calls beside the two-head call they halve
+        t1 = cuda_ms(lambda: fa.fused_attention_fwd(q, k, v, bias, mask,
+                                                    TP_SEED, 0.2, head0=1))
+        t2 = cuda_ms(lambda: fa.fused_attention_bwd(
+            q, k, v, bias, mask, TP_SEED, 0.2, out, lse, go, head0=1))
+        del q, k, v, go, bias, out, lse, ref, grads, want
+        q, k, v, go = (torch.randn(b, 2, l, d, generator=g).to(dev, dt)
+                       for _ in range(4))
+        bias = torch.randn(b, 2, l, l, generator=g).to(dev, dt)
+        out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, TP_SEED, 0.2)
+        h1 = cuda_ms(lambda: fa.fused_attention_fwd(q, k, v, bias, mask,
+                                                    TP_SEED, 0.2))
+        h2 = cuda_ms(lambda: fa.fused_attention_bwd(
+            q, k, v, bias, mask, TP_SEED, 0.2, out, lse, go))
+        log(f"  {name} at dropout 0.2: K1 {t1:.4f} ms and K2 {t2:.4f} ms on "
+            f"one head (head0=1), against {h1:.4f} and {h2:.4f} ms on the "
+            f"two heads of one process [{label}]")
+        del q, k, v, go, bias, out, lse
+    return out_errs
+
+
+def _tp_gathered(ranks, tp):
+    """Each data rank's whole model from its model group's slices."""
+    from a3t_tpu_torch.parallel.sharding import gather_state
+
+    return [gather_state([x["model"] for x in ranks[i:i + tp]])
+            for i in range(0, len(ranks), tp)]
+
+
+def _tp_against_one(torch, np, q, ranks, tp, cfg, what, note, label,
+                    tol_loss=TOL_TP_LOSS, bn=True):
+    """dp x tp ranks (rank order) against one process ``q`` on the same
+    global batches: the losses within ``tol_loss`` at each step and equal
+    on every rank; K1/K2 on each rank's H / tp heads at its head0; each
+    rank's parameters the slices of the model, its moments 1/dp of its
+    slice's; the model group's
+    all-reduces a train step (3 a block forward, 3 backward); the gathered
+    models equal on every data rank bit for bit and, with ``bn``, the
+    BatchNorm statistics within TOL_DP_BN_STEP0 / TOL_DP_BN of one
+    process's (units of each channel's spread) and the parameters by JAX's
+    cross-mesh rule; the step times, memory and collectives."""
+    from a3t_tpu_torch.parallel.sharding import param_partition_spec
+    from a3t_tpu_torch.train.optim import noam_schedule
+
+    dp = len(ranks) // tp
+    heads = cfg.model.encoder.attention_heads
+    blocks = cfg.model.encoder.num_blocks + cfg.model.decoder.num_blocks
+    check([s["batch"] for s in ranks[0]["steps"]]
+          == [s["batch"] // dp for s in q["steps"]],
+          f"{what} each rank steps on 1/{dp} of each global batch's rows")
+    for i, sq in enumerate(q["steps"]):
+        got = [x["steps"][i]["loss"] for x in ranks]
+        rel = abs(got[0] - sq["loss"]) / abs(sq["loss"])
+        log(f"  {what} step {i}: loss {got[0]:.7f} on every rank, one "
+            f"process {sq['loss']:.7f}, relative difference {rel:.3g}")
+        check(len(set(got)) == 1 and rel <= tol_loss,
+              f"{what} step {i}: the ranks' loss within {tol_loss:g} of one "
+              "process's")
+    params = {k: v for k, v in q["model"].items()
+              if "running_" not in k and "num_batches" not in k}
+    n_rank = sum(v.numel() // (tp if param_partition_spec(k) is not None
+                               else 1) for k, v in params.items())
+    h = heads // tp
+    for x in ranks:
+        t = x["rank"] % tp
+        log(f"  {what} rank {x['rank']} (data {x['rank'] // tp}, model {t}): "
+            f"{x['n_params']:,} parameters, K1/K2 (kernel, H, head0) "
+            f"{x['heads']}, moments {x['moment_bytes'] / 1e6:.3f} MB")
+        check(x["n_params"] == n_rank, f"{what} rank {x['rank']} holds its "
+              f"slice: {n_rank:,} parameters")
+        check(x["heads"] == [("K1", h, t * h), ("K2", h, t * h)],
+              f"{what} rank {x['rank']}: K1 and K2 on its {h} head(s) from "
+              f"head0 = {t * h}")
+        check(x["moment_bytes"] == 8 * -(-n_rank // dp),
+              f"{what} rank {x['rank']} holds 1/{dp} of its slice's moments")
+        calls = [c for c, _ in x["tp_comm"]]
+        check(len(calls) == len(x["steps"])
+              and all(c == 6 * blocks for c in calls),
+              f"{what} rank {x['rank']}: {6 * blocks} all-reduces of the "
+              f"model group a train step ({calls})")
+        log(f"  {what} rank {x['rank']}: the model group's all-reduces a "
+            f"step {calls}, {[round(n / 1e6, 2) for _, n in x['tp_comm']]} "
+            f"MB ({[s['batch'] for s in x['steps']]} rows of "
+            f"{[s['frames'] for s in x['steps']]} frames and the phones); "
+            f"steps {_dp_times(np, x)}"
+            f"{'; ' + _dp_prof(x) if x['profile'] else ''}; peak "
+            f"{x['peak_bytes'] / 2 ** 30:.3f} GiB: {note} [{label}]")
+    log(f"  one process: steps {_dp_times(np, q)}"
+        f"{'; ' + _dp_prof(q) if q['profile'] else ''}; peak "
+        f"{q['peak_bytes'] / 2 ** 30:.3f} GiB [{label}]")
+    whole = _tp_gathered(ranks, tp)
+    check(all(torch.equal(m[k], whole[0][k]) for m in whole for k in m),
+          f"{what} the data ranks' gathered models equal bit for bit")
+    if not bn:
+        return
+    first, end = _bn_readings(q, {**ranks[0], "model": whole[0]})
+    log(f"  {what} BatchNorm vs one process, in units of each channel's "
+        f"spread: the first step's batch statistics mean {first[0][0]:.3g}, "
+        f"variance {first[1][0]:.3g}; the running statistics after "
+        f"{len(q['steps'])} steps mean {end[0][0]:.3g} ({end[0][1]}), "
+        f"variance {end[1][0]:.3g} ({end[1][1]}) [{label}]")
+    check(max(first[0][0], first[1][0]) <= TOL_DP_BN_STEP0
+          and max(end[0][0], end[1][0]) <= TOL_DP_BN,
+          f"{what} the BatchNorm statistics within {TOL_DP_BN:g} of one "
+          "process's")
+    oc = cfg.optim
+    sched = noam_schedule(oc.model_size, oc.warmup_steps, oc.lr)
+    _jax_rule(np, q["model"], whole[0],
+              2.5 * sum(float(sched(k)) for k in range(len(q["steps"]))),
+              f"{what} {len(ranks)} ranks vs one process")
+
+
+def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
+                          device="cuda", sets=()):
+    """(a) tp = 2 as two ranks on the one card over gloo (bin.launch and
+    bin.train, the ranks' group patched to gloo) against one process, fp32 at the yaml's dropout, on
+    batches of at most 16 rows; the two-rank run's mid-epoch checkpoint
+    resumed by one process; NCCL refusing two ranks on one card; (b) the
+    same in bf16 for TP_BF16_ITERS steps; (c) :func:`tp_kernel_rows`.  On
+    the CPU (a rehearsal, ``sets`` at a toy width) the checks that need a
+    card, NCCL's and (c), are left out.  Returns ({run: [(K1, K2) per
+    rank]}, (c)'s errors)."""
+    from a3t_tpu_torch.models.mlm import A3TMLMModel
+    from a3t_tpu_torch.parallel.tensor import ModelShard
+    from a3t_tpu_torch.tasks.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "tensor_parallel")
+    os.makedirs(d)
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [here, os.environ.get("PYTHONPATH", "")])}
+    rows = (f"batcher.batch_bins={TP_BINS}", *sets)
+    bf16 = ("model.encoder.compute_dtype=bfloat16",
+            "model.decoder.compute_dtype=bfloat16",
+            f"trainer.num_iters_per_epoch={TP_BF16_ITERS}",
+            f"trainer.log_interval={TP_BF16_ITERS}")
+    tp2 = (f"mesh.tensor_parallel={TP}",)
+
+    def exp(tag):
+        return os.path.join(d, f"exp_{tag}")
+
+    def argv(tag, *more):
+        return _dp_argv(train, valid, exp(tag), device, *rows, *more)
+
+    def rank_cmd(tag, *opts):
+        return RANK_MAIN + ["--dp-rank", os.path.join(d, tag), *opts, "--"]
+
+    def launch(n):
+        return [sys.executable, "-m", "a3t_tpu_torch.bin.launch",
+                "--launcher", "local", "--hosts",
+                ",".join(["localhost"] * n), "--port", str(_free_port()),
+                "--"]
+
+    def load(tag, world=1):
+        return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    # (c) first: the kernels' checks fail fast, before the runs
+    errs = {}
+    if device != "cpu":
+        errs = tp_kernel_rows(torch, fa, cuda_ms, label)
+        torch.cuda.empty_cache()  # the ranks' processes share the card
+    profile = ("--profile-step", str(DP_ITERS - 1))
+    then = os.path.join(d, "then_C.json")
+    with open(then, "w") as f:
+        json.dump({"out": os.path.join(d, "C"), "exp": exp("C"),
+                   "argv": argv("C")}, f)
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d, env)],
+             400)
+    log(f"  run Q (one process, fp32): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("B", launch(TP) + rank_cmd(
+        "B", "--gloo", *profile, "--keep-mid", os.path.join(d, "mid"),
+        "--then", then)
+        + argv("B", *tp2, f"trainer.save_interval_steps={DP_SAVE}"),
+        d, env)], 400)
+    log(f"  run B (tp = {TP}: two ranks on the card over gloo) and run C "
+        f"(its rank 0 alone, resuming B at step {DP_SAVE}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d, env)],
+             400)
+    _dp_wait([_dp_run("Bb", launch(TP) + rank_cmd("Bb", "--gloo")
+                      + argv("Bb", *bf16, *tp2), d, env)], 400)
+    log(f"  runs Qb and Bb (bf16, one process and tp = {TP}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    if device != "cpu":
+        # NCCL (bin.train's group on the card) cannot put the two ranks on
+        # one card: bin.train says so
+        t0 = time.perf_counter()
+        _, proc, f = _dp_run("X", launch(TP) + [
+            sys.executable, "-m", "a3t_tpu_torch.bin.train"]
+            + argv("X", *tp2), d, env)
+        rc = proc.wait(300)
+        f.close()
+        with open(f.name) as g:
+            said = "NCCL cannot put two ranks" in g.read()
+        log(f"  run X (tp = {TP} over NCCL on one card): exit {rc}, the "
+            f"refusal {'printed' if said else 'MISSING'}: "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(rc != 0 and said, "bin.train refuses NCCL for two ranks of "
+              "one card, naming the reason")
+
+    (q,), (c,), (qb,) = load("Q"), load("C"), load("Qb")
+    b, bb = load("B", TP), load("Bb", TP)
+    runs = {"Q": [q], "B": b, "C": [c], "Qb": [qb], "Bb": bb}
+    cfg = load_config(CONFIG_24K, list(rows))
+    # the yaml's model (its own vocabulary; the runs' is the corpus's) and
+    # its slices, counted on the meta device
+    with torch.device("meta"):
+        counts = [sum(p.numel() for p in A3TMLMModel(
+            cfg.model, ModelShard(t, TP)).parameters()) for t in range(TP)]
+        whole = sum(p.numel() for p in A3TMLMModel(cfg.model).parameters())
+    log(f"  the yaml's model: {whole:,} parameters, {counts} a rank at "
+        f"tp = {TP}")
+    if whole == 67_701_696:  # the unedited yaml's width
+        check(counts == [TP_RANK_PARAMS] * TP, f"each rank of the 24 kHz "
+              f"model holds {TP_RANK_PARAMS:,} parameters at tp = {TP}")
+    _dp_report(runs, cfg, label)
+    note = ("two ranks on one card, the model group's all-reduces through "
+            "the host over gloo, not a multi-card figure")
+    _tp_against_one(torch, np, q, b, TP, cfg, "(a)", note, label)
+    tail = [s for s in b[0]["steps"] if s["iteration"] >= DP_SAVE]
+    check([(s["epoch"], s["iteration"]) for s in c["steps"]]
+          == [(s["epoch"], s["iteration"]) for s in tail],
+          f"run C resumed at step {DP_SAVE}")
+    for s, sb in zip(c["steps"], tail):
+        rel = abs(s["loss"] - sb["loss"]) / abs(sb["loss"])
+        log(f"  a tp = {TP} checkpoint resumed by one process, step "
+            f"{s['iteration']}: loss {s['loss']:.7f}, the two-rank run "
+            f"{sb['loss']:.7f}, relative difference {rel:.3g}")
+        check(rel <= TOL_TP_LOSS, "a tp = 2 checkpoint resumed by one "
+              "process: the next losses within the tolerance")
+    _tp_against_one(torch, np, qb, bb, TP, cfg, "(b) bf16", note, label,
+                    tol_loss=TOL_TP_LOSS_BF16, bn=False)
+    return {name: [x["launches"] for x in ranks]
+            for name, ranks in runs.items()}, errs
 
 
 def main() -> int:
@@ -5706,6 +6122,16 @@ def main() -> int:
             with Phase("data-parallel-cards"):
                 data_parallel_cards_phase(torch, np, label, root, train,
                                           valid, cards)
+        return 0
+
+    if sys.argv[1:] == ["--tensor-parallel"]:
+        # the tensor-parallel phase alone, on a trainer corpus of its own
+        with tempfile.TemporaryDirectory(prefix="a3t_tp_") as root:
+            with Phase("corpus"):
+                train, valid, _, _ = make_corpus(os.path.join(root, "data"))
+            with Phase("tensor-parallel"):
+                tensor_parallel_phase(torch, np, fa, cuda_ms, label, root,
+                                      train, valid)
         return 0
 
     if sys.argv[1:] == ["--model-options"]:
@@ -5794,9 +6220,16 @@ def main() -> int:
             dp = data_parallel_phase(torch, np, label, root,
                                      os.path.join(root, "data", "train"),
                                      valid)
+
+        with Phase("tensor-parallel"):
+            tp, tp_errs = tensor_parallel_phase(
+                torch, np, fa, cuda_ms, label, root,
+                os.path.join(root, "data", "train"), valid)
     # every rank's own count, over every run of the phase
     dp_fwd = sum(k1 for ranks in dp.values() for k1, _ in ranks)
     dp_bwd = sum(k2 for ranks in dp.values() for _, k2 in ranks)
+    tp_fwd = sum(k1 for ranks in tp.values() for k1, _ in ranks)
+    tp_bwd = sum(k2 for ranks in tp.values() for _, k2 in ranks)
 
     kernels = [{
         "name": "fused_attention_fwd",
@@ -5806,7 +6239,7 @@ def main() -> int:
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
         + cli_fwd + sp_fwd + side_fwd + opt_fwd + prep_fwd + mo_launches[0]
-        + dp_fwd,
+        + dp_fwd + tp_fwd,
         "launches_serve_cli": cli_fwd,
         "launches_speaker_fs2": sp_fwd,
         "launches_side_train": side_fwd,
@@ -5816,7 +6249,11 @@ def main() -> int:
         "launches_data_parallel": dp_fwd,
         "launches_data_parallel_ranks": {k: [k1 for k1, _ in v]
                                          for k, v in dp.items()},
+        "launches_tensor_parallel": tp_fwd,
+        "launches_tensor_parallel_ranks": {k: [k1 for k1, _ in v]
+                                           for k, v in tp.items()},
         "max_abs_err": f32["max_abs_err"],
+        "max_abs_err_head0_1": {k: v[0] for k, v in tp_errs.items()},
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "max_abs_err_fs2_shapes": fs2_errs[0],
         "max_abs_err_tts_shapes": side_errs[0],
@@ -5834,7 +6271,7 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
         "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd
-        + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd,
+        + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd + tp_bwd,
         "launches_serve_cli": cli_bwd,
         "launches_speaker_fs2": sp_bwd,
         "launches_side_train": side_bwd,
@@ -5844,7 +6281,11 @@ def main() -> int:
         "launches_data_parallel": dp_bwd,
         "launches_data_parallel_ranks": {k: [k2 for _, k2 in v]
                                          for k, v in dp.items()},
+        "launches_tensor_parallel": tp_bwd,
+        "launches_tensor_parallel_ranks": {k: [k2 for _, k2 in v]
+                                           for k, v in tp.items()},
         "max_abs_err": bwd["max_abs_err"],
+        "max_abs_err_head0_1": {k: v[1] for k, v in tp_errs.items()},
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "max_abs_err_fs2_shapes": fs2_errs[1],
         "max_abs_err_tts_shapes": side_errs[1],

@@ -345,8 +345,13 @@ def test_task_refusals(corpus, tmp_path, caplog):
     base = dict(train_data_dir=corpus[0], exp_dir=str(tmp_path / "exp"),
                 frontend=FE, model=dict(encoder=STACK, decoder=STACK,
                                         postnet_layers=1))
-    # per-epoch plots are ported (tests/test_torch_plots.py); a mesh is not
-    with pytest.raises(NotImplementedError, match="A10"):
+    # per-epoch plots are ported (tests/test_torch_plots.py); the mesh's
+    # seq axis is not, and its model axis needs a process for each rank
+    # (tests/test_torch_tensor_parallel.py)
+    with pytest.raises(NotImplementedError, match="A10c"):
+        MLMTask.build(config_from_dict(
+            {**base, "mesh": {"sequence_parallel": 2}}), device="cpu")
+    with pytest.raises(ValueError, match="tensor_parallel=2"):
         MLMTask.build(config_from_dict(
             {**base, "mesh": {"tensor_parallel": 2}}), device="cpu")
     # speaker conditioning is ported: without embeddings for its batches

@@ -6,7 +6,8 @@ the spawned processes start quickly.
 A scenario is ``fn(workdir, **kw)``; it reads its inputs from ``workdir``
 and writes what the test compares to ``workdir/<tag>_r<rank>.pt``.  The
 same function runs in the test's own process without a group as the
-one-process reference (tag ``..._w1``).
+one-process reference (tag ``..._w1``).  A job names a scenario of this
+module, or ``module:fn`` of another module beside it.
 """
 
 from __future__ import annotations
@@ -40,7 +41,11 @@ def _entry(r: int, w: int, port: int, jobs: list, errfile: str) -> None:
         initialize_multihost(f"127.0.0.1:{port}", w, r, device="cpu")
         try:
             for fn, kw in jobs:
-                globals()[fn](**kw)
+                if ":" in fn:
+                    module, fn = fn.split(":")
+                    getattr(__import__(module), fn)(**kw)
+                else:
+                    globals()[fn](**kw)
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -88,6 +93,15 @@ def _gathered_opt(state) -> dict:
     return {k: v.clone() for k, v in _state_tree(state)["opt_state"].items()}
 
 
+def _whole_model(state) -> dict:
+    """The model's state with the model axis's slices gathered (every rank
+    takes part), as a checkpoint holds it."""
+    from a3t_tpu_torch.parallel import all_gather_state
+
+    return {k: v.clone()
+            for k, v in all_gather_state(state.model.state_dict()).items()}
+
+
 def _model(config, dropout: float = 0.0):
     from a3t_tpu_torch.models import build_model
 
@@ -129,8 +143,7 @@ def tiny_step(workdir: str, tag: str = "step", optim: dict = None):
     rows = row_block(len(batch["audio_lengths"]))
     state, stats = step(state, {k: v[rows] for k, v in batch.items()}, 0)
     torch.save({"stats": {k: v.clone() for k, v in stats.items()},
-                "model": {k: v.clone()
-                          for k, v in state.model.state_dict().items()},
+                "model": _whole_model(state),
                 "opt": _gathered_opt(state),
                 "local_mu": state.opt_state.mu.numel()},
                _out(workdir, tag))
@@ -259,7 +272,7 @@ def task_run(workdir: str, tag: str, config: dict, dropout=None,
         "steps": [(r["epoch"], r["iteration"], r.get("loss"), r["batch"])
                   for r in trainer.step_log],
         "history": copy.deepcopy(trainer.reporter.history),
-        "model": {k: v.clone() for k, v in state.model.state_dict().items()},
+        "model": _whole_model(state),
         "opt": _gathered_opt(state),
         "local_mu": state.opt_state.mu.numel(),
         "stopped": stopped,

@@ -5,8 +5,11 @@ Fans a training command out as one process per card, appending the flags
 that ``a3t_tpu_torch.bin.train`` turns into a ``torch.distributed`` group
 (``--coordinator`` / ``--num-hosts`` / ``--host-id``).  Each entry of
 ``--hosts`` is one process, so a machine with k cards is listed k times;
-a mesh of ``dp x tp`` takes ``dp * tp`` entries, and ranks ``d * tp ..
-d * tp + tp - 1`` form a model group, so list a machine's cards together.
+a mesh of ``dp x sp x tp`` takes ``dp * sp * tp`` entries, rank ``(d * sp
++ s) * tp + t`` being data rank d, seq rank s and model rank t: the ranks
+``r .. r + tp - 1`` from a multiple of tp form a model group and the sp * tp
+ranks of one data rank follow each other, so list a machine's cards
+together.
 Three dispatch modes:
 
 * ``ssh``   — one ``ssh host 'cd <cwd> && <cmd>'`` per entry (the

@@ -9,10 +9,15 @@ Trains on the CUDA card unless ``--device cpu`` is given.  Training on a
 mesh runs one process per card, each with the JAX CLI's
 ``--coordinator host:port --num-hosts W --host-id r`` (``bin.launch``
 appends them): ``--num-hosts`` counts processes, one per card, not
-machines: ``dp * tp`` of them for the config's ``mesh.data_parallel`` dp
-and ``mesh.tensor_parallel`` tp (``--set mesh.tensor_parallel=2`` splits a
+machines: ``dp * sp * tp`` of them for the config's
+``mesh.data_parallel`` dp, ``mesh.sequence_parallel`` sp and
+``mesh.tensor_parallel`` tp, rank r being data rank ``r // (sp * tp)``,
+seq rank ``(r // tp) % sp`` and model rank ``r % tp`` (JAX's
+``devices.reshape(dp, sp, tp)``).  ``--set mesh.tensor_parallel=2`` splits a
 Conformer model's heads and feed-forward units over pairs of adjacent
-ranks).  The processes form a ``torch.distributed`` group (NCCL on the
+ranks; ``--set mesh.sequence_parallel=2`` splits the frames of each row
+over the seq ranks (context parallelism; every ``batcher.bucket_frames``
+entry must be a multiple of sp).  The processes form a ``torch.distributed`` group (NCCL on the
 card, gloo with ``--device cpu``) and rank r trains on
 ``cuda:{r mod cards}`` (``parallel/``).  NCCL cannot put two ranks of one
 group on one card, so a layout with more ranks than cards is refused at

@@ -50,9 +50,16 @@
 //     through one shared tile, so K, V, Q and G (64 x 192 each) fit.  Pass 2
 //     holds 4 rows x 12 columns of dq, key tiles of 32 double buffered.
 //
-// Dropout is the forward kernel's rule: keep iff hash(row * L + col, seed,
-// b * 4096 + head0 + h) >= uint32(rate * 0xFFFFFFFF), so the mask regenerates bit
-// for bit; dp is scaled by keep / (1 - rate) while ds uses the undropped p.
+// Dropout is the forward kernel's rule: keep iff hash(global_row * Lk + col,
+// seed, b * 4096 + head0 + h) >= uint32(rate * 0xFFFFFFFF), so the mask
+// regenerates bit for bit; dp is scaled by keep / (1 - rate) while ds uses the
+// undropped p.
+//
+// Query blocks (the forward kernel's): Lq local query rows against Lk keys,
+// local row i being global row i + qoff below qsplit and i + Lk - Lq from
+// there on.  dq and dbias are (Lq, d) and (Lq, Lk) per (b, h); dk and dv cover
+// all Lk keys, summed over the call's query rows only (a seq-axis rank's share,
+// which the all-gather's backward sums over the ranks).
 //
 // Bound at the training shape (B=88, H=2, L=496, d=192):
 //   fp32: five products of 2 L^2 d per (b, h) = 8.31e10 FLOP over 67
@@ -75,13 +82,18 @@ namespace {
 constexpr int BT = 64;   // keys per CTA in pass 1, query rows per CTA in pass 2
 constexpr int BSB = 72;  // row stride (elements) of the bf16 bias tile
 
+// the global row of local query row i (the dropout counter's row)
+__device__ __forceinline__ uint32_t global_row(int i, int qsplit, int qoff, int Lq, int Lk) {
+  return (uint32_t)(i + (i < qsplit ? qoff : Lk - Lq));
+}
+
 struct Args {
   const void *q, *k, *v, *bias;
   const int32_t* mask;
   const void* g;
   const float *lse, *delta;
   void *dq, *dk, *dv, *dbias;
-  int B, H, L, d, vec, head0;
+  int B, H, Lq, Lk, d, vec, head0, qsplit, qoff;
   float scale;
   uint32_t seed, threshold;
   float keep_scale;
@@ -105,13 +117,13 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
 
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* g = static_cast<const bf16*>(a.g);
-  const int L = a.L, d = a.d;
+  const int Lq = a.Lq, Lk = a.Lk, d = a.d;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, w = t >> 5, lane = tid & 31;
   const int g8 = lane >> 2, qd = lane & 3;
   const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
   const int col0 = blockIdx.x * BT;
-  const size_t mat = (size_t)bh * L * d;
-  const size_t sq = (size_t)bh * L * L;
+  const size_t qmat = (size_t)bh * Lq * d, kmat = (size_t)bh * Lk * d;
+  const size_t sq = (size_t)bh * Lq * Lk;
   const uint32_t lane_id = (uint32_t)(b * 4096 + a.head0 + h);
   const bool vc = a.vec != 0;
   auto sw = [](int r, int c) { return sw64(r, c, BT); };
@@ -123,7 +135,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
   for (int hr = 0; hr < 2; ++hr) {
     kr[hr] = 16 * w + g8 + 8 * hr;
     gkey[hr] = col0 + kr[hr];
-    kvalid[hr] = gkey[hr] < L && a.mask[(size_t)b * L + gkey[hr]] > 0;
+    kvalid[hr] = gkey[hr] < Lk && a.mask[(size_t)b * Lk + gkey[hr]] > 0;
   }
 
   auto load_stage = [&](int st, int r0) {
@@ -131,21 +143,21 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
     uint8_t* gs = qs + TILE;
     uint8_t* bs = gs + TILE;
     float* rl = reinterpret_cast<float*>(bs + BT * BSB * 2);
-    load_tile<bf16, 256, BT, DPAD>(qs, q + mat, d, r0, L, 0, d, vc, tid, sw);
-    load_tile<bf16, 256, BT, DPAD>(gs, g + mat, d, r0, L, 0, d, vc, tid, sw);
-    load_tile<bf16, 256, BT, 64>(bs, static_cast<const bf16*>(a.bias) + sq, L, r0, L, col0, L,
-                                 vc, tid, brow);
+    load_tile<bf16, 256, BT, DPAD>(qs, q + qmat, d, r0, Lq, 0, d, vc, tid, sw);
+    load_tile<bf16, 256, BT, DPAD>(gs, g + qmat, d, r0, Lq, 0, d, vc, tid, sw);
+    load_tile<bf16, 256, BT, 64>(bs, static_cast<const bf16*>(a.bias) + sq, Lk, r0, Lq, col0,
+                                 Lk, vc, tid, brow);
     if (tid < BT) {
       const int gr = r0 + tid;
-      rl[tid] = gr < L ? a.lse[(size_t)bh * L + gr] : 0.f;
-      rl[BT + tid] = gr < L ? a.delta[(size_t)bh * L + gr] : 0.f;
+      rl[tid] = gr < Lq ? a.lse[(size_t)bh * Lq + gr] : 0.f;
+      rl[BT + tid] = gr < Lq ? a.delta[(size_t)bh * Lq + gr] : 0.f;
     }
   };
 
-  load_tile<bf16, 256, BT, DPAD>(ks, static_cast<const bf16*>(a.k) + mat, d, col0, L, 0, d, vc,
-                                 tid, sw);
-  load_tile<bf16, 256, BT, DPAD>(vs, static_cast<const bf16*>(a.v) + mat, d, col0, L, 0, d, vc,
-                                 tid, sw);
+  load_tile<bf16, 256, BT, DPAD>(ks, static_cast<const bf16*>(a.k) + kmat, d, col0, Lk, 0, d,
+                                 vc, tid, sw);
+  load_tile<bf16, 256, BT, DPAD>(vs, static_cast<const bf16*>(a.v) + kmat, d, col0, Lk, 0, d,
+                                 vc, tid, sw);
   load_stage(0, 0);
   cp_async_commit();
 
@@ -158,7 +170,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
   for (int i = 0; i < 32; ++i) sc[i] = 0.f;
   bf16* dbias = static_cast<bf16*>(a.dbias) + sq;
 
-  const int nq = (L + BT - 1) / BT;
+  const int nq = (Lq + BT - 1) / BT;
   for (int it = 0; it < nq; ++it) {
     const int st = NST == 2 ? (it & 1) : 0, r0 = it * BT;
     if (NST == 2 && it + 1 < nq) {
@@ -197,12 +209,13 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
             const int i = 4 * j + 2 * hr + e;
             float p = 0.f;
             bool keep = true;
-            if (kvalid[hr] && gq < L) {
+            if (kvalid[hr] && gq < Lq) {
               const float x = (sc[i] + __bfloat162float(bs[c * BSB + kr[hr]])) * a.scale;
               p = __expf(x - lse_c);
               if (a.dropout)
-                keep = hash_bits((uint32_t)gq * (uint32_t)L + (uint32_t)gkey[hr], a.seed,
-                                 lane_id) >= a.threshold;
+                keep = hash_bits(global_row(gq, a.qsplit, a.qoff, Lq, Lk) * (uint32_t)Lk +
+                                     (uint32_t)gkey[hr],
+                                 a.seed, lane_id) >= a.threshold;
             }
             xbuf[i * 128 + t] = keep ? p : -p;
             sc[i] = keep ? (a.dropout ? p * a.keep_scale : p) : 0.f;  // p_d
@@ -227,7 +240,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
             if (a.dropout) dpk = x > 0.f ? dpk * a.keep_scale : 0.f;
             const float ds = p * (dpk - delta_c) * a.scale;  // 0 where p is
             sc[i] = ds;
-            if (gq < L && gkey[hr] < L) dbias[(size_t)gq * L + gkey[hr]] = __float2bfloat16(ds);
+            if (gq < Lq && gkey[hr] < Lk) dbias[(size_t)gq * Lk + gkey[hr]] = __float2bfloat16(ds);
           }
         }
     }
@@ -240,8 +253,8 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_bf16_kernel(Args 
     }
   }
 
-  store_acc_bf16<DPAD>(static_cast<bf16*>(wg == 0 ? a.dv : a.dk) + mat + (size_t)col0 * d, d,
-                       L - col0, acc, t);
+  store_acc_bf16<DPAD>(static_cast<bf16*>(wg == 0 ? a.dv : a.dk) + kmat + (size_t)col0 * d, d,
+                       Lk - col0, acc, t);
 }
 
 template <int DPAD>
@@ -250,18 +263,17 @@ __global__ void __launch_bounds__(128) fused_attention_dq_bf16_kernel(Args a) {
   constexpr int STAGE = TILE + BT * 64 * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
-  const int L = a.L, d = a.d;
+  const int Lq = a.Lq, Lk = a.Lk, d = a.d;
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, row0 = blockIdx.x * BT;
-  const size_t mat = (size_t)bh * L * d;
-  const bf16* kb = static_cast<const bf16*>(a.k) + mat;
-  const bf16* ds = static_cast<const bf16*>(a.dbias) + (size_t)bh * L * L;
+  const bf16* kb = static_cast<const bf16*>(a.k) + (size_t)bh * Lk * d;
+  const bf16* ds = static_cast<const bf16*>(a.dbias) + (size_t)bh * Lq * Lk;
   const bool vc = a.vec != 0;
   auto sw = [](int r, int c) { return sw64(r, c, BT); };
   auto load_stage = [&](int st, int c0) {
     uint8_t* kt = base + st * STAGE;
-    load_tile<bf16, 128, BT, DPAD>(kt, kb, d, c0, L, 0, d, vc, tid, sw);
-    load_tile<bf16, 128, BT, 64>(kt + TILE, ds, L, row0, L, c0, L, vc, tid, sw);
+    load_tile<bf16, 128, BT, DPAD>(kt, kb, d, c0, Lk, 0, d, vc, tid, sw);
+    load_tile<bf16, 128, BT, 64>(kt + TILE, ds, Lk, row0, Lq, c0, Lk, vc, tid, sw);
   };
 
   float acc[DPAD / 2];
@@ -269,7 +281,7 @@ __global__ void __launch_bounds__(128) fused_attention_dq_bf16_kernel(Args a) {
   for (int i = 0; i < DPAD / 2; ++i) acc[i] = 0.f;
   load_stage(0, 0);
   cp_async_commit();
-  const int nk = (L + BT - 1) / BT;
+  const int nk = (Lk + BT - 1) / BT;
   for (int it = 0; it < nk; ++it) {
     const int st = it & 1;
     if (it + 1 < nk) {
@@ -293,8 +305,8 @@ __global__ void __launch_bounds__(128) fused_attention_dq_bf16_kernel(Args a) {
     __syncthreads();
   }
 
-  store_acc_bf16<DPAD>(static_cast<bf16*>(a.dq) + mat + (size_t)row0 * d, d, L - row0, acc,
-                       tid);
+  store_acc_bf16<DPAD>(static_cast<bf16*>(a.dq) + (size_t)bh * Lq * d + (size_t)row0 * d, d,
+                       Lq - row0, acc, tid);
 }
 
 // ---------------------------------------------------------------- fp32
@@ -320,7 +332,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
   constexpr int DP4 = DP / 4;
   constexpr int PS = BT + 4;     // row stride of the ds / p_d tile
   extern __shared__ float4 smem4[];
-  const int L = a.L, d = a.d;
+  const int Lq = a.Lq, Lk = a.Lk, d = a.d;
   float* ks = reinterpret_cast<float*>(smem4);  // BT x DP
   float* vs = ks + BT * DP;                     // BT x DP
   float* qs = vs + BT * DP;                     // BQ x DP
@@ -338,12 +350,12 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
   const int cg = lane & 15;                     // queries cg + 16 i; columns
   const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
   const int col0 = blockIdx.x * BT;
-  const size_t mat = (size_t)bh * L * d;
-  const size_t sq = (size_t)bh * L * L;
+  const size_t qmat = (size_t)bh * Lq * d, kmat = (size_t)bh * Lk * d;
+  const size_t sq = (size_t)bh * Lq * Lk;
   const uint32_t lane_id = (uint32_t)(b * 4096 + a.head0 + h);
   const bool vc = a.vec != 0;
-  const float* qb = static_cast<const float*>(a.q) + mat;
-  const float* gb = static_cast<const float*>(a.g) + mat;
+  const float* qb = static_cast<const float*>(a.q) + qmat;
+  const float* gb = static_cast<const float*>(a.g) + qmat;
   const float* bias = static_cast<const float*>(a.bias) + sq;
   float* dbias = static_cast<float*>(a.dbias) + sq;
   auto rowd = [](int r, int c) { return (uint32_t)((r * DP + c) * 4); };
@@ -352,23 +364,23 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
   bool kvalid[4];
   const int k0 = col0 + 4 * kg;
 #pragma unroll
-  for (int x = 0; x < 4; ++x) kvalid[x] = k0 + x < L && a.mask[(size_t)b * L + k0 + x] > 0;
+  for (int x = 0; x < 4; ++x) kvalid[x] = k0 + x < Lk && a.mask[(size_t)b * Lk + k0 + x] > 0;
 
   // G (with lse and delta) of query tile r0; Q has its own group so that
   // S^T can start before G lands
   auto load_g = [&](int r0) {
-    load_tile<float, 256, BQ, DMAX>(as_u8(gs), gb, d, r0, L, 0, d, vc, tid, rowd);
+    load_tile<float, 256, BQ, DMAX>(as_u8(gs), gb, d, r0, Lq, 0, d, vc, tid, rowd);
     if (tid < BQ) {
       const int gr = r0 + tid;
-      rl[tid] = gr < L ? a.lse[(size_t)bh * L + gr] : 0.f;
-      rl[BQ + tid] = gr < L ? a.delta[(size_t)bh * L + gr] : 0.f;
+      rl[tid] = gr < Lq ? a.lse[(size_t)bh * Lq + gr] : 0.f;
+      rl[BQ + tid] = gr < Lq ? a.delta[(size_t)bh * Lq + gr] : 0.f;
     }
   };
-  load_tile<float, 256, BT, DMAX>(as_u8(ks), static_cast<const float*>(a.k) + mat, d, col0, L,
-                                  0, d, vc, tid, rowd);
-  load_tile<float, 256, BT, DMAX>(as_u8(vs), static_cast<const float*>(a.v) + mat, d, col0, L,
-                                  0, d, vc, tid, rowd);
-  load_tile<float, 256, BQ, DMAX>(as_u8(qs), qb, d, 0, L, 0, d, vc, tid, rowd);
+  load_tile<float, 256, BT, DMAX>(as_u8(ks), static_cast<const float*>(a.k) + kmat, d, col0,
+                                  Lk, 0, d, vc, tid, rowd);
+  load_tile<float, 256, BT, DMAX>(as_u8(vs), static_cast<const float*>(a.v) + kmat, d, col0,
+                                  Lk, 0, d, vc, tid, rowd);
+  load_tile<float, 256, BQ, DMAX>(as_u8(qs), qb, d, 0, Lq, 0, d, vc, tid, rowd);
   cp_async_commit();
   load_g(0);
   cp_async_commit();
@@ -379,8 +391,8 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
 #pragma unroll
     for (int gg = 0; gg < NG; ++gg) dka[x][gg] = dva[x][gg] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int r0 = 0; r0 < L; r0 += BQ) {
-    const bool next = r0 + BQ < L;
+  for (int r0 = 0; r0 < Lq; r0 += BQ) {
+    const bool next = r0 + BQ < Lq;
     cp_async_wait<1>();  // Q
     __syncthreads();
     float st[4][QI], dpt[4][QI];
@@ -421,25 +433,26 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
       const int qr = cg + 16 * i, gq = r0 + qr;
       const float lse_q = rl[qr], delta_q = rl[BQ + qr];
       float bv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (gq < L) {
-        const float* brow = bias + (size_t)gq * L + k0;
-        if (vc && k0 < L) {
+      if (gq < Lq) {
+        const float* brow = bias + (size_t)gq * Lk + k0;
+        if (vc && k0 < Lk) {
           const float4 b4 = *reinterpret_cast<const float4*>(brow);
           bv[0] = b4.x; bv[1] = b4.y; bv[2] = b4.z; bv[3] = b4.w;
         } else {
 #pragma unroll
-          for (int x = 0; x < 4; ++x) bv[x] = k0 + x < L ? brow[x] : 0.f;
+          for (int x = 0; x < 4; ++x) bv[x] = k0 + x < Lk ? brow[x] : 0.f;
         }
       }
+      const uint32_t grow = global_row(gq, a.qsplit, a.qoff, Lq, Lk);
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         float pd = 0.f, ds = 0.f;
-        if (kvalid[x] && gq < L) {
+        if (kvalid[x] && gq < Lq) {
           const float p = __expf((st[x][i] + bv[x]) * a.scale - lse_q);
           float dpk = dpt[x][i];
           pd = p;
           if (a.dropout) {
-            const bool keep = hash_bits((uint32_t)gq * (uint32_t)L + (uint32_t)(k0 + x), a.seed,
+            const bool keep = hash_bits(grow * (uint32_t)Lk + (uint32_t)(k0 + x), a.seed,
                                         lane_id) >= a.threshold;
             pd = keep ? p * a.keep_scale : 0.f;
             dpk = keep ? dpk * a.keep_scale : 0.f;
@@ -451,14 +464,14 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
       }
       const float4 ds4 = make_float4(dpt[0][i], dpt[1][i], dpt[2][i], dpt[3][i]);
       ps4[(qr * PS) / 4 + kg] = ds4;
-      if (gq < L) {
-        float* drow = dbias + (size_t)gq * L + k0;
-        if (vc && k0 < L) {
+      if (gq < Lq) {
+        float* drow = dbias + (size_t)gq * Lk + k0;
+        if (vc && k0 < Lk) {
           *reinterpret_cast<float4*>(drow) = ds4;
         } else {
 #pragma unroll
           for (int x = 0; x < 4; ++x)
-            if (k0 + x < L) drow[x] = lane_of(ds4, x);
+            if (k0 + x < Lk) drow[x] = lane_of(ds4, x);
         }
       }
     }
@@ -467,7 +480,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
     for (int r = 0; r < BQ; ++r) rank1(dka, ps4[(r * PS) / 4 + kg], qs4 + r * DP4, cg);
     __syncthreads();  // every thread is done with qs and ds
     if (next) {
-      load_tile<float, 256, BQ, DMAX>(as_u8(qs), qb, d, r0 + BQ, L, 0, d, vc, tid, rowd);
+      load_tile<float, 256, BQ, DMAX>(as_u8(qs), qb, d, r0 + BQ, Lq, 0, d, vc, tid, rowd);
       cp_async_commit();
     }
 #pragma unroll
@@ -483,11 +496,11 @@ __global__ void __launch_bounds__(256, 1) fused_attention_dkdv_f32_kernel(Args a
     }
   }
 
-  float* dk = static_cast<float*>(a.dk) + mat;
-  float* dv = static_cast<float*>(a.dv) + mat;
+  float* dk = static_cast<float*>(a.dk) + kmat;
+  float* dv = static_cast<float*>(a.dv) + kmat;
 #pragma unroll
   for (int x = 0; x < 4; ++x) {
-    if (k0 + x >= L) continue;
+    if (k0 + x >= Lk) continue;
 #pragma unroll
     for (int gg = 0; gg < NG; ++gg) {
       const int col = 4 * (cg + 16 * gg);
@@ -510,22 +523,21 @@ __global__ void __launch_bounds__(256) fused_attention_dq_f32_kernel(Args a) {
   constexpr int PS = BK + 4;    // row stride of the ds tile
   constexpr int STAGE = BK * DP + BT * PS;  // floats: K tile, then ds tile
   extern __shared__ float4 smem4[];
-  const int L = a.L, d = a.d;
+  const int Lq = a.Lq, Lk = a.Lk, d = a.d;
   float* base = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
   const int bh = blockIdx.y, row0 = blockIdx.x * BT;
-  const size_t mat = (size_t)bh * L * d;
-  const float* kb = static_cast<const float*>(a.k) + mat;
-  const float* ds = static_cast<const float*>(a.dbias) + (size_t)bh * L * L;
+  const float* kb = static_cast<const float*>(a.k) + (size_t)bh * Lk * d;
+  const float* ds = static_cast<const float*>(a.dbias) + (size_t)bh * Lq * Lk;
   const bool vc = a.vec != 0;
   auto rowd = [](int r, int c) { return (uint32_t)((r * DP + c) * 4); };
   auto rowp = [](int r, int c) { return (uint32_t)((r * PS + c) * 4); };
   auto load_stage = [&](int st, int c0) {
     float* kt = base + st * STAGE;
-    load_tile<float, 256, BK, DMAX>(reinterpret_cast<uint8_t*>(kt), kb, d, c0, L, 0, d, vc,
+    load_tile<float, 256, BK, DMAX>(reinterpret_cast<uint8_t*>(kt), kb, d, c0, Lk, 0, d, vc,
                                     tid, rowd);
-    load_tile<float, 256, BT, BK>(reinterpret_cast<uint8_t*>(kt + BK * DP), ds, L, row0, L, c0,
-                                  L, vc, tid, rowp);
+    load_tile<float, 256, BT, BK>(reinterpret_cast<uint8_t*>(kt + BK * DP), ds, Lk, row0, Lq,
+                                  c0, Lk, vc, tid, rowp);
   };
 
   float4 acc[4][NG];
@@ -535,7 +547,7 @@ __global__ void __launch_bounds__(256) fused_attention_dq_f32_kernel(Args a) {
     for (int gg = 0; gg < NG; ++gg) acc[i][gg] = make_float4(0.f, 0.f, 0.f, 0.f);
   load_stage(0, 0);
   cp_async_commit();
-  const int nk = (L + BK - 1) / BK;
+  const int nk = (Lk + BK - 1) / BK;
   for (int it = 0; it < nk; ++it) {
     const int st = it & 1;
     if (it + 1 < nk) {
@@ -563,11 +575,11 @@ __global__ void __launch_bounds__(256) fused_attention_dq_f32_kernel(Args a) {
     __syncthreads();
   }
 
-  float* dq = static_cast<float*>(a.dq) + mat;
+  float* dq = static_cast<float*>(a.dq) + (size_t)bh * Lq * d;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gr = row0 + 4 * rg + i;
-    if (gr >= L) continue;
+    if (gr >= Lq) continue;
 #pragma unroll
     for (int gg = 0; gg < NG; ++gg) {
       const int col = 4 * (cg + 16 * gg);
@@ -580,12 +592,13 @@ __global__ void __launch_bounds__(256) fused_attention_dq_f32_kernel(Args a) {
 
 // ---------------------------------------------------------------- launch
 
+// a grid of ceil(n / BT) x B * H CTAs: n = Lk for the dk/dv pass, Lq for dq
 template <typename KernelT>
-int launch(KernelT kern, size_t smem, int threads, const Args& a) {
+int launch(KernelT kern, size_t smem, int threads, int n, const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.L + BT - 1) / BT, a.B * a.H);
+  const dim3 grid((n + BT - 1) / BT, a.B * a.H);
   kern<<<grid, threads, smem, a.stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -597,43 +610,49 @@ int run_bf16(const Args& a) {
   constexpr size_t tile = (size_t)BT * DPAD * 2;
   constexpr size_t stage = ((2 * tile + BT * BSB * 2 + 2 * BT * 4) + 1023) / 1024 * 1024;
   int err = launch(fused_attention_dkdv_bf16_kernel<DPAD, NST>,
-                   1024 + 2 * tile + NST * stage + 32 * 128 * 4, 256, a);
+                   1024 + 2 * tile + NST * stage + 32 * 128 * 4, 256, a.Lk, a);
   if (err != 0) return err;
-  return launch(fused_attention_dq_bf16_kernel<DPAD>, 1024 + 2 * (tile + BT * 64 * 2), 128, a);
+  return launch(fused_attention_dq_bf16_kernel<DPAD>, 1024 + 2 * (tile + BT * 64 * 2), 128,
+                a.Lq, a);
 }
 
 template <int DMAX, int BQ>
 int run_f32(const Args& a) {
   constexpr size_t dp = DMAX + 4;
   int err = launch(fused_attention_dkdv_f32_kernel<DMAX, BQ>,
-                   ((2 * BT + 2 * BQ) * dp + BQ * (BT + 4) + 2 * BQ) * sizeof(float), 256, a);
+                   ((2 * BT + 2 * BQ) * dp + BQ * (BT + 4) + 2 * BQ) * sizeof(float), 256, a.Lk,
+                   a);
   if (err != 0) return err;
-  return launch(fused_attention_dq_f32_kernel<DMAX>, 2 * (32 * dp + BT * 36) * sizeof(float), 256, a);
+  return launch(fused_attention_dq_f32_kernel<DMAX>, 2 * (32 * dp + BT * 36) * sizeof(float), 256,
+                a.Lq, a);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// q, k, v, g: (B, H, L, d) contiguous; bias: (B, H, L, L); mask: (B, L)
-// int32; lse, delta: (B, H, L) fp32.  dq, dk, dv, dbias in the input type.
-// dtype 0 = float32, 1 = bfloat16; head0: the global index of head 0 in the
-// dropout lanes.  Two launches on `stream` (dk/dv/dbias, then dq).  Returns
-// the CUDA error code (0 = ok).
+// q, g: (B, H, Lq, d) contiguous; k, v: (B, H, Lk, d); bias: (B, H, Lq, Lk);
+// mask: (B, Lk) int32; lse, delta: (B, H, Lq) fp32.  dq, dk, dv, dbias in the
+// input type, shaped as q, k, v and bias.  Local query row i is global row
+// i + qoff below qsplit, i + Lk - Lq from there on (the forward's).  dtype 0 =
+// float32, 1 = bfloat16; head0: the global index of head 0 in the dropout
+// lanes.  Two launches on `stream` (dk/dv/dbias, then dq).  Returns the CUDA
+// error code (0 = ok).
 extern "C" int a3t_fused_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const int32_t* mask, const void* g, const float* lse, const float* delta,
-    void* dq, void* dk, void* dv, void* dbias, int B, int H, int L, int d,
-    int dtype, int head0, float scale, uint32_t seed, uint32_t threshold,
-    float keep_scale, int dropout, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || B * H > 65535 ||
-      head0 < 0 || head0 + H > 4096)
+    void* dq, void* dk, void* dv, void* dbias, int B, int H, int Lq, int Lk, int d,
+    int dtype, int head0, int qsplit, int qoff, float scale, uint32_t seed,
+    uint32_t threshold, float keep_scale, int dropout, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk < Lq || d <= 0 || d > 256 || B * H > 65535 ||
+      head0 < 0 || head0 + H > 4096 || qsplit < 0 || qsplit > Lq || qoff < 0 ||
+      qoff > Lk - Lq || (long long)Lk * Lk > 0xFFFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   const int chunk = dtype == 0 ? 4 : 8;  // elements per 16 bytes
-  const int vec = d % chunk == 0 && L % chunk == 0 && aligned16(q) && aligned16(k) &&
+  const int vec = d % chunk == 0 && Lk % chunk == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(g) && aligned16(bias) && aligned16(dbias);
-  const Args a{q, k, v, bias, mask, g, lse, delta, dq, dk, dv, dbias, B, H, L, d, vec,
-               head0, scale, seed, threshold, keep_scale, dropout,
+  const Args a{q, k, v, bias, mask, g, lse, delta, dq, dk, dv, dbias, B, H, Lq, Lk, d, vec,
+               head0, qsplit, qoff, scale, seed, threshold, keep_scale, dropout,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) {
     if (d <= 64) return run_f32<64, 64>(a);

@@ -5,7 +5,8 @@
 // pl.pallas_call at :121, grid (b, h), one whole (L, L) score block in VMEM).
 // Computes, per (b, h):
 //
-//     s   = (q_u . k^T + bias) / sqrt(d)          bias = rel-shifted pos scores
+//     s   = (q_u . k^T + bias) / sqrt(d)          bias = rel-shifted pos scores,
+//                                                 (Lq, Lk) per (b, h)
 //     s   = -1e30 where the key is masked
 //     p   = softmax(s) (fp32); masked columns re-zeroed
 //     p  *= keep / (1 - rate)                     keep from the counter hash
@@ -37,11 +38,17 @@
 //     cycle whatever the broadcast, against four FMAs per lane per cycle on
 //     the SM's four schedulers: S takes 4 x 2 FMAs per 6 floats it reads and
 //     P.V 48 per 16, so shared memory, not the FMA units, sets the pace.
-// Ragged edges: tiles past L load zeros, keys past L or past the CTA's range
+// Query blocks.  The call's Lq query rows may be a block of the Lk keys'
+// rows (a rank of the mesh's seq axis: its frame block, then the text): local
+// row i is global row i + qoff below qsplit and i + Lk - Lq from there on.
+// The scores take the rank's rows of q and of the bias, every key, and the
+// dropout counter of the global row, so a block draws exactly the bits of
+// those rows of the square call.  Square calls have Lq = Lk = qsplit, qoff 0.
+// Ragged edges: tiles past Lq or Lk load zeros, keys past L or past the CTA's range
 // take no part in the softmax, masked keys take -1e30; a fully masked row
 // ends with out 0 and lse -1e30 + log L, as in the plain version.
 //
-// Grid.  (ceil(L / rows), B * H, splits), rows = 64 (fp32) or 128 (bf16).
+// Grid.  (ceil(Lq / rows), B * H, splits), rows = 64 (fp32) or 128 (bf16).
 // At the serving shapes (B * H = 2, L = 296-872) the row tiles alone give
 // 10-28 CTAs for 132 SMs, so the wrapper's plan
 // (ops/fused_attention.py::_fwd_plan) splits the keys into ranges (multiples
@@ -52,7 +59,7 @@
 // is not split.
 //
 // Dropout is the TPU kernel's interpret-mode rule (fused_attention.py:69-80):
-// an xxhash-style mix of counter row*L + col, seed and lane b*4096 + head0 + h
+// an xxhash-style mix of counter global_row*Lk + col, seed and lane b*4096 + head0 + h
 // (head0: the global index of the call's first head, non-zero where the
 // heads are a model-axis rank's slice of a layer's); keep
 // iff bits >= uint32(rate * 0xFFFFFFFF).  The counter depends on position
@@ -90,10 +97,15 @@ __device__ __forceinline__ float masked_score(float x, int flag) {
 
 // where the CTA writes: out/lse directly, or its split's partials
 struct Partials {
-  float* acc;  // (splits, B*H, L, d) unnormalised
-  float* m;    // (splits, B*H, L)
-  float* l;    // (splits, B*H, L)
+  float* acc;  // (splits, B*H, Lq, d) unnormalised
+  float* m;    // (splits, B*H, Lq)
+  float* l;    // (splits, B*H, Lq)
 };
+
+// the global row of local query row i (the dropout counter's row)
+__device__ __forceinline__ uint32_t global_row(int i, int qsplit, int qoff, int Lq, int Lk) {
+  return (uint32_t)(i + (i < qsplit ? qoff : Lk - Lq));
+}
 
 __device__ __forceinline__ Partials partials(float* part, int split, int BH, int bh, int L, int d) {
   const int S = gridDim.z;
@@ -108,21 +120,21 @@ __device__ __forceinline__ Partials partials(float* part, int split, int BH, int
 
 // bias pairs (rows r, r + 8; columns c0 + 8 j + 2 qd, + 1) of one key tile,
 // in the accumulator's order, as packed bf16x2
-__device__ __forceinline__ void load_bias(uint32_t (&bv)[16], const bf16* bb, int L,
-                                          int r, int col, bool vec) {
+__device__ __forceinline__ void load_bias(uint32_t (&bv)[16], const bf16* bb, int Lq,
+                                          int Lk, int r, int col, bool vec) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int gr = r + 8 * hr, gc = col + 8 * j;
-      const bf16* src = bb + (size_t)gr * L + gc;
+      const bf16* src = bb + (size_t)gr * Lk + gc;
       uint32_t x = 0;
-      if (gr < L) {
+      if (gr < Lq) {
         if (vec) {
-          if (gc < L) x = *reinterpret_cast<const uint32_t*>(src);
+          if (gc < Lk) x = *reinterpret_cast<const uint32_t*>(src);
         } else {
-          const unsigned short lo = gc < L ? __bfloat16_as_ushort(src[0]) : 0;
-          const unsigned short hi = gc + 1 < L ? __bfloat16_as_ushort(src[1]) : 0;
+          const unsigned short lo = gc < Lk ? __bfloat16_as_ushort(src[0]) : 0;
+          const unsigned short hi = gc + 1 < Lk ? __bfloat16_as_ushort(src[1]) : 0;
           x = (uint32_t)lo | ((uint32_t)hi << 16);
         }
       }
@@ -135,9 +147,9 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ bias,
     const int32_t* __restrict__ mask, bf16* __restrict__ out,
-    float* __restrict__ lse, float* __restrict__ part, int H, int L, int d,
-    int kps, int vec, int head0, float scale, uint32_t seed, uint32_t threshold,
-    float keep_scale, int dropout) {
+    float* __restrict__ lse, float* __restrict__ part, int H, int Lq, int Lk, int d,
+    int kps, int vec, int head0, int qsplit, int qoff, float scale, uint32_t seed,
+    uint32_t threshold, float keep_scale, int dropout) {
   constexpr int TILE = 64 * DPAD * 2;  // bytes of one 64-row tile
   constexpr int STAGE = 2 * TILE + 1024;  // K, V and the key flags
   extern __shared__ uint8_t smem_raw[];
@@ -148,13 +160,13 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
   const int g = lane >> 2, qd = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int row0 = blockIdx.x * BM_BF16;
-  const int kbeg = blockIdx.z * kps, kend = min(L, kbeg + kps);
+  const int kbeg = blockIdx.z * kps, kend = min(Lk, kbeg + kps);
   const int ntiles = (kend - kbeg + 63) / 64;
-  const size_t mat = (size_t)bh * L * d;
-  const bf16* kb = k + mat;
-  const bf16* vb = v + mat;
-  const bf16* bb = bias + (size_t)bh * L * L;
-  const int32_t* mb = mask + (size_t)b * L;
+  const size_t qmat = (size_t)bh * Lq * d, kmat = (size_t)bh * Lk * d;
+  const bf16* kb = k + kmat;
+  const bf16* vb = v + kmat;
+  const bf16* bb = bias + (size_t)bh * Lq * Lk;
+  const int32_t* mb = mask + (size_t)b * Lk;
   const uint32_t lane_id = (uint32_t)(b * 4096 + head0 + h);
   const bool vc = vec != 0;
   auto sw = [](int r, int c) { return sw64(r, c, 64); };
@@ -164,12 +176,12 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
     if (t >= ntiles) return;
     uint8_t* st = stages + (t % STAGES) * STAGE;
     const int c0 = kbeg + 64 * t;
-    load_tile<bf16, 256, 64, DPAD>(st, kb, d, c0, L, 0, d, vc, tid, sw);
-    load_tile<bf16, 256, 64, DPAD>(st + TILE, vb, d, c0, L, 0, d, vc, tid, sw);
+    load_tile<bf16, 256, 64, DPAD>(st, kb, d, c0, Lk, 0, d, vc, tid, sw);
+    load_tile<bf16, 256, 64, DPAD>(st + TILE, vb, d, c0, Lk, 0, d, vc, tid, sw);
     if (tid < 64) reinterpret_cast<int*>(st + 2 * TILE)[tid] = key_flag(mb, c0 + tid, kend);
   };
 
-  load_tile<bf16, 256, BM_BF16, DPAD>(qs, q + mat, d, row0, L, 0, d, vc, tid,
+  load_tile<bf16, 256, BM_BF16, DPAD>(qs, q + qmat, d, row0, Lq, 0, d, vc, tid,
                                       [](int r, int c) {
                                         return (uint32_t)((r >> 6) * TILE) + sw64(r & 63, c, 64);
                                       });
@@ -182,7 +194,9 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
   const uint8_t* qw = qs + wg * TILE;
   const int rl0 = 16 * w + g;  // this thread's rows rl0 and rl0 + 8 of its warpgroup's 64
   const int rbase = row0 + 64 * wg + rl0;
-  const uint32_t grow[2] = {(uint32_t)rbase, (uint32_t)(rbase + 8)};
+  // the rows' global indices, for the dropout counter
+  const uint32_t grow[2] = {global_row(rbase, qsplit, qoff, Lq, Lk),
+                            global_row(rbase + 8, qsplit, qoff, Lq, Lk)};
   float o[DPAD / 2];
 #pragma unroll
   for (int i = 0; i < DPAD / 2; ++i) o[i] = 0.f;
@@ -191,7 +205,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   uint32_t bias_next[16];
-  load_bias(bias_next, bb, L, rbase, kbeg + 2 * qd, vc);
+  load_bias(bias_next, bb, Lq, Lk, rbase, kbeg + 2 * qd, vc);
 
   for (int t = 0; t < ntiles; ++t) {
     const int c0 = kbeg + 64 * t;
@@ -214,7 +228,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
     uint32_t bias_cur[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) bias_cur[i] = bias_next[i];
-    if (t + 1 < ntiles) load_bias(bias_next, bb, L, rbase, c0 + 64 + 2 * qd, vc);
+    if (t + 1 < ntiles) load_bias(bias_next, bb, Lq, Lk, rbase, c0 + 64 + 2 * qd, vc);
     wgmma_wait();
     fence_regs(s);
 
@@ -256,7 +270,7 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
           bool keep = flag > 0;
           float wt = p;
           if (dropout) {
-            keep = keep && hash_bits(grow[hr] * (uint32_t)L + (uint32_t)(c0 + c), seed,
+            keep = keep && hash_bits(grow[hr] * (uint32_t)Lk + (uint32_t)(c0 + c), seed,
                                      lane_id) >= threshold;
             wt = p * keep_scale;
           }
@@ -287,11 +301,11 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
   const int BH = gridDim.y;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int gr = (int)grow[hr];
-    if (gr >= L) continue;
+    const int gr = rbase + 8 * hr;  // the local row
+    if (gr >= Lq) continue;
     if (part == nullptr) {
       const float inv = 1.f / l_r[hr];
-      bf16* orow = out + mat + (size_t)gr * d;
+      bf16* orow = out + qmat + (size_t)gr * d;
 #pragma unroll
       for (int j = 0; j < DPAD / 8; ++j)
 #pragma unroll
@@ -299,9 +313,9 @@ __global__ void __launch_bounds__(256, 1) fused_attention_fwd_bf16_kernel(
           const int c = 8 * j + 2 * qd + e;
           if (c < d) orow[c] = __float2bfloat16(o[4 * j + 2 * hr + e] * inv);
         }
-      if (qd == 0) lse[(size_t)bh * L + gr] = m_r[hr] + logf(l_r[hr]);
+      if (qd == 0) lse[(size_t)bh * Lq + gr] = m_r[hr] + logf(l_r[hr]);
     } else {
-      const Partials pt = partials(part, blockIdx.z, BH, bh, L, d);
+      const Partials pt = partials(part, blockIdx.z, BH, bh, Lq, d);
       float* arow = pt.acc + (size_t)gr * d;
 #pragma unroll
       for (int j = 0; j < DPAD / 8; ++j)
@@ -325,9 +339,9 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ bias,
     const int32_t* __restrict__ mask, float* __restrict__ out,
-    float* __restrict__ lse, float* __restrict__ part, int H, int L, int d,
-    int kps, int vec, int head0, float scale, uint32_t seed, uint32_t threshold,
-    float keep_scale, int dropout) {
+    float* __restrict__ lse, float* __restrict__ part, int H, int Lq, int Lk, int d,
+    int kps, int vec, int head0, int qsplit, int qoff, float scale, uint32_t seed,
+    uint32_t threshold, float keep_scale, int dropout) {
   constexpr int NG = DMAX / 64;  // float4 column groups of O per thread
   constexpr int NJ = BN / 16;    // keys of S per thread
   constexpr int DP = DMAX + 4;   // row stride of q, k, v (odd in float4s)
@@ -347,12 +361,12 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int row0 = blockIdx.x * BM;
-  const int kbeg = blockIdx.z * kps, kend = min(L, kbeg + kps);
-  const size_t mat = (size_t)bh * L * d;
-  const float* kb = k + mat;
-  const float* vb = v + mat;
-  const float* bb = bias + (size_t)bh * L * L;
-  const int32_t* mb = mask + (size_t)b * L;
+  const int kbeg = blockIdx.z * kps, kend = min(Lk, kbeg + kps);
+  const size_t qmat = (size_t)bh * Lq * d, kmat = (size_t)bh * Lk * d;
+  const float* kb = k + kmat;
+  const float* vb = v + kmat;
+  const float* bb = bias + (size_t)bh * Lq * Lk;
+  const int32_t* mb = mask + (size_t)b * Lk;
   const uint32_t lane_id = (uint32_t)(b * 4096 + head0 + h);
   const bool vc = vec != 0;
   auto rowd = [](int r, int c) { return (uint32_t)((r * DP + c) * 4); };
@@ -363,15 +377,15 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
   // DMAX with no bounds checks.  K goes alone; V goes with the bias tile and
   // the key flags, which the scores read after the product Q.K^T.
   auto load_k = [&](int c0) {
-    load_tile<float, 256, BN, DMAX>(as_u8(ks), kb, d, c0, L, 0, d, vc, tid, rowd);
+    load_tile<float, 256, BN, DMAX>(as_u8(ks), kb, d, c0, Lk, 0, d, vc, tid, rowd);
   };
   auto load_v = [&](int c0) {
-    load_tile<float, 256, BN, DMAX>(as_u8(vs), vb, d, c0, L, 0, d, vc, tid, rowd);
-    load_tile<float, 256, BM, BN>(as_u8(ps), bb, L, row0, L, c0, L, vc, tid, rowp);
+    load_tile<float, 256, BN, DMAX>(as_u8(vs), vb, d, c0, Lk, 0, d, vc, tid, rowd);
+    load_tile<float, 256, BM, BN>(as_u8(ps), bb, Lk, row0, Lq, c0, Lk, vc, tid, rowp);
     if (tid < BN) kf[tid] = key_flag(mb, c0 + tid, kend);
   };
 
-  load_tile<float, 256, BM, DMAX>(as_u8(qs), q + mat, d, row0, L, 0, d, vc, tid, rowd);
+  load_tile<float, 256, BM, DMAX>(as_u8(qs), q + qmat, d, row0, Lq, 0, d, vc, tid, rowd);
   load_k(kbeg);
   cp_async_commit();
   load_v(kbeg);
@@ -437,7 +451,7 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
       const float alpha = __expf(m_r[i] - m_new);
       m_r[i] = m_new;
       float rs = 0.f;
-      const uint32_t gr = (uint32_t)(row0 + 4 * rg + i);
+      const uint32_t gr = global_row(row0 + 4 * rg + i, qsplit, qoff, Lq, Lk);
 #pragma unroll
       for (int jj = 0; jj < NJ; ++jj) {
         const int c = cg + 16 * jj;
@@ -446,7 +460,7 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
         bool keep = kf[c] > 0;
         float wt = p;
         if (dropout) {
-          keep = keep && hash_bits(gr * (uint32_t)L + (uint32_t)(c0 + c), seed, lane_id) >= threshold;
+          keep = keep && hash_bits(gr * (uint32_t)Lk + (uint32_t)(c0 + c), seed, lane_id) >= threshold;
           wt = p * keep_scale;
         }
         ps[(4 * rg + i) * PS + c] = keep ? wt : 0.f;
@@ -491,14 +505,14 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gr = row0 + 4 * rg + i;
-    if (gr >= L) continue;
+    if (gr >= Lq) continue;
     const bool direct = part == nullptr;
     const float inv = direct ? 1.f / l_r[i] : 1.f;
     float* orow;
     if (direct) {
-      orow = out + mat + (size_t)gr * d;
+      orow = out + qmat + (size_t)gr * d;
     } else {
-      orow = partials(part, blockIdx.z, BH, bh, L, d).acc + (size_t)gr * d;
+      orow = partials(part, blockIdx.z, BH, bh, Lq, d).acc + (size_t)gr * d;
     }
 #pragma unroll
     for (int gg = 0; gg < NG; ++gg) {
@@ -509,9 +523,9 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
     }
     if (cg == 0) {
       if (direct) {
-        lse[(size_t)bh * L + gr] = m_r[i] + logf(l_r[i]);
+        lse[(size_t)bh * Lq + gr] = m_r[i] + logf(l_r[i]);
       } else {
-        const Partials pt = partials(part, blockIdx.z, BH, bh, L, d);
+        const Partials pt = partials(part, blockIdx.z, BH, bh, Lq, d);
         pt.m[gr] = m_r[i];
         pt.l[gr] = l_r[i];
       }
@@ -521,7 +535,7 @@ __global__ void __launch_bounds__(256, MINB) fused_attention_fwd_f32_kernel(
 
 // ---------------------------------------------------------------- combine
 
-// One warp per (b, h, row): the key ranges' partials, in split order.
+// One warp per (b, h, query row): the key ranges' partials, in split order.
 template <typename T>
 __global__ void __launch_bounds__(128) fused_attention_combine_kernel(
     const float* __restrict__ part, T* __restrict__ out,
@@ -553,7 +567,7 @@ struct Args {
   const int32_t* mask;
   void* out;
   float *lse, *part;
-  int B, H, L, d, splits, kps, vec, head0;
+  int B, H, Lq, Lk, d, splits, kps, vec, head0, qsplit, qoff;
   float scale;
   uint32_t seed, threshold;
   float keep_scale;
@@ -570,12 +584,13 @@ int launch_bf16(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.L + BM_BF16 - 1) / BM_BF16, a.B * a.H, a.splits);
+  const dim3 grid((a.Lq + BM_BF16 - 1) / BM_BF16, a.B * a.H, a.splits);
   kern<<<grid, 256, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.bias), a.mask,
-      static_cast<bf16*>(a.out), a.lse, a.splits > 1 ? a.part : nullptr, a.H, a.L,
-      a.d, a.kps, a.vec, a.head0, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
+      static_cast<bf16*>(a.out), a.lse, a.splits > 1 ? a.part : nullptr, a.H, a.Lq,
+      a.Lk, a.d, a.kps, a.vec, a.head0, a.qsplit, a.qoff, a.scale, a.seed, a.threshold,
+      a.keep_scale, a.dropout);
   return (int)cudaGetLastError();
 }
 
@@ -586,20 +601,21 @@ int launch_f32(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.L + BM - 1) / BM, a.B * a.H, a.splits);
+  const dim3 grid((a.Lq + BM - 1) / BM, a.B * a.H, a.splits);
   kern<<<grid, 256, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.bias), a.mask,
-      static_cast<float*>(a.out), a.lse, a.splits > 1 ? a.part : nullptr, a.H, a.L,
-      a.d, a.kps, a.vec, a.head0, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
+      static_cast<float*>(a.out), a.lse, a.splits > 1 ? a.part : nullptr, a.H, a.Lq,
+      a.Lk, a.d, a.kps, a.vec, a.head0, a.qsplit, a.qoff, a.scale, a.seed, a.threshold,
+      a.keep_scale, a.dropout);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_combine(const Args& a) {
-  const size_t rows = (size_t)a.B * a.H * a.L;
+  const size_t rows = (size_t)a.B * a.H * a.Lq;
   fused_attention_combine_kernel<T><<<(unsigned)((rows + 3) / 4), 128, 0, a.stream>>>(
-      a.part, static_cast<T*>(a.out), a.lse, a.B * a.H, a.L, a.d, a.splits);
+      a.part, static_cast<T*>(a.out), a.lse, a.B * a.H, a.Lq, a.d, a.splits);
   return (int)cudaGetLastError();
 }
 
@@ -625,28 +641,32 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// q_u, k, v: (B, H, L, d) contiguous; bias: (B, H, L, L); mask: (B, L) int32;
-// out: (B, H, L, d) in the input type; lse: (B, H, L) fp32.  splits > 1
-// splits the keys into ranges of kps keys (a multiple of 16), each range's
-// partials going to part, (splits * B * H * L * (d + 2)) fp32, which a second
-// launch combines.  dtype 0 = float32, 1 = bfloat16.  head0: the global index
-// of head 0 in the dropout lanes.  Returns the CUDA error code (0 = ok).
+// q_u: (B, H, Lq, d) contiguous; k, v: (B, H, Lk, d); bias: (B, H, Lq, Lk);
+// mask: (B, Lk) int32; out: (B, H, Lq, d) in the input type; lse: (B, H, Lq)
+// fp32.  Local query row i is global row i + qoff below qsplit, i + Lk - Lq
+// from there on (square: Lq = Lk = qsplit, qoff = 0).  splits > 1 splits the
+// keys into ranges of kps keys (a multiple of 16), each range's partials going
+// to part, (splits * B * H * Lq * (d + 2)) fp32, which a second launch
+// combines.  dtype 0 = float32, 1 = bfloat16.  head0: the global index of head
+// 0 in the dropout lanes.  Returns the CUDA error code (0 = ok).
 extern "C" int a3t_fused_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     const int32_t* mask, void* out, float* lse, float* part, int B, int H,
-    int L, int d, int dtype, int splits, int kps, int head0, float scale,
-    uint32_t seed, uint32_t threshold, float keep_scale, int dropout, void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || B * H > 65535 ||
-      head0 < 0 || head0 + H > 4096 ||
+    int Lq, int Lk, int d, int dtype, int splits, int kps, int head0, int qsplit,
+    int qoff, float scale, uint32_t seed, uint32_t threshold, float keep_scale,
+    int dropout, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk < Lq || d <= 0 || d > 256 || B * H > 65535 ||
+      head0 < 0 || head0 + H > 4096 || qsplit < 0 || qsplit > Lq || qoff < 0 ||
+      qoff > Lk - Lq || (long long)Lk * Lk > 0xFFFFFFFFLL ||
       (dtype != 0 && dtype != 1) || splits < 1 || splits > 65535 ||
       (splits > 1 && (part == nullptr || kps <= 0 || kps % 16 != 0 ||
-                      (long long)(splits - 1) * kps >= L)))
+                      (long long)(splits - 1) * kps >= Lk)))
     return (int)cudaErrorInvalidValue;
   const int chunk = dtype == 0 ? 4 : 8;  // elements per 16 bytes
-  const int vec = d % chunk == 0 && L % chunk == 0 && aligned16(q) && aligned16(k) &&
+  const int vec = d % chunk == 0 && Lk % chunk == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(bias);
-  Args a{q, k, v, bias, mask, out, lse, part, B, H, L, d, splits,
-         splits > 1 ? kps : L, vec, head0, scale, seed, threshold, keep_scale, dropout,
-         static_cast<cudaStream_t>(stream)};
+  Args a{q, k, v, bias, mask, out, lse, part, B, H, Lq, Lk, d, splits,
+         splits > 1 ? kps : Lk, vec, head0, qsplit, qoff, scale, seed, threshold,
+         keep_scale, dropout, static_cast<cudaStream_t>(stream)};
   return run(a, dtype);
 }

@@ -24,6 +24,17 @@ before the bias (``layers.row_parallel``).  The positional scores and their
 shift run on those heads alone; K1/K2 draw the dropout lanes of the
 global heads (``head0``), and the plain branch keeps the matching slice of
 one process's mask.
+
+On a rank of the mesh's seq axis (``seq``, ``parallel/sequence.py``) a
+module's queries are its rows, the frame block and the whole text: the
+keys and values of the speech are all-gathered over the seq group in
+global order and the local text rows appended, the positional table is
+the whole sequence's, the relative shift takes the rank's rows
+(:func:`legacy_rel_shift_rows`, with the next block's first row of
+positional scores as a one-row halo; :func:`latest_rel_shift_rows`), and
+K1/K2 run on the rank's query rows against every key (``q_rows``), so
+that their dropout draws one process's bits for those rows.  The mask is
+the whole sequence's key mask.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from torch import nn
 from a3t_tpu_torch.models.dropout import SeededDropout, draw_seed
 from a3t_tpu_torch.models.layers import dense, row_parallel
 from a3t_tpu_torch.ops.fused_attention import fused_attention
+from a3t_tpu_torch.parallel.sequence import gather_frames, next_row
 from a3t_tpu_torch.parallel.tensor import ModelShard, copy_to_model
 
 
@@ -52,6 +64,42 @@ def latest_rel_shift(x: torch.Tensor) -> torch.Tensor:
     xp = torch.cat([x.new_zeros(b, h, t1, 1), x], dim=-1)
     xp = xp.view(b, h, t2 + 1, t1)[:, :, 1:].reshape(b, h, t1, t2)
     return xp[..., : t2 // 2 + 1]
+
+
+def legacy_rel_shift_rows(x: torch.Tensor, x_next: torch.Tensor,
+                          g0: int) -> torch.Tensor:
+    """Rows ``g0 .. g0 + n - 1`` of :func:`legacy_rel_shift` of an (L, L)
+    score matrix, from its unshifted rows ``x`` (B, H, n, L) and the row
+    after them ``x_next`` (B, H, 1, L): row g reads ``x[g][L + j - g - 1]``
+    for j <= g, 0 at j = g + 1 and ``x[g + 1][j - g - 2]`` after."""
+    b, h, n, l = x.shape
+    rows = torch.cat([x, x_next], dim=2)
+    flat = torch.cat([rows.new_zeros(b, h, n + 1, 1), rows],
+                     dim=-1).reshape(b, h, (n + 1) * (l + 1))
+    return flat.narrow(-1, l - g0, n * l).view(b, h, n, l)
+
+
+def latest_rel_shift_rows(x: torch.Tensor, g0: int) -> torch.Tensor:
+    """Rows ``g0 .. g0 + n - 1`` of :func:`latest_rel_shift` of an (L, P)
+    score matrix, from those rows ``x`` (B, H, n, P), P = 2L - 1 (or 2L - 2:
+    the encoder's speech and text tables side by side): row g reads
+    ``x[g][L - 1 - g + j]``, 0 past column P - 1."""
+    b, h, n, t2 = x.shape
+    l = t2 // 2 + 1
+    flat = torch.cat([x.new_zeros(b, h, n, 1), x], dim=-1).reshape(
+        b, h, n * (t2 + 1))
+    flat = torch.cat([flat, flat.new_zeros(b, h, l)], dim=-1)
+    return flat.narrow(-1, l - g0, n * t2).view(b, h, n, t2)[..., :l]
+
+
+def _gathered(x: torch.Tensor, seq) -> torch.Tensor:
+    """The whole sequence's rows of a projection ``x`` (B, block + tail,
+    ...): the speech all-gathered over the seq group, then the local
+    text."""
+    if seq is None:
+        return x
+    return torch.cat([gather_frames(x[:, :seq.block], seq),
+                      x[:, seq.block:]], dim=1)
 
 
 def apply_attn_mask(scores: torch.Tensor, mask) -> torch.Tensor:
@@ -98,7 +146,8 @@ class MultiHeadedAttention(nn.Module):
         y = dense(linear, y, self.dtype)
         return y.view(*y.shape[:-1], self.h, self.d_k)
 
-    def forward(self, query, key, value, mask=None, generator=None):
+    def forward(self, query, key, value, mask=None, generator=None,
+                seq=None):
         b, t, _ = query.shape
         dt = self.dtype
         if self.tp > 1:
@@ -108,14 +157,15 @@ class MultiHeadedAttention(nn.Module):
                 query, key, value = (copy_to_model(x, self.tp)
                                      for x in (query, key, value))
         q = self.heads(self.linear_q, query)
-        k = self.heads(self.linear_k, key)
-        v = self.heads(self.linear_v, value)
+        k = _gathered(self.heads(self.linear_k, key), seq)
+        v = _gathered(self.heads(self.linear_v, value), seq)
         scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) \
             / math.sqrt(self.d_k)
         attn = apply_attn_mask(scores, mask)
         if self.capture is not None:
             self.capture(attn.detach())
-        attn = self.dropout(attn, generator)
+        attn = self.dropout(attn, generator, None if seq is None
+                            else seq.drop_rows(2, attn.device))
         out = torch.einsum("bhts,bshd->bthd", attn.to(v.dtype), v)
         return row_parallel(self.linear_out,
                             out.reshape(b, t, self.h * self.d_k), dt, self.tp)
@@ -141,7 +191,9 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         self.pos_bias_u = nn.Parameter(torch.zeros(self.h, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(self.h, self.d_k))
 
-    def forward(self, x, pos_emb, mask=None, generator=None):
+    def forward(self, x, pos_emb, mask=None, generator=None, seq=None):
+        """``seq``: the rank's rows on the seq axis (module docstring);
+        ``pos_emb`` and ``mask`` are then the whole sequence's."""
         b, t, _ = x.shape
         width = self.h * self.d_k
 
@@ -151,17 +203,21 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         x = copy_to_model(x, self.tp)
 
         q = self.heads(self.linear_q, x)
-        k = self.heads(self.linear_k, x)
-        v = self.heads(self.linear_v, x)
+        k = _gathered(self.heads(self.linear_k, x), seq)
+        v = _gathered(self.heads(self.linear_v, x), seq)
         p = self.heads(self.linear_pos, pos_emb)  # (1, P, H, d_k)
         q_u = q + self.pos_bias_u.to(q.dtype)
         q_v = q + self.pos_bias_v.to(q.dtype)
 
         # the score products accumulate in float32 (preferred_element_type)
-        matrix_bd = torch.einsum("bthd,bshd->bhts", q_v.float(),
-                                 p.float().expand(b, *p.shape[1:]))
-        matrix_bd = (legacy_rel_shift(matrix_bd) if self.legacy
-                     else latest_rel_shift(matrix_bd))
+        pf = p.float().expand(b, *p.shape[1:])
+        matrix_bd = torch.einsum("bthd,bshd->bhts", q_v.float(), pf)
+        if seq is None:
+            matrix_bd = (legacy_rel_shift(matrix_bd) if self.legacy
+                         else latest_rel_shift(matrix_bd))
+        else:
+            matrix_bd = self._shift_rows(matrix_bd, q_v, pf, seq)
+        t_k = k.shape[1]
 
         flat_mask = None
         if mask is not None:
@@ -171,7 +227,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
         if self.use_flash and (mask is None or flat_mask is not None):
             if flat_mask is None:
-                flat_mask = torch.ones(b, t, dtype=torch.bool, device=x.device)
+                flat_mask = torch.ones(b, t_k, dtype=torch.bool,
+                                       device=x.device)
             rate = self.dropout.rate if self.training else 0.0
             seed = 0
             if rate > 0.0:
@@ -183,7 +240,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
                 q_u.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous(),
                 matrix_bd.to(q_u.dtype).contiguous(), flat_mask,
-                dropout_rate=rate, seed=seed, head0=self.head0)
+                dropout_rate=rate, seed=seed, head0=self.head0,
+                q_rows=None if seq is None else seq.q_rows())
             out = out.to(v.dtype).transpose(1, 2).reshape(b, t, width)
             return row_parallel(self.linear_out, out, dt, self.tp)
 
@@ -194,6 +252,27 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
             self.capture(attn.detach())
         # the softmax stays float32; the probabilities are stored, dropped
         # and multiplied with v in the compute dtype
-        attn = self.dropout(attn.to(v.dtype), generator)
+        attn = self.dropout(attn.to(v.dtype), generator, None if seq is None
+                            else seq.drop_rows(2, attn.device))
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, width)
         return row_parallel(self.linear_out, out, dt, self.tp)
+
+    def _shift_rows(self, bd, q_v, pf, seq):
+        """The rank's rows of the relative shift of the whole sequence's
+        positional scores, from its unshifted rows ``bd`` (B, H, block +
+        tail, P): the frame block (global rows from ``seq.offset``), then
+        the text (from ``seq.frames``).  The legacy shift's last frame reads
+        the next row's scores: the next block's first row of ``q_v``
+        (``parallel/sequence.py::next_row``) against the table."""
+        n = seq.block
+        speech, text = bd[:, :, :n], bd[:, :, n:]
+        if not self.legacy:
+            return torch.cat([latest_rel_shift_rows(speech, seq.offset),
+                              latest_rel_shift_rows(text, seq.frames)], 2)
+        q_next = next_row(q_v, seq)  # (B, 1, H, d_k)
+        bd_next = torch.einsum("bthd,bshd->bhts", q_next.float(), pf)
+        # the text's last row reads no next row
+        return torch.cat([
+            legacy_rel_shift_rows(speech, bd_next, seq.offset),
+            legacy_rel_shift_rows(text, torch.zeros_like(bd_next),
+                                  seq.frames)], 2)

@@ -20,8 +20,17 @@ slice of the attention heads and of both feed-forwards' hidden units; each
 of the three begins with the model group's copy and ends with its
 all-reduce (``parallel/tensor.py``), and the conv module, the LayerNorms
 and every residual stay replicated.  Under ``remat`` each rank of a model
-group replays its block's collectives in the same order.  The longformer
-kind takes no model axis yet (ROADMAP A10c).
+group replays its block's collectives in the same order.
+
+On a rank of the mesh's seq axis (``seq``, ``parallel/sequence.py``) a
+stack runs on the rank's frame block and the whole text: the positional
+tables are the whole sequence's (:class:`RelPosEncoding` takes the global
+length), the attention all-gathers its keys and values, the
+convolutions exchange their halos, BatchNorm reduces over the data and
+seq axes, and every dropout keeps the rank's rows of one process's mask.
+Under ``remat`` the ranks of a seq group replay those collectives in the
+same order.  The longformer kind takes neither the seq nor the model axis
+yet (ROADMAP A10d).
 
 Mixed precision follows flax's promotion: LayerNorms keep the float32
 stream, the attention projections, feed-forwards and conv module run in the
@@ -108,19 +117,23 @@ class EncoderConfig:
         """The compute dtype, None for float32 (flax's convention)."""
         return None if self.compute_dtype == "float32" else torch.bfloat16
 
-    def check_supported(self, tensor_parallel: int = 1) -> None:
+    def check_supported(self, tensor_parallel: int = 1,
+                        sequence_parallel: int = 1) -> None:
         """Raise for what the port does not take, over a model axis of
-        ``tensor_parallel`` ranks."""
+        ``tensor_parallel`` ranks and a seq axis of ``sequence_parallel``."""
         kind = self.selfattention_layer_type
         if kind not in ATTENTION_KINDS:
             raise ValueError(f"unknown attention kind {kind!r}")
+        if kind == "longformer":
+            for axis, n in (("tensor_parallel", tensor_parallel),
+                            ("sequence_parallel", sequence_parallel)):
+                if n > 1:
+                    raise NotImplementedError(
+                        f"mesh.{axis} > 1 with longformer attention is not "
+                        "ported: the banded kernels need a halo chunk, a "
+                        "global chunk offset and the global heads in their "
+                        "dropout lanes (ROADMAP A10d)")
         if tensor_parallel > 1:
-            if kind == "longformer":
-                raise NotImplementedError(
-                    "mesh.tensor_parallel > 1 with longformer attention is "
-                    "not ported: the banded kernels' dropout lanes need the "
-                    "global heads, which comes with the seq axis (ROADMAP "
-                    "A10c)")
             for what, n in (("attention_heads", self.attention_heads),
                             ("linear_units", self.linear_units)):
                 if n % tensor_parallel:
@@ -165,8 +178,11 @@ class RelPosEncoding(nn.Module):
         self.legacy = legacy
         self.dropout = SeededDropout(dropout_rate)
 
-    def forward(self, x, generator=None):
-        t = x.shape[1]
+    def forward(self, x, generator=None, seq=None):
+        """``seq``: ``x`` holds the rank's rows of the seq axis
+        (``parallel/sequence.py``); the table is then the whole sequence's
+        and its dropout draws the whole table's mask."""
+        t = x.shape[1] if seq is None else seq.length
         if self.legacy:
             pe = sinusoidal_table(max(t, self.max_len), self.d_model,
                                   reverse=True)[:t]
@@ -175,7 +191,9 @@ class RelPosEncoding(nn.Module):
         pos_emb = torch.tensor(pe, dtype=x.dtype, device=x.device)[None]
         y = x.to(torch.promote_types(x.dtype, torch.float32)) \
             * float(np.float32(math.sqrt(self.d_model)))
-        return (self.dropout(y, generator), self.dropout(pos_emb, generator))
+        rows = None if seq is None else seq.drop_rows(1, x.device)
+        return (self.dropout(y, generator, rows),
+                self.dropout(pos_emb, generator))
 
 
 class AbsPosEncoding(nn.Module):
@@ -198,14 +216,23 @@ class AbsPosEncoding(nn.Module):
         self.dropout = SeededDropout(dropout_rate)
         self.alpha = nn.Parameter(torch.ones(())) if scaled else None
 
-    def forward(self, x, generator=None):
-        pe = torch.tensor(sinusoidal_table(x.shape[1], self.d_model),
-                          device=x.device)[None].to(x.dtype)
+    def forward(self, x, generator=None, seq=None):
+        """``seq``: ``x`` holds the rank's rows of the seq axis; they take
+        their rows of the whole sequence's table."""
+        rows = None
+        if seq is None:
+            pe = sinusoidal_table(x.shape[1], self.d_model)
+        else:
+            rows = seq.drop_rows(1, x.device)
+            pe = sinusoidal_table(seq.length, self.d_model)[
+                np.r_[seq.offset:seq.offset + seq.block,
+                      seq.frames:seq.length]]
+        pe = torch.tensor(pe, device=x.device)[None].to(x.dtype)
         if self.alpha is not None:
             y = x + self.alpha * pe
         else:
             y = x.float() * float(np.float32(math.sqrt(self.d_model))) + pe
-        return self.dropout(y, generator), None
+        return self.dropout(y, generator, rows), None
 
 
 def rematerialized(fn, generator, *tensors):
@@ -256,7 +283,9 @@ class ConformerBlock(nn.Module):
     windowed attention over ``[speech (n_frames) ; text]`` with a flat key
     mask.  ``remat_attention`` recomputes the rel-pos attention in the
     backward pass (JAX applies it to that kind only, conformer.py:205-210).
-    ``shard``: the block's place on the model axis (module docstring)."""
+    ``shard``: the block's place on the model axis; ``forward``'s ``seq``:
+    its rows on the seq axis, where ``pos_emb`` and ``mask`` are the whole
+    sequence's (module docstring)."""
 
     def __init__(self, c: EncoderConfig, shard: ModelShard = ModelShard()):
         super().__init__()
@@ -311,13 +340,16 @@ class ConformerBlock(nn.Module):
         self.feed_forward = positionwise()
         self.dropout = SeededDropout(c.dropout_rate)
 
-    def forward(self, x, pos_emb, mask, generator=None, n_frames=None):
+    def forward(self, x, pos_emb, mask, generator=None, n_frames=None,
+                seq=None):
+        rows = None if seq is None else seq.drop_rows(1, x.device)
+
         def drop(h):
-            return self.dropout(h, generator)
+            return self.dropout(h, generator, rows)
 
         if self.macaron:
             x = x + self.ff_scale * drop(self.feed_forward_macaron(
-                self.norm_ff_macaron(x), generator))
+                self.norm_ff_macaron(x), generator, seq))
         h = self.norm_mha(x)
         if self.kind == "longformer":
             flat_mask = mask[:, 0] if mask is not None and mask.dim() == 3 \
@@ -325,18 +357,18 @@ class ConformerBlock(nn.Module):
             h = self.self_attn(h, h.shape[1] if n_frames is None else n_frames,
                                flat_mask, generator)
         elif self.kind == "selfattn":
-            h = self.self_attn(h, h, h, mask, generator)
+            h = self.self_attn(h, h, h, mask, generator, seq)
         elif _remat_on(self, self.remat_attention):
             h = rematerialized(
-                lambda hh, pe, m: self.self_attn(hh, pe, m, generator),
+                lambda hh, pe, m: self.self_attn(hh, pe, m, generator, seq),
                 generator, h, pos_emb, mask)
         else:
-            h = self.self_attn(h, pos_emb, mask, generator)
+            h = self.self_attn(h, pos_emb, mask, generator, seq)
         x = x + drop(h)
         if self.use_cnn:
-            x = x + drop(self.conv_module(self.norm_conv(x)))
+            x = x + drop(self.conv_module(self.norm_conv(x), seq))
         x = x + self.ff_scale * drop(self.feed_forward(self.norm_ff(x),
-                                                       generator))
+                                                       generator, seq))
         if self.use_cnn:
             x = self.norm_final(x)
         return x
@@ -347,7 +379,8 @@ class ConformerStack(nn.Module):
     speech-only pre-encoder leaves out (``apply_final_norm=False``,
     transformer/encoder.py:547-548) and so does ``normalize_before:
     false``.  ``remat`` recomputes each block in the backward pass.
-    ``shard``: the blocks' place on the model axis."""
+    ``shard``: the blocks' place on the model axis; ``forward``'s ``seq``:
+    the input's rows on the seq axis."""
 
     def __init__(self, c: EncoderConfig, apply_final_norm: bool = True,
                  shard: ModelShard = ModelShard()):
@@ -359,13 +392,14 @@ class ConformerStack(nn.Module):
                            else None)
         self.remat = c.remat
 
-    def forward(self, x, pos_emb, mask, generator=None, n_frames=None):
+    def forward(self, x, pos_emb, mask, generator=None, n_frames=None,
+                seq=None):
         for block in self.encoders:
             if _remat_on(self, self.remat):
                 x = rematerialized(
                     lambda xx, pe, m, blk=block: blk(xx, pe, m, generator,
-                                                     n_frames),
+                                                     n_frames, seq),
                     generator, x, pos_emb, mask)
             else:
-                x = block(x, pos_emb, mask, generator, n_frames)
+                x = block(x, pos_emb, mask, generator, n_frames, seq)
         return x if self.after_norm is None else self.after_norm(x)

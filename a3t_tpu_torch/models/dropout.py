@@ -22,6 +22,13 @@ units, the plain attention's heads; ``parallel/sharding.py``) takes a
 seed and keeps slice t of tp along ``dim``, so that its mask is the
 matching slice of one process's.  Every site draws its seed at any tp, so
 the draws from the step's generator stay in step.
+
+A site on a tensor that the seq axis splits by rows (``parallel/
+sequence.py``: a rank's frame block and the whole text) takes ``rows =
+(dim, index, n)`` at call time: it draws the mask of the whole tensor,
+``n`` rows along ``dim``, and keeps the rows ``index`` there, so that the
+rank's mask is those rows of one process's.  ``part`` and ``rows`` compose
+(a feed-forward's hidden units under both axes).
 """
 
 from __future__ import annotations
@@ -47,50 +54,61 @@ def draw_seed(generator: torch.Generator) -> int:
 
 
 def keep_mask(shape, seed: int, rate: float, device,
-              part=None) -> torch.Tensor:
+              part=None, rows=None) -> torch.Tensor:
     """Bool keep-mask of ``shape`` drawn from a generator seeded with
     ``seed`` on ``device``; with ``part = (dim, t, tp)``, slice t of tp
-    along ``dim`` of the mask of the full shape (``shape[dim] * tp``)."""
+    along ``dim`` of the mask of the full shape (``shape[dim] * tp``); with
+    ``rows = (dim, index, n)``, the rows ``index`` along ``dim`` of the
+    mask of ``n`` rows there."""
     shape = list(shape)
     if part is not None:
         dim, t, tp = part
         dim %= len(shape)
         n = shape[dim]
         shape[dim] = n * tp
+    if rows is not None:
+        rdim, index, length = rows
+        rdim %= len(shape)
+        shape[rdim] = length
     gen = torch.Generator(device=device).manual_seed(seed)
     bits = torch.randint(0, 256, tuple(shape), generator=gen, device=device,
                          dtype=torch.uint8)
     if part is not None:
         bits = bits.narrow(dim, t * n, n)
+    if rows is not None:
+        bits = bits.index_select(rdim, index.to(device))
     return bits < _threshold(rate)
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float, part) -> torch.Tensor:
-    keep = keep_mask(x.shape, seed, rate, x.device, part)
+def _apply(x: torch.Tensor, seed: int, rate: float, part,
+           rows) -> torch.Tensor:
+    keep = keep_mask(x.shape, seed, rate, x.device, part, rows)
     return torch.where(keep, x * (1.0 / realized_keep_prob(rate)),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class _SeededDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed: int, rate: float, part):
-        ctx.seed, ctx.rate, ctx.part = seed, rate, part
-        return _apply(x, seed, rate, part)
+    def forward(ctx, x, seed: int, rate: float, part, rows):
+        ctx.seed, ctx.rate, ctx.part, ctx.rows = seed, rate, part, rows
+        return _apply(x, seed, rate, part, rows)
 
     @staticmethod
     def backward(ctx, g):
-        return _apply(g, ctx.seed, ctx.rate, ctx.part), None, None, None
+        return (_apply(g, ctx.seed, ctx.rate, ctx.part, ctx.rows), None,
+                None, None, None)
 
 
 def seeded_dropout(x: torch.Tensor, seed: int, rate: float,
-                   part=None) -> torch.Tensor:
+                   part=None, rows=None) -> torch.Tensor:
     """Unbiased byte dropout; identity when the rate is below the byte
-    grain (``rate <= 1/512``).  ``part``: see :func:`keep_mask`."""
+    grain (``rate <= 1/512``).  ``part``, ``rows``: see
+    :func:`keep_mask`."""
     if rate <= 1.0 / 512.0:
         return x
     if part is not None and part[2] == 1:
         part = None
-    return _SeededDropout.apply(x, seed, rate, part)
+    return _SeededDropout.apply(x, seed, rate, part, rows)
 
 
 class SeededDropout(nn.Module):
@@ -100,7 +118,9 @@ class SeededDropout(nn.Module):
     step's CPU generator); a module in training mode with a rate above the
     byte grain needs one, as the JAX module needs a "dropout" rng.
     ``part = (dim, t, tp)``: ``x`` is slice t of tp along ``dim`` of the
-    full tensor (:func:`keep_mask`).
+    full tensor; ``forward``'s ``rows = (dim, index, n)``: ``x`` holds the
+    rows ``index`` of the whole tensor's ``n`` along ``dim``
+    (:func:`keep_mask`).
     """
 
     def __init__(self, rate: float, part=None):
@@ -108,9 +128,10 @@ class SeededDropout(nn.Module):
         self.rate = float(rate)
         self.part = part
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, rows=None):
         if not self.training or self.rate <= 1.0 / 512.0:
             return x
         if generator is None:
             raise ValueError("dropout in training mode needs a generator")
-        return seeded_dropout(x, draw_seed(generator), self.rate, self.part)
+        return seeded_dropout(x, draw_seed(generator), self.rate, self.part,
+                              rows)

@@ -15,6 +15,15 @@ The feed-forwards take a ``shard`` (``parallel/tensor.py``): on the model
 axis's rank t of tp they hold slice t of the hidden units, ``w_1`` split by
 output and ``w_2`` by input (:func:`row_parallel`), and their dropout keeps
 the matching slice of one process's mask.
+
+The time-wise modules take a ``seq`` (``parallel/sequence.py``): on a rank
+of the mesh's seq axis their input holds its frame block and the whole
+text (or, for the postnet and the duration predictor, the frame block
+alone).  Each convolution over time then reads its halo from the
+neighbouring blocks (:func:`conv1d`), BatchNorm's sums run over the data
+and seq axes with each replicated text row counted once
+(:func:`_batch_stats`), and dropout keeps the rank's rows of one process's
+mask.  ``seq`` None is the whole sequence.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from torch import nn
 
 from a3t_tpu_torch.models.dropout import SeededDropout
 from a3t_tpu_torch.parallel.mesh import data_world, global_sum
+from a3t_tpu_torch.parallel.sequence import halo_pad, halo_trim
 from a3t_tpu_torch.parallel.tensor import (ModelShard, copy_to_model,
                                            reduce_from_model)
 
@@ -81,23 +91,39 @@ def dense(linear: nn.Linear, x: torch.Tensor, dtype=None,
     return F.linear(x.to(dt), linear.weight.to(dt), b)
 
 
+def _half_width(conv: nn.Conv1d) -> int:
+    """The rows of 'same' padding on each side of a stride-1 convolution
+    of odd kernel (its ``padding``, or ``"same"``)."""
+    if conv.padding == "same":
+        return (conv.kernel_size[0] - 1) // 2 * conv.dilation[0]
+    return conv.padding[0]
+
+
 def conv1d(conv: nn.Conv1d, x: torch.Tensor, dtype=None,
-           bias: bool = True) -> torch.Tensor:
-    """flax ``Conv(dtype=dtype)`` on (B, C, T): as :func:`dense`."""
+           bias: bool = True, seq=None) -> torch.Tensor:
+    """flax ``Conv(dtype=dtype)`` on (B, C, T): as :func:`dense`.  With a
+    ``seq`` layout, the rank's rows of the convolution over the whole
+    sequence: the halo exchanged (``parallel/sequence.py``), no padding."""
     dt = _compute_dtype(x, dtype)
     b = None if conv.bias is None or not bias else conv.bias.to(dt)
-    return F.conv1d(x.to(dt), conv.weight.to(dt), b, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    if seq is None:
+        return F.conv1d(x.to(dt), conv.weight.to(dt), b, conv.stride,
+                        conv.padding, conv.dilation, conv.groups)
+    h = _half_width(conv)
+    y = F.conv1d(halo_pad(x.to(dt), h, seq), conv.weight.to(dt), b,
+                 conv.stride, 0, conv.dilation, conv.groups)
+    return halo_trim(y, h, seq)
 
 
-def row_parallel(linear, x: torch.Tensor, dtype=None, tp: int = 1
-                 ) -> torch.Tensor:
+def row_parallel(linear, x: torch.Tensor, dtype=None, tp: int = 1,
+                 seq=None) -> torch.Tensor:
     """:func:`dense` or :func:`conv1d` of a layer split by input over the
     model axis's ``tp`` ranks: the partial products are summed over the
     model group (``parallel/tensor.py``), then the whole bias is added
-    once.  At tp = 1 the layer's own :func:`dense` or :func:`conv1d`."""
+    once.  At tp = 1 the layer's own :func:`dense` or :func:`conv1d`.
+    ``seq``: a convolution's layout on the seq axis."""
     conv = isinstance(linear, nn.Conv1d)
-    op = conv1d if conv else dense
+    op = functools.partial(conv1d, seq=seq) if conv else dense
     if tp == 1:
         return op(linear, x, dtype)
     y = reduce_from_model(op(linear, x, dtype, bias=False), tp)
@@ -128,7 +154,7 @@ def running_stats_frozen():
         _FROZEN.on = before
 
 
-def _batch_stats(bn: nn.BatchNorm1d, x: torch.Tensor):
+def _batch_stats(bn: nn.BatchNorm1d, x: torch.Tensor, seq=None):
     """flax's batch statistics of a float32 ``x`` over every axis but C,
     padding included: the mean and the variance E[x^2] - E[x]^2 (clipped at
     0, biased); the running statistics move by ``ra = 0.9 * ra + 0.1 *
@@ -138,10 +164,19 @@ def _batch_stats(bn: nn.BatchNorm1d, x: torch.Tensor):
     differentiably, and divided by the global count, as GSPMD reduces
     flax's statistics over the data axis: the running statistics stay
     equal on every rank.  The model axis's ranks hold the same rows, so
-    they take no part."""
+    they take no part.  Under a ``seq`` layout, ``x`` (B, C, block + tail)
+    holds the rank's frame block and the replicated tail: the sums run over
+    the data and seq groups, the tail counted by seq rank 0 alone."""
     dims = (0,) + tuple(range(2, x.dim()))
     w = data_world()
-    if w > 1:
+    if seq is not None:
+        count = w * x.shape[0] * seq.length
+        own = x if seq.rank == 0 else x.narrow(-1, 0, seq.block)
+        sums = global_sum(torch.stack([own.sum(dim=dims),
+                                       (own * own).sum(dim=dims)]),
+                          "data_seq")
+        mean, mean_sq = sums[0] / count, sums[1] / count
+    elif w > 1:
         count = w * (x.numel() // x.shape[1])
         sums = global_sum(torch.stack([x.sum(dim=dims),
                                        (x * x).sum(dim=dims)]))
@@ -163,15 +198,16 @@ def _normalize(bn: nn.BatchNorm1d, x: torch.Tensor, mean, var):
     return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
 
-def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor,
+                     seq=None) -> torch.Tensor:
     """flax ``BatchNorm(use_running_average=False, momentum=0.9)`` over
     (B, C, T) or (B, C, H, W) in float32 (:func:`_batch_stats`)."""
     x = x.float()
-    return _normalize(bn, x, *_batch_stats(bn, x))
+    return _normalize(bn, x, *_batch_stats(bn, x, seq))
 
 
-def batch_norm_compute_dtype(bn: nn.BatchNorm1d, x: torch.Tensor
-                             ) -> torch.Tensor:
+def batch_norm_compute_dtype(bn: nn.BatchNorm1d, x: torch.Tensor,
+                             seq=None) -> torch.Tensor:
     """flax 0.12's ``BatchNorm(dtype=x.dtype)`` on a compute-dtype ``x``
     (the JAX conv module's ``bn_compute_dtype``, layers.py:216-220): the
     statistics are reduced from one float32 copy of ``x``; the normalisation
@@ -182,13 +218,15 @@ def batch_norm_compute_dtype(bn: nn.BatchNorm1d, x: torch.Tensor
     trip sums them in float32 first.  Running statistics stay float32."""
     if not bn.training:
         return batch_norm_eval(bn, x.float()).to(x.dtype)
-    mean, var = _batch_stats(bn, x.float())
+    mean, var = _batch_stats(bn, x.float(), seq)
     return _normalize(bn, x.float(), mean, var).to(x.dtype)
 
 
-def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm by the module's mode: batch statistics in training."""
-    return batch_norm_train(bn, x) if bn.training else batch_norm_eval(bn, x)
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, seq=None) -> torch.Tensor:
+    """BatchNorm by the module's mode: batch statistics in training
+    (``seq``: the input's layout on the seq axis)."""
+    return (batch_norm_train(bn, x, seq) if bn.training
+            else batch_norm_eval(bn, x))
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -209,9 +247,11 @@ class PositionwiseFeedForward(nn.Module):
         self.dtype = dtype
         self.tp = shard.size
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq=None):
         x = copy_to_model(x, self.tp)
-        h = self.dropout(self.act(dense(self.w_1, x, self.dtype)), generator)
+        rows = None if seq is None else seq.drop_rows(1, x.device)
+        h = self.dropout(self.act(dense(self.w_1, x, self.dtype)), generator,
+                         rows)
         return row_parallel(self.w_2, h, self.dtype, self.tp)
 
 
@@ -236,11 +276,13 @@ class MultiLayeredConv1d(nn.Module):
         self.dtype = dtype
         self.tp = shard.size
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq=None):
         x = copy_to_model(x, self.tp)
-        h = F.relu(conv1d(self.w_1, x.transpose(1, 2), self.dtype))
-        h = self.dropout(h, generator)
-        return row_parallel(self.w_2, h, self.dtype, self.tp).transpose(1, 2)
+        h = F.relu(conv1d(self.w_1, x.transpose(1, 2), self.dtype, seq=seq))
+        h = self.dropout(h, generator, None if seq is None
+                         else seq.drop_rows(2, h.device))
+        return row_parallel(self.w_2, h, self.dtype, self.tp,
+                            seq).transpose(1, 2)
 
 
 class ConvolutionModule(nn.Module):
@@ -265,15 +307,15 @@ class ConvolutionModule(nn.Module):
         self.dtype = dtype
         self.bn_compute_dtype = bn_compute_dtype
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
         dt = self.dtype
         h = conv1d(self.pointwise_conv1, x.transpose(1, 2), dt)
         a, g = h.chunk(2, dim=1)
-        h = conv1d(self.depthwise_conv, a * torch.sigmoid(g), dt)
+        h = conv1d(self.depthwise_conv, a * torch.sigmoid(g), dt, seq=seq)
         if self.bn_compute_dtype and dt is not None:
-            h = batch_norm_compute_dtype(self.norm, h)
+            h = batch_norm_compute_dtype(self.norm, h, seq)
         else:
-            h = batch_norm(self.norm, h.float())
+            h = batch_norm(self.norm, h.float(), seq)
             if dt is not None:
                 h = h.to(dt)
         return conv1d(self.pointwise_conv2, self.act(h), dt).transpose(1, 2)
@@ -300,13 +342,16 @@ class Postnet(nn.Module):
         self.dropout = SeededDropout(dropout_rate)
         self.dtype = dtype
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq=None):
+        """``seq``: the frames' layout on the seq axis (no tail)."""
         h = x.transpose(1, 2)
+        rows = None if seq is None else seq.drop_rows(2, x.device)
         for i, (conv, bn) in enumerate(self.postnet):
-            h = batch_norm(bn, conv1d(conv, h, self.dtype).float())
+            h = batch_norm(bn, conv1d(conv, h, self.dtype, seq=seq).float(),
+                           seq)
             if i < len(self.postnet) - 1:
                 h = torch.tanh(h if self.dtype is None else h.to(self.dtype))
-            h = self.dropout(h, generator)
+            h = self.dropout(h, generator, rows)
         return h.transpose(1, 2)
 
 
@@ -341,11 +386,13 @@ class VariancePredictor(nn.Module):
             for i in range(n_layers))
         self.linear = nn.Linear(n_chans, 1)
 
-    def forward(self, x, pad_mask=None, generator=None):
+    def forward(self, x, pad_mask=None, generator=None, seq=None):
+        """``seq``: the positions' layout on the seq axis (no tail)."""
         h = x
+        rows = None if seq is None else seq.drop_rows(1, x.device)
         for conv, relu, norm, drop in self.conv:
-            h = conv(h.transpose(1, 2)).transpose(1, 2)
-            h = drop(norm(relu(h)), generator)
+            h = conv1d(conv, h.transpose(1, 2), seq=seq).transpose(1, 2)
+            h = drop(norm(relu(h)), generator, rows)
         out = self.linear(h)
         if pad_mask is not None:
             out = out.masked_fill(pad_mask[..., None], 0.0)
@@ -361,8 +408,8 @@ class DurationPredictor(VariancePredictor):
                  kernel_size: int = 3, dropout_rate: float = 0.1):
         super().__init__(idim, n_layers, n_chans, kernel_size, dropout_rate)
 
-    def forward(self, x, pad_mask=None, generator=None):
-        return super().forward(x, pad_mask, generator)[..., 0]
+    def forward(self, x, pad_mask=None, generator=None, seq=None):
+        return super().forward(x, pad_mask, generator, seq)[..., 0]
 
     @staticmethod
     def to_durations(log_durations: torch.Tensor, offset: float = 1.0

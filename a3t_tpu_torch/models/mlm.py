@@ -30,6 +30,12 @@ and hidden units and everything else is whole.  :func:`build_model` builds
 the slice of the live mesh's rank from the seeded initialisation of the
 whole model, so the weights at tp = 2 are the slices of tp = 1's.
 
+On a rank of the mesh's seq axis, ``forward(..., seq=layout)`` and
+``tts_forward`` take the rank's frame block of every (B, F, ...) input and
+the whole text (``parallel/sequence.py``); they return the outputs of the
+block's frames, and the ranks together compute what one process computes
+on the whole frames (``train/train_step.py`` slices the inputs).
+
 ``forward(..., speech_only=True)`` is the branch of speech-only corpora
 (the JAX model's :222-224, the reference's conformer/encoder.py:531-537):
 the sentinel text token gets ``segment_emb(0)``, the speech no segment
@@ -55,6 +61,7 @@ from a3t_tpu_torch.models.conformer import (
 from a3t_tpu_torch.models.layers import (DurationPredictor, MaskedInput,
                                          Postnet, dense, length_regulate)
 from a3t_tpu_torch.parallel.mesh import all_reduce_sum, model_rank, model_world
+from a3t_tpu_torch.parallel.sequence import frame_block, gather_frames
 from a3t_tpu_torch.parallel.sharding import shard_state
 from a3t_tpu_torch.parallel.tensor import ModelShard
 
@@ -154,9 +161,13 @@ class A3TMLMModel(nn.Module):
 
     def encode(self, speech, text, masked_position, speech_mask, text_mask,
                speech_segment_pos, text_segment_pos, spemb=None,
-               generator=None, speech_only: bool = False):
-        """((B, F + T, d) encoder states, (B, 1, F + T) mask)."""
+               generator=None, speech_only: bool = False, seq=None):
+        """((B, F + T, d) encoder states, (B, 1, F + T) mask).  With a
+        ``seq`` layout the inputs and the states are the rank's frame block
+        and the text, (B, F / sp + T, d), and the mask is the whole
+        sequence's key mask."""
         enc = self.encoder
+        sp_seq = None if seq is None else seq.speech()
         dt = self.config.encoder.dtype
         n_frames = speech.shape[1]
         if dt is not None:
@@ -169,7 +180,7 @@ class A3TMLMModel(nn.Module):
         h_text = enc.text_embed[0](text)
         if dt is not None:
             h_speech, h_text = h_speech.to(dt), h_text.to(dt)
-        h_speech, pos_speech = self.posenc(h_speech, generator)
+        h_speech, pos_speech = self.posenc(h_speech, generator, sp_seq)
         h_text, pos_text = self.posenc(h_text, generator)
         if self.config.use_segment_emb:
             if speech_only:
@@ -182,21 +193,24 @@ class A3TMLMModel(nn.Module):
             # no compute dtype: flax promotes to float32
             se = dense(self.spemb_proj, se.to(h_speech.dtype))[:, None, :]
             h_speech, h_text = h_speech + se, h_text + se
+        speech_mask = gather_frames(speech_mask, sp_seq)
         if self.pre_speech_encoders is not None:
             h_speech = self.pre_speech_encoders(
                 h_speech, pos_speech, speech_mask[:, None, :], generator,
-                n_frames)
+                n_frames, sp_seq)
         x = torch.cat([h_speech, h_text], dim=1)
         pos_emb = None if pos_speech is None else \
             torch.cat([pos_speech, pos_text], dim=1)
         mask = torch.cat([speech_mask, text_mask], dim=1)[:, None, :]
-        return enc(x, pos_emb, mask, generator, n_frames), mask
+        joint = None if seq is None else seq.with_tail(text.shape[1])
+        return enc(x, pos_emb, mask, generator, n_frames, joint), mask
 
-    def decode(self, x, mask, generator=None, n_frames=None):
+    def decode(self, x, mask, generator=None, n_frames=None, seq=None):
         """The refinement stack re-scales and takes a fresh positional table
-        over the full concatenated length (conformer/encoder.py:568-614)."""
-        x, pos_full = self.decoder_posenc(x, generator)
-        return self.decoder(x, pos_full, mask, generator, n_frames)
+        over the full concatenated length (conformer/encoder.py:568-614);
+        ``seq``: ``x``'s rows on the seq axis, frames then text."""
+        x, pos_full = self.decoder_posenc(x, generator, seq)
+        return self.decoder(x, pos_full, mask, generator, n_frames, seq)
 
     def _mid(self, hidden, spemb):
         """The encoder output plus ``spemb_proj_mid``'s projection of the
@@ -207,50 +221,57 @@ class A3TMLMModel(nn.Module):
         return hidden + dense(self.spemb_proj_mid, se.to(hidden.dtype)
                               )[:, None, :], se
 
-    def _predict(self, speech_hidden, speech_mask, generator):
+    def _predict(self, speech_hidden, speech_mask, generator, seq=None):
         """Log durations (B, F), 0 at padded frames; the predictor has no
         compute dtype, so flax promotes a bfloat16 input to float32."""
         return self.duration_predictor(speech_hidden.float(), ~speech_mask,
-                                       generator)
+                                       generator, seq)
 
-    def _head(self, speech_hidden, se, generator):
+    def _head(self, speech_hidden, se, generator, seq=None):
         """``sfc``, the speaker offset and the postnet: (before, after)."""
         before_outs = self.sfc(speech_hidden).float()
         if se is not None:
             before_outs = before_outs + self.spemb_out(se).float()[:, None, :]
         after_outs = None
         if self.config.postnet_layers > 0:
-            after_outs = before_outs + self.postnet(before_outs, generator)
+            after_outs = before_outs + self.postnet(before_outs, generator,
+                                                    seq)
         return before_outs, after_outs
 
     def forward(self, speech, text, masked_position, speech_mask, text_mask,
                 speech_segment_pos, text_segment_pos, spemb=None,
                 generator=None, return_log_durations: bool = False,
-                speech_only: bool = False):
+                speech_only: bool = False, seq=None):
         """``spemb`` (B, spemb_dim): the speaker embedding of a
         speaker-conditioned model (zeros when None); a model without
         speaker conditioning ignores it, as the JAX model does.  The
         duration predictor reads the encoder output's speech slice, before
         the decoder (sedit_model.py:420-428).  ``speech_only``: the
-        segment embeddings of speech-only batches (module docstring)."""
+        segment embeddings of speech-only batches (module docstring).
+        ``seq``: the rank's layout on the seq axis (``parallel/
+        sequence.py``); the frame inputs are then its block."""
         n_frames = speech.shape[1]
+        sp_seq = None if seq is None else seq.speech()
         hidden, mask = self.encode(
             speech, text, masked_position, speech_mask, text_mask,
             speech_segment_pos, text_segment_pos, spemb, generator,
-            speech_only)
+            speech_only, seq)
         hidden, se = self._mid(hidden, spemb)
         log_d = None
         if self.config.duration_predictor_layers > 0:
             log_d = self._predict(hidden[:, :n_frames], speech_mask,
-                                  generator)
+                                  generator, sp_seq)
         if self.config.decoder is not None:
-            hidden = self.decode(hidden, mask, generator, n_frames)
-        outs = self._head(hidden[:, :n_frames], se, generator)
+            hidden = self.decode(hidden, mask, generator, n_frames,
+                                 None if seq is None
+                                 else seq.with_tail(text.shape[1]))
+        outs = self._head(hidden[:, :n_frames], se, generator, sp_seq)
         return (*outs, log_d) if return_log_durations else outs
 
     def tts_forward(self, speech, text, masked_position, speech_mask,
                     text_mask, speech_segment_pos, text_segment_pos,
-                    durations, out_frames: int, spemb=None, generator=None):
+                    durations, out_frames: int, spemb=None, generator=None,
+                    seq=None):
         """The duration-aware variant's forward (ESPnetMLMTTSModel._forward,
         sedit_model.py:415-452; JAX ``tts_forward``).
 
@@ -262,21 +283,37 @@ class A3TMLMModel(nn.Module):
         ``durations * speech_mask`` to ``out_frames`` frames, are followed by
         its text states, and the decoder runs over both with the mask
         [frame valid, text mask].  Returns (before_outs, after_outs) at
-        ``out_frames`` frames and the (B, R) log durations."""
+        ``out_frames`` frames and the (B, R) log durations.
+
+        With a ``seq`` layout (of the R reduced positions) the reduced
+        inputs are the rank's block; a frame's phone depends on the
+        cumulative durations of the whole row, so the block's speech
+        states are all-gathered over the seq group, regulated whole, and
+        the rank keeps its block of the ``out_frames`` frames (the outputs
+        are that block's)."""
         n_red = speech.shape[1]
         hidden, _ = self.encode(
             speech, text, masked_position, speech_mask, text_mask,
-            speech_segment_pos, text_segment_pos, spemb, generator)
+            speech_segment_pos, text_segment_pos, spemb, generator,
+            seq=seq)
         hidden, se = self._mid(hidden, spemb)
-        log_d = self._predict(hidden[:, :n_red], speech_mask, generator)
+        red_seq = None if seq is None else seq.speech()
+        log_d = self._predict(hidden[:, :n_red], speech_mask, generator,
+                              red_seq)
         expanded, frame_valid = length_regulate(
-            hidden[:, :n_red], durations * speech_mask, out_frames)
+            gather_frames(hidden[:, :n_red], red_seq),
+            gather_frames(durations * speech_mask, red_seq), out_frames)
+        out_seq = None if seq is None else dataclasses.replace(
+            seq, frames=out_frames, tail=text.shape[1])
+        expanded = frame_block(expanded, out_seq)
+        n_out = expanded.shape[1]
         hidden = torch.cat([expanded, hidden[:, n_red:]], dim=1)
         mask = torch.cat([frame_valid, text_mask], dim=1)[:, None, :]
         if self.config.decoder is not None:
-            hidden = self.decode(hidden, mask, generator, out_frames)
-        before_outs, after_outs = self._head(hidden[:, :out_frames], se,
-                                             generator)
+            hidden = self.decode(hidden, mask, generator, n_out, out_seq)
+        before_outs, after_outs = self._head(
+            hidden[:, :n_out], se, generator,
+            None if out_seq is None else out_seq.speech())
         return before_outs, after_outs, log_d
 
 
@@ -295,11 +332,11 @@ def mlm_loss(before_outs, after_outs, target, masked_position,
     """Masked reconstruction loss (sedit_model.py:320-340): per-frame L1
     (or MSE) summed over the mel bins, before plus after the postnet,
     averaged over the masked frames.  The denominator is the masked count
-    of the global batch, summed over the data axis's ranks (``parallel/
-    mesh.py``; this rank's own count at dp = 1): the data ranks' losses
-    then sum to the global batch's, as GSPMD's mean over the data axis
-    gives in JAX.  The model axis's ranks hold the same rows and the same
-    loss."""
+    of the global batch, summed over the data and seq axes' ranks
+    (``parallel/mesh.py``; this rank's own count in one process): the
+    ranks' losses then sum to the global batch's, as GSPMD's mean over the
+    data and seq axes gives in JAX.  The model axis's ranks hold the same
+    rows and the same loss."""
     def err(out):
         d = out - target
         return (d * d if use_mse else d.abs()).sum(dim=-1)
@@ -308,7 +345,7 @@ def mlm_loss(before_outs, after_outs, target, masked_position,
     if after_outs is not None:
         loss = loss + err(after_outs)
     w = masked_position.to(loss.dtype)
-    return (loss * w).sum() / (all_reduce_sum(w.sum()) + 1e-10)
+    return (loss * w).sum() / (all_reduce_sum(w.sum(), "data_seq") + 1e-10)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:

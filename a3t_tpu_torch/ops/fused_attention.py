@@ -35,6 +35,16 @@ kernels draw the same bits, so the backward regenerates the forward's mask.
 ``head0`` is the global index of the call's first head: a rank of the
 model axis that holds heads ``head0 .. head0 + H - 1`` of a layer
 (``parallel/sharding.py``) draws the masks one process draws for them.
+
+**Query blocks** (the mesh's seq axis, ``parallel/sequence.py``): a call
+may hold Lq query rows against Lk >= Lq keys, a block of the square call's
+rows.  ``q_rows = (split, off)`` names them: local row i is global row
+``i + off`` below ``split`` and ``i + Lk - Lq`` from there on (a seq
+rank's frame block, then the whole text); None is the square call.  The
+bias is (B, H, Lq, Lk), the lse (B, H, 1, Lq), and the dropout counter
+``global_row * Lk + col``, so a block draws exactly those rows of the square
+call's mask; K2's dk and dv cover all Lk keys, summed over the block's
+queries alone.
 """
 
 from __future__ import annotations
@@ -95,11 +105,27 @@ def threshold(rate: float) -> int:
     return int(rate * 0xFFFFFFFF) & _M32
 
 
+def global_rows(lq: int, lk: int, q_rows=None, device=None) -> torch.Tensor:
+    """(lq,) int64: the global row of each of a call's ``lq`` query rows
+    against ``lk`` keys (``q_rows``: the module docstring's (split, off);
+    None is the square call, rows 0 .. lk - 1)."""
+    i = torch.arange(lq, dtype=torch.int64, device=device)
+    if q_rows is None:
+        return i
+    split, off = q_rows
+    return i + torch.where(i < split, off, lk - lq)
+
+
 def keep_mask(b: int, h: int, l: int, seed: int, rate: float,
-              device=None, head0: int = 0) -> torch.Tensor:
+              device=None, head0: int = 0, rows=None) -> torch.Tensor:
     """(b, h, l, l) bool dropout keep-mask of the kernel's rule, for heads
-    ``head0 .. head0 + h - 1``."""
-    ctr = torch.arange(l * l, dtype=torch.int64, device=device).view(1, 1, l, l)
+    ``head0 .. head0 + h - 1``; with ``rows`` (an int64 tensor of global
+    rows) the (b, h, len(rows), l) rows of it."""
+    rows = (torch.arange(l, dtype=torch.int64, device=device) if rows is None
+            else rows.to(device=device, dtype=torch.int64))
+    ctr = (rows[:, None] * l + torch.arange(l, dtype=torch.int64,
+                                            device=device)).view(
+        1, 1, len(rows), l)
     lane = (torch.arange(b, dtype=torch.int64, device=device).view(b, 1, 1, 1)
             * 4096 + torch.arange(head0, head0 + h, dtype=torch.int64,
                                   device=device).view(1, h, 1, 1))
@@ -110,26 +136,38 @@ def _flat_mask(mask: torch.Tensor, b: int, l: int) -> torch.Tensor:
     return mask.reshape(b, l).to(torch.int32)
 
 
-def fused_attention_reference(q_u, k, v, bias, mask, seed: int = 0,
-                              rate: float = 0.0, head0: int = 0):
-    """Plain PyTorch version: (out (B,H,L,d) in q's dtype, lse (B,H,1,L) f32).
+def _block_keep(b, h, lq, lk, seed, rate, device, head0, q_rows):
+    """The keep-mask of a call's rows (all rows of a square call)."""
+    rows = None if q_rows is None else global_rows(lq, lk, q_rows, device)
+    return keep_mask(b, h, lk, seed, rate, device=device, head0=head0,
+                     rows=rows)
 
-    q_u/k/v (B,H,L,d); bias (B,H,L,L); mask (B,L) or (B,1,L), nonzero = valid;
-    ``head0`` the global index of head 0 (the dropout lanes).
+
+def fused_attention_reference(q_u, k, v, bias, mask, seed: int = 0,
+                              rate: float = 0.0, head0: int = 0,
+                              q_rows=None):
+    """Plain PyTorch version: (out (B,H,Lq,d) in q's dtype, lse (B,H,1,Lq)
+    f32).
+
+    q_u (B,H,Lq,d); k/v (B,H,Lk,d); bias (B,H,Lq,Lk); mask (B,Lk) or
+    (B,1,Lk), nonzero = valid; ``head0`` the global index of head 0 (the
+    dropout lanes); ``q_rows`` the query block's (split, off), None for
+    the square call (module docstring).
     """
-    b, h, l, d = q_u.shape
+    b, h, lq, d = q_u.shape
+    lk = k.shape[2]
     scale = float(np.float32(1.0 / np.sqrt(d)))
     s = (torch.einsum("bhld,bhmd->bhlm", q_u.float(), k.float())
          + bias.float()) * scale
-    valid = (_flat_mask(mask, b, l) > 0).view(b, 1, 1, l)
+    valid = (_flat_mask(mask, b, lk) > 0).view(b, 1, 1, lk)
     s = torch.where(valid, s, torch.full_like(s, NEG))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
     p = torch.where(valid, e / denom, torch.zeros_like(e))
     if rate > 0.0:
-        keep = keep_mask(b, h, l, seed, rate, device=q_u.device,
-                         head0=head0)
+        keep = _block_keep(b, h, lq, lk, seed, rate, q_u.device, head0,
+                           q_rows)
         p = p * (keep.float() * float(np.float32(1.0 / (1.0 - rate))))
     out = torch.einsum("bhlm,bhmd->bhld", p, v.float()).to(q_u.dtype)
     lse = (m + torch.log(denom))[..., 0][:, :, None, :]
@@ -137,24 +175,27 @@ def fused_attention_reference(q_u, k, v, bias, mask, seed: int = 0,
 
 
 def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
-                                  lse, g, head0: int = 0):
+                                  lse, g, head0: int = 0, q_rows=None):
     """Plain PyTorch version of the backward: (dq, dk, dv, dbias), each in
-    its input's dtype, from the forward's inputs, ``out``, ``lse`` and the
-    output gradient ``g`` (``_bwd_call``, fused_attention.py:135-191)."""
-    b, h, l, d = q_u.shape
+    its input's dtype and shape, from the forward's inputs, ``out``,
+    ``lse`` and the output gradient ``g`` (``_bwd_call``,
+    fused_attention.py:135-191); dk and dv sum over the call's query rows
+    alone."""
+    b, h, lq, d = q_u.shape
+    lk = k.shape[2]
     scale = float(np.float32(1.0 / np.sqrt(d)))
     qf, kf, vf, gf = (t.float() for t in (q_u, k, v, g))
-    delta = (gf * out.float()).sum(-1, keepdim=True)  # (B, H, L, 1)
+    delta = (gf * out.float()).sum(-1, keepdim=True)  # (B, H, Lq, 1)
     s = (torch.einsum("bhld,bhmd->bhlm", qf, kf) + bias.float()) * scale
-    valid = (_flat_mask(mask, b, l) > 0).view(b, 1, 1, l)
+    valid = (_flat_mask(mask, b, lk) > 0).view(b, 1, 1, lk)
     s = torch.where(valid, s, torch.full_like(s, NEG))
     p = torch.exp(s - lse[:, :, 0, :, None])
     p = torch.where(valid, p, torch.zeros_like(p))
     dp = torch.einsum("bhld,bhmd->bhlm", gf, vf)
     p_d = p
     if rate > 0.0:
-        keep = keep_mask(b, h, l, seed, rate, device=q_u.device,
-                         head0=head0).float() \
+        keep = _block_keep(b, h, lq, lk, seed, rate, q_u.device, head0,
+                           q_rows).float() \
             * float(np.float32(1.0 / (1.0 - rate)))
         p_d = p * keep
         dp = dp * keep
@@ -170,14 +211,14 @@ def fused_attention_bwd_reference(q_u, k, v, bias, mask, seed, rate, out,
 def _entry():
     """K1's C entry point, built and loaded on first use."""
     return native.bind("fused_attention", LIBRARIES["fused_attention"],
-                       "a3t_fused_attention_fwd", 8, 8)
+                       "a3t_fused_attention_fwd", 8, 11)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry_bwd():
     """K2's C entry point, built and loaded on first use."""
     return native.bind("fused_attention_bwd", LIBRARIES["fused_attention_bwd"],
-                       "a3t_fused_attention_bwd", 12, 6)
+                       "a3t_fused_attention_bwd", 12, 9)
 
 
 def _check(q_u, named):
@@ -199,12 +240,14 @@ def _check(q_u, named):
         raise ValueError("fused_attention kernel takes contiguous tensors")
 
 
-def _launch(fn, ptrs, ints, q_u, seed: int, rate: float, what: str):
-    """``ints`` follow B, H, L, d and the dtype (the last is head0)."""
-    b, h, l, d = q_u.shape
+def _launch(fn, ptrs, ints, q_u, lk: int, seed: int, rate: float,
+            what: str):
+    """``ints`` follow B, H, Lq, Lk, d and the dtype (the last three are
+    head0 and the query block's split and offset)."""
+    b, h, lq, d = q_u.shape
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
-        err = fn(*ptrs, b, h, l, d,
+        err = fn(*ptrs, b, h, lq, lk, d,
                  0 if q_u.dtype == torch.float32 else 1, *ints,
                  float(np.float32(1.0 / np.sqrt(d))), seed & _M32,
                  threshold(rate), float(np.float32(1.0 / (1.0 - rate))),
@@ -219,60 +262,83 @@ def _sm_count(index: int) -> int:
 
 
 def _fwd_plan(b: int, h: int, l: int, sms: int = 132,
-              rows: int = ROW_TILE) -> tuple[int, int]:
-    """(splits, keys per split) of K1's grid.  A CTA owns ``rows`` query
-    rows of one (b, h); when those B * H * ceil(L / rows) CTAs do not fill
-    the card's ``sms`` multiprocessors, each row tile's keys are split into
-    ranges of a multiple of 16 keys, enough that the grid holds >= ``sms``
-    CTAs where L allows it.  (1, L) means no split."""
+              rows: int = ROW_TILE, lk: int = None) -> tuple[int, int]:
+    """(splits, keys per split) of K1's grid for ``l`` query rows against
+    ``lk`` keys (``l`` when None).  A CTA owns ``rows`` query rows of one
+    (b, h); when those B * H * ceil(l / rows) CTAs do not fill the card's
+    ``sms`` multiprocessors (a seq rank's block has 1/sp of the rows), each
+    row tile's keys are split into ranges of a multiple of 16 keys, enough
+    that the grid holds >= ``sms`` CTAs where lk allows it.  (1, lk) means
+    no split."""
+    lk = l if lk is None else lk
     tiles = b * h * -(-l // rows)
     if tiles >= sms:
-        return 1, l
-    units = -(-l // SPLIT_UNIT)
+        return 1, lk
+    units = -(-lk // SPLIT_UNIT)
     kps = SPLIT_UNIT * max(1, units // -(-sms // tiles))
-    splits = -(-l // kps)
-    return (1, l) if splits == 1 else (splits, kps)
+    splits = -(-lk // kps)
+    return (1, lk) if splits == 1 else (splits, kps)
+
+
+def _q_rows(q_rows, lq: int, lk: int) -> tuple[int, int]:
+    """The kernels' (split, off) of a call's query rows; raise unless they
+    are a block of the lk rows."""
+    if q_rows is None:
+        if lq != lk:
+            raise ValueError(f"{lq} query rows against {lk} keys need "
+                             "q_rows (the block's split and offset)")
+        return lk, 0
+    split, off = (int(x) for x in q_rows)
+    if not (lq <= lk and 0 <= split <= lq and 0 <= off <= lk - lq):
+        raise ValueError(f"q_rows {q_rows} of {lq} query rows is no block "
+                         f"of {lk} rows")
+    return split, off
 
 
 def _kernel_fwd(q_u, k, v, bias, mask, seed: int, rate: float,
-                head0: int = 0):
+                head0: int = 0, q_rows=None):
     global LAUNCHES
-    b, h, l, d = q_u.shape
-    _check(q_u, (("k", k, (b, h, l, d)), ("v", v, (b, h, l, d)),
-                 ("bias", bias, (b, h, l, l))))
+    b, h, lq, d = q_u.shape
+    lk = k.shape[2]
+    split, off = _q_rows(q_rows, lq, lk)
+    _check(q_u, (("k", k, (b, h, lk, d)), ("v", v, (b, h, lk, d)),
+                 ("bias", bias, (b, h, lq, lk))))
     if mask.device != q_u.device:
         raise ValueError("fused_attention inputs lie on different devices")
-    m = _flat_mask(mask, b, l).contiguous()
+    m = _flat_mask(mask, b, lk).contiguous()
     out = torch.empty_like(q_u)
-    lse = torch.empty((b, h, 1, l), dtype=torch.float32, device=q_u.device)
-    splits, kps = _fwd_plan(b, h, l, _sm_count(q_u.device.index or 0),
+    lse = torch.empty((b, h, 1, lq), dtype=torch.float32, device=q_u.device)
+    splits, kps = _fwd_plan(b, h, lq, _sm_count(q_u.device.index or 0),
                             ROW_TILE if q_u.dtype == torch.float32
-                            else ROW_TILE_BF16)
+                            else ROW_TILE_BF16, lk)
     # the key ranges' partials (acc, max, sum), combined by a second launch
-    part = (torch.empty(splits * b * h * l * (d + 2), dtype=torch.float32,
+    part = (torch.empty(splits * b * h * lq * (d + 2), dtype=torch.float32,
                         device=q_u.device) if splits > 1 else None)
     _launch(_entry(), (q_u.data_ptr(), k.data_ptr(), v.data_ptr(),
                        bias.data_ptr(), m.data_ptr(), out.data_ptr(),
                        lse.data_ptr(), 0 if part is None else part.data_ptr()),
-            (splits, kps, head0), q_u, seed, rate, "fused_attention")
+            (splits, kps, head0, split, off), q_u, lk, seed, rate,
+            "fused_attention")
     LAUNCHES += 1
     return out, lse
 
 
 def _kernel_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out, lse, g,
-                head0: int = 0):
+                head0: int = 0, q_rows=None):
     global LAUNCHES_BWD
-    b, h, l, d = q_u.shape
-    mat = (b, h, l, d)
-    _check(q_u, (("k", k, mat), ("v", v, mat), ("bias", bias, (b, h, l, l)),
+    b, h, lq, d = q_u.shape
+    lk = k.shape[2]
+    split, off = _q_rows(q_rows, lq, lk)
+    mat, kv = (b, h, lq, d), (b, h, lk, d)
+    _check(q_u, (("k", k, kv), ("v", v, kv), ("bias", bias, (b, h, lq, lk)),
                  ("out", out, mat), ("g", g, mat)))
-    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, 1, l)
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, 1, lq)
             or not lse.is_contiguous()):
         raise ValueError(f"lse: {tuple(lse.shape)} {lse.dtype}, expected "
-                         f"contiguous {(b, h, 1, l)} float32")
+                         f"contiguous {(b, h, 1, lq)} float32")
     if mask.device != q_u.device or lse.device != q_u.device:
         raise ValueError("fused_attention inputs lie on different devices")
-    m = _flat_mask(mask, b, l).contiguous()
+    m = _flat_mask(mask, b, lk).contiguous()
     # delta = sum(g * out) per row stays one expression, as it stays
     # outside the Pallas kernel (fused_attention.py:140-141)
     delta = (g.float() * out.float()).sum(-1).contiguous()
@@ -281,7 +347,8 @@ def _kernel_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out, lse, g,
                            bias.data_ptr(), m.data_ptr(), g.data_ptr(),
                            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), dbias.data_ptr()),
-            (head0,), q_u, seed, rate, "fused_attention backward")
+            (head0, split, off), q_u, lk, seed, rate,
+            "fused_attention backward")
     LAUNCHES_BWD += 1
     return dq, dk, dv, dbias
 
@@ -303,24 +370,27 @@ def _check_head0(head0: int, h: int) -> None:
 
 
 def fused_attention_fwd(q_u, k, v, bias, mask, seed: int = 0,
-                        rate: float = 0.0, head0: int = 0):
+                        rate: float = 0.0, head0: int = 0, q_rows=None):
     """(out, lse): the plain version for CPU tensors, K1 for CUDA."""
     _check_head0(head0, q_u.shape[1])
+    _q_rows(q_rows, q_u.shape[2], k.shape[2])
     if _on_device(q_u, rate) == "cpu":
         return fused_attention_reference(q_u, k, v, bias, mask, seed, rate,
-                                         head0)
-    return _kernel_fwd(q_u, k, v, bias, mask, seed, rate, head0)
+                                         head0, q_rows)
+    return _kernel_fwd(q_u, k, v, bias, mask, seed, rate, head0, q_rows)
 
 
 def fused_attention_bwd(q_u, k, v, bias, mask, seed: int, rate: float, out,
-                        lse, g, head0: int = 0):
+                        lse, g, head0: int = 0, q_rows=None):
     """(dq, dk, dv, dbias): the plain version for CPU tensors, K2 for CUDA."""
     _check_head0(head0, q_u.shape[1])
+    _q_rows(q_rows, q_u.shape[2], k.shape[2])
     if _on_device(q_u, rate) == "cpu":
         return fused_attention_bwd_reference(q_u, k, v, bias, mask, seed,
-                                             rate, out, lse, g, head0)
+                                             rate, out, lse, g, head0,
+                                             q_rows)
     return _kernel_bwd(q_u, k, v, bias, mask, seed, rate, out, lse, g,
-                       head0)
+                       head0, q_rows)
 
 
 class FusedAttention(torch.autograd.Function):
@@ -331,11 +401,11 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q_u, k, v, bias, mask, seed: int, rate: float,
-                head0: int):
+                head0: int, q_rows):
         out, lse = fused_attention_fwd(q_u, k, v, bias, mask, seed, rate,
-                                       head0)
+                                       head0, q_rows)
         ctx.save_for_backward(q_u, k, v, bias, mask, out, lse)
-        ctx.seed, ctx.rate, ctx.head0 = seed, rate, head0
+        ctx.seed, ctx.rate, ctx.head0, ctx.q_rows = seed, rate, head0, q_rows
         return out
 
     @staticmethod
@@ -343,19 +413,23 @@ class FusedAttention(torch.autograd.Function):
         q_u, k, v, bias, mask, out, lse = ctx.saved_tensors
         dq, dk, dv, dbias = fused_attention_bwd(
             q_u, k, v, bias, mask, ctx.seed, ctx.rate, out, lse,
-            g.contiguous(), ctx.head0)
-        return dq, dk, dv, dbias, None, None, None, None
+            g.contiguous(), ctx.head0, ctx.q_rows)
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def fused_attention(q_u, k, v, bias, mask, dropout_rate: float = 0.0,
-                    seed: int = 0, head0: int = 0):
-    """Fused softmax(+dropout)+PV attention output (B, H, L, d), with its
+                    seed: int = 0, head0: int = 0, q_rows=None):
+    """Fused softmax(+dropout)+PV attention output (B, H, Lq, d), with its
     backward through K2.
 
     Args mirror ``a3t_tpu.ops.fused_attention.fused_attention``, except that
-    dropout takes an int ``seed`` (the JAX wrapper draws it from its rng)
-    and ``head0``, the global index of head 0 (its dropout lane), which is
-    0 unless the heads are a slice of a layer's.
+    dropout takes an int ``seed`` (the JAX wrapper draws it from its rng),
+    ``head0``, the global index of head 0 (its dropout lane), which is 0
+    unless the heads are a slice of a layer's, and ``q_rows``, the query
+    block's (split, off) when q_u holds a block of k's rows (module
+    docstring).
     """
     return FusedAttention.apply(q_u, k, v, bias, mask, int(seed),
-                                float(dropout_rate), int(head0))
+                                float(dropout_rate), int(head0),
+                                None if q_rows is None
+                                else tuple(int(x) for x in q_rows))

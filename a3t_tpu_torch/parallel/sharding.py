@@ -28,8 +28,12 @@ the small ones replicated; the layouts differ and the numbers do not, as
 each element's update depends on that element alone (and on the global
 norm).
 
-A step sums the flat gradients over the data group and keeps the owned
-slice (:func:`reduce_scatter_flat`, ``reduce_scatter_tensor``), and puts
+The seq axis (``parallel/sequence.py``) splits no parameter and no
+moment: its ranks hold the same slices as their data rank's, as JAX's
+``moment_partition_spec`` slices over ``data`` alone.  A step sums the
+flat gradients over the seq group (``all_reduce``) and over the data
+group, keeping the owned slice (:func:`reduce_scatter_flat`,
+``reduce_scatter_tensor``), and puts
 the slices of the update back together on every rank of it
 (:func:`all_gather_flat`, ``all_gather_into_tensor``): one code path for
 every backend, as NCCL and gloo both take these collectives on CPU and
@@ -44,8 +48,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from a3t_tpu_torch.parallel.mesh import (data_group, data_rank, data_world,
-                                         model_group, model_world)
+from a3t_tpu_torch.parallel.mesh import (all_reduce_sum, data_group,
+                                         data_rank, data_world, model_group,
+                                         model_world)
 
 # the projections split by output and by input over the model axis, by the
 # name of their module in an attention block (``self_attn``) or a
@@ -228,8 +233,9 @@ def shard_flat(x: torch.Tensor, r=None, w=None) -> torch.Tensor:
 
 
 def reduce_scatter_flat(x: torch.Tensor) -> torch.Tensor:
-    """The sum over the data group of the flat vector ``x``, this rank's
-    slice of it."""
+    """The sum over the data and seq groups of the flat vector ``x``, this
+    rank's data slice of it (the same on every rank of a seq group)."""
+    x = all_reduce_sum(x, "seq")
     w = data_world()
     if w == 1:
         return x

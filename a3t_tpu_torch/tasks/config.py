@@ -32,13 +32,14 @@ from a3t_tpu_torch.train.trainer import TrainerConfig
 @dataclasses.dataclass
 class MeshConfig:
     """The JAX package's device-mesh settings (``a3t_tpu/parallel/mesh.py``).
-    The port's mesh is one process per card (``parallel/``), ``dp * tp`` of
-    them: ``data_parallel`` None means the number of processes over
-    ``tensor_parallel``, and any other value must cover them with it.
+    The port's mesh is one process per card (``parallel/``), ``dp * sp *
+    tp`` of them, rank ``(d * sp + s) * tp + t``: ``data_parallel`` None
+    means the number of processes over ``sequence_parallel x
+    tensor_parallel``, and any other value must cover them with them.
     ``tensor_parallel`` splits a Conformer model's heads and feed-forward
-    units; ``sequence_parallel`` above 1, and the longformer under
-    ``tensor_parallel`` above 1, raise when a task is built (ROADMAP
-    A10c)."""
+    units, ``sequence_parallel`` the frames of each row (every frame bucket
+    a multiple of it); the longformer under either above 1 raises when a
+    task is built (ROADMAP A10d)."""
 
     data_parallel: Optional[int] = None
     tensor_parallel: int = 1

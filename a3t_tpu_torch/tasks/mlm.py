@@ -26,19 +26,21 @@ set writes per-epoch mel and attention plots of the validation set's first
 batch to ``exp_dir/plots`` (``train/plots.py``).
 
 The JAX mesh is one process per card (``parallel/``): a group of ``dp *
-tp`` processes laid out as ``(data, model)``.  Every rank builds the same
+sp * tp`` processes laid out as ``(data, seq, model)``, rank ``(d * sp +
+s) * tp + t``.  Every rank builds the same
 unsharded plan with bucket batch sizes at ``batch_multiple = dp`` (JAX's
 ``batch_multiple=dp``), takes its data rank's row block of every training
 and validation batch on its own card (``cuda:{rank mod cards}``), uploads
 a device-resident corpus whole, holds its model-axis slice of a Conformer
 model (``mesh.tensor_parallel``: the heads and feed-forward units split
-over tp ranks), and steps through the rank-aware step, optimizer, trainer
-and checkpoints; chained dispatch falls back to one step per call, as
-JAX's does on a mesh.  Rank 0 alone writes ``config.yaml``, ``tokens.txt``,
-the checkpoints, the plots and the tensorboard and wandb logs.  Still
-raising with their ROADMAP item: the ``seq`` axis
-(``mesh.sequence_parallel > 1``) and the longformer on the model axis
-(A10c).
+over tp ranks), steps on its seq rank's frame block of each row
+(``mesh.sequence_parallel``: context parallelism, every frame bucket a
+multiple of sp) through the rank-aware step, optimizer, trainer and
+checkpoints; chained dispatch falls back to one step per call, as JAX's
+does on a mesh.  Rank 0 alone writes ``config.yaml``, ``tokens.txt``, the
+checkpoints, the plots and the tensorboard and wandb logs; the plots'
+forward runs whole on every rank of data rank 0.  Still raising with its
+ROADMAP item: the longformer on the seq or model axis (A10d).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ from a3t_tpu_torch.data.multi_corpus import (CorpusSpec,
 from a3t_tpu_torch.data.records import RecordDataset
 from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.parallel.mesh import (barrier, data_rank, make_mesh,
-                                         rank, rank_device)
+                                         rank, rank_device, world)
 from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
 from a3t_tpu_torch.models.mlm import A3TMLMModel, build_model
 from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
@@ -94,15 +96,11 @@ def check_supported(cfg: A3TTaskConfig) -> int:
     as the config's mesh (``parallel.mesh.make_mesh``) and return the data
     axis's size."""
     m = cfg.mesh
-    if m.sequence_parallel != 1:
-        raise NotImplementedError(
-            "mesh.sequence_parallel > 1 (the seq axis) is not ported "
-            "(ROADMAP A10c)")
-    tp = int(m.tensor_parallel)
+    tp, sp = int(m.tensor_parallel), int(m.sequence_parallel)
     for stack in (cfg.model.encoder, cfg.model.decoder):
         if stack is not None:
-            stack.check_supported(tp)
-    return make_mesh(m.data_parallel, tp)
+            stack.check_supported(tp, sp)
+    return make_mesh(m.data_parallel, tp, sp)
 
 
 class MLMTask:
@@ -252,7 +250,7 @@ class MLMTask:
         transfer = DeviceTransfer(dev) if dev.type == "cuda" else None
 
         chain = int(cfg.trainer.steps_per_dispatch)
-        if chain > 1 and (w > 1 or cfg.corpora
+        if chain > 1 and (world() > 1 or cfg.corpora
                           or cfg.model.duration_predictor_layers > 0):
             logger.warning(
                 "steps_per_dispatch=%d unsupported with mesh/multi-corpus/"
@@ -333,7 +331,8 @@ class MLMTask:
 
         plot_fn = None
         # rank 0 plots; the other ranks of its model group take part in the
-        # forward's all-reduces
+        # forward's all-reduces (the forward runs whole, with no seq split,
+        # on every seq rank of data rank 0)
         if cfg.num_plot_examples > 0 and valid_factory is not None \
                 and data_rank() == 0:
             plot_batch = _peek_batch(valid_factory)

@@ -19,9 +19,10 @@ a temporary name and moved into place with ``os.replace``, so a crash never
 leaves half a checkpoint under a checkpoint's name.
 
 Over the ranks of the mesh (``parallel/``) the files do not depend on its
-layout ``(dp, tp)``: every rank takes part in gathering the model axis's
-slices of the parameters into whole tensors and the optimizer's moment
-slices (``mu``, ``nu``, ``acc_grads``, sliced over both axes) into whole
+layout ``(dp, sp, tp)``: every rank takes part in gathering the model
+axis's slices of the parameters into whole tensors and the optimizer's
+moment slices (``mu``, ``nu``, ``acc_grads``, sliced over the data and
+model axes; the seq axis's ranks hold their data rank's) into whole
 vectors in one process's order, rank 0 alone writes the same files one
 process writes, and every rank waits at a barrier before it goes on.  A
 restore reads the whole state on every rank and keeps each rank's slices,

@@ -61,8 +61,11 @@ FlatLayout``), so its moments are laid out like that slice, as JAX's
 and the non-finite count sum the split parameters' terms over the model
 group and count each replicated parameter once; the noise is the full
 vector's draw, of which each rank keeps its elements, so every element
-gets the noise of one process.  With no axis above 1 no collective runs and
-every slice is the whole vector.
+gets the noise of one process.  The sp ranks of the seq axis hold whole
+parameters and the same moment slices as their data rank's; the flat
+gradient is summed over the seq group first (their frame blocks' shares),
+after which each seq rank takes the same step.  With no axis above 1 no
+collective runs and every slice is the whole vector.
 """
 
 from __future__ import annotations

@@ -21,7 +21,9 @@ captures nothing, and the plot is skipped with a log line (plots.py:111-117).
 On the mesh's model axis (``parallel/``) every rank of a model group runs
 the plot's forward, whose all-reduces it takes part in; the attention maps
 are gathered from the group's ranks into every head's, and one rank
-renders (``render=False`` on the others).
+renders (``render=False`` on the others).  On the seq axis the forward
+takes no seq layout: each seq rank of data rank 0 runs it on the whole
+frames, so the maps and outputs are one process's.
 """
 
 from __future__ import annotations

@@ -44,8 +44,14 @@ group, the optimizer sums the gradients (ZeRO-1, ``train/optim.py``), and
 every statistic is the global batch's, equal on every rank.  The tp ranks
 of the model axis step on the same rows with their slices of the model
 (``models/mlm.py``), so the statistics are summed over the data group
-alone.  The chained step takes one process only, as JAX's mesh step has
-no chained form.  The ``seq`` axis is not ported (ROADMAP A10c).
+alone.  On the seq axis (context parallelism) the front-end stays whole,
+replicated over the seq group as in JAX, and
+:func:`constrain_time_sharding` then gives each seq rank its frame block
+of the model's inputs and of the loss's target (``parallel/
+sequence.py``); the masked means and the statistics are summed over the
+data and seq groups, and the optimizer sums the gradients over both.  The
+chained step takes one process only, as JAX's mesh step has no chained
+form.
 """
 
 from __future__ import annotations
@@ -60,7 +66,9 @@ from a3t_tpu_torch.dsp.frontend import LogMelFrontend
 from a3t_tpu_torch.models.layers import duration_loss
 from a3t_tpu_torch.models.mlm import A3TMLMModel, mlm_loss
 from a3t_tpu_torch.ops.fused_logmel import fused_logmel
-from a3t_tpu_torch.parallel.mesh import all_reduce_sum, data_world, world
+from a3t_tpu_torch.parallel.mesh import (all_reduce_sum, data_world,
+                                         seq_world, world)
+from a3t_tpu_torch.parallel.sequence import frame_block, seq_layout
 from a3t_tpu_torch.parallel.sharding import FlatLayout
 from a3t_tpu_torch.train.optim import Optimizer, OptState
 
@@ -186,6 +194,22 @@ def check_bucket(model: A3TMLMModel, n_frames: int) -> None:
                              f"longformer attention)")
 
 
+# the featurized batch's (B, F, ...) entries, whose frames the seq axis
+# splits (JAX constrain_time_sharding); the rest (text, spemb) stay whole
+TIME_KEYS = ("speech", "masked_position", "speech_mask",
+             "speech_segment_pos", "durations")
+
+
+def constrain_time_sharding(mb: dict, seq) -> dict:
+    """This seq rank's frame block of every frame-wise entry of the model
+    inputs ``mb`` (``a3t_tpu/train/train_step.py:149-181``); ``mb`` itself
+    for a layout of None (sp = 1)."""
+    if seq is None:
+        return mb
+    return {k: frame_block(v, seq) if k in TIME_KEYS else v
+            for k, v in mb.items()}
+
+
 def _generator(rng) -> torch.Generator:
     if isinstance(rng, torch.Generator):
         return rng
@@ -238,18 +262,20 @@ def make_train_step(model: A3TMLMModel, frontend: Optional[LogMelFrontend],
         mb = _model_inputs(frontend, batch, dev, use_fused=use_fused,
                            normalizer=normalizer, corpus=corpus)
         check_bucket(m, mb["speech"].shape[1])
+        seq = seq_layout(mb["speech"].shape[1])
+        mb = constrain_time_sharding(mb, seq)
         before, after, log_d = m(**mb,
                                  generator=_generator(rng),
                                  return_log_durations=True,
-                                 speech_only=speech_only)
+                                 speech_only=speech_only, seq=seq)
         loss = mlm_loss(before, after, mb["speech"], mb["masked_position"],
                         use_mse=use_mse)
         stats = {"loss_mlm": loss.detach()}
         if has_duration and "durations" in batch:
             # the duration term over the masked frames (JAX :216-221)
-            dl = _masked_mean(duration_loss(log_d, torch.as_tensor(
-                batch["durations"], device=log_d.device)),
-                mb["masked_position"])
+            dl = _masked_mean(duration_loss(log_d, frame_block(
+                torch.as_tensor(batch["durations"], device=log_d.device),
+                seq)), mb["masked_position"])
             loss = loss + dl
             stats["loss_duration"] = dl.detach()
         grad_norm = _update(state, loss)
@@ -306,20 +332,21 @@ def make_chained_train_step(model: A3TMLMModel,
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over ``mask``, whose count is the global batch's
-    over the W data ranks (each data rank's share then sums to the global
+    over the data and seq ranks (each rank's share then sums to the global
     mean)."""
     w = mask.to(torch.float32)
-    return (x * w).sum() / (all_reduce_sum(w.sum()) + 1e-10)
+    return (x * w).sum() / (all_reduce_sum(w.sum(), "data_seq") + 1e-10)
 
 
 def _global(stats: dict) -> dict:
-    """The global batch's statistics from the data ranks' shares (sums;
-    one all_reduce over the data group), each in its own dtype; ``stats``
-    itself at dp = 1."""
-    if data_world() == 1:
+    """The global batch's statistics from the data and seq ranks' shares
+    (sums; one all_reduce over the data x seq group), each in its own
+    dtype; ``stats`` itself where both axes have size 1."""
+    if data_world() * seq_world() == 1:
         return stats
     keys = list(stats)
-    total = all_reduce_sum(torch.stack([stats[k].float() for k in keys]))
+    total = all_reduce_sum(torch.stack([stats[k].float() for k in keys]),
+                           "data_seq")
     return {k: total[i].to(stats[k].dtype) for i, k in enumerate(keys)}
 
 
@@ -365,11 +392,19 @@ def tts_loss(model: A3TMLMModel, mb: dict, batch: dict, generator=None):
     """(loss, mlm loss, duration loss) of the variant on the featurized
     batch ``mb`` of host batch ``batch``: :func:`mlm_loss` on the
     full-resolution mel and mask plus the duration loss averaged over the
-    reduced masked positions, both over the global batch's counts."""
+    reduced masked positions, both over the global batch's counts.  On the
+    seq axis the reduced inputs, the mel and the mask are the rank's frame
+    blocks (the reduced sequence is gathered from the whole featurized
+    batch first, which every rank holds)."""
     reduced = tts_inputs(mb, batch)
+    n_f = mb["speech"].shape[1]
+    red_seq = seq_layout(reduced["speech"].shape[1])
+    out_seq = seq_layout(n_f)
+    reduced = constrain_time_sharding(reduced, red_seq)
     before, after, log_d = model.tts_forward(
-        **reduced, out_frames=mb["speech"].shape[1], generator=generator)
-    loss_mlm = mlm_loss(before, after, mb["speech"], mb["masked_position"],
+        **reduced, out_frames=n_f, generator=generator, seq=red_seq)
+    loss_mlm = mlm_loss(before, after, frame_block(mb["speech"], out_seq),
+                        frame_block(mb["masked_position"], out_seq),
                         use_mse=model.config.use_mse_loss)
     dl = _masked_mean(duration_loss(log_d, reduced["durations"]),
                       reduced["masked_position"])
@@ -417,7 +452,9 @@ def make_eval_step(model: A3TMLMModel, frontend: Optional[LogMelFrontend],
         m.eval()
         with torch.no_grad():
             mb = _model_inputs(frontend, batch, dev, normalizer=normalizer)
-            before, after = m(**mb, speech_only=speech_only)
+            seq = seq_layout(mb["speech"].shape[1])
+            mb = constrain_time_sharding(mb, seq)
+            before, after = m(**mb, speech_only=speech_only, seq=seq)
             loss = mlm_loss(before, after, mb["speech"],
                             mb["masked_position"], use_mse=use_mse)
             loss = _global({"loss": loss})["loss"]

@@ -117,8 +117,9 @@ def rank_step_generator(seed: int, epoch: int,
                         iteration: int) -> torch.Generator:
     """This process's dropout generator of a step: over W > 1 data ranks
     its data rank is folded in, so that ranks draw their own masks for
-    their rows; the model axis's ranks of one data rank draw the same
-    seeds, and dp = 1 keeps :func:`step_generator`'s seeds."""
+    their rows; the seq and model axes' ranks of one data rank draw the
+    same seeds (each keeps its rows and columns of the whole draws), and
+    dp = 1 keeps :func:`step_generator`'s seeds."""
     return step_generator(seed, epoch, iteration,
                           data_rank() if data_world() > 1 else None)
 

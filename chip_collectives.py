@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Which collectives the card's torch.distributed backends take on CUDA
-tensors, and their times at the 24 kHz model's flat-vector size and at the
-model axis's activation sizes.
+tensors, and their times at the 24 kHz model's flat-vector size, at the
+model axis's activation sizes and at the seq axis's K/V block sizes.
 
     python3 chip_collectives.py
 
@@ -13,10 +13,16 @@ the port's ZeRO-1 step; mean of 3 after one warm-up, host clock around
 synchronised calls), and all_reduce of the model group's activations, R
 rows x L positions x 384 channels (ACTIVATIONS: chip_smoke.py's
 tensor-parallel (a), 16 x 264 in float32 and bfloat16, and (d), a data
-rank's rows of the trainer's full batches); then one process tries the
-same small calls in an NCCL group of one, and with two cards or more two
-processes, one a card, time the activations' all_reduce over NCCL.  Each
-line names its backend, rank and collective.
+rank's rows of the trainer's full batches), and all_gather_into_tensor
+and reduce_scatter_tensor of the seq axis's K or V blocks, R rows x F / 2
+frames x C channels from each of two ranks (KV_BLOCKS: chip_smoke.py's
+seq-parallel (a), 16 rows of the 512-frame bucket in float32 and
+bfloat16, and (d), the trainer's 73 rows at 1 x 2 x 2, a model rank's 192
+channels, and a data rank's 36 rows at 2 x 2 x 1); then one process tries
+the same small calls in an NCCL group of one, and with two cards or more
+two processes, one a card, time the activations' all_reduce and the K/V
+blocks' collectives over NCCL.  Each line names its backend, rank and
+collective.
 """
 
 import os
@@ -28,6 +34,10 @@ N = 67_700_000  # the 24 kHz model's parameters
 # (rows, positions, dtype) of the model axis's all-reduces: 384 channels
 ACTIVATIONS = ((16, 264, "float32"), (16, 264, "bfloat16"),
                (73, 264, "float32"), (36, 520, "float32"))
+# (rows, frames of a rank's block, channels, dtype) of the seq axis's K/V
+# all-gathers (and their gradients' reduce-scatters) over two ranks
+KV_BLOCKS = ((16, 256, 384, "float32"), (16, 256, 384, "bfloat16"),
+             (73, 256, 192, "float32"), (36, 256, 384, "float32"))
 
 
 def _timed(torch, fn, reps=3):
@@ -50,6 +60,22 @@ def _activations(torch, dist, backend, r, dev):
               flush=True)
 
 
+def _kv_blocks(torch, dist, backend, r, dev, world):
+    for rows, frames, ch, dt in KV_BLOCKS:
+        x = torch.randn(rows, frames, ch, device=dev).to(getattr(torch, dt))
+        whole = torch.empty((world * rows, frames, ch), device=dev,
+                            dtype=x.dtype)
+        mb = whole.numel() * whole.element_size() / 1e6
+        gather = _timed(torch, lambda: dist.all_gather_into_tensor(whole, x),
+                        reps=10)
+        scatter = _timed(torch, lambda: dist.reduce_scatter_tensor(x, whole),
+                         reps=10)
+        print(f"{backend} rank {r} K/V block {rows} x {frames} x {ch} {dt} "
+              f"over {world} ranks ({mb:.2f} MB gathered): "
+              f"all_gather_into_tensor {gather:.3f} ms, "
+              f"reduce_scatter_tensor {scatter:.3f} ms", flush=True)
+
+
 def _work(r, port, backend, world, one_card=True):
     import torch
     import torch.distributed as dist
@@ -61,6 +87,7 @@ def _work(r, port, backend, world, one_card=True):
     dev = torch.device("cuda", card)
     if not one_card:
         _activations(torch, dist, backend, r, dev)
+        _kv_blocks(torch, dist, backend, r, dev, world)
         dist.destroy_process_group()
         return
     x = torch.arange(6, dtype=torch.float32, device=dev) + r
@@ -96,6 +123,7 @@ def _work(r, port, backend, world, one_card=True):
                   f"{_timed(torch, fn):.1f} ms", flush=True)
         del big, part
         _activations(torch, dist, backend, r, dev)
+        _kv_blocks(torch, dist, backend, r, dev, world)
     dist.destroy_process_group()
 
 

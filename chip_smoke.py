@@ -6,8 +6,10 @@
     python3 chip_smoke.py --data-parallel   # the build and phase 19 alone
     python3 chip_smoke.py --data-parallel-cards   # on a machine of 2+ cards:
         # the build and one rank per card over NCCL against one process;
-        # with 4+ cards also a (cards / 2) x 2 data x model mesh
+        # with 4+ cards also a (cards / 2) x 2 data x model mesh and the
+        # 1 x 2 x 2 and 2 x 2 x 1 data x seq x model meshes
     python3 chip_smoke.py --tensor-parallel   # the build and phase 20 alone
+    python3 chip_smoke.py --seq-parallel   # the build and phase 21 alone
 
 Phases, each printing its elapsed seconds:
 
@@ -266,9 +268,11 @@ Phases, each printing its elapsed seconds:
    layouts: every split at the target rate, one span per phone.  Prints
    each part's seconds and the phase's K1-K5 launches.
 19. data-parallel: the data axis as one process per rank, on the
-   trainer's corpus and the unedited 24 kHz yaml in fp32 under
-   deterministic algorithms, 4 steps a run, each rank a process of this
-   script (``--dp-rank``) around bin.train's main.  (a) ``python3 -m
+   trainer's corpus and the 24 kHz yaml (in the whole smoke at 2 + 2
+   blocks, MESH_DEPTH, with (b)'s control beside (b)'s two ranks; alone at
+   full depth, each run with the card to itself) in fp32 under deterministic
+   algorithms, 4 steps a run, each rank a process of this script
+   (``--dp-rank``) around bin.train's main.  (a) ``python3 -m
    a3t_tpu_torch.bin.launch --launcher local --hosts localhost -- ...``,
    one rank over NCCL, against a plain bin.train run: losses, parameters,
    BatchNorm statistics and epoch_1.pt bit for bit.  (b) Two ranks on the
@@ -288,7 +292,10 @@ Phases, each printing its elapsed seconds:
    on one card.
 20. tensor-parallel: the mesh's model axis (tp = 2: each rank one of the
    two heads and half of every feed-forward's units) on the trainer's
-   corpus and the 24 kHz yaml at full width with its dropout rates, in
+   corpus and the 24 kHz yaml at full width (in the whole smoke at 2 + 2
+   blocks, MESH_DEPTH, with the bf16 runs beside the fp32 ones and the
+   NCCL refusal; alone at full depth, each run with the card to itself)
+   with its dropout rates, in
    deterministic mode, batches cut in rows only to 16 rows (8 at 512
    frames).  (a) Two ranks on the one card over gloo (bin.launch, bin.train,
    the ranks' group patched to gloo), fp32, 4 steps, against one process: the losses within
@@ -306,6 +313,28 @@ Phases, each printing its elapsed seconds:
    plain rule's head 1 of the two-head call bit for bit, out, lse and K2's
    gradients against their plain versions; the times beside the two-head
    call's.
+21. seq-parallel: the mesh's seq axis (sp = 2: each rank one half of
+   every row's frames and the whole text, context parallelism) on the
+   trainer's corpus and the 24 kHz yaml at full width with its dropout
+   rates, in deterministic mode, every batch 16 rows of the 512-frame
+   bucket.  (a) Two ranks on the one card over gloo (bin.launch,
+   bin.train, the ranks' group patched to gloo), fp32, 4 steps, against one
+   process: the losses within 1e-5 at each step and equal on both ranks,
+   each rank's K1 and K2 launched 8 times a train step on Lq = F / 2 + T
+   query rows against Lk = F + T keys, the seq group's collectives a step
+   (K/V all-gathers, halos, BatchNorm sums, the gradient's all-reduce;
+   calls and bytes), the parameters by JAX's cross-mesh rule, the
+   BatchNorm statistics within 1e-4 in units of each channel's spread; the
+   two-rank run's mid-epoch checkpoint resumed by one process within 1e-5;
+   the ranks' step times, collectives and peak memory beside one
+   process's.  (b) The same in bf16 for 2 steps: losses within 1e-3.  (c)
+   K1 and K2 on each seq rank's query block of the (88, 2, 496, 192)
+   training call (432 frames + 64 phones, rank 1 of 2: Lq = 280 rows
+   against 496 keys) at dropout 0.2, in fp32 and bf16: K1's keep-masks read
+   back equal the plain rule's bits of those rows of the square call bit
+   for bit; out, lse, dq and dbias against those rows of the square call,
+   the two ranks' dk and dv summed against the square call's; the times
+   beside the square call's.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -5118,7 +5147,7 @@ def dp_rank_main(argv) -> int:
     from a3t_tpu_torch.models import layers
     from a3t_tpu_torch.models.dropout import SeededDropout
     from a3t_tpu_torch.ops import fused_attention as fa
-    from a3t_tpu_torch.parallel import mesh
+    from a3t_tpu_torch.parallel import mesh, sequence, sharding
     from a3t_tpu_torch.parallel import rank as dp_rank
     from a3t_tpu_torch.parallel import tensor as tp_tensor
     from a3t_tpu_torch.tasks.mlm import MLMTask
@@ -5166,17 +5195,21 @@ def dp_rank_main(argv) -> int:
                 shutil.copytree(self.directory, keep)
 
         CheckpointManager.save_mid_epoch = save_and_keep
-    # the heads K1/K2 run on, (kernel, H, head0), and the model axis's
-    # all-reduces (calls, bytes) of each train step
-    heads, comm, tp_comm = set(), [0, 0], []
+    # the heads K1/K2 run on, (kernel, H, head0), their (kernel, query
+    # rows, keys), the model axis's all-reduces (calls, bytes) and the seq
+    # axis's collectives (kind: [calls, bytes]) of each train step
+    heads, blocks, comm, tp_comm = set(), set(), [0, 0], []
+    sp_comm, sp_steps, seq_place = {}, [], [None]
     k1, k2, reduce_fn = fa._kernel_fwd, fa._kernel_bwd, tp_tensor._all_reduce
 
     def k1_seen(*a):
         heads.add(("K1", a[0].shape[1], a[7]))
+        blocks.add(("K1", a[0].shape[2], a[1].shape[2]))
         return k1(*a)
 
     def k2_seen(*a):
         heads.add(("K2", a[0].shape[1], a[10]))
+        blocks.add(("K2", a[0].shape[2], a[1].shape[2]))
         return k2(*a)
 
     def reduce_counted(x):
@@ -5186,11 +5219,34 @@ def dp_rank_main(argv) -> int:
 
     fa._kernel_fwd, fa._kernel_bwd = k1_seen, k2_seen
     tp_tensor._all_reduce = reduce_counted
+
+    def seq_counted(kind, fn, on=lambda *a: mesh.seq_world() > 1):
+        """``fn`` counting its calls and the bytes of its larger tensor
+        (the gathered whole, the reduced vector) under ``kind``."""
+        def counted(x, *a):
+            out = fn(x, *a)
+            if on(*a):
+                c = sp_comm.setdefault(kind, [0, 0])
+                c[0] += 1
+                c[1] += max(x.numel() * x.element_size(),
+                            out.numel() * out.element_size())
+            return out
+        return counted
+
+    sequence._gather = seq_counted("all-gather", sequence._gather)
+    sequence._scatter_sum = seq_counted("reduce-scatter",
+                                        sequence._scatter_sum)
+    sharding.all_reduce_sum = seq_counted(
+        "gradient all-reduce", sharding.all_reduce_sum,
+        lambda g="data": g == "seq" and mesh.seq_world() > 1)
+    layers.global_sum = seq_counted(
+        "BatchNorm all-reduce", layers.global_sum,
+        lambda g="data": g == "data_seq" and mesh.seq_world() > 1)
     profile, bn_first, recording = {}, [], [False]
     stats_fn = layers._batch_stats
 
-    def recorded(bn, x):
-        mean, var = stats_fn(bn, x)
+    def recorded(bn, x, *a):
+        mean, var = stats_fn(bn, x, *a)
         if recording[0]:
             bn_first.append((mean.detach().clone(), var.detach().clone()))
         return mean, var
@@ -5208,6 +5264,9 @@ def dp_rank_main(argv) -> int:
             calls.append(1)
             recording[0] = len(calls) == 1
             before = list(comm)
+            launched = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+            sp_comm.clear()
+            seq_place[0] = (mesh.seq_rank(), mesh.seq_world())
             try:
                 if at is None or len(calls) != at + 1:
                     return step(*sa, **skw)
@@ -5222,6 +5281,10 @@ def dp_rank_main(argv) -> int:
             finally:
                 recording[0] = False
                 tp_comm.append((comm[0] - before[0], comm[1] - before[1]))
+                sp_steps.append({
+                    "launches": (fa.LAUNCHES - launched[0],
+                                 fa.LAUNCHES_BWD - launched[1]),
+                    **{k: tuple(v) for k, v in sp_comm.items()}})
 
         self.train_step = observed
 
@@ -5231,7 +5294,9 @@ def dp_rank_main(argv) -> int:
         profile.clear()
         bn_first.clear()
         heads.clear()
+        blocks.clear()
         tp_comm.clear()
+        sp_steps.clear()
         fa.reset_launches()
         if on_cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -5258,6 +5323,9 @@ def dp_rank_main(argv) -> int:
             "heads": sorted(heads),
             "n_params": sum(p.numel() for p in state.model.parameters()),
             "tp_comm": list(tp_comm),
+            "blocks": sorted(blocks),
+            "sp_steps": list(sp_steps),
+            "seq": seq_place[0],
         }, f"{out}_r{r}.pt")
 
     run(train_argv, out)
@@ -5347,6 +5415,17 @@ def _dp_wait(runs, timeout):
     check(not bad, f"the data-parallel runs {bad} exit 0")
 
 
+def _dp_stage(starts, together, timeout):
+    """Run the runs that ``starts`` start (each a function that returns a
+    :func:`_dp_run`): all at once when ``together``, else one after
+    another, each with the card and the host to itself."""
+    if together:
+        _dp_wait([start() for start in starts], timeout)
+    else:
+        for start in starts:
+            _dp_wait([start()], timeout)
+
+
 def _jax_rule(np, base, other, max_update, what):
     """tests/test_train.py:225-237, JAX's cross-mesh rule, over every
     parameter: each element within ``max_update``, fewer than 0.2% of the
@@ -5369,7 +5448,7 @@ def _jax_rule(np, base, other, max_update, what):
 
 
 def data_parallel_phase(torch, np, label, root, train, valid,
-                        device="cuda", sets=()):
+                        device="cuda", sets=(), together=False):
     """(a) one rank over NCCL through bin.launch against a plain bin.train,
     bit for bit; (b) two ranks on the one card over gloo against one
     process on the same global batches, and the two-rank run's mid-epoch
@@ -5429,23 +5508,26 @@ def data_parallel_phase(torch, np, label, root, train, valid,
                       + argv("Q", same_plan), d, env)], 400)
     log(f"  run Q (one process): {time.perf_counter() - t0:.2f} s")
     # (b): two ranks on the card over gloo, then one process resuming the
-    # two-rank run's mid-epoch checkpoint
+    # two-rank run's mid-epoch checkpoint; then (b)'s control L, two ranks
+    # each with its local BatchNorm statistics.  ``together`` (the whole
+    # smoke, at a cut depth) runs L beside B, whose times are then read
+    # with L's ranks on the card and the host (never beside P and A: the
+    # card's memory runs out at full depth).
     t0 = time.perf_counter()
-    _dp_wait([_dp_run("B", launch("localhost,localhost")
-                      + rank_cmd("B", "--dropout0", "--gloo", *profile,
-                                 "--keep-mid", os.path.join(d, "mid"),
-                                 "--then", then)
-                      + argv("B", mid), d, env)], 400)
+    _dp_stage([lambda: _dp_run("B", launch("localhost,localhost")
+                               + rank_cmd("B", "--dropout0", "--gloo",
+                                          *profile, "--keep-mid",
+                                          os.path.join(d, "mid"),
+                                          "--then", then)
+                               + argv("B", mid), d, env),
+               lambda: _dp_run("L", launch("localhost,localhost")
+                               + rank_cmd("L", "--dropout0", "--gloo",
+                                          "--local-bn")
+                               + argv("L"), d, env)], together, 400)
     log(f"  run B (two ranks over gloo) and run C (its rank 0 alone, "
-        f"resuming B at step {DP_SAVE}): {time.perf_counter() - t0:.2f} s")
-    # (b)'s control L: two ranks, each with its local BatchNorm statistics
-    # (alone: beside P and A the card's memory runs out in the full smoke)
-    t0 = time.perf_counter()
-    _dp_wait([_dp_run("L", launch("localhost,localhost")
-                      + rank_cmd("L", "--dropout0", "--gloo", "--local-bn")
-                      + argv("L"), d, env)], 400)
-    log(f"  run L (two ranks, local BatchNorm statistics): "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"resuming B at step {DP_SAVE}), "
+        f"{'beside' if together else 'then'} run L (two ranks, local "
+        f"BatchNorm statistics): {time.perf_counter() - t0:.2f} s")
 
     (p,), (a,), (q,), (c,) = load("P"), load("A"), load("Q"), load("C")
     b, control = load("B", 2), load("L", 2)
@@ -5694,6 +5776,36 @@ def data_parallel_cards_phase(torch, np, label, root, train, valid,
             + mesh_argv("T", f"mesh.tensor_parallel={TP}"), d, env)], 400)
         log(f"  run T ({dp} x {TP} mesh, one rank per card): "
             f"{time.perf_counter() - t0:.2f} s")
+        # the seq axis: 1 x 2 x 2 and (cards / 2) x 2 x 1 data x seq x
+        # model meshes on the longest bucket, each against one process at
+        # its plan's batch_multiple
+        longest = f"batcher.bucket_frames=[{SP_BUCKET}]"
+        for tag, qtag, sdp, stp in (("S", "QS", 1, TP),
+                                    ("D", "QD", cards // SP, 1)):
+            if sdp * SP * stp != cards:
+                continue
+
+            def seq_argv(t, *more, _m=sdp):
+                return _dp_argv(train, valid, os.path.join(d, f"exp_{t}"),
+                                device, *sets, longest,
+                                f"batcher.batch_multiple={_m}", *more)
+
+            t0 = time.perf_counter()
+            _dp_wait([_dp_run(qtag, RANK_MAIN + [
+                "--dp-rank", os.path.join(d, qtag), "--dropout0", *profile,
+                "--"] + seq_argv(qtag), d, env)], 400)
+            _dp_wait([_dp_run(tag, [
+                sys.executable, "-m", "a3t_tpu_torch.bin.launch",
+                "--launcher", "local", "--hosts",
+                ",".join(["localhost"] * cards), "--port",
+                str(_free_port()), "--"]
+                + RANK_MAIN + ["--dp-rank", os.path.join(d, tag),
+                               "--dropout0", *profile, "--"]
+                + seq_argv(tag, f"mesh.sequence_parallel={SP}",
+                           f"mesh.tensor_parallel={stp}"), d, env)], 400)
+            log(f"  runs {qtag} (one process) and {tag} ({sdp} x {SP} x "
+                f"{stp} data x seq x model mesh, one rank per card): "
+                f"{time.perf_counter() - t0:.2f} s")
 
     def load(tag):
         return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
@@ -5702,10 +5814,17 @@ def data_parallel_cards_phase(torch, np, label, root, train, valid,
     q = torch.load(os.path.join(d, "Q_r0.pt"), weights_only=False)
     n = load("N")
     runs = {"Q": [q], "N": n}
+    seq_meshes = {tag: (qtag, sdp, stp) for tag, qtag, sdp, stp in (
+        ("S", "QS", 1, TP), ("D", "QD", cards // SP, 1))
+        if mesh and sdp * SP * stp == cards}
     if mesh:
         runs["Q2"] = [torch.load(os.path.join(d, "Q2_r0.pt"),
                                  weights_only=False)]
         runs["T"] = load("T")
+    for tag, (qtag, _, _) in seq_meshes.items():
+        runs[qtag] = [torch.load(os.path.join(d, f"{qtag}_r0.pt"),
+                                 weights_only=False)]
+        runs[tag] = load(tag)
     for name in runs:
         if device != "cpu" and len(runs[name]) > 1:
             check([x["device"] for x in runs[name]]
@@ -5720,6 +5839,12 @@ def data_parallel_cards_phase(torch, np, label, root, train, valid,
                         f"(d) {cards // TP} x {TP} on {cards} cards",
                         "the model groups over NCCL between neighbouring "
                         "cards (NVLink)", label)
+    for tag, (qtag, sdp, stp) in seq_meshes.items():
+        _sp_against_one(torch, np, runs[qtag][0], runs[tag], SP, stp,
+                        load_config(CONFIG_24K, [*sets, longest]),
+                        f"(d) {sdp} x {SP} x {stp} on {cards} cards",
+                        "the seq and model groups over NCCL between "
+                        "neighbouring cards (NVLink)", label)
     return {name: [x["launches"] for x in ranks]
             for name, ranks in runs.items()}
 
@@ -5914,7 +6039,7 @@ def _tp_against_one(torch, np, q, ranks, tp, cfg, what, note, label,
 
 
 def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
-                          device="cuda", sets=()):
+                          device="cuda", sets=(), together=False):
     """(a) tp = 2 as two ranks on the one card over gloo (bin.launch and
     bin.train, the ranks' group patched to gloo) against one process, fp32 at the yaml's dropout, on
     batches of at most 16 rows; the two-rank run's mid-epoch checkpoint
@@ -5969,10 +6094,17 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
     with open(then, "w") as f:
         json.dump({"out": os.path.join(d, "C"), "exp": exp("C"),
                    "argv": argv("C")}, f)
+    # the one-process references Q (fp32) and Qb (bf16); ``together`` (the
+    # whole smoke, at a cut depth) runs them side by side, and Q's step
+    # times are then read with Qb on the card and the host
     t0 = time.perf_counter()
-    _dp_wait([_dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d, env)],
-             400)
-    log(f"  run Q (one process, fp32): {time.perf_counter() - t0:.2f} s")
+    _dp_stage([lambda: _dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d,
+                               env),
+               lambda: _dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d,
+                               env)], together, 400)
+    log(f"  runs Q and Qb (one process each, fp32 and bf16, "
+        f"{'side by side' if together else 'one after the other'}): "
+        f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     _dp_wait([_dp_run("B", launch(TP) + rank_cmd(
         "B", "--gloo", *profile, "--keep-mid", os.path.join(d, "mid"),
@@ -5983,16 +6115,16 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
         f"(its rank 0 alone, resuming B at step {DP_SAVE}): "
         f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    _dp_wait([_dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d, env)],
-             400)
-    _dp_wait([_dp_run("Bb", launch(TP) + rank_cmd("Bb", "--gloo")
-                      + argv("Bb", *bf16, *tp2), d, env)], 400)
-    log(f"  runs Qb and Bb (bf16, one process and tp = {TP}): "
-        f"{time.perf_counter() - t0:.2f} s")
+
+    def run_bb():
+        return _dp_run("Bb", launch(TP) + rank_cmd("Bb", "--gloo")
+                       + argv("Bb", *bf16, *tp2), d, env)
+
+    bb_run = run_bb() if together else None
     if device != "cpu":
         # NCCL (bin.train's group on the card) cannot put the two ranks on
-        # one card: bin.train says so
-        t0 = time.perf_counter()
+        # one card: bin.train says so (``together``, beside Bb, which it
+        # leaves alone)
         _, proc, f = _dp_run("X", launch(TP) + [
             sys.executable, "-m", "a3t_tpu_torch.bin.train"]
             + argv("X", *tp2), d, env)
@@ -6001,10 +6133,12 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
         with open(f.name) as g:
             said = "NCCL cannot put two ranks" in g.read()
         log(f"  run X (tp = {TP} over NCCL on one card): exit {rc}, the "
-            f"refusal {'printed' if said else 'MISSING'}: "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"refusal {'printed' if said else 'MISSING'}")
         check(rc != 0 and said, "bin.train refuses NCCL for two ranks of "
               "one card, naming the reason")
+    _dp_wait([bb_run or run_bb()], 400)
+    log(f"  run X and run Bb (bf16, tp = {TP}): "
+        f"{time.perf_counter() - t0:.2f} s")
 
     (q,), (c,), (qb,) = load("Q"), load("C"), load("Qb")
     b, bb = load("B", TP), load("Bb", TP)
@@ -6038,6 +6172,335 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
               "process: the next losses within the tolerance")
     _tp_against_one(torch, np, qb, bb, TP, cfg, "(b) bf16", note, label,
                     tol_loss=TOL_TP_LOSS_BF16, bn=False)
+    return {name: [x["launches"] for x in ranks]
+            for name, ranks in runs.items()}, errs
+
+
+# phases data-parallel and tensor-parallel in the whole smoke: the yaml's
+# width at half its depth (2 + 2 blocks), so that the smoke ends within
+# its 1200 s limit on a slow host (1213.3 s at 4 + 4 in PR 20's call 4);
+# alone (--data-parallel, --tensor-parallel) at full depth
+MESH_DEPTH = ("model.encoder.num_blocks=2", "model.decoder.num_blocks=2")
+SP = 2  # the seq axis's ranks of phase seq-parallel
+SP_SEED = 13579
+# phase seq-parallel's batches: the trainer's 512-frame bucket alone, cut
+# in rows only to 16 rows, so that gloo's traffic through the host stays
+# within the phase's time (K/V all-gathers of 16 x 512 x 384 x 4 bytes)
+SP_BUCKET = 512
+SP_BINS = 16 * SP_BUCKET * 80
+SP_BF16_ITERS = 2
+TOL_SP_LOSS = 1e-5  # JAX's cross-mesh loss tolerance, as TOL_DP_LOSS
+# bf16: the ranks sum the K/V gradients of their query blocks, the halos'
+# gradients and BatchNorm's sums in other orders than one process; each
+# reaches a bf16 rounding (2^-9 relative) in a few places, averaged over
+# the masked mean of ~5,000 frames
+TOL_SP_LOSS_BF16 = 1e-3
+# (c): the (88, 2, 496, 192) training call as F = 432 frames and T = 64
+# phones over SP seq ranks: rank s holds frames [s F / SP, (s + 1) F / SP)
+# and the phones
+SP_FRAMES, SP_PHONES = 432, 64
+
+
+def sp_kernel_rows(torch, fa, cuda_ms, label):
+    """(c) K1 and K2 on each seq rank's query block of the training call
+    (88, 2, 496, 192) = 432 frames + 64 phones over SP ranks (rank 1 of 2:
+    rows 216-431 and 432-495, Lq = 280 against Lk = 496), dropout 0.2, in
+    fp32 and bf16.  K1's keep bits, read back through one-hot values, equal
+    the plain rule's bits of those rows of the square call bit for bit;
+    K1's out and lse and K2's dq and dbias match those rows of the square
+    call (and the plain version with the block's rows); the ranks' dk and
+    dv, summed, match the square call's (each text row's output gradient
+    given to rank 0 alone, so that the blocks' gradients partition the
+    square call's); K1's and K2's times at Lq beside the square call's.
+    Returns {dtype: (K1 max abs err, K2 max abs err)}."""
+    g = torch.Generator().manual_seed(SP_SEED)
+    dev = torch.device("cuda")
+    b, h, d = 88, 2, 192
+    f, t = SP_FRAMES, SP_PHONES
+    l, fb = f + t, f // SP
+    lq = fb + t
+    blocks = [(fb, s * fb) for s in range(SP)]
+    rows = [fa.global_rows(lq, l, qr, dev) for qr in blocks]
+    mask = torch.ones(b, l, dtype=torch.bool)
+    mask[-1, f - f // 5:f] = False  # a padded frame tail
+    mask[-2, l - 8:] = False  # padded phones
+    mask = mask.to(dev)
+    check(all(fa._fwd_plan(b, h, lq, 132, r, l)[0] == 1
+              for r in (fa.ROW_TILE, fa.ROW_TILE_BF16)),
+          f"K1 at ({b}, {h}, {lq} of {l}) fills the card without splitting "
+          "its keys")
+    square_keep = (fa.keep_mask(b, h, l, SP_SEED, 0.2, device=dev)
+                   & mask.view(b, 1, 1, l))
+    out_errs = {}
+    for dt, tol, btol in ((torch.float32, TOL_F32, TOL_BWD_F32),
+                          (torch.bfloat16, TOL_BF16, TOL_BWD_BF16)):
+        name = str(dt)[6:]
+        n_diff = n_bits = 0
+        for qr, rr in zip(blocks, rows):
+            zeros_q = torch.zeros(b, h, lq, d, device=dev, dtype=dt)
+            zeros_k = torch.zeros(b, h, l, d, device=dev, dtype=dt)
+            bias = torch.zeros(b, h, lq, l, device=dev, dtype=dt)
+            got = torch.zeros(b, h, lq, l, dtype=torch.bool, device=dev)
+            for c0 in range(0, l, d):
+                v = torch.zeros(b, h, l, d, device=dev, dtype=dt)
+                n = min(d, l - c0)
+                v[:, :, c0 + torch.arange(n), torch.arange(n)] = 1
+                out, _ = fa.fused_attention_fwd(zeros_q, zeros_k, v, bias,
+                                                mask, SP_SEED, 0.2,
+                                                q_rows=qr)
+                got[..., c0:c0 + n] = out[..., :n] != 0
+            n_diff += int((got != square_keep[:, :, rr]).sum())
+            n_bits += got.numel()
+            del zeros_q, zeros_k, bias, got, v, out
+        log(f"  K1 query blocks ({b}, {h}, {lq} of {l}, {d}) {name} dropout "
+            f"0.2, {SP} ranks: {n_diff} of {n_bits} keep bits differ from "
+            "the plain rule's bits of those rows of the square call")
+        check(n_diff == 0, f"K1's query-block keep-mask bits ({name})")
+        q, k, v, go = (torch.randn(b, h, l, d, generator=g).to(dev, dt)
+                       for _ in range(4))
+        bias = torch.randn(b, h, l, l, generator=g).to(dev, dt)
+        out, lse = fa.fused_attention_fwd(q, k, v, bias, mask, SP_SEED, 0.2)
+        want = fa.fused_attention_bwd(q, k, v, bias, mask, SP_SEED, 0.2, out,
+                                      lse, go)
+        dk_sum = dv_sum = 0
+        err = lerr = 0.0
+        errs = [0.0] * 4
+        for s, (qr, rr) in enumerate(zip(blocks, rows)):
+            qb, bb = q[:, :, rr].contiguous(), bias[:, :, rr].contiguous()
+            gb = go[:, :, rr].clone()
+            if s > 0:
+                gb[:, :, fb:] = 0  # the text rows' gradient on rank 0 alone
+            ob, lb = fa.fused_attention_fwd(qb, k, v, bb, mask, SP_SEED, 0.2,
+                                            q_rows=qr)
+            pb, plb = fa.fused_attention_reference(qb, k, v, bb, mask,
+                                                   SP_SEED, 0.2, q_rows=qr)
+            err = max(err, (ob.float() - out[:, :, rr].float()).abs().max()
+                      .item(), (ob.float() - pb.float()).abs().max().item())
+            lerr = max(lerr, (lb - lse[..., rr]).abs().max().item(),
+                       (lb - plb).abs().max().item())
+            dq, dk, dv, dbias = fa.fused_attention_bwd(
+                qb, k, v, bb, mask, SP_SEED, 0.2, ob, lb, gb, q_rows=qr)
+            own = slice(None) if s == 0 else slice(0, fb)
+            errs[0] = max(errs[0], _rel_err(dq[:, :, own],
+                                            want[0][:, :, rr][:, :, own]))
+            errs[3] = max(errs[3], _rel_err(dbias[:, :, own],
+                                            want[3][:, :, rr][:, :, own]))
+            if s > 0:
+                check(not dq[:, :, fb:].any() and not dbias[:, :, fb:].any(),
+                      "K2: rows with a zero output gradient get zero dq and "
+                      "dbias")
+            dk_sum = dk_sum + dk.float()
+            dv_sum = dv_sum + dv.float()
+            if s == SP - 1:
+                # rank SP-1's calls beside the square call's
+                t1 = cuda_ms(lambda: fa.fused_attention_fwd(
+                    qb, k, v, bb, mask, SP_SEED, 0.2, q_rows=qr))
+                t2 = cuda_ms(lambda: fa.fused_attention_bwd(
+                    qb, k, v, bb, mask, SP_SEED, 0.2, ob, lb, gb,
+                    q_rows=qr))
+        errs[1] = _rel_err(dk_sum, want[1])
+        errs[2] = _rel_err(dv_sum, want[2])
+        torch.cuda.synchronize()
+        log(f"  K1 query blocks {name}: max|out - square rows| or |out - "
+            f"plain| {err:.3g}, lse {lerr:.3g} (tol {tol:g}); K2 "
+            f"max|grad - square|/max|square| dq {errs[0]:.3g}, dk (ranks "
+            f"summed) {errs[1]:.3g}, dv {errs[2]:.3g}, dbias {errs[3]:.3g} "
+            f"(tol {btol:g})")
+        check(err <= tol and lerr <= tol, f"K1 query blocks {name} vs the "
+              "square call's rows")
+        check(max(errs) <= btol, f"K2 query blocks {name} vs the square call")
+        out_errs[name] = (err, max(errs))
+        h1 = cuda_ms(lambda: fa.fused_attention_fwd(q, k, v, bias, mask,
+                                                    SP_SEED, 0.2))
+        h2 = cuda_ms(lambda: fa.fused_attention_bwd(
+            q, k, v, bias, mask, SP_SEED, 0.2, out, lse, go))
+        log(f"  {name} at dropout 0.2: K1 {t1:.4f} ms and K2 {t2:.4f} ms on "
+            f"a block of Lq = {lq} query rows against {l} keys, against "
+            f"{h1:.4f} and {h2:.4f} ms for the square call [{label}]")
+        del q, k, v, go, bias, out, lse, want, dk_sum, dv_sum
+    return out_errs
+
+
+def _sp_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
+                    tol_loss=TOL_SP_LOSS, bn=True):
+    """dp x sp x tp ranks (rank order) against one process ``q`` on the same
+    global batches: each data rank's rows; the losses within ``tol_loss``
+    at each step and equal on every rank; K1 and K2 launched once a block a
+    train step in every rank's process, each launch on the rank's query
+    block, Lq = F / sp + T rows against Lk = F + T keys; the seq group's
+    collectives a train step (calls and bytes); the gathered models equal on
+    every data rank bit for bit and, with ``bn``, the BatchNorm statistics
+    within TOL_DP_BN_STEP0 / TOL_DP_BN of one process's (units of each
+    channel's spread) and the parameters by JAX's cross-mesh rule; each
+    rank's step times, collectives and peak memory beside one process's."""
+    from a3t_tpu_torch.train.optim import noam_schedule
+
+    dp = len(ranks) // (sp * tp)
+    blocks = cfg.model.encoder.num_blocks + cfg.model.decoder.num_blocks
+    check([s["batch"] for s in ranks[0]["steps"]]
+          == [s["batch"] // dp for s in q["steps"]],
+          f"{what} each rank steps on 1/{dp} of each global batch's rows")
+    for i, sq in enumerate(q["steps"]):
+        got = [x["steps"][i]["loss"] for x in ranks]
+        rel = abs(got[0] - sq["loss"]) / abs(sq["loss"])
+        log(f"  {what} step {i}: loss {got[0]:.7f} on every rank, one "
+            f"process {sq['loss']:.7f}, relative difference {rel:.3g}")
+        check(len(set(got)) == 1 and rel <= tol_loss,
+              f"{what} step {i}: the ranks' loss within {tol_loss:g} of one "
+              "process's")
+    frames = {s["frames"] for s in q["steps"]}
+    for x in ranks:
+        r = x["rank"]
+        check(x["seq"] == ((r // tp) % sp, sp),
+              f"{what} rank {r} is seq rank (r // tp) % sp")
+        per_step = [st["launches"] for st in x["sp_steps"]]
+        check(len(per_step) == len(x["steps"])
+              and all(n == (blocks, blocks) for n in per_step),
+              f"{what} rank {r}: K1 and K2 launched {blocks} times each a "
+              f"train step ({per_step})")
+        lq_lk = {(k, lq, lk) for k, lq, lk in x["blocks"]}
+        check({k for k, _, _ in lq_lk} == {"K1", "K2"}
+              and all(lk - lq in {f - f // sp for f in frames}
+                      for _, lq, lk in lq_lk),
+              f"{what} rank {r}: every K1/K2 launch on a query block of "
+              f"F / {sp} + T rows against F + T keys ({sorted(lq_lk)[:4]})")
+        kinds = sorted({k for st in x["sp_steps"] for k in st
+                        if k != "launches"})
+        comm = "; ".join(
+            f"{k} {[st.get(k, (0, 0))[0] for st in x['sp_steps']]} calls, "
+            f"{[round(st.get(k, (0, 0))[1] / 1e6, 2) for st in x['sp_steps']]}"
+            " MB" for k in kinds)
+        log(f"  {what} rank {r} (data {r // (sp * tp)}, seq "
+            f"{(r // tp) % sp}, model {r % tp}): K1/K2 query blocks (kernel, "
+            f"Lq, Lk) {sorted(lq_lk)}; the seq group's collectives a train "
+            f"step: {comm}; steps {_dp_times(np, x)}"
+            f"{'; ' + _dp_prof(x) if x['profile'] else ''}; peak "
+            f"{x['peak_bytes'] / 2 ** 30:.3f} GiB against one process's "
+            f"{q['peak_bytes'] / 2 ** 30:.3f} "
+            f"({100 * x['peak_bytes'] / max(q['peak_bytes'], 1):.0f}%): "
+            f"{note} [{label}]")
+    log(f"  one process: steps {_dp_times(np, q)}"
+        f"{'; ' + _dp_prof(q) if q['profile'] else ''}; peak "
+        f"{q['peak_bytes'] / 2 ** 30:.3f} GiB [{label}]")
+    whole = (_tp_gathered(ranks, tp) if tp > 1
+             else [x["model"] for x in ranks])
+    check(all(torch.equal(m[k], whole[0][k]) for m in whole for k in m),
+          f"{what} every rank's (gathered) model equal bit for bit")
+    if not bn:
+        return
+    first, end = _bn_readings(q, {**ranks[0], "model": whole[0]})
+    log(f"  {what} BatchNorm vs one process, in units of each channel's "
+        f"spread: the first step's batch statistics mean {first[0][0]:.3g}, "
+        f"variance {first[1][0]:.3g}; the running statistics after "
+        f"{len(q['steps'])} steps mean {end[0][0]:.3g} ({end[0][1]}), "
+        f"variance {end[1][0]:.3g} ({end[1][1]}) [{label}]")
+    check(max(first[0][0], first[1][0]) <= TOL_DP_BN_STEP0
+          and max(end[0][0], end[1][0]) <= TOL_DP_BN,
+          f"{what} the BatchNorm statistics within {TOL_DP_BN:g} of one "
+          "process's")
+    oc = cfg.optim
+    sched = noam_schedule(oc.model_size, oc.warmup_steps, oc.lr)
+    _jax_rule(np, q["model"], whole[0],
+              2.5 * sum(float(sched(k)) for k in range(len(q["steps"]))),
+              f"{what} {len(ranks)} ranks vs one process")
+
+
+def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
+                       device="cuda", sets=()):
+    """(a) sp = 2 as two ranks on the one card over gloo (bin.launch and
+    bin.train, the ranks' group patched to gloo) against one process, fp32
+    at the yaml's dropout, every batch 16 rows of the 512-frame bucket; the
+    two-rank run's mid-epoch checkpoint resumed by one process; (b) the
+    same in bf16 for SP_BF16_ITERS steps; (c) :func:`sp_kernel_rows`.  On
+    the CPU (a rehearsal, ``sets`` at a toy width) (c) is left out.
+    Returns ({run: [(K1, K2) per rank]}, (c)'s errors)."""
+    from a3t_tpu_torch.tasks.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "seq_parallel")
+    os.makedirs(d)
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [here, os.environ.get("PYTHONPATH", "")])}
+    rows = (f"batcher.batch_bins={SP_BINS}",
+            f"batcher.bucket_frames=[{SP_BUCKET}]", *sets)
+    bf16 = ("model.encoder.compute_dtype=bfloat16",
+            "model.decoder.compute_dtype=bfloat16",
+            f"trainer.num_iters_per_epoch={SP_BF16_ITERS}",
+            f"trainer.log_interval={SP_BF16_ITERS}")
+    sp2 = (f"mesh.sequence_parallel={SP}",)
+
+    def exp(tag):
+        return os.path.join(d, f"exp_{tag}")
+
+    def argv(tag, *more):
+        return _dp_argv(train, valid, exp(tag), device, *rows, *more)
+
+    def rank_cmd(tag, *opts):
+        return RANK_MAIN + ["--dp-rank", os.path.join(d, tag), *opts, "--"]
+
+    def launch(n):
+        return [sys.executable, "-m", "a3t_tpu_torch.bin.launch",
+                "--launcher", "local", "--hosts",
+                ",".join(["localhost"] * n), "--port", str(_free_port()),
+                "--"]
+
+    def load(tag, world=1):
+        return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    # (c) first: the kernels' checks fail fast, before the runs
+    errs = {}
+    if device != "cpu":
+        errs = sp_kernel_rows(torch, fa, cuda_ms, label)
+        torch.cuda.empty_cache()  # the ranks' processes share the card
+    profile = ("--profile-step", str(DP_ITERS - 1))
+    then = os.path.join(d, "then_C.json")
+    with open(then, "w") as f:
+        json.dump({"out": os.path.join(d, "C"), "exp": exp("C"),
+                   "argv": argv("C")}, f)
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d, env)],
+             400)
+    log(f"  run Q (one process, fp32): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("B", launch(SP) + rank_cmd(
+        "B", "--gloo", *profile, "--keep-mid", os.path.join(d, "mid"),
+        "--then", then)
+        + argv("B", *sp2, f"trainer.save_interval_steps={DP_SAVE}"),
+        d, env)], 400)
+    log(f"  run B (sp = {SP}: two ranks on the card over gloo) and run C "
+        f"(its rank 0 alone, resuming B at step {DP_SAVE}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _dp_wait([_dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d, env)],
+             400)
+    _dp_wait([_dp_run("Bb", launch(SP) + rank_cmd("Bb", "--gloo")
+                      + argv("Bb", *bf16, *sp2), d, env)], 400)
+    log(f"  runs Qb and Bb (bf16, one process and sp = {SP}): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    (q,), (c,), (qb,) = load("Q"), load("C"), load("Qb")
+    b, bb = load("B", SP), load("Bb", SP)
+    runs = {"Q": [q], "B": b, "C": [c], "Qb": [qb], "Bb": bb}
+    cfg = load_config(CONFIG_24K, list(rows))
+    _dp_report(runs, cfg, label)
+    note = ("two ranks on one card, the seq group's collectives through the "
+            "host over gloo, not a multi-card figure")
+    _sp_against_one(torch, np, q, b, SP, 1, cfg, "(a)", note, label)
+    tail = [s for s in b[0]["steps"] if s["iteration"] >= DP_SAVE]
+    check([(s["epoch"], s["iteration"]) for s in c["steps"]]
+          == [(s["epoch"], s["iteration"]) for s in tail],
+          f"run C resumed at step {DP_SAVE}")
+    for s, sb in zip(c["steps"], tail):
+        rel = abs(s["loss"] - sb["loss"]) / abs(sb["loss"])
+        log(f"  an sp = {SP} checkpoint resumed by one process, step "
+            f"{s['iteration']}: loss {s['loss']:.7f}, the two-rank run "
+            f"{sb['loss']:.7f}, relative difference {rel:.3g}")
+        check(rel <= TOL_SP_LOSS, f"an sp = {SP} checkpoint resumed by one "
+              "process: the next losses within the tolerance")
+    _sp_against_one(torch, np, qb, bb, SP, 1, cfg, "(b) bf16", note, label,
+                    tol_loss=TOL_SP_LOSS_BF16, bn=False)
     return {name: [x["launches"] for x in ranks]
             for name, ranks in runs.items()}, errs
 
@@ -6134,6 +6597,16 @@ def main() -> int:
                                       train, valid)
         return 0
 
+    if sys.argv[1:] == ["--seq-parallel"]:
+        # the seq-parallel phase alone, on a trainer corpus of its own
+        with tempfile.TemporaryDirectory(prefix="a3t_sp_") as root:
+            with Phase("corpus"):
+                train, valid, _, _ = make_corpus(os.path.join(root, "data"))
+            with Phase("seq-parallel"):
+                seq_parallel_phase(torch, np, fa, cuda_ms, label, root,
+                                   train, valid)
+        return 0
+
     if sys.argv[1:] == ["--model-options"]:
         # the model-options phase alone, on a trainer corpus of its own
         with tempfile.TemporaryDirectory(prefix="a3t_options_") as root:
@@ -6193,7 +6666,7 @@ def main() -> int:
                                                exp_a, valid, root)
 
         with Phase("speaker-fs2"):
-            (sp_fwd, sp_bwd), fs2_errs = speaker_fs2_phase(
+            (spk_fwd, spk_bwd), fs2_errs = speaker_fs2_phase(
                 torch, np, fa, label, root,
                 os.path.join(root, "data", "train"), valid)
 
@@ -6219,10 +6692,16 @@ def main() -> int:
         with Phase("data-parallel"):
             dp = data_parallel_phase(torch, np, label, root,
                                      os.path.join(root, "data", "train"),
-                                     valid)
+                                     valid, sets=MESH_DEPTH, together=True)
 
         with Phase("tensor-parallel"):
             tp, tp_errs = tensor_parallel_phase(
+                torch, np, fa, cuda_ms, label, root,
+                os.path.join(root, "data", "train"), valid, sets=MESH_DEPTH,
+                together=True)
+
+        with Phase("seq-parallel"):
+            sp, sp_errs = seq_parallel_phase(
                 torch, np, fa, cuda_ms, label, root,
                 os.path.join(root, "data", "train"), valid)
     # every rank's own count, over every run of the phase
@@ -6230,6 +6709,8 @@ def main() -> int:
     dp_bwd = sum(k2 for ranks in dp.values() for _, k2 in ranks)
     tp_fwd = sum(k1 for ranks in tp.values() for k1, _ in ranks)
     tp_bwd = sum(k2 for ranks in tp.values() for _, k2 in ranks)
+    sp_fwd = sum(k1 for ranks in sp.values() for k1, _ in ranks)
+    sp_bwd = sum(k2 for ranks in sp.values() for _, k2 in ranks)
 
     kernels = [{
         "name": "fused_attention_fwd",
@@ -6238,10 +6719,10 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + sp_fwd + side_fwd + opt_fwd + prep_fwd + mo_launches[0]
-        + dp_fwd + tp_fwd,
+        + cli_fwd + spk_fwd + side_fwd + opt_fwd + prep_fwd + mo_launches[0]
+        + dp_fwd + tp_fwd + sp_fwd,
         "launches_serve_cli": cli_fwd,
-        "launches_speaker_fs2": sp_fwd,
+        "launches_speaker_fs2": spk_fwd,
         "launches_side_train": side_fwd,
         "launches_train_options": opt_fwd,
         "launches_prep_chain": prep_fwd,
@@ -6252,8 +6733,12 @@ def main() -> int:
         "launches_tensor_parallel": tp_fwd,
         "launches_tensor_parallel_ranks": {k: [k1 for k1, _ in v]
                                            for k, v in tp.items()},
+        "launches_seq_parallel": sp_fwd,
+        "launches_seq_parallel_ranks": {k: [k1 for k1, _ in v]
+                                        for k, v in sp.items()},
         "max_abs_err": f32["max_abs_err"],
         "max_abs_err_head0_1": {k: v[0] for k, v in tp_errs.items()},
+        "max_abs_err_query_blocks": {k: v[0] for k, v in sp_errs.items()},
         "max_abs_err_trainer_shapes": trainer_errs[0],
         "max_abs_err_fs2_shapes": fs2_errs[0],
         "max_abs_err_tts_shapes": side_errs[0],
@@ -6270,10 +6755,11 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
-        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + sp_bwd
-        + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd + tp_bwd,
+        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + spk_bwd
+        + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd + tp_bwd
+        + sp_bwd,
         "launches_serve_cli": cli_bwd,
-        "launches_speaker_fs2": sp_bwd,
+        "launches_speaker_fs2": spk_bwd,
         "launches_side_train": side_bwd,
         "launches_train_options": opt_bwd,
         "launches_prep_chain": prep_bwd,
@@ -6284,8 +6770,12 @@ def main() -> int:
         "launches_tensor_parallel": tp_bwd,
         "launches_tensor_parallel_ranks": {k: [k2 for _, k2 in v]
                                            for k, v in tp.items()},
+        "launches_seq_parallel": sp_bwd,
+        "launches_seq_parallel_ranks": {k: [k2 for _, k2 in v]
+                                        for k, v in sp.items()},
         "max_abs_err": bwd["max_abs_err"],
         "max_abs_err_head0_1": {k: v[1] for k, v in tp_errs.items()},
+        "max_abs_err_query_blocks": {k: v[1] for k, v in sp_errs.items()},
         "max_abs_err_trainer_shapes": trainer_errs[1],
         "max_abs_err_fs2_shapes": fs2_errs[1],
         "max_abs_err_tts_shapes": side_errs[1],

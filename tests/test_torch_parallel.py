@@ -575,11 +575,16 @@ def test_epoch_factory_rows_follow_the_unsharded_plan(corpus, records):
 
 def test_refusals(corpus, tmp_path):
     base = _config(corpus, str(tmp_path / "exp"))
-    with pytest.raises(NotImplementedError, match="A10c"):
-        MLMTask.build(config_from_dict({**copy.deepcopy(base), "mesh": {
+    # the longformer takes no seq axis yet (ROADMAP A10d)
+    lf = copy.deepcopy(base)
+    lf["model"]["encoder"] = {**STACK, "selfattention_layer_type":
+                              "longformer", "attention_window": 8}
+    with pytest.raises(NotImplementedError, match="A10d"):
+        MLMTask.build(config_from_dict({**lf, "mesh": {
             "sequence_parallel": 2}}), device="cpu")
     # one process covers no mesh of two
     for mesh, match in (({"data_parallel": 2}, "data_parallel=2"),
+                        ({"sequence_parallel": 2}, "sequence_parallel=2"),
                         ({"tensor_parallel": 2}, "tensor_parallel=2")):
         with pytest.raises(ValueError, match=match):
             MLMTask.build(config_from_dict({**copy.deepcopy(base),

@@ -388,7 +388,7 @@ def test_refusals(runs):
     assert got["heads"].startswith("ValueError") and \
         "attention_heads=3" in got["heads"]
     assert got["longformer"].startswith("NotImplementedError") and \
-        "A10c" in got["longformer"]
+        "A10d" in got["longformer"]
     assert got["fs2"].startswith("NotImplementedError") and \
         "one device" in got["fs2"]
     assert got["chained"].startswith("NotImplementedError")

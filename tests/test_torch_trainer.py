@@ -346,14 +346,22 @@ def test_task_refusals(corpus, tmp_path, caplog):
                 frontend=FE, model=dict(encoder=STACK, decoder=STACK,
                                         postnet_layers=1))
     # per-epoch plots are ported (tests/test_torch_plots.py); the mesh's
-    # seq axis is not, and its model axis needs a process for each rank
-    # (tests/test_torch_tensor_parallel.py)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    # seq and model axes need a process for each rank
+    # (tests/test_torch_seq_parallel.py, tests/test_torch_tensor_parallel.py)
+    with pytest.raises(ValueError, match="sequence_parallel=2"):
         MLMTask.build(config_from_dict(
             {**base, "mesh": {"sequence_parallel": 2}}), device="cpu")
     with pytest.raises(ValueError, match="tensor_parallel=2"):
         MLMTask.build(config_from_dict(
             {**base, "mesh": {"tensor_parallel": 2}}), device="cpu")
+    # the longformer takes neither axis yet (ROADMAP A10d)
+    lf = {**base, "model": {**base["model"], "encoder": {
+        **STACK, "selfattention_layer_type": "longformer",
+        "attention_window": 8}}}
+    for axis in ("sequence_parallel", "tensor_parallel"):
+        with pytest.raises(NotImplementedError, match="A10d"):
+            MLMTask.build(config_from_dict({**lf, "mesh": {axis: 2}}),
+                          device="cpu")
     # speaker conditioning is ported: without embeddings for its batches
     # the task raises
     with pytest.raises(ValueError, match="neither"):

@@ -22,6 +22,13 @@
 // weighs it by 0: the phantom copy of an edge chunk that the forward read for
 // chunk 0's and chunk nc-1's bands gets no credit.
 //
+// A call may hold a part of one process's call (BandPlace, attention_common.cuh):
+// its lanes are one process's lanes, and with the halos the grid runs over the
+// nc + 2 key chunks -1 .. nc of K/V (B, H, L + 2c, d).  A real halo chunk takes
+// the one query chunk of the call beside it (0 for chunk -1, nc - 1 for chunk
+// nc): dk and dv hold what the call's queries owe the neighbour's keys, which
+// the caller returns to their owner.  A phantom halo gets zeros.
+//
 // Bound at the training shape (B=4, H=2, T=8192, d=192, c=256):
 //   operations: 3 neighbours x 4 products (s, dp, dv, dk) of 2 c^2 d per key
 //          chunk = 24 c d T per (b, h) (7.65e10 FLOP for the 3 nc - 2 pairs
@@ -86,8 +93,9 @@ struct DkvBf16 {
   static constexpr int SMEM = 1024 + 2 * TILE + 2 * STAGE + 32 * 128 * 4;
 };
 
-template <int DPAD>
-__global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(Args a) {
+template <int DPAD, bool PLACED>
+__device__ __forceinline__ void bwd_dkv_bf16(const Args& a, const BandPlace& place) {
+  const BandPlace pl = PLACED ? place : whole_place(a.L, a.L / a.c, a.H);
   using S = DkvBf16<DPAD>;
   constexpr int TILE = S::TILE, STAGE = S::STAGE;
   extern __shared__ uint8_t smem_raw[];
@@ -103,13 +111,18 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(A
   const int L = a.L, d = a.d, c = a.c;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, w = t >> 5, lane = tid & 31;
   const int g8 = lane >> 2, qd = lane & 3;
-  const int nc = gridDim.y, j = blockIdx.y, bh = blockIdx.z, b = bh / a.H;
+  const int nc = L / c, bh = blockIdx.z, b = bh / a.H;
+  const int j = (int)blockIdx.y - pl.kb0 / c;  // the key chunk, -1 .. nc with the halos
   const int k0 = blockIdx.x * KB;  // the CTA's first key within the chunk
   const size_t mat = (size_t)bh * L * d;
+  const size_t kmat = (size_t)bh * pl.Lk * d;
+  const int krow = pl.kb0 + j * c;  // K's row of the key chunk
   const int nbt = (c + KB - 1) / KB;  // query tiles per neighbour chunk
-  const int first = j > 0 ? -1 : 0;   // the neighbours that exist: first .. last
-  const int last = j < nc - 1 ? 1 : 0;
-  const int ntiles = (last - first + 1) * nbt;
+  // the neighbours that exist: first .. last (a halo chunk has one, a
+  // phantom none)
+  const int first = j > 0 ? -1 : -j;
+  const int last = j < nc - 1 ? 1 : nc - 1 - j;
+  const int ntiles = pl.real(j) ? (last - first + 1) * nbt : 0;
   const bool vc = a.vec != 0;
   auto sw = [](int r, int col) { return sw64(r, col, KB); };
 
@@ -121,7 +134,7 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(A
   for (int hr = 0; hr < 2; ++hr) {
     kr[hr] = 16 * w + g8 + 8 * hr;
     kex[hr] = k0 + kr[hr] < c;
-    kvalid[hr] = kex[hr] && a.spm[(size_t)b * L + j * c + k0 + kr[hr]] > 0;
+    kvalid[hr] = kex[hr] && a.spm[(size_t)b * pl.Lk + krow + k0 + kr[hr]] > 0;
   }
 
   auto load_stage = [&](int st, int it) {
@@ -139,12 +152,14 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(A
     }
   };
 
-  load_tile<bf16, 256, KB, DPAD>(ks, static_cast<const bf16*>(a.k) + mat, d, j * c + k0,
-                                 j * c + c, 0, d, vc, tid, sw);
-  load_tile<bf16, 256, KB, DPAD>(vs, static_cast<const bf16*>(a.v) + mat, d, j * c + k0,
-                                 j * c + c, 0, d, vc, tid, sw);
-  load_stage(0, 0);
-  cp_async_commit();
+  if (ntiles > 0) {
+    load_tile<bf16, 256, KB, DPAD>(ks, static_cast<const bf16*>(a.k) + kmat, d, krow + k0,
+                                   krow + c, 0, d, vc, tid, sw);
+    load_tile<bf16, 256, KB, DPAD>(vs, static_cast<const bf16*>(a.v) + kmat, d, krow + k0,
+                                   krow + c, 0, d, vc, tid, sw);
+    load_stage(0, 0);
+    cp_async_commit();
+  }
 
   // warpgroup 0: S^T = K.Q^T, p, the keep-mask, dv += P_d^T.G;
   // warpgroup 1: dP^T = V.G^T, ds (with warpgroup 0's p), dk += dS^T.Q
@@ -180,7 +195,7 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(A
 
     if (wg == 0) {
       // query chunk j + off's band draw, at key chunk j's block 1 - off
-      const uint32_t lane_id = (uint32_t)(bh * nc + j + off);
+      const uint32_t lane_id = pl.lane(b, bh - b * a.H, j + off);
       const uint32_t col0 = (uint32_t)((1 - off) * c + k0);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
@@ -228,8 +243,22 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(A
     __syncthreads();  // this stage and xbuf are free
   }
 
-  store_acc_bf16<DPAD>(static_cast<bf16*>(wg == 0 ? a.dv : a.dk) + mat + (size_t)(j * c + k0) * d,
+  store_acc_bf16<DPAD>(static_cast<bf16*>(wg == 0 ? a.dv : a.dk) + kmat + (size_t)(krow + k0) * d,
                        d, c - k0, acc, t);
+}
+
+// a single call: its parameters are Args alone (with a place beside them, K5
+// at dropout 0.2 ran 9% slower on the H100)
+template <int DPAD>
+__global__ void __launch_bounds__(256, 1) banded_attention_bwd_dkv_bf16_kernel(Args a) {
+  bwd_dkv_bf16<DPAD, false>(a, BandPlace{});
+}
+
+// a call that holds part of one process's call
+template <int DPAD>
+__global__ void __launch_bounds__(256, 1)
+    banded_attention_bwd_dkv_bf16_placed_kernel(Args a, BandPlace pl) {
+  bwd_dkv_bf16<DPAD, true>(a, pl);
 }
 
 // ---------------------------------------------------------------- fp32
@@ -246,7 +275,7 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_f32_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int H, int L, int d, int c,
     float scale, uint32_t seed, uint32_t threshold, float keep_scale,
-    int dropout) {
+    int dropout, BandPlace pl) {
   constexpr int NG = DMAX / 32;  // float4 groups of d per thread
   extern __shared__ float4 smem4[];
   const int dp = padded_dim(d);
@@ -266,8 +295,8 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_f32_kernel(
   const float4* qs4 = reinterpret_cast<const float4*>(qs);
   const float4* gs4 = reinterpret_cast<const float4*>(gs);
 
-  const int nc = gridDim.y;
-  const int j = blockIdx.y;  // the key chunk
+  const int nc = L / c;
+  const int j = (int)blockIdx.y - pl.kb0 / c;  // the key chunk, -1 .. nc with the halos
   const int bh = blockIdx.z;
   const int b = bh / H;
   const int k0 = blockIdx.x * BN;  // first key of the CTA, within the chunk
@@ -275,17 +304,19 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_f32_kernel(
   const int hi = tid >> 3;  // a query row (scores) or a key (dk, dv)
   const int lo = tid & 7;   // its eighth of the keys or of d
   const size_t mat = (size_t)bh * L * d;
+  const size_t kmat = (size_t)bh * pl.Lk * d;
+  const int krow = pl.kb0 + j * c;  // K's row of the key chunk
   const int nk = min(BN, c - k0);
 
   for (int e = tid; e < BN * dp; e += NT) {
     const int rr = e / dp, cc = e - rr * dp;
     const bool in = rr < nk && cc < d;
-    const size_t off = mat + (size_t)(j * c + k0 + rr) * d + cc;
+    const size_t off = kmat + (size_t)(krow + k0 + rr) * d + cc;
     ks[e] = in ? k[off] : 0.f;
     vs[e] = in ? v[off] : 0.f;
   }
   if (tid < BN)
-    kval[tid] = tid < nk && spm[(size_t)b * L + j * c + k0 + tid] > 0;
+    kval[tid] = tid < nk && spm[(size_t)b * pl.Lk + krow + k0 + tid] > 0;
 
   float4 dk_acc[NG], dv_acc[NG];
 #pragma unroll
@@ -296,8 +327,9 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_f32_kernel(
 
   for (int off = -1; off <= 1; ++off) {
     const int iq = j + off;
-    if (iq < 0 || iq >= nc) continue;  // the same for the whole CTA
-    const uint32_t lane = (uint32_t)(bh * nc + iq);
+    // the same for the whole CTA; a phantom halo takes no query chunk
+    if (iq < 0 || iq >= nc || !pl.real(j)) continue;
+    const uint32_t lane = pl.lane(b, bh - b * H, iq);
     const uint32_t col0 = (uint32_t)((1 - off) * c + k0);
     for (int r0 = 0; r0 < c; r0 += BM) {
       __syncthreads();  // the previous query tile is done with qs, gs, pds, dss
@@ -374,7 +406,7 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_f32_kernel(
   }
 
   if (hi < nk) {
-    const size_t o = mat + (size_t)(j * c + k0 + hi) * d;
+    const size_t o = kmat + (size_t)(krow + k0 + hi) * d;
 #pragma unroll
     for (int jj = 0; jj < NG; ++jj) {
       const int col = 4 * (lo + 8 * jj);
@@ -392,18 +424,17 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dkv_f32_kernel(
 }
 
 template <int DPAD>
-int run_bf16(const Args& a) {
+int run_bf16(const Args& a, const BandPlace& pl, bool placed) {
   constexpr int smem = DkvBf16<DPAD>::SMEM;
-  auto kern = banded_attention_bwd_dkv_bf16_kernel<DPAD>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.c + KB - 1) / KB, a.L / a.c, a.B * a.H);
-  kern<<<grid, 256, smem, a.stream>>>(a);
-  return (int)cudaGetLastError();
+  const dim3 grid((a.c + KB - 1) / KB, pl.Lk / a.c, a.B * a.H);
+  if (placed)
+    return launch256(banded_attention_bwd_dkv_bf16_placed_kernel<DPAD>, grid, smem, a.stream, a,
+                     pl);
+  return launch256(banded_attention_bwd_dkv_bf16_kernel<DPAD>, grid, smem, a.stream, a);
 }
 
 template <int DMAX>
-int run_f32(const Args& a) {
+int run_f32(const Args& a, const BandPlace& pl) {
   const int dp = padded_dim(a.d);
   const size_t smem = (size_t)(2 * BN * dp + 2 * BM * dp + 2 * BM * PS + 2 * BM) * sizeof(float)
                       + BN * sizeof(int);
@@ -411,44 +442,55 @@ int run_f32(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.c + BN - 1) / BN, a.L / a.c, a.B * a.H);
+  const dim3 grid((a.c + BN - 1) / BN, pl.Lk / a.c, a.B * a.H);
   kern<<<grid, NT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.spm, static_cast<const float*>(a.g), a.lse, a.delta,
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.L, a.d, a.c, a.scale,
-      a.seed, a.threshold, a.keep_scale, a.dropout);
+      a.seed, a.threshold, a.keep_scale, a.dropout, pl);
   return (int)cudaGetLastError();
+}
+
+int run(const Args& a, const BandPlace& pl, bool placed, int dtype) {
+  const int d = a.d;
+  if (dtype == 0) {
+    if (d <= 64) return run_f32<64>(a, pl);
+    if (d <= 128) return run_f32<128>(a, pl);
+    if (d <= 192) return run_f32<192>(a, pl);
+    return run_f32<256>(a, pl);
+  }
+  if (dtype == 1) {
+    if (d <= 64) return run_bf16<64>(a, pl, placed);
+    if (d <= 128) return run_bf16<128>(a, pl, placed);
+    if (d <= 192) return run_bf16<192>(a, pl, placed);
+    return run_bf16<256>(a, pl, placed);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// q, k, v, g: (B, H, L, d) contiguous, L a multiple of c; spm: (B, L) int32;
-// lse, delta: (B, H, L) fp32.  dk, dv: (B, H, L, d) in the input type.
-// dtype 0 = float32, 1 = bfloat16.  Returns the CUDA error code (0 = ok).
+// q, g: (B, H, L, d) contiguous, L a multiple of c; k, v: (B, H, Lk, d), Lk =
+// L, or L + 2c with the halos (halo = 1); spm: (B, Lk) int32; lse, delta: (B,
+// H, L) fp32.  head0, H_all, chunk0, nc_all: the call's place (BandPlace).
+// dk, dv: (B, H, Lk, d) in the input type.  dtype 0 = float32, 1 = bfloat16.
+// Returns the CUDA error code (0 = ok).
 extern "C" int a3t_banded_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const int32_t* spm,
     const void* g, const float* lse, const float* delta, void* dk, void* dv,
-    int B, int H, int L, int d, int c, int dtype, float scale, uint32_t seed,
+    int B, int H, int L, int d, int c, int dtype, int head0, int H_all, int chunk0,
+    int nc_all, int halo, float scale, uint32_t seed,
     uint32_t threshold, float keep_scale, int dropout, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || c <= 0 ||
-      L % c != 0 || L / c > 65535 || B * H > 65535)
+      L % c != 0 || L / c > 65533 || B * H > 65535 ||
+      !band_place_ok(B, H, L, c, head0, H_all, chunk0, nc_all))
     return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(g);
-  const Args a{q, k, v, spm, g, lse, delta, dk, dv, B, H, L, d, c, vec, scale, seed, threshold,
+  const Args a{q, k, v, spm, g, lse, delta, dk, dv, B, H, L, d, c, vec,
+               scale, seed, threshold,
                keep_scale, dropout, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
-    if (d <= 64) return run_f32<64>(a);
-    if (d <= 128) return run_f32<128>(a);
-    if (d <= 192) return run_f32<192>(a);
-    return run_f32<256>(a);
-  }
-  if (dtype == 1) {
-    if (d <= 64) return run_bf16<64>(a);
-    if (d <= 128) return run_bf16<128>(a);
-    if (d <= 192) return run_bf16<192>(a);
-    return run_bf16<256>(a);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run(a, band_place(L, c, head0, H_all, chunk0, nc_all, halo),
+             band_placed(H, L, c, head0, H_all, chunk0, nc_all, halo), dtype);
 }

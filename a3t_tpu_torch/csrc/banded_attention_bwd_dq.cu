@@ -60,8 +60,15 @@
 //   memory, eight threads per query row; the text gradients through
 //   per-CTA partials and the same fixed-order sum.
 //
-// Dropout regenerates the forward's masks bit for bit: lane (b * H + h) * nc +
-// i, counter row * 3c + col (band) and row * tt + col + 2^20 (text).
+// Dropout regenerates the forward's masks bit for bit: lane BandPlace::lane
+// ((b * H + h) * nc + i for a single call), counter row * 3c + col (band) and
+// row * tt + col + 2^20 (text).
+//
+// A call may hold a part of one process's call, as K3's may (BandPlace,
+// attention_common.cuh): its lanes are one process's lanes of its heads and
+// query chunks, its band keys come from K/V with a halo chunk each side, and
+// its text gradients sum over its own query chunks only (the mesh's seq group
+// sums the rest with the parameters' gradients).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,8 +167,9 @@ __device__ __forceinline__ void text_partial(const float* xs, const uint8_t* src
   }
 }
 
-template <int DPAD>
-__global__ void __launch_bounds__(256, 1) banded_attention_bwd_dq_bf16_kernel(Args a) {
+template <int DPAD, bool PLACED>
+__device__ __forceinline__ void bwd_dq_bf16(const Args& a, const BandPlace& place) {
+  const BandPlace pl = PLACED ? place : whole_place(a.L, gridDim.y, a.H);
   using S = DqBf16<DPAD>;
   constexpr int TILE = S::TILE, NST = S::NST, STAGE = S::STAGE;
   extern __shared__ uint8_t smem_raw[];
@@ -178,12 +186,13 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dq_bf16_kernel(Ar
   const int L = a.L, d = a.d, c = a.c, tt = a.tt;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, w = t >> 5, lane = tid & 31;
   const int g8 = lane >> 2, qd = lane & 3;
-  const int nc = gridDim.y, ci = blockIdx.y, bh = blockIdx.z, b = bh / a.H;
+  const int ci = blockIdx.y, bh = blockIdx.z, b = bh / a.H;
   const int r0 = blockIdx.x * QR;  // the CTA's first query row within the chunk
   const int crow = ci * c;         // the chunk's first row
   const size_t mat = (size_t)bh * L * d;
+  const size_t kmat = (size_t)bh * pl.Lk * d;
   const size_t tmat = (size_t)bh * tt * d;
-  const uint32_t lane_id = (uint32_t)(bh * nc + ci);
+  const uint32_t lane_id = pl.lane(b, bh - b * a.H, ci);
   const int nbt = (c + KT - 1) / KT;  // key tiles per band chunk
   const int nband = 3 * nbt;
   const int ntiles = nband + (tt + KT - 1) / KT;
@@ -220,14 +229,14 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dq_bf16_kernel(Ar
     if (it < nband) {
       const int blk = it / nbt, w0 = (it - blk * nbt) * KT;
       const int nb = ci + blk - 1;
-      const int src = min(max(nb, 0), nc - 1) * c;  // a phantom reads the clipped chunk
-      load_tile<bf16, 256, 64, DPAD>(ks, k + mat, d, src + w0, src + c, 0, d, vc, tid, sw);
-      load_tile<bf16, 256, 64, DPAD>(vs, v + mat, d, src + w0, src + c, 0, d, vc, tid, sw);
+      const int src = pl.key_row(nb, c);  // a phantom reads the clipped chunk
+      load_tile<bf16, 256, 64, DPAD>(ks, k + kmat, d, src + w0, src + c, 0, d, vc, tid, sw);
+      load_tile<bf16, 256, 64, DPAD>(vs, v + kmat, d, src + w0, src + c, 0, d, vc, tid, sw);
       if (tid < KT) {
         const int within = w0 + tid;
         kf[tid] = within >= c ? 0
-                  : (nb >= 0 && nb < nc && a.spm[(size_t)b * L + nb * c + within] > 0) ? 2
-                                                                                       : 1;
+                  : (pl.real(nb) && a.spm[(size_t)b * pl.Lk + src + within] > 0) ? 2
+                                                                                     : 1;
       }
     } else {
       const int w0 = (it - nband) * KT;
@@ -247,7 +256,7 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dq_bf16_kernel(Ar
   for (int i = 0; i < DPAD / 2; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
-  const int n_parts = nc * gridDim.x;
+  const int n_parts = gridDim.y * gridDim.x;
   const int part = ci * gridDim.x + blockIdx.x;
 
   for (int it = 0; it < ntiles; ++it) {
@@ -345,6 +354,20 @@ __global__ void __launch_bounds__(256, 1) banded_attention_bwd_dq_bf16_kernel(Ar
                          nrows, dq, t);
 }
 
+// a single call: its parameters are Args alone (with a place beside them, K5
+// at dropout 0.2 ran 9% slower on the H100)
+template <int DPAD>
+__global__ void __launch_bounds__(256, 1) banded_attention_bwd_dq_bf16_kernel(Args a) {
+  bwd_dq_bf16<DPAD, false>(a, BandPlace{});
+}
+
+// a call that holds part of one process's call
+template <int DPAD>
+__global__ void __launch_bounds__(256, 1)
+    banded_attention_bwd_dq_bf16_placed_kernel(Args a, BandPlace pl) {
+  bwd_dq_bf16<DPAD, true>(a, pl);
+}
+
 // ---------------------------------------------------------------- fp32
 
 constexpr int BM = 32;       // query rows per CTA
@@ -361,7 +384,7 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dq_f32_kernel(
     const float* __restrict__ delta, float* __restrict__ dq,
     float* __restrict__ parts, int H, int L, int d, int c, int tt,
     int text_grads, float scale, uint32_t seed, uint32_t threshold,
-    float keep_scale, int dropout) {
+    float keep_scale, int dropout, BandPlace pl) {
   constexpr int NG = DMAX / 32;  // float4 groups of d per thread
   extern __shared__ float4 smem4[];
   const int dp = padded_dim(d);
@@ -393,8 +416,9 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dq_f32_kernel(
   const int rloc = r0 + hi;
   const bool row_ok = rloc < c;
   const size_t mat = (size_t)bh * L * d;
+  const size_t kmat = (size_t)bh * pl.Lk * d;
   const size_t tmat = (size_t)bh * tt * d;
-  const uint32_t lane = (uint32_t)(bh * nc + ci);
+  const uint32_t lane = pl.lane(b, bh - b * H, ci);
   const int nband = 3 * c;
   const int nbt = (nband + BN - 1) / BN;
   const int ntiles = nbt + (tt + BN - 1) / BN;
@@ -433,16 +457,16 @@ __global__ void __launch_bounds__(NT) banded_attention_bwd_dq_f32_kernel(
         } else {
           const int nb = ci + col / c - 1;  // neighbour chunk, maybe phantom
           const int within = col % c;
-          src = min(max(nb, 0), nc - 1) * c + within;
-          valid = nb >= 0 && nb < nc && spm[(size_t)b * L + nb * c + within] > 0;
+          src = pl.key_row(nb, c) + within;
+          valid = pl.real(nb) && spm[(size_t)b * pl.Lk + src] > 0;
         }
       }
       krow[tid] = src;
       kval[tid] = valid;
     }
     __syncthreads();
-    const float* kb = text ? kt + tmat : k + mat;
-    const float* vb = text ? vt + tmat : v + mat;
+    const float* kb = text ? kt + tmat : k + kmat;
+    const float* vb = text ? vt + tmat : v + kmat;
     for (int e = tid; e < BN * dp; e += NT) {
       const int rr = e / dp, cc = e - rr * dp, src = krow[rr];
       const bool in = src >= 0 && cc < d;
@@ -582,21 +606,20 @@ int sum_text_grads(const Args& a, int n_parts) {
 }
 
 template <int DPAD>
-int run_bf16(const Args& a) {
+int run_bf16(const Args& a, const BandPlace& pl, bool placed) {
   constexpr int smem = DqBf16<DPAD>::SMEM;
-  auto kern = banded_attention_bwd_dq_bf16_kernel<DPAD>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const int row_tiles = (a.c + QR - 1) / QR;
   const dim3 grid(row_tiles, a.L / a.c, a.B * a.H);
-  kern<<<grid, 256, smem, a.stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !a.text_grads) return (int)err;
+  const int err =
+      placed ? launch256(banded_attention_bwd_dq_bf16_placed_kernel<DPAD>, grid, smem, a.stream,
+                         a, pl)
+             : launch256(banded_attention_bwd_dq_bf16_kernel<DPAD>, grid, smem, a.stream, a);
+  if (err != 0 || !a.text_grads) return err;
   return sum_text_grads(a, row_tiles * (a.L / a.c));
 }
 
 template <int DMAX>
-int run_f32(const Args& a) {
+int run_f32(const Args& a, const BandPlace& pl) {
   const int dp = padded_dim(a.d);
   const size_t smem = (size_t)(2 * BM * dp + 2 * BN * dp + 2 * BM * PS + 2 * BM) * sizeof(float)
                       + 2 * BN * sizeof(int);
@@ -611,18 +634,37 @@ int run_f32(const Args& a) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.kt),
       static_cast<const float*>(a.vt), a.txm, a.spm, static_cast<const float*>(a.g), a.lse,
       a.delta, static_cast<float*>(a.dq), a.parts, a.H, a.L, a.d, a.c, a.tt, a.text_grads,
-      a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
+      a.scale, a.seed, a.threshold, a.keep_scale, a.dropout, pl);
   err = cudaGetLastError();
   if (err != cudaSuccess || !a.text_grads) return (int)err;
   return sum_text_grads(a, row_tiles * (a.L / a.c));
+}
+
+int run(const Args& a, const BandPlace& pl, bool placed, int dtype) {
+  const int d = a.d;
+  if (dtype == 0) {
+    if (d <= 64) return run_f32<64>(a, pl);
+    if (d <= 128) return run_f32<128>(a, pl);
+    if (d <= 192) return run_f32<192>(a, pl);
+    return run_f32<256>(a, pl);
+  }
+  if (dtype == 1) {
+    if (d <= 64) return run_bf16<64>(a, pl, placed);
+    if (d <= 128) return run_bf16<128>(a, pl, placed);
+    if (d <= 192) return run_bf16<192>(a, pl, placed);
+    return run_bf16<256>(a, pl, placed);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// q, k, v, g: (B, H, L, d) contiguous, L a multiple of c; kt, vt: (B, H, tt,
-// d); txm: (B, tt) int32; spm: (B, L) int32; lse, delta: (B, H, L) fp32.
+// q, g: (B, H, L, d) contiguous, L a multiple of c; k, v: (B, H, Lk, d), Lk =
+// L, or L + 2c with the halos (halo = 1); kt, vt: (B, H, tt, d); txm: (B, tt)
+// int32; spm: (B, Lk) int32; lse, delta: (B, H, L) fp32.  head0, H_all,
+// chunk0, nc_all: the call's place (BandPlace).
 // dq: (B, H, L, d) in the input type.  With text_grads: dkt, dvt (B, H, tt, d)
 // fp32 and the scratch parts (2, B, H, (L / c) * ceil(c / R), tt, d) fp32,
 // R = 32 query rows per CTA in fp32 and 128 in bf16; without, all three may
@@ -633,28 +675,18 @@ extern "C" int a3t_banded_attention_bwd_dq(
     const void* vt, const int32_t* txm, const int32_t* spm, const void* g,
     const float* lse, const float* delta, void* dq, float* dkt, float* dvt,
     float* parts, int B, int H, int L, int d, int c, int tt, int dtype,
-    int text_grads, float scale, uint32_t seed, uint32_t threshold,
-    float keep_scale, int dropout, void* stream) {
+    int text_grads, int head0, int H_all, int chunk0, int nc_all, int halo, float scale,
+    uint32_t seed, uint32_t threshold, float keep_scale, int dropout, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || c <= 0 || tt <= 0 ||
-      L % c != 0 || L / c > 65535 || B * H > 65535)
+      L % c != 0 || L / c > 65535 || B * H > 65535 ||
+      !band_place_ok(B, H, L, c, head0, H_all, chunk0, nc_all))
     return (int)cudaErrorInvalidValue;
   if (text_grads && (!dkt || !dvt || !parts)) return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(kt) &&
                   aligned16(vt) && aligned16(g);
   const Args a{q, k, v, kt, vt, txm, spm, g, lse, delta, dq, dkt, dvt, parts, B, H, L, d, c, tt,
-               text_grads, vec, scale, seed, threshold, keep_scale, dropout,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
-    if (d <= 64) return run_f32<64>(a);
-    if (d <= 128) return run_f32<128>(a);
-    if (d <= 192) return run_f32<192>(a);
-    return run_f32<256>(a);
-  }
-  if (dtype == 1) {
-    if (d <= 64) return run_bf16<64>(a);
-    if (d <= 128) return run_bf16<128>(a);
-    if (d <= 192) return run_bf16<192>(a);
-    return run_bf16<256>(a);
-  }
-  return (int)cudaErrorInvalidValue;
+               text_grads, vec, scale,
+               seed, threshold, keep_scale, dropout, static_cast<cudaStream_t>(stream)};
+  return run(a, band_place(L, c, head0, H_all, chunk0, nc_all, halo),
+             band_placed(H, L, c, head0, H_all, chunk0, nc_all, halo), dtype);
 }

@@ -50,8 +50,25 @@
 //   rows and streams the band and text keys in tiles of 32 through shared
 //   memory with an online softmax, four threads per query row.
 //
+// A call may hold a part of one process's call (BandPlace, attention_common.cuh):
+// heads from head0 of H_all and query chunks from chunk0 of nc_all, with K, V and
+// the speech mask carrying a halo chunk on each side, which stands for the
+// neighbour chunk unless it is a phantom at a global edge.  The halos travel as
+// extra rows of the one K/V tensor, (B, H, L + 2c, d): the caller concatenates
+// them (a copy of the rank's K and V, 2 x B H (L + 2c) d elements), so the
+// kernel's loads keep one base pointer.  A single call's place (head0 = chunk0 =
+// 0, no halos; band_place) reads the same rows, flags and lanes as a call
+// without places.  The fp32 kernels take the place as a parameter in every
+// call.  The bf16 kernels keep one body: a single call launches a kernel whose
+// parameters are Args alone and builds its place inside (whole_place), where
+// its constants fold; a placed call launches ``_placed_kernel`` with the place
+// beside Args.  On the H100, every bf16 call with the place as a parameter cost
+// K5 9% at dropout 0.2, and the place inside Args cost K3 8%, through ptxas's
+// code choices.
+//
 // Dropout is the TPU kernel's interpret-mode rule (fused_attention.py:64-80):
-// lane (b * H + h) * nc + i; counter row * 3c + col for the band draw and
+// lane (b * H_all + head0 + h) * nc_all + chunk0 + i (BandPlace::lane; (b * H +
+// h) * nc + i for a single call); counter row * 3c + col for the band draw and
 // row * tt + col + 2^20 for the text draw (row, col local to the chunk); keep
 // iff the bits are >= uint32(rate * 0xFFFFFFFF).  The counter depends on the
 // position only, so the masks equal the Pallas interpret-mode masks bit for
@@ -95,8 +112,9 @@ struct FwdBf16 {
   static constexpr int SMEM = 1024 + 2 * TILE + NST * STAGE;
 };
 
-template <int DPAD>
-__global__ void __launch_bounds__(256, 1) banded_attention_fwd_bf16_kernel(Args a) {
+template <int DPAD, bool PLACED>
+__device__ __forceinline__ void fwd_bf16(const Args& a, const BandPlace& place) {
+  const BandPlace pl = PLACED ? place : whole_place(a.L, gridDim.y, a.H);
   using S = FwdBf16<DPAD>;
   constexpr int TILE = S::TILE, NST = S::NST, STAGE = S::STAGE;
   extern __shared__ uint8_t smem_raw[];
@@ -111,12 +129,13 @@ __global__ void __launch_bounds__(256, 1) banded_attention_fwd_bf16_kernel(Args 
   const int L = a.L, d = a.d, c = a.c, tt = a.tt;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, w = t >> 5, lane = tid & 31;
   const int g8 = lane >> 2, qd = lane & 3;
-  const int nc = gridDim.y, ci = blockIdx.y, bh = blockIdx.z, b = bh / a.H;
+  const int ci = blockIdx.y, bh = blockIdx.z, b = bh / a.H;
   const int r0 = blockIdx.x * QR;  // the CTA's first query row within the chunk
   const int crow = ci * c;         // the chunk's first row
   const size_t mat = (size_t)bh * L * d;
+  const size_t kmat = (size_t)bh * pl.Lk * d;  // K's and V's matrix
   const size_t tmat = (size_t)bh * tt * d;
-  const uint32_t lane_id = (uint32_t)(bh * nc + ci);
+  const uint32_t lane_id = pl.lane(b, bh - b * a.H, ci);
   const int nbt = (c + KT - 1) / KT;  // key tiles per band chunk
   const int nband = 3 * nbt;
   const int ntiles = nband + (tt + KT - 1) / KT;
@@ -142,14 +161,14 @@ __global__ void __launch_bounds__(256, 1) banded_attention_fwd_bf16_kernel(Args 
     if (it < nband) {
       const int blk = it / nbt, w0 = (it - blk * nbt) * KT;
       const int nb = ci + blk - 1;
-      const int src = min(max(nb, 0), nc - 1) * c;  // a phantom reads the clipped chunk
-      load_tile<bf16, 256, 64, DPAD>(ks, k + mat, d, src + w0, src + c, 0, d, vc, tid, sw);
-      load_tile<bf16, 256, 64, DPAD>(vs, v + mat, d, src + w0, src + c, 0, d, vc, tid, sw);
+      const int src = pl.key_row(nb, c);  // a phantom reads the clipped chunk
+      load_tile<bf16, 256, 64, DPAD>(ks, k + kmat, d, src + w0, src + c, 0, d, vc, tid, sw);
+      load_tile<bf16, 256, 64, DPAD>(vs, v + kmat, d, src + w0, src + c, 0, d, vc, tid, sw);
       if (tid < KT) {
         const int within = w0 + tid;
         kf[tid] = within >= c ? 0
-                  : (nb >= 0 && nb < nc && a.spm[(size_t)b * L + nb * c + within] > 0) ? 2
-                                                                                       : 1;
+                  : (pl.real(nb) && a.spm[(size_t)b * pl.Lk + src + within] > 0) ? 2
+                                                                                     : 1;
       }
     } else {
       const int w0 = (it - nband) * KT;
@@ -274,6 +293,20 @@ __global__ void __launch_bounds__(256, 1) banded_attention_fwd_bf16_kernel(Args 
   }
 }
 
+// a single call: its parameters are Args alone (with a place beside them, K5
+// at dropout 0.2 ran 9% slower on the H100)
+template <int DPAD>
+__global__ void __launch_bounds__(256, 1) banded_attention_fwd_bf16_kernel(Args a) {
+  fwd_bf16<DPAD, false>(a, BandPlace{});
+}
+
+// a call that holds part of one process's call
+template <int DPAD>
+__global__ void __launch_bounds__(256, 1)
+    banded_attention_fwd_bf16_placed_kernel(Args a, BandPlace pl) {
+  fwd_bf16<DPAD, true>(a, pl);
+}
+
 // ---------------------------------------------------------------- fp32
 
 constexpr int BM = 64;       // query rows per CTA
@@ -288,7 +321,7 @@ __global__ void __launch_bounds__(NT) banded_attention_fwd_f32_kernel(
     const int32_t* __restrict__ txm, const int32_t* __restrict__ spm,
     float* __restrict__ out, float* __restrict__ lse, int H, int L, int d, int c,
     int tt, float scale, uint32_t seed, uint32_t threshold, float keep_scale,
-    int dropout) {
+    int dropout, BandPlace pl) {
   constexpr int NG = DMAX / 16;  // float4 accumulator groups per thread
   extern __shared__ float4 smem4[];
   const int dp = padded_dim(d);
@@ -299,7 +332,6 @@ __global__ void __launch_bounds__(NT) banded_attention_fwd_f32_kernel(
   int* krow = reinterpret_cast<int*>(ps + BM * PS);  // BN: source row, -1 = none
   int* kval = krow + BN;                             // BN: key valid
 
-  const int nc = gridDim.y;
   const int ci = blockIdx.y;
   const int bh = blockIdx.z;
   const int b = bh / H;
@@ -309,8 +341,9 @@ __global__ void __launch_bounds__(NT) banded_attention_fwd_f32_kernel(
   const int j = tid & 3;   // its quarter of the row
   const int rloc = r0 + r;
   const size_t mat = (size_t)bh * L * d;
+  const size_t kmat = (size_t)bh * pl.Lk * d;
   const size_t tmat = (size_t)bh * tt * d;
-  const uint32_t lane = (uint32_t)(bh * nc + ci);
+  const uint32_t lane = pl.lane(b, bh - b * H, ci);
   const int d4 = (d + 3) / 4;
   const int nband = 3 * c;
   const int nbt = (nband + BN - 1) / BN;
@@ -342,16 +375,16 @@ __global__ void __launch_bounds__(NT) banded_attention_fwd_f32_kernel(
         } else {
           const int nb = ci + col / c - 1;  // neighbour chunk, maybe phantom
           const int within = col % c;
-          src = min(max(nb, 0), nc - 1) * c + within;
-          valid = nb >= 0 && nb < nc && spm[(size_t)b * L + nb * c + within] > 0;
+          src = pl.key_row(nb, c) + within;
+          valid = pl.real(nb) && spm[(size_t)b * pl.Lk + src] > 0;
         }
       }
       krow[tid] = src;
       kval[tid] = valid;
     }
     __syncthreads();
-    const float* kb = text ? kt + tmat : k + mat;
-    const float* vb = text ? vt + tmat : v + mat;
+    const float* kb = text ? kt + tmat : k + kmat;
+    const float* vb = text ? vt + tmat : v + kmat;
     for (int e = tid; e < BN * dp; e += NT) {
       const int rr = e / dp, cc = e - rr * dp, src = krow[rr];
       const bool in = src >= 0 && cc < d;
@@ -453,18 +486,16 @@ __global__ void __launch_bounds__(NT) banded_attention_fwd_f32_kernel(
 }
 
 template <int DPAD>
-int run_bf16(const Args& a) {
+int run_bf16(const Args& a, const BandPlace& pl, bool placed) {
   constexpr int smem = FwdBf16<DPAD>::SMEM;
-  auto kern = banded_attention_fwd_bf16_kernel<DPAD>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.c + QR - 1) / QR, a.L / a.c, a.B * a.H);
-  kern<<<grid, 256, smem, a.stream>>>(a);
-  return (int)cudaGetLastError();
+  if (placed)
+    return launch256(banded_attention_fwd_bf16_placed_kernel<DPAD>, grid, smem, a.stream, a, pl);
+  return launch256(banded_attention_fwd_bf16_kernel<DPAD>, grid, smem, a.stream, a);
 }
 
 template <int DMAX>
-int run_f32(const Args& a) {
+int run_f32(const Args& a, const BandPlace& pl) {
   const int dp = padded_dim(a.d);
   const size_t smem = (size_t)(BM * dp + 2 * BN * dp + BM * PS) * sizeof(float)
                       + 2 * BN * sizeof(int);
@@ -477,42 +508,51 @@ int run_f32(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.kt),
       static_cast<const float*>(a.vt), a.txm, a.spm, static_cast<float*>(a.out), a.lse, a.H,
-      a.L, a.d, a.c, a.tt, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout);
+      a.L, a.d, a.c, a.tt, a.scale, a.seed, a.threshold, a.keep_scale, a.dropout, pl);
   return (int)cudaGetLastError();
+}
+
+int run(const Args& a, const BandPlace& pl, bool placed, int dtype) {
+  const int d = a.d;
+  if (dtype == 0) {
+    if (d <= 64) return run_f32<64>(a, pl);
+    if (d <= 128) return run_f32<128>(a, pl);
+    if (d <= 192) return run_f32<192>(a, pl);
+    return run_f32<256>(a, pl);
+  }
+  if (dtype == 1) {
+    if (d <= 64) return run_bf16<64>(a, pl, placed);
+    if (d <= 128) return run_bf16<128>(a, pl, placed);
+    if (d <= 192) return run_bf16<192>(a, pl, placed);
+    return run_bf16<256>(a, pl, placed);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// q, k, v: (B, H, L, d) contiguous, L a multiple of c; kt, vt: (B, H, tt, d);
-// txm: (B, tt) int32; spm: (B, L) int32.  out: (B, H, L, d) in the input
-// type; lse: (B, H, L) fp32.  dtype 0 = float32, 1 = bfloat16.  Returns the
-// CUDA error code (0 = ok).
+// q: (B, H, L, d) contiguous, L a multiple of c; k, v: (B, H, Lk, d), Lk = L,
+// or L + 2c with the halos (halo = 1); kt, vt: (B, H, tt, d); txm: (B, tt)
+// int32; spm: (B, Lk) int32.  head0, H_all, chunk0, nc_all: the call's place
+// (BandPlace).  out: (B, H, L, d) in the input type; lse: (B, H, L) fp32.
+// dtype 0 = float32, 1 = bfloat16.  Returns the CUDA error code (0 = ok).
 extern "C" int a3t_banded_attention_fwd(
     const void* q, const void* k, const void* v, const void* kt,
     const void* vt, const int32_t* txm, const int32_t* spm, void* out,
     float* lse, int B, int H, int L, int d, int c, int tt, int dtype,
+    int head0, int H_all, int chunk0, int nc_all, int halo,
     float scale, uint32_t seed, uint32_t threshold, float keep_scale,
     int dropout, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || d <= 0 || d > 256 || c <= 0 || tt <= 0 ||
-      L % c != 0 || L / c > 65535 || B * H > 65535)
+      L % c != 0 || L / c > 65535 || B * H > 65535 ||
+      !band_place_ok(B, H, L, c, head0, H_all, chunk0, nc_all))
     return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(kt) &&
                   aligned16(vt);
-  const Args a{q, k, v, kt, vt, txm, spm, out, lse, B, H, L, d, c, tt, vec, scale, seed,
-               threshold, keep_scale, dropout, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
-    if (d <= 64) return run_f32<64>(a);
-    if (d <= 128) return run_f32<128>(a);
-    if (d <= 192) return run_f32<192>(a);
-    return run_f32<256>(a);
-  }
-  if (dtype == 1) {
-    if (d <= 64) return run_bf16<64>(a);
-    if (d <= 128) return run_bf16<128>(a);
-    if (d <= 192) return run_bf16<192>(a);
-    return run_bf16<256>(a);
-  }
-  return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, kt, vt, txm, spm, out, lse, B, H, L, d, c, tt, vec,
+               scale, seed, threshold, keep_scale, dropout, static_cast<cudaStream_t>(stream)};
+  return run(a, band_place(L, c, head0, H_all, chunk0, nc_all, halo),
+             band_placed(H, L, c, head0, H_all, chunk0, nc_all, halo), dtype);
 }

@@ -29,8 +29,9 @@ length), the attention all-gathers its keys and values, the
 convolutions exchange their halos, BatchNorm reduces over the data and
 seq axes, and every dropout keeps the rank's rows of one process's mask.
 Under ``remat`` the ranks of a seq group replay those collectives in the
-same order.  The longformer kind takes neither the seq nor the model axis
-yet (ROADMAP A10d).
+same order.  The longformer kind takes both axes: its rank's heads, and
+its frame block with a band halo of c x dilation frames from each
+neighbour (``models/windowed_attention.py``).
 
 Mixed precision follows flax's promotion: LayerNorms keep the float32
 stream, the attention projections, feed-forwards and conv module run in the
@@ -117,22 +118,12 @@ class EncoderConfig:
         """The compute dtype, None for float32 (flax's convention)."""
         return None if self.compute_dtype == "float32" else torch.bfloat16
 
-    def check_supported(self, tensor_parallel: int = 1,
-                        sequence_parallel: int = 1) -> None:
+    def check_supported(self, tensor_parallel: int = 1) -> None:
         """Raise for what the port does not take, over a model axis of
-        ``tensor_parallel`` ranks and a seq axis of ``sequence_parallel``."""
+        ``tensor_parallel`` ranks."""
         kind = self.selfattention_layer_type
         if kind not in ATTENTION_KINDS:
             raise ValueError(f"unknown attention kind {kind!r}")
-        if kind == "longformer":
-            for axis, n in (("tensor_parallel", tensor_parallel),
-                            ("sequence_parallel", sequence_parallel)):
-                if n > 1:
-                    raise NotImplementedError(
-                        f"mesh.{axis} > 1 with longformer attention is not "
-                        "ported: the banded kernels need a halo chunk, a "
-                        "global chunk offset and the global heads in their "
-                        "dropout lanes (ROADMAP A10d)")
         if tensor_parallel > 1:
             for what, n in (("attention_heads", self.attention_heads),
                             ("linear_units", self.linear_units)):
@@ -316,7 +307,7 @@ class ConformerBlock(nn.Module):
                 d, c.attention_heads, c.attention_window,
                 c.attention_dropout_rate, dtype=c.dtype,
                 dilation=c.attention_dilation,
-                use_banded=c.use_pallas_attention)
+                use_banded=c.use_pallas_attention, shard=shard)
         elif self.kind == "selfattn":
             self.self_attn = MultiHeadedAttention(
                 d, c.attention_heads, c.attention_dropout_rate, dtype=c.dtype,
@@ -355,7 +346,7 @@ class ConformerBlock(nn.Module):
             flat_mask = mask[:, 0] if mask is not None and mask.dim() == 3 \
                 else mask
             h = self.self_attn(h, h.shape[1] if n_frames is None else n_frames,
-                               flat_mask, generator)
+                               flat_mask, generator, seq)
         elif self.kind == "selfattn":
             h = self.self_attn(h, h, h, mask, generator, seq)
         elif _remat_on(self, self.remat_attention):

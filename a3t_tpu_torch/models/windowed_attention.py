@@ -27,6 +27,27 @@ sequences run through the same path with the text keys repeated d times
 (``repeat_interleave``, ``jnp.repeat``), and the output is put back in frame
 order.  ``n_frames`` must be a multiple of window/2 x dilation (the
 batcher's bucket rule).
+
+On a ``shard`` of the model axis (``parallel/tensor.py``) the module runs
+its rank's H / tp heads from ``head0``: q, k and v hold their rows,
+``linear_out`` their columns, whose partial products the model group sums
+(``layers.row_parallel``); the banded kernels draw the dropout lanes of
+the global heads, and both dropout sites keep their heads' slice of one
+process's mask.
+
+On a rank of the mesh's seq axis (``seq``, ``parallel/sequence.py``) the
+module holds its frame block and the whole text, and ``mask`` is the whole
+sequence's key mask.  The speech queries take c x d frames from each
+neighbour block (``parallel/sequence.py::halo_pad`` over the frames alone,
+zeros at the global edges), which is
+c positions of each phase, and run on the rank's query chunks with that
+halo (``chunks`` of the banded kernels; the chunked path bands over the
+halo'd tensors with the structural edges of the whole sequence, and keeps
+its chunks' rows of one process's dropout mask).  The text queries attend
+every key, so the speech keys and values are all-gathered and the local
+text appended; their dropout mask is the whole tensor's, the same on every
+rank.  A rank's block must be a multiple of c x d frames
+(:func:`block_rule`; JAX asks this of the whole sequence only).
 """
 
 from __future__ import annotations
@@ -38,93 +59,134 @@ import torch
 from torch import nn
 
 from a3t_tpu_torch.models.dropout import SeededDropout, draw_seed
-from a3t_tpu_torch.models.layers import dense
+from a3t_tpu_torch.models.layers import dense, row_parallel
 from a3t_tpu_torch.ops.banded_attention import banded_attention
+from a3t_tpu_torch.parallel.sequence import gather_frames, halo_pad
+from a3t_tpu_torch.parallel.tensor import ModelShard, copy_to_model
 
 NEG = torch.finfo(torch.float32).min
 
 
-def chunk_bands(x: torch.Tensor, c: int) -> torch.Tensor:
+def chunk_bands(x: torch.Tensor, c: int, halo: bool = False) -> torch.Tensor:
     """(B, H, T, d) -> (B, H, nc, 3c, d): each chunk of c rows with its
     neighbours i-1, i, i+1; the missing edge neighbours are zeros (JAX
-    ``_chunk_bands``)."""
+    ``_chunk_bands``).  ``halo``: x holds a halo chunk on each side, (B, H,
+    T + 2c, d), which stands for the edge chunks' neighbours."""
     b, h, t, d = x.shape
     xc = x.reshape(b, h, t // c, c, d)
+    if halo:
+        return torch.cat([xc[:, :, :-2], xc[:, :, 1:-1], xc[:, :, 2:]], dim=3)
     zero = torch.zeros_like(xc[:, :, :1])
     return torch.cat([torch.cat([zero, xc[:, :, :-1]], 2), xc,
                       torch.cat([xc[:, :, 1:], zero], 2)], dim=3)
 
 
-def band_valid(nc: int, c: int, device) -> torch.Tensor:
-    """(nc, 3c) structurally valid band positions: chunk 0 has no previous
-    chunk, chunk nc-1 no next one (JAX ``_band_valid``)."""
+def band_valid(nc: int, c: int, device, chunk0: int = 0,
+               nc_all: int = None) -> torch.Tensor:
+    """(nc, 3c) structurally valid band positions of the query chunks
+    chunk0 .. chunk0 + nc - 1 of nc_all (default nc): chunk 0 has no
+    previous chunk, chunk nc_all - 1 no next one (JAX ``_band_valid``)."""
+    nc_all = nc if nc_all is None else nc_all
     valid = torch.ones(nc, 3 * c, dtype=torch.bool, device=device)
-    valid[0, :c] = False
-    valid[-1, 2 * c:] = False
+    if chunk0 == 0:
+        valid[0, :c] = False
+    if chunk0 + nc == nc_all:
+        valid[-1, 2 * c:] = False
     return valid
+
+
+def block_rule(seq, c: int, dilation: int) -> None:
+    """Raise unless a seq rank's frame block splits into whole chunks of
+    c x dilation frames, the band halo's unit."""
+    if seq is not None and seq.block % (c * dilation):
+        raise ValueError(
+            f"longformer attention on the seq axis needs each rank's frame "
+            f"block ({seq.frames} frames / {seq.size} ranks = {seq.block}) "
+            f"to be a multiple of half-window {c} x dilation {dilation}; "
+            "adjust BatcherConfig.bucket_frames or mesh.sequence_parallel")
 
 
 class WindowedSelfAttention(nn.Module):
     """MHA where the first ``n_frames`` tokens use a +/- window/2 band and the
     rest (text) are global.  forward(x (B, T, d_model), n_frames, mask (B, T)
-    validity, generator) -> (B, T, d_model) in the compute dtype."""
+    validity, generator, seq) -> (B, T, d_model) in the compute dtype.
+    ``shard``: the module's place on the model axis."""
 
     def __init__(self, d_model: int, n_head: int, window: int,
                  dropout_rate: float = 0.0, dtype=None, dilation: int = 1,
-                 use_banded: bool = True):
+                 use_banded: bool = True, shard: ModelShard = ModelShard()):
         super().__init__()
         if window < 2:
             raise ValueError(f"attention window {window} below 2")
         if dilation < 1:
             raise ValueError(f"dilation must be >= 1, got {dilation}")
-        self.h = n_head
+        self.h = shard.part(n_head, "attention_heads")  # this rank's heads
+        self.heads = n_head
+        self.head0 = shard.rank * self.h
+        self.tp = shard.size
         self.d_k = d_model // n_head
         self.window = window
         self.dilation = dilation
         self.use_banded = use_banded
         self.dtype = dtype
-        self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(d_model, d_model)
-        self.linear_v = nn.Linear(d_model, d_model)
-        self.linear_out = nn.Linear(d_model, d_model)
-        self.dropout = SeededDropout(dropout_rate)
+        width = self.h * self.d_k
+        self.linear_q = nn.Linear(d_model, width)
+        self.linear_k = nn.Linear(d_model, width)
+        self.linear_v = nn.Linear(d_model, width)
+        self.linear_out = nn.Linear(width, d_model)
+        # both sites' probabilities hold this rank's heads along dim 1
+        self.dropout = SeededDropout(dropout_rate,
+                                     (1, shard.rank, shard.size))
 
     def _scale(self) -> float:
         return float(np.float32(1.0 / math.sqrt(self.d_k)))
 
-    def _chunked(self, q, k, v, spm, k_tx, v_tx, txm, generator):
+    def _chunked(self, q, k, v, spm, k_tx, v_tx, txm, generator,
+                 chunks=None):
         """JAX's chunked-einsum speech attention on (B', H, F', d) phase
-        tensors -> (B', H, F', d) in the value dtype."""
+        tensors -> (B', H, F', d) in the value dtype.  ``chunks = (chunk0,
+        nc_all)``: the queries are chunks chunk0 .. of nc_all, and k, v and
+        spm carry a halo chunk on each side."""
         bb, h, nf, d = q.shape
         c = self.window // 2
         nc = nf // c
+        halo = chunks is not None
+        chunk0, nc_all = chunks if halo else (0, nc)
         scale = self._scale()
         qc = q.reshape(bb, h, nc, c, d).float()
-        vb = chunk_bands(v, c)
+        vb = chunk_bands(v, c, halo)
         band = torch.einsum("bhncd,bhnkd->bhnck", qc,
-                            chunk_bands(k, c).float()) * scale
-        key_ok = chunk_bands(spm[:, None, :, None].float(), c)[:, 0, ..., 0]
-        band_ok = band_valid(nc, c, q.device)[None] & (key_ok > 0)
+                            chunk_bands(k, c, halo).float()) * scale
+        key_ok = chunk_bands(spm[:, None, :, None].float(), c, halo)[
+            :, 0, ..., 0]
+        band_ok = band_valid(nc, c, q.device, chunk0, nc_all)[None] \
+            & (key_ok > 0)
         band = band.masked_fill(~band_ok[:, None, :, None, :], NEG)
         text = torch.einsum("bhncd,bhsd->bhncs", qc, k_tx.float()) * scale
         text = text.masked_fill(~txm[:, None, None, None, :], NEG)
+        rows = None if not halo else (
+            2, torch.arange(chunk0, chunk0 + nc, device=q.device), nc_all)
         attn = self.dropout(torch.softmax(torch.cat([band, text], -1), -1),
-                            generator)
+                            generator, rows)
         a_band, a_text = attn[..., :3 * c], attn[..., 3 * c:]
         out = torch.einsum("bhnck,bhnkd->bhncd", a_band.to(v.dtype), vb) \
             + torch.einsum("bhncs,bhsd->bhncd", a_text.to(v.dtype), v_tx)
         return out.reshape(bb, h, nf, d)
 
-    def forward(self, x, n_frames: int, mask=None, generator=None):
+    def forward(self, x, n_frames: int, mask=None, generator=None, seq=None):
+        """``seq``: the rank's rows on the seq axis (module docstring):
+        ``x`` holds its frame block (``n_frames`` rows) and the text, and
+        ``mask`` is the whole sequence's."""
         b, t, d_model = x.shape
         c, dl = self.window // 2, self.dilation
+        block_rule(seq, c, dl)
         if n_frames % (c * dl) != 0:
             raise ValueError(f"n_frames {n_frames} must be a multiple of "
                              f"half-window {c} x dilation {dl}")
+        x = copy_to_model(x, self.tp)
 
-        def heads(linear):  # (B, H, T, d_k)
-            y = dense(linear, x, self.dtype)
-            return y.view(b, t, self.h, self.d_k).transpose(1, 2)
+        def heads(linear):  # (B, T, H, d_k)
+            return dense(linear, x, self.dtype).view(b, t, self.h, self.d_k)
 
         q, k, v = heads(self.linear_q), heads(self.linear_k), \
             heads(self.linear_v)
@@ -133,22 +195,37 @@ class WindowedSelfAttention(nn.Module):
         mask = mask != 0
 
         sp, tx = slice(0, n_frames), slice(n_frames, t)
-        q_sp, k_sp, v_sp, spm = q[:, :, sp], k[:, :, sp], v[:, :, sp], \
-            mask[:, sp]
-        k_tx, v_tx, txm = k[:, :, tx], v[:, :, tx], mask[:, tx]
+        if seq is None:
+            spm, txm, key_mask = mask[:, sp], mask[:, tx], mask
+            k_sp, v_sp, chunks = k[:, sp], v[:, sp], None
+        else:
+            # the speech keys, values and mask with c x dl halo frames from
+            # each neighbour block (zeros at the global edges; the backward
+            # returns each halo row's gradient to its owner)
+            halo = c * dl
+            edge = mask.new_zeros(b, halo)
+            spm = torch.cat([edge, mask[:, :seq.frames], edge], 1)[
+                :, seq.offset:seq.offset + seq.block + 2 * halo]
+            txm = mask[:, seq.frames:]
+            # text queries attend the whole sequence's keys
+            key_mask = mask if t > n_frames else \
+                mask[:, seq.offset:seq.offset + seq.block]
+            k_sp, v_sp = (halo_pad(y[:, sp], halo, seq.speech(), 1)
+                          for y in (k, v))
+            chunks = (seq.offset // halo, seq.frames // halo)
         nf_p = n_frames // dl
-        if dl > 1:
-            # frame p * dl + r of row bi -> row bi * dl + r, position p
-            def to_phases(y):
-                return y.reshape(b, self.h, nf_p, dl, self.d_k).permute(
-                    0, 3, 1, 2, 4).reshape(b * dl, self.h, nf_p, self.d_k)
 
-            q_sp, k_sp, v_sp = to_phases(q_sp), to_phases(k_sp), \
-                to_phases(v_sp)
-            spm = spm.reshape(b, nf_p, dl).transpose(1, 2).reshape(
-                b * dl, nf_p)
-            k_tx, v_tx, txm = (y.repeat_interleave(dl, dim=0)
-                               for y in (k_tx, v_tx, txm))
+        def to_phases(y):  # (B, F, H, d_k) -> (B * dl, H, F / dl, d_k)
+            f = y.shape[1]
+            return y.reshape(b, f // dl, dl, self.h, self.d_k).permute(
+                0, 2, 3, 1, 4).reshape(b * dl, self.h, f // dl, self.d_k)
+
+        # frame p * dl + r of row bi -> row bi * dl + r, position p
+        q_sp, k_sp, v_sp = (to_phases(y) for y in (q[:, sp], k_sp, v_sp))
+        spm = spm.reshape(b, -1, dl).transpose(1, 2).reshape(b * dl, -1)
+        k_tx, v_tx = (y[:, tx].transpose(1, 2).repeat_interleave(dl, dim=0)
+                      for y in (k, v))
+        txm_p = txm.repeat_interleave(dl, dim=0)
 
         if self.use_banded:
             rate = self.dropout.rate if self.training else 0.0
@@ -161,21 +238,27 @@ class WindowedSelfAttention(nn.Module):
                 seed = draw_seed(generator)
             out_sp = banded_attention(
                 q_sp.contiguous(), k_sp.contiguous(), v_sp.contiguous(),
-                k_tx.contiguous(), v_tx.contiguous(), txm, self.window,
-                speech_mask=spm, dropout_rate=rate, seed=seed)
+                k_tx.contiguous(), v_tx.contiguous(), txm_p, self.window,
+                speech_mask=spm, dropout_rate=rate, seed=seed,
+                head0=self.head0, heads=self.heads, chunks=chunks)
         else:
-            out_sp = self._chunked(q_sp, k_sp, v_sp, spm, k_tx, v_tx, txm,
-                                   generator)
-        if dl > 1:
-            out_sp = out_sp.reshape(b, dl, self.h, nf_p, self.d_k).permute(
-                0, 2, 3, 1, 4).reshape(b, self.h, n_frames, self.d_k)
+            out_sp = self._chunked(q_sp, k_sp, v_sp, spm, k_tx, v_tx, txm_p,
+                                   generator, chunks)
+        out_sp = out_sp.reshape(b, dl, self.h, nf_p, self.d_k).permute(
+            0, 2, 3, 1, 4).reshape(b, self.h, n_frames, self.d_k)
 
         # text queries: full attention over every key, in float32
-        scores = torch.matmul(q[:, :, tx].float(),
+        if seq is not None and t > n_frames:
+            k, v = (torch.cat([gather_frames(y[:, sp], seq), y[:, tx]], 1)
+                    for y in (k, v))
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        scores = torch.matmul(q[:, tx].transpose(1, 2).float(),
                               k.float().transpose(-1, -2)) * self._scale()
-        scores = scores.masked_fill(~mask[:, None, None, :], NEG)
+        scores = scores.masked_fill(~key_mask[:, None, None, :], NEG)
         attn = self.dropout(torch.softmax(scores, dim=-1), generator)
         out_tx = torch.matmul(attn.to(v.dtype), v)
 
         out = torch.cat([out_sp, out_tx], dim=2).transpose(1, 2)
-        return dense(self.linear_out, out.reshape(b, t, d_model), self.dtype)
+        return row_parallel(self.linear_out,
+                            out.reshape(b, t, self.h * self.d_k), self.dtype,
+                            self.tp)

@@ -38,8 +38,8 @@ class MeshConfig:
     tensor_parallel``, and any other value must cover them with them.
     ``tensor_parallel`` splits a Conformer model's heads and feed-forward
     units, ``sequence_parallel`` the frames of each row (every frame bucket
-    a multiple of it); the longformer under either above 1 raises when a
-    task is built (ROADMAP A10d)."""
+    a multiple of it, and for the longformer of sp x half-window x
+    dilation)."""
 
     data_parallel: Optional[int] = None
     tensor_parallel: int = 1

@@ -39,8 +39,9 @@ multiple of sp) through the rank-aware step, optimizer, trainer and
 checkpoints; chained dispatch falls back to one step per call, as JAX's
 does on a mesh.  Rank 0 alone writes ``config.yaml``, ``tokens.txt``, the
 checkpoints, the plots and the tensorboard and wandb logs; the plots'
-forward runs whole on every rank of data rank 0.  Still raising with its
-ROADMAP item: the longformer on the seq or model axis (A10d).
+forward runs whole on every rank of data rank 0.  The longformer takes
+both axes; on the seq axis every frame bucket must give each rank a block
+of whole chunks of half-window x dilation frames, which the build checks.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ from a3t_tpu_torch.parallel.mesh import (barrier, data_rank, make_mesh,
                                          rank, rank_device, world)
 from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
 from a3t_tpu_torch.models.mlm import A3TMLMModel, build_model
+from a3t_tpu_torch.models.windowed_attention import block_rule
+from a3t_tpu_torch.parallel.sequence import SeqLayout
 from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
                                         save_config)
 from a3t_tpu_torch.text import TokenIDConverter, build_token_list
@@ -99,7 +102,21 @@ def check_supported(cfg: A3TTaskConfig) -> int:
     tp, sp = int(m.tensor_parallel), int(m.sequence_parallel)
     for stack in (cfg.model.encoder, cfg.model.decoder):
         if stack is not None:
-            stack.check_supported(tp, sp)
+            stack.check_supported(tp)
+    # longformer buckets must be multiples of the half-window (the
+    # pad_to_longformer_att_window invariant, collate_fn.py:241-247), and
+    # on the seq axis give each rank a block of whole chunks
+    enc = cfg.model.encoder
+    if enc.selfattention_layer_type == "longformer":
+        c, dl = enc.attention_window // 2, max(enc.attention_dilation, 1)
+        bad = [b for b in cfg.batcher.bucket_frames if b % (c * dl) != 0]
+        if bad:
+            raise ValueError(
+                f"bucket_frames {bad} not multiples of half-window x "
+                f"dilation {c * dl} (required by longformer attention)")
+        if sp > 1:
+            for frames in cfg.batcher.bucket_frames:
+                block_rule(SeqLayout(int(frames), 0, 0, sp), c, dl)
     return make_mesh(m.data_parallel, tp, sp)
 
 
@@ -228,16 +245,6 @@ class MLMTask:
         r = rank()
         dev = rank_device(device)
         rows = (data_rank(), w) if w > 1 else None
-        # longformer buckets must be multiples of the half-window (the
-        # pad_to_longformer_att_window invariant, collate_fn.py:241-247)
-        enc = cfg.model.encoder
-        if enc.selfattention_layer_type == "longformer":
-            c = (enc.attention_window // 2) * max(enc.attention_dilation, 1)
-            bad = [b for b in cfg.batcher.bucket_frames if b % c != 0]
-            if bad:
-                raise ValueError(
-                    f"bucket_frames {bad} not multiples of half-window x "
-                    f"dilation {c} (required by longformer attention)")
 
         os.makedirs(cfg.exp_dir, exist_ok=True)
         if r == 0:

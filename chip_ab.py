@@ -3,7 +3,7 @@
 the longformer step included, for a parent-against-change comparison on one
 CUDA card.
 
-    python3 chip_ab.py ROOT TAG
+    python3 chip_ab.py ROOT TAG [--banded]
 
 ROOT is a checkout of the port (for the parent, `git archive` of its commit
 unpacked into a directory that git ignores); TAG labels every line.  Run it
@@ -13,13 +13,16 @@ commits meet the same card and the same host.  It runs ROOT's own
 `train_longformer_phase` (the 16 kHz longformer step in bf16 through K3-K5),
 with their checks, and prints their timing lines; beside each of the 6 s
 request's CUDA-event times it prints the device time per call from
-torch.profiler, since at batch 1 the host paces the model forward.
+torch.profiler, since at batch 1 the host paces the model forward.  With
+``--banded`` it runs ROOT's `kernel_banded_phase` alone instead (K3-K5
+against their plain versions, then their times at the training shape).
 """
 
 import os
 import sys
 
-KEEP = ("median", "breakdown", "busy", "on the device", "in the profiled")
+KEEP = ("median", "breakdown", "busy", "on the device", "in the profiled",
+        " times (")
 
 
 def main() -> int:
@@ -59,6 +62,10 @@ def main() -> int:
         return ms
 
     label = card_label()
+    if sys.argv[3:] == ["--banded"]:
+        print(f"[{tag}] {label}", flush=True)
+        chip_smoke.kernel_banded_phase(torch, ba, cuda_ms)
+        return 0
     chip_smoke.slice_phase(torch, np, fa, cuda_ms_and_device, wall_time, label)
     chip_smoke.train_phase(torch, np, fa, wall_time, label)
     chip_smoke.train_phase(torch, np, fa, wall_time, label,

@@ -7,9 +7,13 @@
     python3 chip_smoke.py --data-parallel-cards   # on a machine of 2+ cards:
         # the build and one rank per card over NCCL against one process;
         # with 4+ cards also a (cards / 2) x 2 data x model mesh and the
-        # 1 x 2 x 2 and 2 x 2 x 1 data x seq x model meshes
+        # 1 x 2 x 2 and 2 x 2 x 1 data x seq x model meshes; then phase
+        # longformer-cards: configs/a3t_longformer_16k.yaml at its
+        # 8192-frame bucket, bf16, on 1 x cards x 1, 1 x (cards / 2) x 2
+        # and (cards / 2) x 2 x 1 against one process
     python3 chip_smoke.py --tensor-parallel   # the build and phase 20 alone
     python3 chip_smoke.py --seq-parallel   # the build and phase 21 alone
+    python3 chip_smoke.py --longformer-mesh   # the build and phase 22 alone
 
 Phases, each printing its elapsed seconds:
 
@@ -334,7 +338,20 @@ Phases, each printing its elapsed seconds:
    back equal the plain rule's bits of those rows of the square call bit
    for bit; out, lse, dq and dbias against those rows of the square call,
    the two ranks' dk and dv summed against the square call's; the times
-   beside the square call's.
+   beside the square call's.  (d) K3, K4 and K5 on the frame blocks of 2
+   and 4 seq ranks (with their halo chunks) and on head 1 of the (4, 2,
+   8192, 192) call, fp32 and bf16, dropout 0.2: keep bits, out, lse and dq
+   equal to those rows of the whole call's, dk and dv summed over the
+   ranks against it, each against its plain version, the times.
+22. longformer-mesh: configs/a3t_longformer_16k.yaml at full width and
+   depth on the seq and model axes, as ranks on the one card over gloo
+   against one process, 8 rows of the 1024-frame bucket, the yaml's
+   dropout, deterministic mode.  (e) fp32, 4 steps, at sp = 2, at sp = 4
+   (one chunk a rank: ranks 1 and 2 train with both halos real) and at
+   tp = 2: losses within 1e-5, the parameters by JAX's cross-mesh rule,
+   BatchNorm within 1e-4 of spread.  (f) bf16, 2 steps, sp = 2 (losses
+   within 1e-3) and tp = 2 (1e-2).  Every rank launches K3, K4 and K5
+   once a block a train step, at its place.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -1790,7 +1807,8 @@ class PlainBanded:
         self.saved = [getattr(ba, n) for n in self.NAMES]
         ba.banded_attention_fwd = ba.banded_attention_reference
         ba.banded_attention_bwd_dq = \
-            lambda *a, text_grads=True: ba.banded_attention_bwd_dq_reference(*a)
+            lambda *a, text_grads=True, **at: \
+            ba.banded_attention_bwd_dq_reference(*a, **at)
         ba.banded_attention_bwd_dkv = ba.banded_attention_bwd_dkv_reference
 
     def __exit__(self, *exc):
@@ -4690,7 +4708,10 @@ def chunked_part(torch, np, ba, wall_time, label, device="cuda"):
                                      make_train_step)
 
     def formula(q, k, v, kt, vt, text_mask, window, speech_mask,
-                dropout_rate, seed):
+                dropout_rate, seed, head0=0, heads=None, chunks=None):
+        # one device: the call's place is the whole call
+        check(head0 == 0 and chunks is None, "the chunked formula runs on "
+              "a single call")
         return chunked_attention(torch, q, k, v, kt, vt, text_mask.int(),
                                  speech_mask.int(), window)[0].to(q.dtype)
 
@@ -5118,6 +5139,11 @@ TOL_DP_BN = 1e-4
 BN_EPS = 1e-5  # flax's BatchNorm epsilon
 
 
+# a rank's per-step records beside the seq group's collectives: the K1/K2
+# and K3/K4/K5 launches and the model group's all-reduces (calls, bytes)
+STEP_COUNTS = ("launches", "banded", "tp_comm")
+
+
 def dp_rank_main(argv) -> int:
     """One process of the data-parallel phase (``RANK_MAIN``): ``--dp-rank
     OUT [--dropout0] [--keep-mid DIR [--then JSON]] [--profile-step K] --
@@ -5146,6 +5172,7 @@ def dp_rank_main(argv) -> int:
     from a3t_tpu_torch.bin.train import main as train_main
     from a3t_tpu_torch.models import layers
     from a3t_tpu_torch.models.dropout import SeededDropout
+    from a3t_tpu_torch.ops import banded_attention as ba
     from a3t_tpu_torch.ops import fused_attention as fa
     from a3t_tpu_torch.parallel import mesh, sequence, sharding
     from a3t_tpu_torch.parallel import rank as dp_rank
@@ -5220,6 +5247,22 @@ def dp_rank_main(argv) -> int:
     fa._kernel_fwd, fa._kernel_bwd = k1_seen, k2_seen
     tp_tensor._all_reduce = reduce_counted
 
+    # the places K3/K4/K5 run at: (kernel, H, head0, heads, chunks, the
+    # halo rows of K beyond the queries')
+    bands = set()
+
+    def placed(kern, fn):
+        def seen(q, k, *a, head0=0, heads=None, chunks=None, **kw):
+            bands.add((kern, q.shape[1], head0, heads, chunks,
+                       k.shape[2] - q.shape[2]))
+            return fn(q, k, *a, head0=head0, heads=heads, chunks=chunks,
+                      **kw)
+        return seen
+
+    ba._kernel_fwd = placed("K3", ba._kernel_fwd)
+    ba._kernel_bwd_dq = placed("K4", ba._kernel_bwd_dq)
+    ba._kernel_bwd_dkv = placed("K5", ba._kernel_bwd_dkv)
+
     def seq_counted(kind, fn, on=lambda *a: mesh.seq_world() > 1):
         """``fn`` counting its calls and the bytes of its larger tensor
         (the gathered whole, the reduced vector) under ``kind``."""
@@ -5265,6 +5308,7 @@ def dp_rank_main(argv) -> int:
             recording[0] = len(calls) == 1
             before = list(comm)
             launched = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+            banded = _banded_launches(ba)
             sp_comm.clear()
             seq_place[0] = (mesh.seq_rank(), mesh.seq_world())
             try:
@@ -5284,6 +5328,9 @@ def dp_rank_main(argv) -> int:
                 sp_steps.append({
                     "launches": (fa.LAUNCHES - launched[0],
                                  fa.LAUNCHES_BWD - launched[1]),
+                    "banded": tuple(a - b for a, b in zip(
+                        _banded_launches(ba), banded)),
+                    "tp_comm": (comm[0] - before[0], comm[1] - before[1]),
                     **{k: tuple(v) for k, v in sp_comm.items()}})
 
         self.train_step = observed
@@ -5297,7 +5344,9 @@ def dp_rank_main(argv) -> int:
         blocks.clear()
         tp_comm.clear()
         sp_steps.clear()
+        bands.clear()
         fa.reset_launches()
+        ba.reset_launches()
         if on_cuda:
             torch.cuda.reset_peak_memory_stats()
         trainer, state = train_main(train_argv)
@@ -5326,6 +5375,8 @@ def dp_rank_main(argv) -> int:
             "blocks": sorted(blocks),
             "sp_steps": list(sp_steps),
             "seq": seq_place[0],
+            "banded": _banded_launches(ba),
+            "bands": sorted(bands, key=repr),
         }, f"{out}_r{r}.pt")
 
     run(train_argv, out)
@@ -6321,6 +6372,313 @@ def sp_kernel_rows(torch, fa, cuda_ms, label):
     return out_errs
 
 
+# --- the longformer on the mesh's seq and model axes (K3-K5 with a place)
+
+# (d): the (4, 2, 8192, 192) training call of K3-K5, c = 256, cut into the
+# frame blocks of 2 and 4 seq ranks and into its two heads.  Case "encoder":
+# 64 text keys, the last utterance 6 chunks short; case "pre-encoder":
+# speech only (the 128-key masked stand-in block), with rows 2 and 3 padded
+# past frame 6144 and 1800, so that rank 3 of 4 holds padding alone and
+# its first chunk's query rows (every band key padding, no text) read their
+# left halo from rank 2's real keys (ROADMAP C1)
+RANK_SHAPE = (4, 2, 8192, 192)
+RANK_WINDOW = 512
+RANK_RATE, RANK_SEED = 0.2, 24601
+RANK_CASES = (("encoder", 64, (8192, 8192, 8192, 6656), True),
+              ("pre-encoder", 0, (8192, 7424, 6144, 1800), False))
+
+
+def _halo_block(torch, x, s, sp, c, dim=2):
+    """Seq rank s of sp's frame block of ``x`` along ``dim`` with c rows
+    of each neighbour block, zeros past the global edges."""
+    pad = [0, 0] * (x.dim() - 1 - dim) + [c, c]
+    xp = torch.nn.functional.pad(x, pad)
+    blk = x.shape[dim] // sp
+    return xp.narrow(dim, s * blk, blk + 2 * c).contiguous()
+
+
+def _k3_keep_bits(torch, ba, b, h, t, d, window, tt, seed, rate, dt,
+                  head0=0, heads=None, chunks=None):
+    """K3's dropout keep bits (B, H, nc, c, 3c + tt) of a call at ``head0``
+    / ``chunks`` read back from its output: q = k = 0 makes p uniform over
+    the valid keys, and v one-hot on the key rows of the chunks of one
+    residue mod 3 (a query chunk's three neighbours have three residues, in
+    K's chunk numbers) and on a window of d in-chunk positions gives
+    out[r, j] = keep[r, col] / (n (1 - rate)); the text bits likewise."""
+    c = window // 2
+    nc, tk = t // c, t if chunks is None else t + 2 * c
+    first = 0 if chunks is None else 1
+    dev = torch.device("cuda")
+    zq = torch.zeros(b, h, t, d, device=dev, dtype=dt)
+    zk = torch.zeros(b, h, tk, d, device=dev, dtype=dt)
+    zt = torch.zeros(b, h, tt, d, device=dev, dtype=dt)
+    txm = torch.ones(b, tt, dtype=torch.int32, device=dev)
+    spm = torch.ones(b, tk, dtype=torch.int32, device=dev)
+    at = dict(head0=head0, heads=heads, chunks=chunks)
+    got = torch.zeros(b, h, nc, c, 3 * c + tt, dtype=torch.bool, device=dev)
+    rows = torch.arange(tk, device=dev)
+    for res in range(3):
+        for w0 in range(0, c, d):
+            n = min(d, c - w0)
+            v = torch.zeros(b, h, tk, d, device=dev, dtype=dt)
+            sel = rows[((rows // c) % 3 == res) & (rows % c >= w0)
+                       & (rows % c < w0 + n)]
+            v[:, :, sel, sel % c - w0] = 1
+            out, _ = ba.banded_attention_fwd(zq, zk, v, zt, zt, txm, spm,
+                                             window, seed, rate, **at)
+            out = out.view(b, h, nc, c, d)[..., :n] != 0
+            for ci in range(nc):
+                for blk in range(3):
+                    if (ci + blk - 1 + first) % 3 == res:
+                        got[:, :, ci, :, blk * c + w0:blk * c + w0 + n] = \
+                            out[:, :, ci]
+    for w0 in range(0, tt, d):
+        n = min(d, tt - w0)
+        vt = torch.zeros(b, h, tt, d, device=dev, dtype=dt)
+        vt[:, :, w0 + torch.arange(n), torch.arange(n)] = 1
+        out, _ = ba.banded_attention_fwd(zq, zk, zk, zt, vt, txm, spm, window,
+                                         seed, rate, **at)
+        got[..., 3 * c + w0:3 * c + w0 + n] = \
+            out.view(b, h, nc, c, d)[..., :n] != 0
+    return got & torch.cat([
+        ba.band_mask(spm, c, chunks)[:, None, :, None, :].expand(
+            b, h, nc, c, 3 * c),
+        torch.ones(b, h, nc, c, tt, dtype=torch.bool, device=dev)], -1)
+
+
+def _keep_bits_check(torch, ba):
+    """K3's keep bits of every seq rank's block (1 x 2 x 1024, c = 256, 64
+    text keys, sp = 4: a chunk a rank, both halos real inside) and of head
+    1 alone, against those rows of the whole call's plain rule, bit for
+    bit, in fp32 and bf16."""
+    b, h, t, d, window, tt = 1, 2, 1024, 192, 512, 64
+    c, nc, sp = window // 2, t // (window // 2), 4
+    dev = torch.device("cuda")
+    whole_spm = torch.ones(b, t, dtype=torch.int32, device=dev)
+    want = torch.cat([
+        ba.band_keep(b, h, nc, c, RANK_SEED, RANK_RATE, device=dev)
+        & ba.band_mask(whole_spm, c)[:, None, :, None, :],
+        ba.text_keep(b, h, nc, c, tt, RANK_SEED, RANK_RATE, device=dev)], -1)
+    for dt in (torch.float32, torch.bfloat16):
+        n_diff = n_bits = 0
+        nl = nc // sp
+        for s in range(sp):
+            got = _k3_keep_bits(torch, ba, b, h, t // sp, d, window, tt,
+                                RANK_SEED, RANK_RATE, dt,
+                                chunks=(s * nl, nc))
+            n_diff += int((got != want[:, :, s * nl:(s + 1) * nl]).sum())
+            n_bits += got.numel()
+        got = _k3_keep_bits(torch, ba, b, 1, t, d, window, tt, RANK_SEED,
+                            RANK_RATE, dt, head0=1, heads=2)
+        n_diff += int((got != want[:, 1:]).sum())
+        n_bits += got.numel()
+        log(f"  K3 keep bits of {sp} seq ranks' blocks of ({b}, {h}, {t}, "
+            f"{d}) and of head 1 alone, {str(dt)[6:]} rate {RANK_RATE}: "
+            f"{n_diff} of {n_bits} differ from those rows of the whole "
+            "call's")
+        check(n_diff == 0, f"K3's rank-block and head0 = 1 keep bits "
+              f"({str(dt)[6:]})")
+
+
+def _both(torch, got, want, rows) -> float:
+    """The larger of :func:`_split_rel_err`'s two errors: the rows (or
+    keys) where ``rows`` holds and the others, each against its own
+    largest value."""
+    return max(_split_rel_err(torch, got, want, rows))
+
+
+def _rel0(got, want) -> float:
+    """max|got - want| / max|want|, 0 where both are zero."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def banded_rank_rows(torch, ba, cuda_ms, label):
+    """(d) K3, K4 and K5 on the frame blocks of 2 and 4 seq ranks of the
+    (4, 2, 8192, 192) training call (edge ranks, whose outer halo is a
+    phantom, and interior ranks of 4 with both halos real) and on head 1
+    alone (head0 = 1 of 2), dropout 0.2, fp32 and bf16, both RANK_CASES:
+    K3's keep bits equal those rows of the whole call's; out, lse and K4's
+    dq equal those rows of the whole call's; the ranks' dk and dv, each
+    halo row added to its owner's, and K4's text gradients summed over the
+    ranks equal the whole call's; each result is also held against its
+    plain version on the rank's inputs; the times of rank 1 of 2 and of
+    the one-head call beside the whole call's.  Returns ({kernel: max abs
+    err over the seq blocks}, {kernel: max abs err on one head}, {kernel:
+    (ms on rank 1 of 2, on head 1, whole)})."""
+    _keep_bits_check(torch, ba)
+    g = torch.Generator().manual_seed(RANK_SEED)
+    b, h, t, d = RANK_SHAPE
+    window, c = RANK_WINDOW, RANK_WINDOW // 2
+    nc = t // c
+    worst_sp = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    worst_tp = dict(worst_sp)
+    times = {}
+    for name, tt, lengths, text_grads in RANK_CASES:
+        for dt, tol in ((torch.float32, TOL_BWD_F32),
+                        (torch.bfloat16, TOL_BWD_BF16)):
+            dname = str(dt)[6:]
+            q, k, v, kt, vt, go, txm, spm = _banded_inputs(
+                torch, g, b, h, t, d, tt, dt, lengths)
+            if tt == 0:
+                kt = torch.zeros(b, h, ba.EMPTY_TEXT, d, device=q.device,
+                                 dtype=dt)
+                vt = torch.zeros_like(kt)
+                txm = torch.zeros(b, ba.EMPTY_TEXT, dtype=torch.int32,
+                                  device=q.device)
+            fwd = (window, RANK_SEED, RANK_RATE)
+            out, lse = ba.banded_attention_fwd(q, k, v, kt, vt, txm, spm,
+                                               *fwd)
+            delta = (go.float() * out.float()).sum(-1)
+            bwd = (RANK_SEED, RANK_RATE, go, lse, delta)
+            dq, dkt, dvt = ba.banded_attention_bwd_dq(
+                q, k, v, kt, vt, txm, spm, window, *bwd)
+            dk, dv = ba.banded_attention_bwd_dkv(q, k, v, spm, window, *bwd)
+            rows = _masked_rows(torch, ba, txm, spm, c)
+            for sp in (2, 4):
+                blk, nl = t // sp, nc // sp
+                sums = [torch.zeros(b, h, t + 2 * c, d, device=q.device)
+                        for _ in range(2)]
+                tsum = [torch.zeros_like(dkt), torch.zeros_like(dvt)]
+                errs = {"out": 0.0, "lse": 0.0, "dq": 0.0, "plain": 0.0}
+                for s in range(sp):
+                    r = slice(s * blk, (s + 1) * blk)
+                    qs, gs = q[:, :, r].contiguous(), go[:, :, r].contiguous()
+                    ks, vs = (_halo_block(torch, x, s, sp, c) for x in (k, v))
+                    ms = _halo_block(torch, spm, s, sp, c, dim=1)
+                    at = dict(chunks=(s * nl, nc))
+                    o, l_ = ba.banded_attention_fwd(qs, ks, vs, kt, vt, txm, ms,
+                                                    *fwd, **at)
+                    dl_ = (gs.float() * o.float()).sum(-1)
+                    bw = (RANK_SEED, RANK_RATE, gs, l_, dl_)
+                    got = ba.banded_attention_bwd_dq(
+                        qs, ks, vs, kt, vt, txm, ms, window, *bw, **at) \
+                        + ba.banded_attention_bwd_dkv(qs, ks, vs, ms, window,
+                                                      *bw, **at)
+                    ref = ba.banded_attention_reference(
+                        qs, ks, vs, kt, vt, txm, ms, *fwd, **at)
+                    want = ba.banded_attention_bwd_dq_reference(
+                        qs, ks, vs, kt, vt, txm, ms, window, *bw, **at) \
+                        + ba.banded_attention_bwd_dkv_reference(
+                            qs, ks, vs, ms, window, *bw, **at)
+                    own = ~rows[:, r]
+                    errs["out"] = max(errs["out"], _both(
+                        torch, o, out[:, :, r], own))
+                    errs["lse"] = max(errs["lse"],
+                                      (l_ - lse[:, :, r]).abs().max().item())
+                    errs["dq"] = max(errs["dq"], _both(
+                        torch, got[0], dq[:, :, r], own))
+                    errs["plain"] = max(
+                        errs["plain"], _both(torch, o, ref[0], own),
+                        _both(torch, got[0], want[0], own),
+                        *[_both(torch, a, w_, ms > 0)
+                          for a, w_ in zip(got[3:], want[3:])],
+                        *[_rel0(a, w_) for a, w_ in zip(got[1:3], want[1:3])])
+                    for kern, pairs in (("K3", [(o, ref[0])]),
+                                        ("K4", zip(got[:3], want[:3])),
+                                        ("K5", zip(got[3:], want[3:]))):
+                        worst_sp[kern] = max(
+                            [worst_sp[kern]]
+                            + [(a.float() - w_.float()).abs().max().item()
+                               for a, w_ in pairs])
+                    for acc, x in zip(sums, got[3:]):
+                        acc[:, :, s * blk:s * blk + blk + 2 * c] += x.float()
+                    tsum[0] += got[1]
+                    tsum[1] += got[2]
+                    if sp == 2 and s == 1 and name == "encoder" \
+                            and dt == torch.bfloat16:
+                        t_rank = [cuda_ms(lambda: ba.banded_attention_fwd(
+                            qs, ks, vs, kt, vt, txm, ms, *fwd, **at)),
+                            cuda_ms(lambda: ba.banded_attention_bwd_dq(
+                                qs, ks, vs, kt, vt, txm, ms, window, *bw,
+                                **at)),
+                            cuda_ms(lambda: ba.banded_attention_bwd_dkv(
+                                qs, ks, vs, ms, window, *bw, **at))]
+                    del qs, gs, ks, vs, ms, o, l_, dl_, bw, got, ref, want
+                phantom = max(float(x[:, :, :c].abs().max())
+                              + float(x[:, :, -c:].abs().max()) for x in sums)
+                summed = [_both(torch, sums[0][:, :, c:-c], dk, spm > 0),
+                          _both(torch, sums[1][:, :, c:-c], dv, spm > 0),
+                          _rel0(tsum[0], dkt), _rel0(tsum[1], dvt)]
+                log(f"  K3/K4/K5 {name} {dname} on {sp} seq ranks' blocks "
+                    f"of {RANK_SHAPE}, rate {RANK_RATE}: max|rank - whole "
+                    f"rows|/max|whole| out {errs['out']:.3g}, dq "
+                    f"{errs['dq']:.3g}, max|lse diff| {errs['lse']:.3g}; the "
+                    f"ranks' halo rows returned and summed: dk "
+                    f"{summed[0]:.3g}, dv {summed[1]:.3g}, text dk "
+                    f"{summed[2]:.3g}, dv {summed[3]:.3g}; phantom halo "
+                    f"rows max |dk| + |dv| {phantom:.3g}; against the plain "
+                    f"versions {errs['plain']:.3g} (tol {tol:g})")
+                check(max(errs["out"], errs["dq"], errs["plain"],
+                          *summed) <= tol and errs["lse"] <= TOL_F32
+                      and phantom == 0.0,
+                      f"K3/K4/K5 {name} {dname} on {sp} seq ranks' blocks")
+                del sums, tsum
+            # model axis: head 1 alone (head0 = 1 of 2)
+            one = [x[:, 1:].contiguous() for x in (q, k, v, kt, vt, go)]
+            at = dict(head0=1, heads=h)
+            o, l_ = ba.banded_attention_fwd(*one[:5], txm, spm, *fwd, **at)
+            dl_ = (one[5].float() * o.float()).sum(-1)
+            bw = (RANK_SEED, RANK_RATE, one[5], l_, dl_)
+            got = ba.banded_attention_bwd_dq(*one[:5], txm, spm, window, *bw,
+                                             **at) \
+                + ba.banded_attention_bwd_dkv(*one[:3], spm, window, *bw,
+                                              **at)
+            whole = (out, dq, dkt, dvt, dk, dv)
+            exact = torch.equal(o, out[:, 1:]) and torch.equal(
+                l_, lse[:, 1:]) and all(torch.equal(a, w_[:, 1:])
+                                        for a, w_ in zip(got, whole[1:]))
+            ref = ba.banded_attention_reference(*one[:5], txm, spm, *fwd,
+                                                **at)
+            want = ba.banded_attention_bwd_dq_reference(
+                *one[:5], txm, spm, window, *bw, **at) \
+                + ba.banded_attention_bwd_dkv_reference(*one[:3], spm, window,
+                                                        *bw, **at)
+            own = ~rows
+            plain = max(_both(torch, o, ref[0], own),
+                        _both(torch, got[0], want[0], own),
+                        *[_rel0(a, w_) for a, w_ in zip(got[1:3], want[1:3])],
+                        *[_both(torch, a, w_, spm > 0)
+                          for a, w_ in zip(got[3:], want[3:])])
+            for kern, pairs in (("K3", [(o, ref[0])]),
+                                ("K4", zip(got[:3], want[:3])),
+                                ("K5", zip(got[3:], want[3:]))):
+                worst_tp[kern] = max(
+                    [worst_tp[kern]] + [(a.float() - w_.float()).abs().max()
+                                        .item() for a, w_ in pairs])
+            log(f"  K3/K4/K5 {name} {dname} on head 1 alone (head0 = 1 of "
+                f"{h}): out, lse, dq, text and band dk/dv equal head 1 of "
+                f"the two-head call bit for bit: {exact}; against the plain "
+                f"versions {plain:.3g} (tol {tol:g})")
+            check(exact and plain <= tol,
+                  f"K3/K4/K5 {name} {dname} on head 1 alone")
+            if name == "encoder" and dt == torch.bfloat16:
+                t_head = [cuda_ms(lambda: ba.banded_attention_fwd(
+                    *one[:5], txm, spm, *fwd, **at)),
+                    cuda_ms(lambda: ba.banded_attention_bwd_dq(
+                        *one[:5], txm, spm, window, *bw, **at)),
+                    cuda_ms(lambda: ba.banded_attention_bwd_dkv(
+                        *one[:3], spm, window, *bw, **at))]
+                t_whole = [cuda_ms(lambda: ba.banded_attention_fwd(
+                    q, k, v, kt, vt, txm, spm, *fwd)),
+                    cuda_ms(lambda: ba.banded_attention_bwd_dq(
+                        q, k, v, kt, vt, txm, spm, window, *bwd)),
+                    cuda_ms(lambda: ba.banded_attention_bwd_dkv(
+                        q, k, v, spm, window, *bwd))]
+                for i, kern in enumerate(("K3", "K4", "K5")):
+                    times[kern] = (t_rank[i], t_head[i], t_whole[i])
+                    log(f"  {kern} bf16 at rate {RANK_RATE}: "
+                        f"{t_rank[i]:.4f} ms on rank 1 of 2's block "
+                        f"({b}, {h}, {t // 2} + 2 x {c} halo rows, {d}), "
+                        f"{t_head[i]:.4f} ms on head 1 alone ({b}, 1, {t}, "
+                        f"{d}), {t_whole[i]:.4f} ms for the whole call "
+                        f"[{label}]")
+            del q, k, v, kt, vt, go, out, lse, delta, dq, dkt, dvt, dk, dv
+            del one, o, l_, dl_, bw, got, ref, want, whole, bwd
+            torch.cuda.empty_cache()
+    return worst_sp, worst_tp, times
+
+
 def _sp_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
                     tol_loss=TOL_SP_LOSS, bn=True):
     """dp x sp x tp ranks (rank order) against one process ``q`` on the same
@@ -6365,7 +6723,7 @@ def _sp_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
               f"{what} rank {r}: every K1/K2 launch on a query block of "
               f"F / {sp} + T rows against F + T keys ({sorted(lq_lk)[:4]})")
         kinds = sorted({k for st in x["sp_steps"] for k in st
-                        if k != "launches"})
+                        if k not in STEP_COUNTS})
         comm = "; ".join(
             f"{k} {[st.get(k, (0, 0))[0] for st in x['sp_steps']]} calls, "
             f"{[round(st.get(k, (0, 0))[1] / 1e6, 2) for st in x['sp_steps']]}"
@@ -6411,9 +6769,11 @@ def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
     bin.train, the ranks' group patched to gloo) against one process, fp32
     at the yaml's dropout, every batch 16 rows of the 512-frame bucket; the
     two-rank run's mid-epoch checkpoint resumed by one process; (b) the
-    same in bf16 for SP_BF16_ITERS steps; (c) :func:`sp_kernel_rows`.  On
-    the CPU (a rehearsal, ``sets`` at a toy width) (c) is left out.
-    Returns ({run: [(K1, K2) per rank]}, (c)'s errors)."""
+    same in bf16 for SP_BF16_ITERS steps; (c) :func:`sp_kernel_rows`; (d)
+    :func:`banded_rank_rows`, K3-K5 on the rank blocks and on one head.
+    On the CPU (a rehearsal, ``sets`` at a toy width) (c) and (d) are left
+    out.  Returns ({run: [(K1, K2) per rank]}, (c)'s errors, (d)'s
+    errors and times)."""
     from a3t_tpu_torch.tasks.config import load_config
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -6449,10 +6809,13 @@ def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
         return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
                            weights_only=False) for r in range(world)]
 
-    # (c) first: the kernels' checks fail fast, before the runs
-    errs = {}
+    # (c) and (d) first: the kernels' checks fail fast, before the runs
+    errs, banded = {}, ({}, {}, {})
     if device != "cpu":
+        from a3t_tpu_torch.ops import banded_attention as ba
+
         errs = sp_kernel_rows(torch, fa, cuda_ms, label)
+        banded = banded_rank_rows(torch, ba, cuda_ms, label)
         torch.cuda.empty_cache()  # the ranks' processes share the card
     profile = ("--profile-step", str(DP_ITERS - 1))
     then = os.path.join(d, "then_C.json")
@@ -6502,7 +6865,301 @@ def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
     _sp_against_one(torch, np, qb, bb, SP, 1, cfg, "(b) bf16", note, label,
                     tol_loss=TOL_SP_LOSS_BF16, bn=False)
     return {name: [x["launches"] for x in ranks]
-            for name, ranks in runs.items()}, errs
+            for name, ranks in runs.items()}, errs, banded
+
+
+# --- longformer-mesh: configs/a3t_longformer_16k.yaml on the seq and model
+# axes through bin.launch and bin.train
+
+# the runs' batches: the yaml's 1024-frame bucket alone (a rank's block of
+# 512 frames at sp = 2, two chunks of c = 256), cut in rows only to 8 rows,
+# so that gloo's traffic through the host stays within the phase's time
+# (the text queries' K/V all-gathers of 8 x 1024 x 384 x 4 bytes a block)
+LF_MESH_BUCKET = 1024
+LF_MESH_ROWS = 8
+LF_MESH_BINS = LF_MESH_ROWS * LF_MESH_BUCKET * 80
+LF_MESH_PHONES = (40, 88)  # 450-990 frames at hop 200
+LF_MESH_BF16_ITERS = 2
+# (e)'s second seq run: one chunk of c = 256 a rank, so that the ranks
+# between the edges train with both halos real
+LF_MESH_SP4 = 4
+# --data-parallel-cards: the yaml's 8192-frame bucket and batch_bins
+# (3,000,000 bins over 80 mel bins: 4 rows), utterances of 300-480 phones
+# (~3,400-5,400 frames; the segment embedding holds 500 positions)
+LF_CARDS_BUCKET = 8192
+LF_CARDS_PHONES = (300, 480)
+
+
+def _lf_corpus(root, bucket, phones, rows, seed):
+    """A 16 kHz corpus of DP_ITERS batches of ``rows`` utterances of at
+    most ``bucket`` frames (its train dir and the seconds it took)."""
+    n = rows * DP_ITERS
+    train, _, secs, _ = make_corpus(
+        root, fs=16000, hop=200, fill=((bucket, n),), shards=4,
+        valid_utts=0, seed=seed, phones=phones, shard_utts=-(-3 * n // 8))
+    return train, secs
+
+
+def _lf_argv(train, exp, device, *sets):
+    argv = ["--config", CONFIG_16K, "--device", device]
+    for s in (f"train_data_dir={train}", "valid_data_dir=", f"exp_dir={exp}",
+              "trainer.max_epoch=1", f"trainer.num_iters_per_epoch={DP_ITERS}",
+              f"trainer.log_interval={DP_ITERS}",
+              "trainer.keep_nbest_models=1",
+              "trainer.average_nbest_at_end=false", *sets):
+        argv += ["--set", s]
+    return argv
+
+
+def _lf_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
+                    tol_loss, params=True):
+    """dp x sp x tp ranks (rank order) of the longformer against one
+    process ``q`` on the same global batches: the losses within
+    ``tol_loss`` at each step and equal on every rank; K3, K4 and K5
+    launched once a block a train step in every rank's process, each at
+    the rank's place (under sp its query chunks with the halos, under tp
+    its head of two); the collectives a step (calls and bytes); the
+    gathered models equal on every rank bit for bit and, with ``params``,
+    the parameters by JAX's cross-mesh rule and the postnet's BatchNorm
+    statistics beside one process's; each rank's step times and peak
+    memory beside one process's."""
+    from a3t_tpu_torch.train.optim import noam_schedule
+
+    enc = cfg.model.encoder
+    blocks = enc.num_blocks + enc.pre_speech_layers
+    heads = enc.attention_heads
+    for i, sq in enumerate(q["steps"]):
+        got = [x["steps"][i]["loss"] for x in ranks]
+        rel = abs(got[0] - sq["loss"]) / abs(sq["loss"])
+        log(f"  {what} step {i}: loss {got[0]:.7f} on every rank, one "
+            f"process {sq['loss']:.7f}, relative difference {rel:.3g}")
+        check(len(set(got)) == 1 and rel <= tol_loss,
+              f"{what} step {i}: the ranks' loss within {tol_loss:g} of one "
+              "process's")
+    check(len(ranks[0]["steps"]) == len(q["steps"]),
+          f"{what}: the ranks take one process's steps")
+    frames = {s["frames"] for s in q["steps"]}
+    for x in ranks:
+        r = x["rank"]
+        s_rank = (r // tp) % sp
+        per_step = [st["banded"] for st in x["sp_steps"]]
+        check(len(per_step) == len(x["steps"])
+              and all(n == (blocks,) * 3 for n in per_step),
+              f"{what} rank {r}: K3, K4 and K5 launched {blocks} times each "
+              f"a train step ({per_step})")
+        places = {p[1:] for p in x["bands"]}
+        want = set()
+        for f in frames:
+            c = enc.attention_window // 2 * enc.attention_dilation
+            nl = f // sp // c
+            want.add((heads // tp, (r % tp) * heads // tp, heads,
+                      (s_rank * nl, f // c) if sp > 1 else None,
+                      2 * (enc.attention_window // 2) if sp > 1 else 0))
+        check({p[0] for p in x["bands"]} == {"K3", "K4", "K5"}
+              and places == want,
+              f"{what} rank {r}: every K3/K4/K5 launch at the rank's place "
+              f"(H, head0, heads, chunks, halo rows) {sorted(want, key=repr)}"
+              f"; read {sorted(places, key=repr)}")
+        kinds = sorted({k for st in x["sp_steps"] for k in st
+                        if k not in STEP_COUNTS})
+        comm = "; ".join(
+            f"{k} {[st.get(k, (0, 0))[0] for st in x['sp_steps']]} calls, "
+            f"{[round(st.get(k, (0, 0))[1] / 1e6, 2) for st in x['sp_steps']]}"
+            " MB" for k in kinds)
+        if tp > 1:
+            comm += (f"; the model group's all-reduces "
+                     f"{[st['tp_comm'][0] for st in x['sp_steps']]} calls, "
+                     f"{[round(st['tp_comm'][1] / 1e6, 2) for st in x['sp_steps']]}"
+                     " MB")
+        log(f"  {what} rank {r} (data {r // (sp * tp)}, seq {s_rank}, model "
+            f"{r % tp}): K3/K4/K5 {x['banded']} launches, places "
+            f"{sorted(places, key=repr)}; the collectives a train step: "
+            f"{comm}; steps {_dp_times(np, x)}"
+            f"{'; ' + _dp_prof(x) if x['profile'] else ''}; peak "
+            f"{x['peak_bytes'] / 2 ** 30:.3f} GiB against one process's "
+            f"{q['peak_bytes'] / 2 ** 30:.3f} "
+            f"({100 * x['peak_bytes'] / max(q['peak_bytes'], 1):.0f}%): "
+            f"{note} [{label}]")
+    log(f"  one process: K3/K4/K5 {q['banded']} launches; steps "
+        f"{_dp_times(np, q)}{'; ' + _dp_prof(q) if q['profile'] else ''}; "
+        f"peak {q['peak_bytes'] / 2 ** 30:.3f} GiB [{label}]")
+    whole = (_tp_gathered(ranks, tp) if tp > 1
+             else [x["model"] for x in ranks])
+    check(all(torch.equal(m[k], whole[0][k]) for m in whole for k in m),
+          f"{what} every rank's (gathered) model equal bit for bit")
+    if not params:
+        return
+    first, end = _bn_readings(q, {**ranks[0], "model": whole[0]})
+    log(f"  {what} the postnet's BatchNorm vs one process, in units of each "
+        f"channel's spread: the first step's batch statistics mean "
+        f"{first[0][0]:.3g}, variance {first[1][0]:.3g}; the running "
+        f"statistics after {len(q['steps'])} steps mean {end[0][0]:.3g}, "
+        f"variance {end[1][0]:.3g} [{label}]")
+    check(max(first[0][0], first[1][0]) <= TOL_DP_BN_STEP0
+          and max(end[0][0], end[1][0]) <= TOL_DP_BN,
+          f"{what} the BatchNorm statistics within {TOL_DP_BN:g} of one "
+          "process's")
+    oc = cfg.optim
+    sched = noam_schedule(oc.model_size, oc.warmup_steps, oc.lr)
+    _jax_rule(np, q["model"], whole[0],
+              2.5 * sum(float(sched(k)) for k in range(len(q["steps"]))),
+              f"{what} {len(ranks)} ranks vs one process")
+
+
+def longformer_mesh_phase(torch, np, label, root, device="cuda"):
+    """configs/a3t_longformer_16k.yaml at full width and depth (4 + 2
+    longformer blocks) on the seq and the model axis as ranks on the one
+    card over gloo (bin.launch and bin.train, the ranks' group patched to
+    gloo), each against one process on the same global batches, at the
+    yaml's dropout in deterministic mode, on 8-row batches of the
+    1024-frame bucket of a generated 16 kHz corpus: (e) fp32, DP_ITERS
+    steps, at sp = SP, at sp = LF_MESH_SP4 (one chunk a rank, so that
+    ranks 1 and 2 hold both halos real) and at tp = TP; (f) bf16,
+    LF_MESH_BF16_ITERS steps, at sp = SP and tp = TP.  The runs of a dtype
+    start together on the card.  Returns {run: [(K3, K4, K5) per
+    rank]}."""
+    from a3t_tpu_torch.tasks.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "longformer_mesh")
+    os.makedirs(d)
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [here, os.environ.get("PYTHONPATH", "")])}
+    train, secs = _lf_corpus(os.path.join(d, "data"), LF_MESH_BUCKET,
+                             LF_MESH_PHONES, LF_MESH_ROWS, seed=70)
+    log(f"  the 16 kHz corpus made in {secs:.2f} s")
+    rows = (f"batcher.batch_bins={LF_MESH_BINS}",
+            f"batcher.bucket_frames=[{LF_MESH_BUCKET}]")
+    fp32 = ("model.encoder.compute_dtype=float32",)
+    bf16 = (f"trainer.num_iters_per_epoch={LF_MESH_BF16_ITERS}",
+            f"trainer.log_interval={LF_MESH_BF16_ITERS}")
+    # tag: (ranks, sets, the dtypes it runs in)
+    axes = {"S": (SP, (f"mesh.sequence_parallel={SP}",), "fb"),
+            "S4": (LF_MESH_SP4, (f"mesh.sequence_parallel={LF_MESH_SP4}",),
+                   "f"),
+            "T": (TP, (f"mesh.tensor_parallel={TP}",), "fb")}
+
+    def argv(tag, *more):
+        return _lf_argv(train, os.path.join(d, f"exp_{tag}"), device, *rows,
+                        *more)
+
+    def rank_cmd(tag, *opts):
+        return RANK_MAIN + ["--dp-rank", os.path.join(d, tag), *opts, "--"]
+
+    def launch(n):
+        return [sys.executable, "-m", "a3t_tpu_torch.bin.launch",
+                "--launcher", "local", "--hosts",
+                ",".join(["localhost"] * n), "--port", str(_free_port()),
+                "--"]
+
+    for dt, more in (("f", fp32), ("b", bf16)):
+        t0 = time.perf_counter()
+        _dp_wait([_dp_run(f"Q{dt}", rank_cmd(f"Q{dt}") + argv(f"Q{dt}",
+                                                               *more), d, env)]
+                 + [_dp_run(f"{ax}{dt}", launch(n) + rank_cmd(
+                     f"{ax}{dt}", "--gloo") + argv(f"{ax}{dt}", *more, *m),
+                     d, env) for ax, (n, m, dts) in axes.items()
+                    if dt in dts], 600)
+        log(f"  runs Q{dt} (one process), "
+            + ", ".join(f"{ax}{dt} ({'tp' if ax == 'T' else 'sp'} = {n})"
+                        for ax, (n, _, dts) in axes.items() if dt in dts)
+            + f", {'fp32' if dt == 'f' else 'bf16'}, together on the card: "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    def load(tag, world=1):
+        return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    runs = {f"Q{dt}": load(f"Q{dt}") for dt in "fb"}
+    runs.update({f"{ax}{dt}": load(f"{ax}{dt}", n)
+                 for ax, (n, _, dts) in axes.items() for dt in dts})
+    note = ("the ranks on one card, the collectives through the host over "
+            "gloo, beside the other runs of the dtype: not a speed figure")
+    cfg_f = load_config(CONFIG_16K, [*rows, *fp32])
+    cfg_b = load_config(CONFIG_16K, list(rows))
+    _lf_against_one(torch, np, runs["Qf"][0], runs["Sf"], SP, 1, cfg_f,
+                    f"(e) fp32 sp = {SP}", note, label, TOL_SP_LOSS)
+    _lf_against_one(torch, np, runs["Qf"][0], runs["S4f"], LF_MESH_SP4, 1,
+                    cfg_f, f"(e) fp32 sp = {LF_MESH_SP4}", note, label,
+                    TOL_SP_LOSS)
+    _lf_against_one(torch, np, runs["Qf"][0], runs["Tf"], 1, TP, cfg_f,
+                    f"(e) fp32 tp = {TP}", note, label, TOL_TP_LOSS)
+    _lf_against_one(torch, np, runs["Qb"][0], runs["Sb"], SP, 1, cfg_b,
+                    f"(f) bf16 sp = {SP}", note, label, TOL_SP_LOSS_BF16,
+                    params=False)
+    _lf_against_one(torch, np, runs["Qb"][0], runs["Tb"], 1, TP, cfg_b,
+                    f"(f) bf16 tp = {TP}", note, label, TOL_TP_LOSS_BF16,
+                    params=False)
+    return {name: [x["banded"] for x in ranks]
+            for name, ranks in runs.items()}
+
+
+def longformer_cards_part(torch, np, label, root, cards, device="cuda"):
+    """--data-parallel-cards' longformer: configs/a3t_longformer_16k.yaml
+    at full width on the yaml's 8192-frame bucket and batch_bins (4 rows),
+    in its bf16, dropout 0, over NCCL one rank per card: 1 x cards x 1, 1 x
+    (cards / 2) x 2 and (cards / 2) x 2 x 1 data x seq x model meshes, each
+    against one process at its plan's batch_multiple, the losses within the
+    bf16 gates (a rank's bf16 sums round apart from one process's: the
+    model axis's partial products, the convolutions over halo'd blocks),
+    as phase longformer-mesh's (f) holds them.  Returns {run: [(K3, K4,
+    K5) per rank]}."""
+    from a3t_tpu_torch.tasks.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "longformer_cards")
+    os.makedirs(d)
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [here, os.environ.get("PYTHONPATH", "")])}
+    train, secs = _lf_corpus(os.path.join(d, "data"), LF_CARDS_BUCKET,
+                             LF_CARDS_PHONES, 4, seed=90)
+    log(f"  the 16 kHz corpus of {LF_CARDS_BUCKET}-frame utterances made in "
+        f"{secs:.2f} s")
+    bucket = (f"batcher.bucket_frames=[{LF_CARDS_BUCKET}]",)
+    profile = ("--profile-step", str(DP_ITERS - 1))
+    meshes = [(tag, dp, sp, tp) for tag, dp, sp, tp in (
+        ("LS", 1, cards, 1), ("LST", 1, cards // TP, TP),
+        ("LDS", cards // SP, SP, 1)) if dp * sp * tp == cards]
+    runs = {}
+    for tag, dp, sp, tp in meshes:
+        mesh = (f"batcher.batch_multiple={dp}",
+                f"mesh.sequence_parallel={sp}", f"mesh.tensor_parallel={tp}")
+        qtag = f"Q{tag}"
+        t0 = time.perf_counter()
+        _dp_wait([_dp_run(qtag, RANK_MAIN + [
+            "--dp-rank", os.path.join(d, qtag), "--dropout0", *profile, "--"]
+            + _lf_argv(train, os.path.join(d, f"exp_{qtag}"), device,
+                       *bucket, mesh[0]), d, env)], 600)
+        _dp_wait([_dp_run(tag, [
+            sys.executable, "-m", "a3t_tpu_torch.bin.launch", "--launcher",
+            "local", "--hosts", ",".join(["localhost"] * cards), "--port",
+            str(_free_port()), "--"]
+            + RANK_MAIN + ["--dp-rank", os.path.join(d, tag), "--dropout0",
+                           *profile, "--"]
+            + _lf_argv(train, os.path.join(d, f"exp_{tag}"), device,
+                       *bucket, *mesh), d, env)], 600)
+        log(f"  runs {qtag} (one process) and {tag} ({dp} x {sp} x {tp} data "
+            f"x seq x model, one rank per card): "
+            f"{time.perf_counter() - t0:.2f} s")
+        q = torch.load(os.path.join(d, f"{qtag}_r0.pt"), weights_only=False)
+        ranks = [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
+                            weights_only=False) for r in range(cards)]
+        if device != "cpu":
+            check([x["device"] for x in ranks]
+                  == [f"cuda:{r}" for r in range(cards)],
+                  f"run {tag}: rank r trains on cuda:r")
+        _lf_against_one(
+            torch, np, q, ranks, sp, tp,
+            load_config(CONFIG_16K, [*bucket, mesh[0]]),
+            f"(g) longformer {dp} x {sp} x {tp} on {cards} cards",
+            "the groups over NCCL between the cards (NVLink), dropout 0",
+            label, TOL_TP_LOSS_BF16 if tp > 1 else TOL_SP_LOSS_BF16,
+            params=False)
+        runs[qtag], runs[tag] = [q], ranks
+    return {name: [x["banded"] for x in ranks]
+            for name, ranks in runs.items()}
 
 
 def main() -> int:
@@ -6585,6 +7242,8 @@ def main() -> int:
             with Phase("data-parallel-cards"):
                 data_parallel_cards_phase(torch, np, label, root, train,
                                           valid, cards)
+            with Phase("longformer-cards"):
+                longformer_cards_part(torch, np, label, root, cards)
         return 0
 
     if sys.argv[1:] == ["--tensor-parallel"]:
@@ -6605,6 +7264,13 @@ def main() -> int:
             with Phase("seq-parallel"):
                 seq_parallel_phase(torch, np, fa, cuda_ms, label, root,
                                    train, valid)
+        return 0
+
+    if sys.argv[1:] == ["--longformer-mesh"]:
+        # the longformer-mesh phase alone
+        with tempfile.TemporaryDirectory(prefix="a3t_lfm_") as root:
+            with Phase("longformer-mesh"):
+                longformer_mesh_phase(torch, np, label, root)
         return 0
 
     if sys.argv[1:] == ["--model-options"]:
@@ -6701,9 +7367,13 @@ def main() -> int:
                 together=True)
 
         with Phase("seq-parallel"):
-            sp, sp_errs = seq_parallel_phase(
-                torch, np, fa, cuda_ms, label, root,
-                os.path.join(root, "data", "train"), valid)
+            sp, sp_errs, (rank_errs, head_errs, rank_ms) = \
+                seq_parallel_phase(torch, np, fa, cuda_ms, label, root,
+                                   os.path.join(root, "data", "train"),
+                                   valid)
+
+        with Phase("longformer-mesh"):
+            lfm = longformer_mesh_phase(torch, np, label, root)
     # every rank's own count, over every run of the phase
     dp_fwd = sum(k1 for ranks in dp.values() for k1, _ in ranks)
     dp_bwd = sum(k2 for ranks in dp.values() for _, k2 in ranks)
@@ -6787,6 +7457,13 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
     }]
+    # every rank's own K3/K4/K5 counts over the longformer-mesh runs
+    lf_sp = [sum(n[i] for tag, ranks in lfm.items() if tag[0] == "S"
+                 for n in ranks) for i in range(3)]
+    lf_tp = [sum(n[i] for tag, ranks in lfm.items() if tag[0] == "T"
+                 for n in ranks) for i in range(3)]
+    lf_one = [sum(n[i] for tag, ranks in lfm.items() if tag[0] == "Q"
+                  for n in ranks) for i in range(3)]
     for i, (kern, name, line, n, note) in enumerate((
             ("K3", "banded_attention_fwd", 90, lf_launches[0],
              {"note": "redesigned: bf16 on wgmma"}),
@@ -6799,8 +7476,17 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"a3t_tpu_torch/csrc/{name}.cu",
             "replaces": f"a3t_tpu/ops/banded_attention.py:{line}", **note,
-            "launches": n + mo_launches[2 + i],
+            "launches": n + mo_launches[2 + i] + lf_sp[i] + lf_tp[i]
+            + lf_one[i],
             "launches_model_options": mo_launches[2 + i],
+            "launches_seq_parallel": lf_sp[i],
+            "launches_tensor_parallel": lf_tp[i],
+            "launches_longformer_mesh_one_process": lf_one[i],
+            "launches_longformer_mesh_ranks": {
+                tag: [x[i] for x in ranks] for tag, ranks in lfm.items()},
+            "max_abs_err_rank_blocks": rank_errs[kern],
+            "max_abs_err_head0_1": head_errs[kern],
+            "ms_rank_block_head_whole_bf16": rank_ms[kern],
             **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

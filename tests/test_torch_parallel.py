@@ -575,13 +575,16 @@ def test_epoch_factory_rows_follow_the_unsharded_plan(corpus, records):
 
 def test_refusals(corpus, tmp_path):
     base = _config(corpus, str(tmp_path / "exp"))
-    # the longformer takes no seq axis yet (ROADMAP A10d)
+    # the longformer on the seq axis: each rank's frame block in whole
+    # chunks of half-window x dilation, checked before the mesh is laid out
     lf = copy.deepcopy(base)
     lf["model"]["encoder"] = {**STACK, "selfattention_layer_type":
-                              "longformer", "attention_window": 8}
-    with pytest.raises(NotImplementedError, match="A10d"):
+                              "longformer", "attention_window": 64}
+    with pytest.raises(ValueError, match=r"frame block \(128 frames / 8 "
+                       r"ranks = 16\) to be a multiple of half-window 32 x "
+                       "dilation 1"):
         MLMTask.build(config_from_dict({**lf, "mesh": {
-            "sequence_parallel": 2}}), device="cpu")
+            "sequence_parallel": 8}}), device="cpu")
     # one process covers no mesh of two
     for mesh, match in (({"data_parallel": 2}, "data_parallel=2"),
                         ({"sequence_parallel": 2}, "sequence_parallel=2"),

@@ -481,9 +481,15 @@ def test_refusals(runs):
         "mesh.tensor_parallel=1 does not cover" in got["dp x sp x tp"]
     assert "sequence_parallel=3 x mesh.tensor_parallel=1 does not divide" \
         in got["sp 3"]
+    # the longformer builds on both axes; on the seq axis every bucket
+    # must give each rank whole chunks of half-window x dilation
     for axis in ("sequence_parallel", "tensor_parallel"):
-        assert got[f"longformer {axis}"].startswith("NotImplementedError") \
-            and "A10d" in got[f"longformer {axis}"]
+        assert got[f"longformer {axis}"] is None, got[f"longformer {axis}"]
+    assert got["longformer block"] == (
+        "ValueError: longformer attention on the seq axis needs each "
+        "rank's frame block (128 frames / 2 ranks = 64) to be a multiple of "
+        "half-window 128 x dilation 1; adjust BatcherConfig.bucket_frames "
+        "or mesh.sequence_parallel")
     assert got["fs2"].startswith("NotImplementedError") and \
         "one device" in got["fs2"]
     assert got["chained"].startswith("NotImplementedError")

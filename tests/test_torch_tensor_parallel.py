@@ -387,21 +387,24 @@ def test_refusals(runs):
     assert "tensor_parallel=3 does not divide" in got["tp 3"]
     assert got["heads"].startswith("ValueError") and \
         "attention_heads=3" in got["heads"]
-    assert got["longformer"].startswith("NotImplementedError") and \
-        "A10d" in got["longformer"]
+    assert got["longformer"] is None  # the longformer builds at tp = 2
     assert got["fs2"].startswith("NotImplementedError") and \
         "one device" in got["fs2"]
     assert got["chained"].startswith("NotImplementedError")
-    # the same checks without a group
-    for kind, tp, err in (("longformer", 2, NotImplementedError),
-                          ("legacy_rel_selfattn", 3, ValueError)):
+    # the same checks without a group: a tp that does not divide the
+    # heads raises for every kind, and the longformer splits its heads
+    for kind in ("longformer", "legacy_rel_selfattn"):
         enc = EncoderConfig(attention_dim=32, attention_heads=2,
                             linear_units=64, selfattention_layer_type=kind,
                             attention_window=8)
-        with pytest.raises(err):
-            enc.check_supported(tp)
-        with pytest.raises(err):
-            ConformerBlock(enc, ModelShard(0, tp))
+        with pytest.raises(ValueError):
+            enc.check_supported(3)
+        with pytest.raises(ValueError):
+            ConformerBlock(enc, ModelShard(0, 3))
+        enc.check_supported(2)
+        block = ConformerBlock(enc, ModelShard(1, 2))
+        assert (block.self_attn.h, block.self_attn.head0) == (1, 1)
+        assert tuple(block.self_attn.linear_q.weight.shape) == (16, 32)
 
 
 # --- K1/K2's head0 on the CPU (their plain versions) and K1's grid on one

@@ -354,14 +354,23 @@ def test_task_refusals(corpus, tmp_path, caplog):
     with pytest.raises(ValueError, match="tensor_parallel=2"):
         MLMTask.build(config_from_dict(
             {**base, "mesh": {"tensor_parallel": 2}}), device="cpu")
-    # the longformer takes neither axis yet (ROADMAP A10d)
+    # the longformer takes both axes: one process covers neither mesh of
+    # two, as for the Conformer, and on the seq axis each rank's frame
+    # block must hold whole chunks of half-window x dilation
     lf = {**base, "model": {**base["model"], "encoder": {
         **STACK, "selfattention_layer_type": "longformer",
         "attention_window": 8}}}
     for axis in ("sequence_parallel", "tensor_parallel"):
-        with pytest.raises(NotImplementedError, match="A10d"):
+        with pytest.raises(ValueError, match=f"{axis}=2"):
             MLMTask.build(config_from_dict({**lf, "mesh": {axis: 2}}),
                           device="cpu")
+    with pytest.raises(ValueError, match="multiple of half-window 64 x "
+                       "dilation 1"):
+        MLMTask.build(config_from_dict({
+            **lf, "model": {**lf["model"], "encoder": {
+                **lf["model"]["encoder"], "attention_window": 128}},
+            "batcher": {"bucket_frames": [256]},
+            "mesh": {"sequence_parallel": 8}}), device="cpu")
     # speaker conditioning is ported: without embeddings for its batches
     # the task raises
     with pytest.raises(ValueError, match="neither"):

@@ -33,20 +33,22 @@ def _batch(workdir: str, name: str) -> dict:
 
 def sp_step(workdir: str, tag: str, sp: int = 1, tp: int = 1,
             optim: dict = None, model: dict = None, dropout: float = 0.0,
-            steps: int = 1, masks: bool = False, tts: bool = False):
+            steps: int = 1, masks: bool = False, tts: bool = False,
+            batch: str = "batch.npz"):
     """``steps`` train steps of the tiny model from ``init.pt`` (``tts``:
     the duration-aware variant from ``tts_init.pt`` on ``tts_batch.npz``)
-    on this data rank's rows of ``batch.npz`` over a mesh of ``world / (sp
-    * tp)`` x ``sp`` x ``tp`` (every dropout site at ``dropout``; ``optim``
+    on this data rank's rows of ``batch`` over a mesh of ``world / (sp *
+    tp)`` x ``sp`` x ``tp`` (every dropout site at ``dropout``; ``optim``
     and ``model`` override the setup's fields), then the eval step on the
     same rows: each step's stats, the eval loss, the gathered model and
-    moments, the rank's place on the seq axis and, with ``masks``, the
-    first step's keep-masks."""
+    moments, the rank's place on the seq and model axes and, with
+    ``masks``, the first step's keep-masks."""
     from a3t_tpu_torch.compat.from_jax import load_state
     from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
     from a3t_tpu_torch.models import build_model
     from a3t_tpu_torch.parallel import make_mesh
-    from a3t_tpu_torch.parallel.mesh import seq_rank, seq_world
+    from a3t_tpu_torch.parallel.mesh import (model_rank, model_world,
+                                             seq_rank, seq_world)
     from a3t_tpu_torch.train import (OptimConfig, create_train_state,
                                      make_optimizer, make_train_step)
     from a3t_tpu_torch.train.train_step import (make_eval_step,
@@ -70,7 +72,7 @@ def sp_step(workdir: str, tag: str, sp: int = 1, tp: int = 1,
         **setup["tts_frontend" if tts else "frontend"]), device="cpu")
     step = (make_tts_train_step(net, fe, device="cpu") if tts
             else make_train_step(net, fe, device="cpu"))
-    batch = _batch(workdir, "tts_batch.npz" if tts else "batch.npz")
+    batch = _batch(workdir, "tts_batch.npz" if tts else batch)
     stats, drawn = [], []
     for i in range(steps):
         with (recorded_masks(drawn) if masks and i == 0
@@ -82,14 +84,17 @@ def sp_step(workdir: str, tag: str, sp: int = 1, tp: int = 1,
         ev = make_eval_step(net, fe, device="cpu")(state, batch)["loss"]
     torch.save({"stats": stats, "eval": ev, "model": _whole_model(state),
                 "opt": _gathered_opt(state), "masks": drawn,
-                "seq": (seq_rank(), seq_world())}, _out(workdir, tag))
+                "seq": (seq_rank(), seq_world()),
+                "model_axis": (model_rank(), model_world())},
+               _out(workdir, tag))
 
 
 def refusals(workdir: str):
     """What a group of two refuses: a frame bucket that does not split
-    over the seq axis, a mesh that does not cover the group, the
-    longformer on the seq and model axes, FastSpeech2 and chained
-    dispatch; the messages, by case."""
+    over the seq axis, a mesh that does not cover the group, a longformer
+    whose frame buckets give a rank part of a chunk, FastSpeech2 and
+    chained dispatch; the messages, by case (None where the build goes
+    through: the longformer on the seq and model axes)."""
     from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
     from a3t_tpu_torch.models import build_model
     from a3t_tpu_torch.parallel import make_mesh
@@ -119,6 +124,14 @@ def refusals(workdir: str):
             "num_blocks": 1}}, mesh={axis: 2})
         record(f"longformer {axis}", lambda: MLMTask.build(
             config_from_dict(lf), device="cpu"))
+    # half-window 128: the 256-frame bucket is 128 frames a rank, the
+    # 128-frame bucket 64
+    lf = dict(setup["task"], model={"encoder": {
+        "selfattention_layer_type": "longformer", "attention_window": 256,
+        "attention_dim": 32, "attention_heads": 2, "linear_units": 32,
+        "num_blocks": 1}}, mesh={"sequence_parallel": 2})
+    record("longformer block", lambda: MLMTask.build(config_from_dict(lf),
+                                                     device="cpu"))
     make_mesh(None, 1, 2)
     record("fs2", lambda: FS2Task.build(load_fs2_config(
         setup["fs2_config"], [f"exp_dir={workdir}/fs2"]), device="cpu"))

@@ -30,11 +30,22 @@ def _setup(workdir: str) -> dict:
 def recorded_masks(out: list):
     """Record every dropout keep-mask drawn inside (the byte masks of
     ``models/dropout.py`` and the attention kernels' masks of their plain
-    versions), in draw order, as ``(site, mask)``."""
+    versions: K1's, and the query-chunk draws of K3/K4, band and text), in
+    draw order, as ``(site, mask)``."""
     from a3t_tpu_torch.models import dropout
+    from a3t_tpu_torch.ops import banded_attention as ba
     from a3t_tpu_torch.ops import fused_attention as fa
 
     byte, attn = dropout.keep_mask, fa.keep_mask
+    band, text = ba.band_keep, ba.text_keep
+
+    def banded(fn):
+        def drawn(*a, **kw):
+            m = fn(*a, **kw)
+            if kw.get("chunks") is None:  # K5's regenerated draws aside
+                out.append(("banded", m.clone()))
+            return m
+        return drawn
 
     def byte_mask(*a, **kw):
         m = byte(*a, **kw)
@@ -47,10 +58,12 @@ def recorded_masks(out: list):
         return m
 
     dropout.keep_mask, fa.keep_mask = byte_mask, attn_mask
+    ba.band_keep, ba.text_keep = banded(band), banded(text)
     try:
         yield out
     finally:
         dropout.keep_mask, fa.keep_mask = byte, attn
+        ba.band_keep, ba.text_keep = band, text
 
 
 def tp_step(workdir: str, tag: str, tp: int = 1, optim: dict = None,
@@ -123,8 +136,9 @@ def jax_forward(workdir: str, tp: int = 1):
 
 def refusals(workdir: str):
     """What a group of two refuses: a mesh that does not cover it, a tp
-    that does not divide the heads, the longformer on the model axis,
-    FastSpeech2 and chained dispatch; the messages, by case."""
+    that does not divide the heads, FastSpeech2 and chained dispatch; the
+    messages, by case (None where the build goes through: the longformer
+    on the model axis)."""
     import dataclasses
 
     from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend

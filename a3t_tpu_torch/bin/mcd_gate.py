@@ -16,14 +16,15 @@ The model comes from an experiment directory of ``a3t_tpu_torch.bin.train``
 or a published ESPnet A3T checkpoint (``--espnet-ckpt``, with its
 ``config.yaml`` alongside), the vocoder from a ``parallel_wavegan``
 checkpoint, a vocoder directory of ``a3t_tpu_torch.bin.train_vocoder``
-(``--vocoder DIR``: ``state.pt`` with its mel statistics, as JAX's CLI
-reads one of ``a3t_tpu.bin.train_vocoder``) or Griffin-Lim.  With
+(``--vocoder DIR``: ``state.pt`` with its mel statistics) or of
+``a3t_tpu.bin.train_vocoder`` (its orbax ``state/``, such as
+``artifacts/vocoder``), or Griffin-Lim.  With
 ``--duration-model`` (a FastSpeech2 experiment or ESPnet ``.pth``,
 conditioned on ``--spk-xvector``) the masked span is regenerated at the
 predicted durations rather than the original timeline.  Writes ``<out>/MCD.json`` with the JAX CLI's keys.  Runs on the
 CUDA card unless ``--device cpu`` is given; the MCD analysis runs on the
-host.  A vocoder directory without ``state.pt`` (the JAX package's orbax
-state, ROADMAP A2) raises.
+host.  ``--exp-dir`` may also be an experiment of the JAX package (orbax
+checkpoints).
 """
 
 from __future__ import annotations
@@ -176,7 +177,8 @@ def main(argv=None):
                     help=".npy x-vector (E,) for the duration model")
     ap.add_argument("--vocoder", default=None,
                     help="parallel_wavegan checkpoint or vocoder directory "
-                         "of bin.train_vocoder (Griffin-Lim if unset)")
+                         "of either package's bin.train_vocoder "
+                         "(Griffin-Lim if unset)")
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda)")

@@ -31,8 +31,10 @@ what ``--duration-model`` predicts: a FastSpeech2 experiment of
 New text is read through a phone-level lexicon (every phone of the data
 directory's ``text`` maps to itself) and the native letter-to-sound engine
 for other words.  Runs on the CUDA card unless ``--device cpu`` is given.
-A vocoder directory is refused, as the JAX CLI reads only a pickle
-(``bin.mcd_gate --vocoder DIR`` takes one of ``bin.train_vocoder``).
+The model's experiment directory may also be one of the JAX package
+(orbax checkpoints).  A vocoder directory is refused, as the JAX CLI reads
+only a pickle (``bin.mcd_gate --vocoder DIR`` takes one of either
+package's ``bin.train_vocoder``).
 """
 
 from __future__ import annotations
@@ -42,22 +44,18 @@ import os
 
 
 def refuse_unported(args, vocoder_dirs: bool = False) -> None:
-    """Raise for an option that waits for another ROADMAP item, and for
-    ``--spk-xvector`` without the duration model it conditions (the JAX
-    CLI ignores it there).  A vocoder directory is refused unless
-    ``vocoder_dirs`` (mcd_gate's, as in JAX) and it holds the port's
-    ``state.pt``."""
+    """Raise for ``--spk-xvector`` without the duration model it conditions
+    (the JAX CLI ignores it there), and for a vocoder directory unless
+    ``vocoder_dirs`` (mcd_gate's, as in JAX: the port's ``state.pt`` or
+    the JAX package's orbax ``state/``, read by ``load_vocoder``)."""
     if args.spk_xvector and not args.duration_model:
         raise ValueError("--spk-xvector conditions the duration model; "
                          "give --duration-model too")
-    if args.vocoder and os.path.isdir(args.vocoder) and not (
-            vocoder_dirs and os.path.exists(
-                os.path.join(args.vocoder, "state.pt"))):
-        raise NotImplementedError(
-            f"{args.vocoder} is a vocoder directory without the port's "
-            "state.pt (the JAX package's orbax state cannot be read, "
-            "ROADMAP A2)" + ("" if vocoder_dirs else "; this CLI takes a "
-                             "parallel_wavegan checkpoint"))
+    if args.vocoder and os.path.isdir(args.vocoder) and not vocoder_dirs:
+        raise ValueError(
+            f"{args.vocoder} is a directory: this CLI takes a "
+            "parallel_wavegan checkpoint, as the JAX CLI does (bin.mcd_gate "
+            "--vocoder takes a vocoder directory)")
 
 
 def make_vocoder(path, frontend_config, device):

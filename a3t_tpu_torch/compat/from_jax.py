@@ -31,6 +31,10 @@ from a3t_tpu_torch.parallel.sharding import (FlatLayout, shard_flat,
 
 
 def _np(x) -> np.ndarray:
+    """float32 numpy; a bfloat16 tensor (an orbax leaf read by
+    ``compat/orbax.py``) widens exactly."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float().numpy()
     return np.asarray(x).astype(np.float32)
 
 
@@ -52,11 +56,26 @@ def layer_norm(p, prefix: str) -> dict:
     return {f"{prefix}.weight": _np(p["scale"]), f"{prefix}.bias": _np(p["bias"])}
 
 
+def _sub(stats, key: str):
+    """``stats[key]``; None (a params-only tree) stays None."""
+    return None if stats is None else stats[key]
+
+
+def _part(stats, key: str):
+    """``stats.get(key, {})``; None (a params-only tree) stays None."""
+    return None if stats is None else stats.get(key, {})
+
+
 def batch_norm(p, stats, prefix: str) -> dict:
-    return {f"{prefix}.weight": _np(p["scale"]), f"{prefix}.bias": _np(p["bias"]),
-            f"{prefix}.running_mean": _np(stats["mean"]),
-            f"{prefix}.running_var": _np(stats["var"]),
-            f"{prefix}.num_batches_tracked": np.zeros((), np.int64)}
+    """Scale and bias, and the running statistics unless ``stats`` is None
+    (a params-only tree: the buffers keep their initial values)."""
+    out = {f"{prefix}.weight": _np(p["scale"]),
+           f"{prefix}.bias": _np(p["bias"])}
+    if stats is not None:
+        out.update({f"{prefix}.running_mean": _np(stats["mean"]),
+                    f"{prefix}.running_var": _np(stats["var"]),
+                    f"{prefix}.num_batches_tracked": np.zeros((), np.int64)})
+    return out
 
 
 def positionwise(p, prefix: str) -> dict:
@@ -83,7 +102,7 @@ def conv_module(p, stats, prefix: str) -> dict:
     return {**conv(p["Conv_0"], f"{prefix}.pointwise_conv1"),
             **conv(p["Conv_1"], f"{prefix}.depthwise_conv"),
             **conv(p["Conv_2"], f"{prefix}.pointwise_conv2"),
-            **batch_norm(p["BatchNorm_0"], stats["BatchNorm_0"],
+            **batch_norm(p["BatchNorm_0"], _sub(stats, "BatchNorm_0"),
                          f"{prefix}.norm")}
 
 
@@ -97,7 +116,8 @@ def block(p, stats, prefix: str) -> dict:
                                 f"{prefix}.feed_forward_macaron"))
         out.update(layer_norm(p["norm_ff_macaron"], f"{prefix}.norm_ff_macaron"))
     if "conv_module" in p:
-        out.update(conv_module(p["conv_module"], stats["conv_module"],
+        out.update(conv_module(p["conv_module"],
+                               _sub(stats, "conv_module"),
                                f"{prefix}.conv_module"))
         out.update(layer_norm(p["norm_conv"], f"{prefix}.norm_conv"))
         out.update(layer_norm(p["norm_final"], f"{prefix}.norm_final"))
@@ -108,7 +128,7 @@ def stack(p, stats, prefix: str) -> dict:
     out = {}
     i = 0
     while f"block_{i}" in p:
-        out.update(block(p[f"block_{i}"], stats.get(f"block_{i}", {}),
+        out.update(block(p[f"block_{i}"], _part(stats, f"block_{i}"),
                          f"{prefix}.encoders.{i}"))
         i += 1
     if "after_norm" in p:
@@ -117,14 +137,17 @@ def stack(p, stats, prefix: str) -> dict:
 
 
 def mlm_state(variables) -> dict:
-    """A3TMLMModel variables ``{"params", "batch_stats"}`` -> port state."""
-    p, s = variables["params"], variables["batch_stats"]
+    """A3TMLMModel variables ``{"params", "batch_stats"}`` -> port state.
+    Without ``batch_stats`` (a params-only tree: an ``ave_*`` export or a
+    ``bin/export_params`` stash) the BatchNorm running statistics are left
+    out, so the model's buffers keep their initial values, as in JAX."""
+    p, s = variables["params"], variables.get("batch_stats")
     out = {"encoder.speech_embed.0.mask_feature":
            _np(p["speech_masked_input"]["mask_feature"]),
            **dense(p["speech_proj"], "encoder.speech_embed.1"),
            **layer_norm(p["speech_norm"], "encoder.speech_embed.2"),
            "encoder.text_embed.0.weight": _np(p["text_embed"]["embedding"]),
-           **stack(p["encoder"], s.get("encoder", {}), "encoder"),
+           **stack(p["encoder"], _part(s, "encoder"), "encoder"),
            **dense(p["sfc"], "sfc")}
     if "segment_emb" in p:
         out["encoder.segment_emb.weight"] = _np(p["segment_emb"]["embedding"])
@@ -133,12 +156,12 @@ def mlm_state(variables) -> dict:
             out.update(dense(p[name], name))
     if "pre_speech_encoders" in p:
         out.update(stack(p["pre_speech_encoders"],
-                         s.get("pre_speech_encoders", {}),
+                         _part(s, "pre_speech_encoders"),
                          "pre_speech_encoders"))
     if "decoder" in p:
-        out.update(stack(p["decoder"], s.get("decoder", {}), "decoder"))
+        out.update(stack(p["decoder"], _part(s, "decoder"), "decoder"))
     if "postnet" in p:
-        out.update(postnet(p["postnet"], s["postnet"], "postnet.postnet"))
+        out.update(postnet(p["postnet"], _sub(s, "postnet"), "postnet.postnet"))
     if "duration_predictor" in p:
         out.update(predictor(p["duration_predictor"], "duration_predictor"))
     return out
@@ -149,8 +172,8 @@ def postnet(p, stats, prefix: str) -> dict:
     i = 0
     while f"Conv_{i}" in p:
         out.update(conv(p[f"Conv_{i}"], f"{prefix}.{i}.0"))
-        out.update(batch_norm(p[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"],
-                              f"{prefix}.{i}.1"))
+        out.update(batch_norm(p[f"BatchNorm_{i}"],
+                              _sub(stats, f"BatchNorm_{i}"), f"{prefix}.{i}.1"))
         i += 1
     return out
 

@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from a3t_tpu_torch.compat.from_jax import fs2_state
 from a3t_tpu_torch.data.dataset import A3TDataset
 from a3t_tpu_torch.data.fileio import read_2column_text
 from a3t_tpu_torch.data.iterator import DeviceTransfer, EpochIterFactory
@@ -38,7 +39,8 @@ from a3t_tpu_torch.parallel.mesh import world
 from a3t_tpu_torch.tasks import yaml_subset
 from a3t_tpu_torch.tasks.config import _build, apply_overrides, save_config
 from a3t_tpu_torch.text import TokenIDConverter, build_token_list
-from a3t_tpu_torch.train.checkpoint import CheckpointManager, load_params
+from a3t_tpu_torch.train.checkpoint import (CheckpointManager,
+                                            experiment_state)
 from a3t_tpu_torch.train.optim import OptimConfig, make_optimizer
 from a3t_tpu_torch.train.train_step import (TrainState, _check_device,
                                             _generator, create_train_state)
@@ -349,20 +351,14 @@ class FS2Task:
         """(model, config, tokens) from a training run, the model in eval
         mode on ``device`` (cuda unless the caller asks for the CPU):
         ``which`` "ave" (the n-best average with the latest epoch's
-        BatchNorm statistics), "best"/"latest" or "epoch_N"."""
+        BatchNorm statistics), "best"/"latest" or "epoch_N".  The directory
+        is the port's or the JAX package's (orbax checkpoints, carried by
+        ``fs2_state``; ``train/checkpoint.py::experiment_state``)."""
         dev = resolve_device(device)
         cfg = load_fs2_config(os.path.join(exp_dir, "config.yaml"))
         conv = TokenIDConverter(os.path.join(exp_dir, "tokens.txt"))
         model = FastSpeech2(cls.model_config(cfg, len(conv)))
-        ckpt_dir = os.path.join(exp_dir, "checkpoints")
-        latest = CheckpointManager(ckpt_dir).latest_epoch()
-        epoch = (latest if which in ("ave", "best", "latest")
-                 else int(which.split("_")[-1]))
-        if epoch is None:
-            raise FileNotFoundError(f"no epoch checkpoint in {ckpt_dir}")
-        state = load_params(os.path.join(ckpt_dir, f"epoch_{epoch}.pt"))
-        ave = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("ave_"))
-        if which == "ave" and ave:
-            state = {**state, **load_params(os.path.join(ckpt_dir, ave[-1]))}
+        state = experiment_state(os.path.join(exp_dir, "checkpoints"), which,
+                                 fs2_state)
         model.load_state_dict(state, strict=True)
         return model.to(dev).eval(), cfg, conv

@@ -54,6 +54,7 @@ import numpy as np
 
 import torch
 
+from a3t_tpu_torch.compat.from_jax import mlm_state
 from a3t_tpu_torch.data.batcher import BucketBatcher
 from a3t_tpu_torch.data.dataset import A3TDataset
 from a3t_tpu_torch.data.fileio import read_2column_text
@@ -72,7 +73,8 @@ from a3t_tpu_torch.parallel.sequence import SeqLayout
 from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
                                         save_config)
 from a3t_tpu_torch.text import TokenIDConverter, build_token_list
-from a3t_tpu_torch.train.checkpoint import CheckpointManager, load_params
+from a3t_tpu_torch.train.checkpoint import (CheckpointManager,
+                                            experiment_state)
 from a3t_tpu_torch.train.optim import make_optimizer
 from a3t_tpu_torch.train.plots import make_attention_plot_fn, make_mel_plot_fn
 from a3t_tpu_torch.train.train_step import (TrainState, create_train_state,
@@ -430,24 +432,16 @@ class MLMTask:
 
         ``which``: "ave" (the n-best averaged parameters, the file inference
         uses, sedit_inference.py:352, with the BatchNorm statistics of the
-        latest epoch), "best"/"latest" (the latest epoch) or "epoch_N"."""
+        latest epoch), "best"/"latest" (the latest epoch) or "epoch_N".
+        The directory is the port's or the JAX package's (orbax
+        checkpoints, carried by ``mlm_state``;
+        ``train/checkpoint.py::experiment_state``)."""
         dev = resolve_device(device)
         cfg = load_config(os.path.join(exp_dir, "config.yaml"))
         conv = TokenIDConverter(os.path.join(exp_dir, "tokens.txt"))
         model = cls.build_model(cfg, len(conv), dev)
-        ckpt_dir = os.path.join(exp_dir, "checkpoints")
-        manager = CheckpointManager(ckpt_dir)
-        latest = manager.latest_epoch()
-        if which in ("ave", "best", "latest"):
-            epoch = latest
-        else:
-            epoch = int(which.split("_")[-1])
-        if epoch is None:
-            raise FileNotFoundError(f"no epoch checkpoint in {ckpt_dir}")
-        state = load_params(os.path.join(ckpt_dir, f"epoch_{epoch}.pt"))
-        ave = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("ave_"))
-        if which == "ave" and ave:
-            state = {**state, **load_params(os.path.join(ckpt_dir, ave[-1]))}
+        state = experiment_state(os.path.join(exp_dir, "checkpoints"), which,
+                                 mlm_state)
         model.load_state_dict(state, strict=True)
         return model.eval(), cfg, conv
 

@@ -14,9 +14,13 @@ A checkpoint directory holds
 * ``meta.json`` / ``meta_step.json`` — the reporter's history as JSON, and
   ``LATEST``, the newest epoch.
 
-There is no orbax: the format is the port's own.  Every file is written to
-a temporary name and moved into place with ``os.replace``, so a crash never
-leaves half a checkpoint under a checkpoint's name.
+The format is the port's own; the port writes no orbax.  Every file is
+written to a temporary name and moved into place with ``os.replace``, so a
+crash never leaves half a checkpoint under a checkpoint's name.  The JAX
+package's orbax checkpoints are read (``compat/orbax.py``): by
+:func:`load_params` and :func:`warm_start_params` (a params-only stash, an
+``ave_*`` export or an epoch checkpoint) and by :func:`experiment_state` (a
+JAX experiment's ``checkpoints/``).
 
 Over the ranks of the mesh (``parallel/``) the files do not depend on its
 layout ``(dp, sp, tp)``: every rank takes part in gathering the model
@@ -44,6 +48,8 @@ from typing import Optional
 
 import torch
 
+from a3t_tpu_torch.compat.from_jax import mlm_state
+from a3t_tpu_torch.compat.orbax import is_orbax_checkpoint, restore_portable
 from a3t_tpu_torch.parallel.mesh import agree, barrier, every, rank, world
 from a3t_tpu_torch.parallel.sharding import (FlatLayout, all_gather_flat,
                                              all_gather_flat_model,
@@ -340,23 +346,107 @@ class CheckpointManager:
         return avg, epochs
 
 
+def _tensors(state: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in state.items()}
+
+
 def load_params(path: str) -> dict:
     """The parameters ``{name: tensor}`` (on the CPU) of a port checkpoint
     file: an ``ave_*`` file's ``params``, or an epoch or mid-epoch
     checkpoint's model state (BatchNorm statistics included); or of a
     directory written by ``bin.export_params`` (its ``params.pt``).  It
-    stands where ``a3t_tpu.train.checkpoint.restore_portable`` does."""
+    stands where ``a3t_tpu.train.checkpoint.restore_portable`` does.
+
+    An orbax directory of the JAX package (``bin/export_params``'s stash,
+    an ``ave_*`` export or an epoch checkpoint) gives its ``params`` (and
+    ``batch_stats`` where it holds them) carried by
+    ``compat/from_jax.py::mlm_state`` (the A3T model's layout), float32; a
+    bfloat16 stash widens exactly."""
+    if is_orbax_checkpoint(path):
+        tree = (restore_portable(path, only=("params", "batch_stats"))
+                or restore_portable(path))  # a bare params tree
+        variables = {"params": tree.get("params", tree)}
+        if tree.get("batch_stats"):
+            variables["batch_stats"] = tree["batch_stats"]
+        return _tensors(mlm_state(variables))
     if os.path.isdir(path):
         path = os.path.join(path, "params.pt")
     tree = _read(path)
     return tree["params"] if "params" in tree else tree["model"]
 
 
+def _jax_latest_epoch(ckpt_dir: str) -> Optional[int]:
+    """``a3t_tpu/train/checkpoint.py::CheckpointManager.latest_epoch``: the
+    ``LATEST`` pointer's epoch, or the newest finalized epoch directory
+    when that one never materialized."""
+    marker = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(marker):
+        return None
+    with open(marker) as f:
+        e = int(f.read().strip())
+    if os.path.exists(os.path.join(ckpt_dir, f"epoch_{e}")):
+        return e
+    done = [int(n[len("epoch_"):]) for n in os.listdir(ckpt_dir)
+            if n.startswith("epoch_") and n[len("epoch_"):].isdigit()
+            and os.path.exists(os.path.join(ckpt_dir, n,
+                                            "_CHECKPOINT_METADATA"))]
+    return max(done) if done else None
+
+
+def is_jax_experiment(ckpt_dir: str) -> bool:
+    """Whether an experiment's ``checkpoints/`` holds the JAX package's
+    orbax ``epoch_N/`` or ``ave_*`` directories."""
+    return any(n.startswith(("epoch_", "ave_"))
+               and is_orbax_checkpoint(os.path.join(ckpt_dir, n))
+               for n in os.listdir(ckpt_dir))
+
+
+def experiment_state(ckpt_dir: str, which: str, convert) -> dict:
+    """The state ``{name: tensor}`` that a task's ``build_model_from_dir``
+    loads from an experiment's ``checkpoints/``.  ``which``: "ave" (the
+    newest ``ave_*`` parameters with the latest epoch's BatchNorm
+    statistics), "best"/"latest" (the latest epoch) or "epoch_N".
+
+    The port's files (``epoch_N.pt``, ``ave_*.pt``) load as they are; a JAX
+    experiment's orbax directories are chosen by JAX's rules
+    (``a3t_tpu/tasks/mlm.py:451-468``, ``tasks/fs2.py:327-348``) and their
+    variables carried by ``convert`` (``mlm_state`` or ``fs2_state``)."""
+    ave = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("ave_"))
+    if is_jax_experiment(ckpt_dir):
+        latest = _jax_latest_epoch(ckpt_dir)
+        if which == "ave" and ave:
+            params = restore_portable(os.path.join(ckpt_dir, ave[-1]),
+                                      only=("params",))["params"]
+            epoch, keep = latest, ("batch_stats",)
+        else:
+            epoch = (latest if which in ("ave", "best", "latest")
+                     else int(which.split("_")[-1]))
+            params, keep = None, ("params", "batch_stats")
+        if epoch is None:
+            raise FileNotFoundError(f"no epoch checkpoint in {ckpt_dir}")
+        tree = restore_portable(os.path.join(ckpt_dir, f"epoch_{epoch}"),
+                                only=keep)
+        return _tensors(convert({
+            "params": tree["params"] if params is None else params,
+            "batch_stats": tree.get("batch_stats") or {}}))
+    latest = CheckpointManager(ckpt_dir).latest_epoch()
+    epoch = (latest if which in ("ave", "best", "latest")
+             else int(which.split("_")[-1]))
+    if epoch is None:
+        raise FileNotFoundError(f"no epoch checkpoint in {ckpt_dir}")
+    state = load_params(os.path.join(ckpt_dir, f"epoch_{epoch}.pt"))
+    if which == "ave" and ave:
+        state = {**state, **load_params(os.path.join(ckpt_dir, ave[-1]))}
+    return state
+
+
 def warm_start_params(model: torch.nn.Module, path: str,
                       grow_vocab: bool = False,
                       allow_missing: bool = False) -> torch.nn.Module:
-    """Load a port checkpoint's parameters into ``model`` (in place), each
-    cast to the model's dtype and device: the reference's --init_param
+    """Load a checkpoint's parameters (:func:`load_params`: a port file or
+    directory, or a JAX orbax directory such as ``artifacts/soak12k_params``)
+    into ``model`` (in place), each cast to the model's dtype and device:
+    the reference's --init_param
     (espnet2/torch_utils/load_pretrained_model.py:43-102).
 
     ``grow_vocab=True`` lets the model's embedding tables be longer than the

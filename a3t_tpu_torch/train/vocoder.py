@@ -24,7 +24,8 @@ The reference downloads published ``parallel_wavegan`` checkpoints
 The checkpoint is ``out_dir/state.pt`` (step, both networks' weights and
 both optimizers' states) beside JAX's ``vocoder.json`` (front-end, generator
 config, mel statistics) and ``history.json``; the JAX package keeps the
-state in orbax's ``state/`` instead, which the port does not read.  As in
+state in orbax's ``state/`` instead, which :func:`load_vocoder` reads too
+(``compat/orbax.py``).  As in
 JAX, a resumed run restarts its crop generator from ``seed``, so its
 batches differ from an uninterrupted run's.
 """
@@ -42,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from a3t_tpu_torch.compat.from_jax import pwg_state
+from a3t_tpu_torch.compat.orbax import is_orbax_checkpoint, restore_portable
 from a3t_tpu_torch.device import resolve_device
 from a3t_tpu_torch.dsp.frontend import (LogMelConfig, LogMelFrontend,
                                         corpus_mvn, extract_corpus_mels)
@@ -365,16 +368,24 @@ def load_vocoder(out_dir: str, device=None):
     (B, F * hop) float32 tensor on the device.  The frames are edge-padded
     to a multiple of 64 and normalised by ``vocoder.json``'s statistics;
     the noise ``z`` (B, F_pad * hop) is drawn from a generator seeded with
-    0 in every call unless given.  A directory without ``state.pt`` (the
-    JAX package's orbax ``state/``) raises; the trained 16 kHz vocoder of
-    ``artifacts/vocoder`` is in the port's form in ``TRAINED_16K``."""
+    0 in every call unless given.  The directory is the port's
+    (``state.pt``) or the JAX package's (an orbax ``state/``, whose
+    ``params_g`` is carried by ``compat/from_jax.py::pwg_state``), such as
+    the trained 16 kHz vocoder ``artifacts/vocoder``; ``TRAINED_16K`` holds
+    that one in the port's form."""
     dev = resolve_device(device)
     state_path = os.path.join(out_dir, "state.pt")
-    if not os.path.exists(state_path):
-        raise NotImplementedError(
-            f"{out_dir} holds no state.pt: a vocoder directory of the JAX "
-            "package (orbax) cannot be read by the port (ROADMAP A2); the "
-            f"trained 16 kHz vocoder is converted in {TRAINED_16K}")
+    orbax_path = os.path.join(out_dir, "state")
+    if os.path.exists(state_path):
+        params = torch.load(state_path, map_location="cpu",
+                            weights_only=True)["params_g"]
+    elif is_orbax_checkpoint(orbax_path):
+        tree = restore_portable(orbax_path, only=("params_g",))
+        params = {k: torch.from_numpy(v) for k, v in
+                  pwg_state({"params": tree["params_g"]}).items()}
+    else:
+        raise FileNotFoundError(f"{out_dir} holds neither the port's "
+                                "state.pt nor an orbax state/")
     with open(os.path.join(out_dir, "vocoder.json")) as f:
         meta = json.load(f)
     names = {f.name for f in dataclasses.fields(PWGConfig)}
@@ -382,8 +393,7 @@ def load_vocoder(out_dir: str, device=None):
                         for k, v in meta["pwg"].items() if k in names})
     hop = gcfg.upsample_factor
     gen = ParallelWaveGANGenerator(gcfg)
-    gen.load_state_dict(torch.load(state_path, map_location="cpu",
-                                   weights_only=True)["params_g"])
+    gen.load_state_dict(params)
     gen = gen.to(dev).eval()
     mean = torch.as_tensor(np.asarray(meta["mel_mean"], np.float32),
                            device=dev)

@@ -2,8 +2,9 @@
 """Drive the PyTorch port (a3t_tpu_torch) end to end on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --model-options   # the build and phase 18 alone
-    python3 chip_smoke.py --data-parallel   # the build and phase 19 alone
+    python3 chip_smoke.py --trained   # the build and phase 14 alone
+    python3 chip_smoke.py --model-options   # the build and phase 19 alone
+    python3 chip_smoke.py --data-parallel   # the build and phase 20 alone
     python3 chip_smoke.py --data-parallel-cards   # on a machine of 2+ cards:
         # the build and one rank per card over NCCL against one process;
         # with 4+ cards also a (cards / 2) x 2 data x model mesh and the
@@ -11,9 +12,9 @@
         # longformer-cards: configs/a3t_longformer_16k.yaml at its
         # 8192-frame bucket, bf16, on 1 x cards x 1, 1 x (cards / 2) x 2
         # and (cards / 2) x 2 x 1 against one process
-    python3 chip_smoke.py --tensor-parallel   # the build and phase 20 alone
-    python3 chip_smoke.py --seq-parallel   # the build and phase 21 alone
-    python3 chip_smoke.py --longformer-mesh   # the build and phase 22 alone
+    python3 chip_smoke.py --tensor-parallel   # the build and phase 21 alone
+    python3 chip_smoke.py --seq-parallel   # the build and phase 22 alone
+    python3 chip_smoke.py --longformer-mesh   # the build and phase 23 alone
 
 Phases, each printing its elapsed seconds:
 
@@ -25,7 +26,9 @@ Phases, each printing its elapsed seconds:
    (HGMMA) instructions of each K1, K2, K3, K4 and K5 function in the
    compiled code (cuobjdump -sass): every bf16 function must have some and
    no fp32 function any (full fp32, no TF32); beside them, the native WAV
-   loader (native/loader) with the host C++ compiler;
+   loader (native/loader) and the orbax reader's zstd decoder
+   (native/zstd_decode.cc) with the host C++ compiler, each build's seconds
+   printed;
 3. kernel: K1 (through its wrapper) against its plain PyTorch version on
    the card, at the slice's shapes, in float32 and bfloat16, with and
    without a padded key tail, out and logsumexp; at dropout rate 0.1 the
@@ -148,7 +151,26 @@ Phases, each printing its elapsed seconds:
    load, the loads, Griffin-Lim against PWG on one mel, the edit request's
    split, dynamic evaluation's seconds per pass and the MCD analysis's host
    seconds per utterance.
-14. speaker-fs2: speaker conditioning and the FastSpeech2 path on the
+14. trained: the JAX package's trained stash artifacts/soak12k_params
+   and vocoder artifacts/vocoder (the copy's byte counts printed; a missing
+   one raises), read by the port's orbax reader (compat/orbax.py, its zstd
+   decoder built from native/zstd_decode.cc): the stash's decode rate; the
+   16 kHz model of its config.yaml and tokens.txt in bf16 (the stash's
+   compute dtype) and fp32, its parameters equal to the stash's widened;
+   the vocoder's generator equal to weights/vocoder_16k's bit for bit and
+   check.npz's wav within 1e-4 of JAX's; one edit (16 phones over 1.6 s, 4
+   replaced by 3) served by SpeechEditor with that vocoder in each dtype,
+   latency and RTF after a warm-up with the forward / vocoder / host split,
+   8 K1 launches each; K1 against its plain version on the request's own
+   inputs (1, 2, L, 192) in fp32 and bf16; the fp32 edit's mel and wav
+   against the port's CPU run of it (the plain path, the same noise)
+   within 1e-4 / 1e-3 of their largest values; bin.train on the stash's
+   config warm-started from it (init_params_grow_vocab, a token list
+   extending the stash's in order) on a generated 16 kHz mini corpus
+   (one phone the stash lacks), 2 bf16 steps of 16 rows at 256 frames: the loaded parameters equal the stash's
+   before the first step, finite losses, K1 and K2 once a block a step in
+   this process.
+15. speaker-fs2: speaker conditioning and the FastSpeech2 path on the
    trainer's corpus (8 speakers), in the same temporary directory: a seeded
    x-vector network (XVectorConfig(), its log-mel MVN from the corpus)
    written in load_xvector's format, build_spk2xvector and
@@ -174,7 +196,7 @@ Phases, each printing its elapsed seconds:
    batch with no producer thread running, and medians of 3 after
    a warm-up of the x-vector extraction, the duration function, requests
    with FS2 durations, each baseline and the model loads.
-15. side-train: the side trainers on the trainer's corpus, in the same
+16. side-train: the side trainers on the trainer's corpus, in the same
    temporary directory, fp32 at full width: (a) the duration-aware A3T
    variant, the 24 kHz yaml with model.duration_predictor_layers=2 through
    bin.train for 8 steps over its two buckets (finite, not skipped, 8 K1
@@ -196,7 +218,7 @@ Phases, each printing its elapsed seconds:
    times (the x-vector's by crop length, the vocoder's spectral and
    adversarial steps), one profiled call of each kind and the phase's
    main-path launches.
-16. train-options: the rest of single-device training, in the same
+17. train-options: the rest of single-device training, in the same
    temporary directory: (a) configs/a3t_multi_corpus.yaml (a copy whose
    data directories and exp_dir alone differ) through bin.train for one
    epoch of 12 steps, libritts and vctk on the trainer's 24 kHz corpus and
@@ -223,7 +245,7 @@ Phases, each printing its elapsed seconds:
    largest element) of a plain rule written here (the mean of the two
    gradients plus the noise drawn from SeedSequence([0, count]), clipped,
    Adam, Noam), computed in float32 as optax computes it.
-17. prep-chain: the data-preparation chain, in the same temporary
+18. prep-chain: the data-preparation chain, in the same temporary
    directory, each stage through its CLI's main(argv) on the card: a 48
    kHz generate_mini_corpus of 12 + 4 utterances (one source rewritten as
    a stereo FLAC, the oracle alignments dropped) -> bin.format_data (24 kHz
@@ -242,7 +264,7 @@ Phases, each printing its elapsed seconds:
    width; K1/K2 against their plain versions at the chain's bucket (fp32
    and bf16, dropout 0 and 0.2).  Prints each stage's host seconds, the
    steps' device times and the phase's launches.
-18. model-options: the last single-device options, in the same temporary
+19. model-options: the last single-device options, in the same temporary
    directory.  (a) configs/a3t_longformer_16k.yaml with attention_dilation
    2 on train-longformer's batch (its pre-encoder dilated too, with no text
    keys): a dropout-0 step's gradients through K3-K5 against their plain
@@ -271,9 +293,10 @@ Phases, each printing its elapsed seconds:
    (f) The LJSpeech and VCTK recipes on tiny corpora in the sources'
    layouts: every split at the target rate, one span per phone.  Prints
    each part's seconds and the phase's K1-K5 launches.
-19. data-parallel: the data axis as one process per rank, on the
+20. data-parallel: the data axis as one process per rank, on the
    trainer's corpus and the 24 kHz yaml (in the whole smoke at 2 + 2
-   blocks, MESH_DEPTH, with (b)'s control beside (b)'s two ranks; alone at
+   blocks, MESH_DEPTH, with (b)'s reference beside (a)'s runs and (b)'s
+   control beside (b)'s two ranks; alone at
    full depth, each run with the card to itself) in fp32 under deterministic
    algorithms, 4 steps a run, each rank a process of this script
    (``--dp-rank``) around bin.train's main.  (a) ``python3 -m
@@ -294,11 +317,12 @@ Phases, each printing its elapsed seconds:
    launches (8 K2 a train step, 8 K1 a train and eval step) and reports
    its peak memory; the two-rank step times are gloo's, through the host,
    on one card.
-20. tensor-parallel: the mesh's model axis (tp = 2: each rank one of the
+21. tensor-parallel: the mesh's model axis (tp = 2: each rank one of the
    two heads and half of every feed-forward's units) on the trainer's
    corpus and the 24 kHz yaml at full width (in the whole smoke at 2 + 2
-   blocks, MESH_DEPTH, with the bf16 runs beside the fp32 ones and the
-   NCCL refusal; alone at full depth, each run with the card to itself)
+   blocks, MESH_DEPTH, with the bf16 runs beside the fp32 ones and Bb
+   also beside the NCCL refusal; alone at full depth, each run with the
+   card to itself)
    with its dropout rates, in
    deterministic mode, batches cut in rows only to 16 rows (8 at 512
    frames).  (a) Two ranks on the one card over gloo (bin.launch, bin.train,
@@ -317,9 +341,11 @@ Phases, each printing its elapsed seconds:
    plain rule's head 1 of the two-head call bit for bit, out, lse and K2's
    gradients against their plain versions; the times beside the two-head
    call's.
-21. seq-parallel: the mesh's seq axis (sp = 2: each rank one half of
+22. seq-parallel: the mesh's seq axis (sp = 2: each rank one half of
    every row's frames and the whole text, context parallelism) on the
-   trainer's corpus and the 24 kHz yaml at full width with its dropout
+   trainer's corpus and the 24 kHz yaml at full width (in the whole smoke
+   at 2 + 2 blocks, MESH_DEPTH, with Q beside Qb and B beside Bb; alone at
+   full depth, each run with the card to itself) with its dropout
    rates, in deterministic mode, every batch 16 rows of the 512-frame
    bucket.  (a) Two ranks on the one card over gloo (bin.launch,
    bin.train, the ranks' group patched to gloo), fp32, 4 steps, against one
@@ -343,8 +369,10 @@ Phases, each printing its elapsed seconds:
    8192, 192) call, fp32 and bf16, dropout 0.2: keep bits, out, lse and dq
    equal to those rows of the whole call's, dk and dv summed over the
    ranks against it, each against its plain version, the times.
-22. longformer-mesh: configs/a3t_longformer_16k.yaml at full width and
-   depth on the seq and model axes, as ranks on the one card over gloo
+23. longformer-mesh: configs/a3t_longformer_16k.yaml at full width on
+   the seq and model axes (the whole smoke at 1 + 1 blocks, LF_MESH_DEPTH;
+   --longformer-mesh alone at the yaml's 4 + 2), as ranks on the one card
+   over gloo
    against one process, 8 rows of the 1024-frame bucket, the yaml's
    dropout, deterministic mode.  (e) fp32, 4 steps, at sp = 2, at sp = 4
    (one chunk a rank: ranks 1 and 2 train with both halos real) and at
@@ -5545,19 +5573,27 @@ def data_parallel_phase(torch, np, label, root, train, valid,
                    "argv": argv("C", same_plan)}, f)
 
     # (a)'s plain run P and one-rank launch A together on the card, then
-    # (b)'s one-process reference Q alone (its step times are compared)
+    # (b)'s one-process reference Q alone, so that its step times and peak
+    # memory are its own; ``together`` (the whole smoke, at a cut depth)
+    # runs Q beside P and A, and its times and peak then share the card
     t0 = time.perf_counter()
+
+    def run_q():
+        return _dp_run("Q", rank_cmd("Q", "--dropout0", *profile)
+                       + argv("Q", same_plan), d, env)
+
     _dp_wait([
         _dp_run("P", rank_cmd("P") + argv("P"), d, env),
         _dp_run("A", launch("localhost") + rank_cmd("A") + argv("A"), d,
                 env),
-    ], 400)
-    log(f"  runs P and A (one process each, side by side): "
+    ] + ([run_q()] if together else []), 400)
+    log(f"  runs P and A (one process each, side by side"
+        f"{', beside run Q' if together else ''}): "
         f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    _dp_wait([_dp_run("Q", rank_cmd("Q", "--dropout0", *profile)
-                      + argv("Q", same_plan), d, env)], 400)
-    log(f"  run Q (one process): {time.perf_counter() - t0:.2f} s")
+    if not together:
+        t0 = time.perf_counter()
+        _dp_wait([run_q()], 400)
+        log(f"  run Q (one process): {time.perf_counter() - t0:.2f} s")
     # (b): two ranks on the card over gloo, then one process resuming the
     # two-rank run's mid-epoch checkpoint; then (b)'s control L, two ranks
     # each with its local BatchNorm statistics.  ``together`` (the whole
@@ -6156,22 +6192,23 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
     log(f"  runs Q and Qb (one process each, fp32 and bf16, "
         f"{'side by side' if together else 'one after the other'}): "
         f"{time.perf_counter() - t0:.2f} s")
+    def run_bb():
+        return _dp_run("Bb", launch(TP) + rank_cmd("Bb", "--gloo")
+                       + argv("Bb", *bf16, *tp2), d, env)
+
+    # ``together``: Bb starts beside B and runs on beside X
     t0 = time.perf_counter()
+    bb_run = run_bb() if together else None
     _dp_wait([_dp_run("B", launch(TP) + rank_cmd(
         "B", "--gloo", *profile, "--keep-mid", os.path.join(d, "mid"),
         "--then", then)
         + argv("B", *tp2, f"trainer.save_interval_steps={DP_SAVE}"),
         d, env)], 400)
     log(f"  run B (tp = {TP}: two ranks on the card over gloo) and run C "
-        f"(its rank 0 alone, resuming B at step {DP_SAVE}): "
+        f"(its rank 0 alone, resuming B at step {DP_SAVE})"
+        f"{', beside run Bb' if together else ''}: "
         f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-
-    def run_bb():
-        return _dp_run("Bb", launch(TP) + rank_cmd("Bb", "--gloo")
-                       + argv("Bb", *bf16, *tp2), d, env)
-
-    bb_run = run_bb() if together else None
     if device != "cpu":
         # NCCL (bin.train's group on the card) cannot put the two ranks on
         # one card: bin.train says so (``together``, beside Bb, which it
@@ -6227,10 +6264,11 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
             for name, ranks in runs.items()}, errs
 
 
-# phases data-parallel and tensor-parallel in the whole smoke: the yaml's
-# width at half its depth (2 + 2 blocks), so that the smoke ends within
-# its 1200 s limit on a slow host (1213.3 s at 4 + 4 in PR 20's call 4);
-# alone (--data-parallel, --tensor-parallel) at full depth
+# phases data-parallel, tensor-parallel and seq-parallel in the whole
+# smoke: the yaml's width at half its depth (2 + 2 blocks), so that the
+# smoke ends within its 1200 s limit on a slow host (it took 1213.3 s once
+# at 4 + 4); alone (--data-parallel, --tensor-parallel, --seq-parallel) at
+# full depth
 MESH_DEPTH = ("model.encoder.num_blocks=2", "model.decoder.num_blocks=2")
 SP = 2  # the seq axis's ranks of phase seq-parallel
 SP_SEED = 13579
@@ -6764,16 +6802,17 @@ def _sp_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
 
 
 def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
-                       device="cuda", sets=()):
+                       device="cuda", sets=(), together=False):
     """(a) sp = 2 as two ranks on the one card over gloo (bin.launch and
     bin.train, the ranks' group patched to gloo) against one process, fp32
     at the yaml's dropout, every batch 16 rows of the 512-frame bucket; the
     two-rank run's mid-epoch checkpoint resumed by one process; (b) the
     same in bf16 for SP_BF16_ITERS steps; (c) :func:`sp_kernel_rows`; (d)
     :func:`banded_rank_rows`, K3-K5 on the rank blocks and on one head.
-    On the CPU (a rehearsal, ``sets`` at a toy width) (c) and (d) are left
-    out.  Returns ({run: [(K1, K2) per rank]}, (c)'s errors, (d)'s
-    errors and times)."""
+    ``together`` (the whole smoke, at a cut depth) runs Q beside Qb and B
+    beside Bb.  On the CPU (a rehearsal, ``sets`` at a toy width) (c) and
+    (d) are left out.  Returns ({run: [(K1, K2) per rank]}, (c)'s errors,
+    (d)'s errors and times)."""
     from a3t_tpu_torch.tasks.config import load_config
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -6822,26 +6861,26 @@ def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
     with open(then, "w") as f:
         json.dump({"out": os.path.join(d, "C"), "exp": exp("C"),
                    "argv": argv("C")}, f)
-    t0 = time.perf_counter()
-    _dp_wait([_dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d, env)],
-             400)
-    log(f"  run Q (one process, fp32): {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    _dp_wait([_dp_run("B", launch(SP) + rank_cmd(
+    runs_q = [lambda: _dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d,
+                              env),
+              lambda: _dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d,
+                              env)]
+    runs_b = [lambda: _dp_run("B", launch(SP) + rank_cmd(
         "B", "--gloo", *profile, "--keep-mid", os.path.join(d, "mid"),
         "--then", then)
-        + argv("B", *sp2, f"trainer.save_interval_steps={DP_SAVE}"),
-        d, env)], 400)
-    log(f"  run B (sp = {SP}: two ranks on the card over gloo) and run C "
-        f"(its rank 0 alone, resuming B at step {DP_SAVE}): "
+        + argv("B", *sp2, f"trainer.save_interval_steps={DP_SAVE}"), d, env),
+        lambda: _dp_run("Bb", launch(SP) + rank_cmd("Bb", "--gloo")
+                        + argv("Bb", *bf16, *sp2), d, env)]
+    how = "side by side" if together else "one after the other"
+    t0 = time.perf_counter()
+    _dp_stage(runs_q, together, 400)
+    log(f"  runs Q and Qb (one process each, fp32 and bf16, {how}): "
         f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    _dp_wait([_dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d, env)],
-             400)
-    _dp_wait([_dp_run("Bb", launch(SP) + rank_cmd("Bb", "--gloo")
-                      + argv("Bb", *bf16, *sp2), d, env)], 400)
-    log(f"  runs Qb and Bb (bf16, one process and sp = {SP}): "
-        f"{time.perf_counter() - t0:.2f} s")
+    _dp_stage(runs_b, together, 400)
+    log(f"  run B (sp = {SP}: two ranks on the card over gloo, fp32; then "
+        f"run C, its rank 0 alone, resuming B at step {DP_SAVE}) and run Bb "
+        f"(bf16, sp = {SP}), {how}: {time.perf_counter() - t0:.2f} s")
 
     (q,), (c,), (qb,) = load("Q"), load("C"), load("Qb")
     b, bb = load("B", SP), load("Bb", SP)
@@ -6880,6 +6919,11 @@ LF_MESH_ROWS = 8
 LF_MESH_BINS = LF_MESH_ROWS * LF_MESH_BUCKET * 80
 LF_MESH_PHONES = (40, 88)  # 450-990 frames at hop 200
 LF_MESH_BF16_ITERS = 2
+# the whole smoke's depth: one longformer block and one speech-only block
+# of the yaml's 4 + 2 (--longformer-mesh alone runs the yaml's depth), as
+# MESH_DEPTH cuts the Conformer mesh phases
+LF_MESH_DEPTH = ("model.encoder.num_blocks=1",
+                 "model.encoder.pre_speech_layers=1")
 # (e)'s second seq run: one chunk of c = 256 a rank, so that the ranks
 # between the edges train with both halos real
 LF_MESH_SP4 = 4
@@ -7006,9 +7050,11 @@ def _lf_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
               f"{what} {len(ranks)} ranks vs one process")
 
 
-def longformer_mesh_phase(torch, np, label, root, device="cuda"):
+def longformer_mesh_phase(torch, np, label, root, device="cuda", sets=(),
+                          together=False):
     """configs/a3t_longformer_16k.yaml at full width and depth (4 + 2
-    longformer blocks) on the seq and the model axis as ranks on the one
+    longformer blocks; ``sets`` cut the depth, LF_MESH_DEPTH in the whole
+    smoke) on the seq and the model axis as ranks on the one
     card over gloo (bin.launch and bin.train, the ranks' group patched to
     gloo), each against one process on the same global batches, at the
     yaml's dropout in deterministic mode, on 8-row batches of the
@@ -7016,8 +7062,9 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda"):
     steps, at sp = SP, at sp = LF_MESH_SP4 (one chunk a rank, so that
     ranks 1 and 2 hold both halos real) and at tp = TP; (f) bf16,
     LF_MESH_BF16_ITERS steps, at sp = SP and tp = TP.  The runs of a dtype
-    start together on the card.  Returns {run: [(K3, K4, K5) per
-    rank]}."""
+    start together on the card; ``together`` (the whole smoke, at a cut
+    depth) starts both dtypes' runs at once.  Returns {run: [(K3, K4, K5)
+    per rank]}."""
     from a3t_tpu_torch.tasks.config import load_config
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -7030,7 +7077,7 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda"):
                              LF_MESH_PHONES, LF_MESH_ROWS, seed=70)
     log(f"  the 16 kHz corpus made in {secs:.2f} s")
     rows = (f"batcher.batch_bins={LF_MESH_BINS}",
-            f"batcher.bucket_frames=[{LF_MESH_BUCKET}]")
+            f"batcher.bucket_frames=[{LF_MESH_BUCKET}]", *sets)
     fp32 = ("model.encoder.compute_dtype=float32",)
     bf16 = (f"trainer.num_iters_per_epoch={LF_MESH_BF16_ITERS}",
             f"trainer.log_interval={LF_MESH_BF16_ITERS}")
@@ -7053,19 +7100,26 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda"):
                 ",".join(["localhost"] * n), "--port", str(_free_port()),
                 "--"]
 
-    for dt, more in (("f", fp32), ("b", bf16)):
+    def start(dt, more):
+        return ([_dp_run(f"Q{dt}", rank_cmd(f"Q{dt}") + argv(f"Q{dt}", *more),
+                         d, env)]
+                + [_dp_run(f"{ax}{dt}", launch(n) + rank_cmd(
+                    f"{ax}{dt}", "--gloo") + argv(f"{ax}{dt}", *more, *m),
+                    d, env) for ax, (n, m, dts) in axes.items()
+                   if dt in dts])
+
+    def named(dt):
+        return (f"Q{dt} (one process), "
+                + ", ".join(f"{ax}{dt} ({'tp' if ax == 'T' else 'sp'} = {n})"
+                            for ax, (n, _, dts) in axes.items() if dt in dts)
+                + f", {'fp32' if dt == 'f' else 'bf16'}")
+
+    dtypes = (("f", fp32), ("b", bf16))
+    for stage in ((dtypes,) if together else ((x,) for x in dtypes)):
         t0 = time.perf_counter()
-        _dp_wait([_dp_run(f"Q{dt}", rank_cmd(f"Q{dt}") + argv(f"Q{dt}",
-                                                               *more), d, env)]
-                 + [_dp_run(f"{ax}{dt}", launch(n) + rank_cmd(
-                     f"{ax}{dt}", "--gloo") + argv(f"{ax}{dt}", *more, *m),
-                     d, env) for ax, (n, m, dts) in axes.items()
-                    if dt in dts], 600)
-        log(f"  runs Q{dt} (one process), "
-            + ", ".join(f"{ax}{dt} ({'tp' if ax == 'T' else 'sp'} = {n})"
-                        for ax, (n, _, dts) in axes.items() if dt in dts)
-            + f", {'fp32' if dt == 'f' else 'bf16'}, together on the card: "
-            f"{time.perf_counter() - t0:.2f} s")
+        _dp_wait([run for dt, more in stage for run in start(dt, more)], 600)
+        log(f"  runs {'; '.join(named(dt) for dt, _ in stage)}, together "
+            f"on the card: {time.perf_counter() - t0:.2f} s")
 
     def load(tag, world=1):
         return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
@@ -7075,7 +7129,7 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda"):
     runs.update({f"{ax}{dt}": load(f"{ax}{dt}", n)
                  for ax, (n, _, dts) in axes.items() for dt in dts})
     note = ("the ranks on one card, the collectives through the host over "
-            "gloo, beside the other runs of the dtype: not a speed figure")
+            "gloo, beside the other runs: not a speed figure")
     cfg_f = load_config(CONFIG_16K, [*rows, *fp32])
     cfg_b = load_config(CONFIG_16K, list(rows))
     _lf_against_one(torch, np, runs["Qf"][0], runs["Sf"], SP, 1, cfg_f,
@@ -7162,6 +7216,357 @@ def longformer_cards_part(torch, np, label, root, cards, device="cuda"):
             for name, ranks in runs.items()}
 
 
+# --- trained: the JAX package's trained stash and vocoder, read by the
+# port's orbax reader, serving one request and warm-starting bin.train
+
+STASH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "artifacts", "soak12k_params")
+VOCODER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "artifacts", "vocoder")
+# the card's fp32 edit against the port's own CPU run of it (the plain
+# path), in units of the largest mel magnitude and wav sample: the bounds
+# tests/test_torch_trained.py holds the CPU edit to against JAX's
+TOL_TRAINED_MEL = 1e-4
+TOL_TRAINED_WAV = 1e-3
+TRAINED_SECS = 1.6
+TRAINED_PHONES = 16
+WARM_ROWS = 16  # rows of the warm start's 256-frame batches
+WARM_BUCKET = 256
+WARM_ITERS = 2
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(path) for f in names)
+
+
+def trained_request(np, tokens, fs):
+    """The stash test's utterance (tests/test_torch_stash.py): 1.6 s of a
+    harmonic tone with a gliding F0, 16 phones of the stash's tokens on a
+    uniform alignment; the edit replaces phones 6-9 by three others."""
+    from a3t_tpu_torch.inference import UtteranceAlignment
+
+    phones = [tokens[2 + (5 * i) % (len(tokens) - 3)]
+              for i in range(TRAINED_PHONES)]
+    t = np.arange(int(TRAINED_SECS * fs)) / fs
+    f0 = 120 + 30 * np.sin(2 * np.pi * 1.5 * t)
+    wav = sum(np.sin(2 * np.pi * np.cumsum(f0 * k) / fs) / k
+              for k in range(1, 6)) * 0.1
+    wav = (wav + 0.003 * np.random.default_rng(0).standard_normal(
+        t.size)).astype(np.float32)
+    bounds = np.linspace(0, TRAINED_SECS, len(phones) + 1)
+    align = UtteranceAlignment(
+        phones, bounds[:-1], bounds[1:],
+        {f"{i}_{p}": [p] for i, p in enumerate(phones)})
+    new = phones[:6] + ["M", "IY", "S"] + phones[10:]
+    return wav, align, " ".join(phones), " ".join(new)
+
+
+def trained_phase(torch, np, fa, label, root, device="cuda"):
+    """The JAX package's trained stash (artifacts/soak12k_params) and
+    vocoder (artifacts/vocoder) through the port's orbax reader: the
+    stash's decode rate; the 16 kHz model from its config.yaml and
+    tokens.txt in bf16 (its compute_dtype) and fp32; one edit served by
+    SpeechEditor with the trained vocoder (its generator equal to
+    weights/vocoder_16k's on the card), latency and RTF after a warm-up
+    with the forward / vocoder / host split; K1 against its plain version
+    on the request's own inputs with the trained weights; the fp32 edit
+    against the port's CPU run of it; bin.train warm-started from the stash
+    for WARM_ITERS bf16 steps on a generated 16 kHz corpus with a token
+    list extending the stash's.  Returns ((K1, K2) launches of the request
+    and the warm start, K1's largest fp32 |kernel - plain|)."""
+    import dataclasses
+
+    from a3t_tpu_torch.bin.train import main as train_main
+    from a3t_tpu_torch.compat.from_jax import mlm_state, pwg_state
+    from a3t_tpu_torch.compat.orbax import restore_portable
+    from a3t_tpu_torch.data.miniature import generate_mini_corpus
+    from a3t_tpu_torch.device import wall_time
+    from a3t_tpu_torch.inference import SpeechEditor
+    from a3t_tpu_torch.models import attention
+    from a3t_tpu_torch.models.mlm import build_model
+    from a3t_tpu_torch.tasks.config import load_config
+    from a3t_tpu_torch.text import TokenIDConverter
+    from a3t_tpu_torch.train import trainer as trainer_mod
+    from a3t_tpu_torch.train.checkpoint import warm_start_params
+    from a3t_tpu_torch.train.vocoder import TRAINED_16K, load_vocoder
+
+    t_phase = time.perf_counter()
+    for path in (STASH, VOCODER_DIR):
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"{path} is not in this copy: phase "
+                                    "trained reads it")
+    stash_bytes = _dir_bytes(STASH)
+    log(f"  inputs: {STASH} ({stash_bytes} bytes), {VOCODER_DIR} "
+        f"({_dir_bytes(VOCODER_DIR)} bytes)")
+
+    # the stash's decode: the OCDBT walk and every leaf's zstd frames
+    reads = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tree = restore_portable(STASH)
+        reads.append(time.perf_counter() - t0)
+    params = tree["params"]
+    n_params = sum(int(np.prod(v.shape)) for v in _tree_leaves(params))
+    log(f"  restore_portable({os.path.relpath(STASH)}): {n_params} "
+        f"parameters, {stash_bytes / 1e6:.2f} MB on disk: first read "
+        f"{reads[0]:.3f} s, second {reads[1]:.3f} s (the decoder built "
+        f"in phase build), {stash_bytes / 1e6 / reads[0]:.1f} / "
+        f"{stash_bytes / 1e6 / reads[1]:.1f} MB/s [{label}]")
+    check(all(v.dtype == torch.bfloat16 for v in _tree_leaves(params)),
+          "the stash's leaves are bfloat16 tensors")
+
+    # the model of the stash's config and tokens, its vocabulary that of
+    # text_embed (tests/test_torch_stash.py)
+    cfg = load_config(os.path.join(STASH, "config.yaml"))
+    with open(os.path.join(STASH, "tokens.txt")) as f:
+        tokens = [t.strip() for t in f if t.strip()]
+    vocab = params["text_embed"]["embedding"].shape[0]
+    check(vocab == len(tokens), f"text_embed's {vocab} rows are the "
+          f"{len(tokens)} tokens")
+    check(cfg.model.encoder.compute_dtype == "bfloat16",
+          "the stash's compute dtype is bfloat16")
+    models = {}
+    for name, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
+        mcfg = dataclasses.replace(
+            cfg.model, vocab_size=vocab,
+            encoder=dataclasses.replace(cfg.model.encoder, compute_dtype=dt),
+            decoder=dataclasses.replace(cfg.model.decoder, compute_dtype=dt))
+        t0 = time.perf_counter()
+        models[name] = warm_start_params(build_model(mcfg, device=device),
+                                         STASH).eval()
+        log(f"  the {name} model built and loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
+    want = mlm_state({"params": params})
+    got = models["fp32"].state_dict()
+    check(all(torch.equal(got[k].cpu(), torch.from_numpy(v))
+              for k, v in want.items()),
+          "the model's parameters equal the stash's, widened exactly")
+
+    # the trained vocoder, read from the JAX package's directory
+    t0 = time.perf_counter()
+    vocode = load_vocoder(VOCODER_DIR, device=device)
+    voc_s = time.perf_counter() - t0
+    g = pwg_state({"params": restore_portable(
+        os.path.join(VOCODER_DIR, "state"), only=("params_g",))["params_g"]})
+    ref = torch.load(os.path.join(TRAINED_16K, "state.pt"),
+                     weights_only=True)["params_g"]
+    check(set(g) == set(ref) and all(
+        torch.equal(torch.from_numpy(g[k]).to(device), ref[k].to(device))
+        for k in ref), "artifacts/vocoder's generator equals "
+        "weights/vocoder_16k's on the card, bit for bit")
+    check_npz = np.load(os.path.join(TRAINED_16K, "check.npz"))
+    jax_wav = check_npz["wav"]
+    got_wav = vocode(check_npz["mel"], z=check_npz["z"]).cpu().numpy()
+    err = float(np.abs(got_wav - jax_wav).max() / np.abs(jax_wav).max())
+    log(f"  artifacts/vocoder loaded in {voc_s:.2f} s; check.npz's wav "
+        f"against JAX's: {err:.3g} of its peak (tol {TOL_VOCODER:g})")
+    check(err <= TOL_VOCODER, "the trained vocoder's wav equals JAX's")
+
+    fs, hop = cfg.frontend.fs, cfg.frontend.hop_length
+    wav, align, old, new = trained_request(np, tokens, fs)
+    lexicon = {p: [p] for p in tokens[2:-1]}
+    n_pad = -(-(1 + len(wav) // hop + 16) // 64) * 64
+    noise = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, 2 * n_pad * hop)).astype(np.float32))
+    timing = {}
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            timing[key] = timing.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def editor(model, dev):
+        # one noise for every run: the card's and the CPU's generators
+        # draw different numbers
+        def voc(mel):
+            n = -(-mel.shape[1] // 64) * 64 * hop
+            return voc_fn[dev](mel, z=noise[:, :n].to(dev))
+        return SpeechEditor(model, cfg.frontend, TokenIDConverter(tokens),
+                            vocoder=timed("vocoder", voc),
+                            duration_fn=lambda ph, w: [0.1] * len(ph),
+                            lexicon=lexicon, device=dev)
+
+    voc_fn = {device: vocode}
+    captured = {}
+    real_fa = attention.fused_attention
+
+    def capture(*a, **kw):
+        captured.setdefault(a[0].dtype, a)  # (q, k, v, bias, mask)
+        return real_fa(*a, **kw)
+
+    results, edit_launches = {}, 0
+    attention.fused_attention = capture
+    try:
+        for name in ("bf16", "fp32"):
+            model = models[name]
+            model.forward = timed("forward", model.forward)
+            ed = editor(model, device)
+            ed.edit(wav, align, old, new)  # warm-up
+            fa.reset_launches()
+            timing.clear()
+            res, latency = wall_time(ed.edit, wav, align, old, new)
+            launched = fa.LAUNCHES
+            fwd, voc = timing["forward"], timing["vocoder"]
+            secs = len(res.origin_replaced) / fs
+            log(f"  {name} trained edit: {latency * 1e3:.2f} ms for "
+                f"{secs:.3f} s of audio, RTF {latency / secs:.5f}; forward "
+                f"{fwd * 1e3:.2f} ms, vocoder {voc * 1e3:.2f} ms, host "
+                f"{(latency - fwd - voc) * 1e3:.2f} ms; K1 {launched} "
+                f"launches; span {res.new_span_boundary} [{label}]")
+            check(launched == 8, f"{name} trained edit: {launched} K1 "
+                  "launches, expected 8 (one a block)")
+            check(bool(np.isfinite(res.mel_edited).all()
+                       and np.isfinite(res.prediction).all()),
+                  f"{name} trained edit: finite mel and wav")
+            check(res.mel_edited.shape[1] == 80
+                  and res.prediction.shape == (
+                      res.mel_edited.shape[0] * hop,),
+                  f"{name} trained edit: the mel's and the wav's shapes")
+            results[name] = res
+            edit_launches += launched
+            del model.forward
+    finally:
+        attention.fused_attention = real_fa
+
+    # K1 on the request's own inputs with the trained weights (outside the
+    # counted runs).  The trained outputs reach ~5, where one bf16 step is
+    # 2^-5: the bound is the random-input one (TOL_F32 / TOL_BF16, for O(1)
+    # values) times the output's largest magnitude where that passes 1
+    k1_err = 0.0
+    for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        q, k, v, bias, mask = captured[dt]
+        out, lse = fa.fused_attention_fwd(q, k, v, bias, mask)
+        want_out, want_lse = fa.fused_attention_reference(q, k, v, bias,
+                                                          mask)
+        e = (out.float() - want_out.float()).abs().max().item()
+        el = (lse - want_lse).abs().max().item()
+        scale = max(1.0, want_out.float().abs().max().item())
+        log(f"  K1 at the trained request {tuple(q.shape)} {str(dt)[6:]}: "
+            f"max|out-plain| {e:.3g}, max|lse-plain| {el:.3g} (tol {tol:g} "
+            f"x {scale:.3g}, the largest |out|)")
+        check(e <= tol * scale and el <= tol,
+              f"K1 at the trained request {dt}")
+        if dt == torch.float32:
+            k1_err = e
+
+    # the fp32 edit against the port's CPU run of it (the plain path)
+    t0 = time.perf_counter()
+    cpu_model = warm_start_params(build_model(dataclasses.replace(
+        cfg.model, vocab_size=vocab,
+        encoder=dataclasses.replace(cfg.model.encoder,
+                                    compute_dtype="float32"),
+        decoder=dataclasses.replace(cfg.model.decoder,
+                                    compute_dtype="float32")),
+        device="cpu"), STASH).eval()
+    voc_fn["cpu"] = load_vocoder(VOCODER_DIR, device="cpu")
+    cpu = editor(cpu_model, "cpu").edit(wav, align, old, new)
+    card = results["fp32"]
+    mel_err = float(np.abs(card.mel_edited - cpu.mel_edited).max()
+                    / np.abs(cpu.mel_edited).max())
+    wav_err = float(np.abs(card.prediction - cpu.prediction).max()
+                    / np.abs(cpu.prediction).max())
+    log(f"  fp32 trained edit, card against the CPU "
+        f"({time.perf_counter() - t0:.2f} s): mel {mel_err:.3g} of its "
+        f"largest magnitude (tol "
+        f"{TOL_TRAINED_MEL:g}), wav {wav_err:.3g} of its largest sample "
+        f"(tol {TOL_TRAINED_WAV:g})")
+    check(card.new_span_boundary == cpu.new_span_boundary
+          and mel_err <= TOL_TRAINED_MEL and wav_err <= TOL_TRAINED_WAV,
+          "the card's fp32 trained edit equals the CPU's")
+    bf_err = float(np.abs(results["bf16"].mel_edited - card.mel_edited).max()
+                   / np.abs(card.mel_edited).max())
+    log(f"  bf16 trained edit's mel against the fp32's: {bf_err:.3g} of its "
+        "largest magnitude (bf16 compute, not a check)")
+    del cpu_model, models
+
+    # bin.train warm-started from the stash, its tokens extended in order
+    d = os.path.join(root, "trained")
+    data = os.path.join(d, "data")
+    t0 = time.perf_counter()
+    # the mini corpus's phones include one the stash lacks (EY)
+    generate_mini_corpus(data, n_utts=3 * WARM_ROWS, fs=fs,
+                         n_phones_range=(4, 12), seed=21)
+    with open(os.path.join(data, "text")) as f:
+        phones = sorted({p for line in f for p in line.split()[1:]})
+    merged = tokens + [p for p in phones if p not in tokens]
+    with open(os.path.join(d, "tokens.txt"), "w") as f:
+        f.write("\n".join(merged) + "\n")
+    log(f"  the warm start's corpus: {3 * WARM_ROWS} utterances in "
+        f"{time.perf_counter() - t0:.2f} s; tokens {len(tokens)} + "
+        f"{len(merged) - len(tokens)} new")
+    loaded = {}
+
+    def watched_warm_start(model, path, **kw):
+        out = warm_start_params(model, path, **kw)
+        own = dict(model.named_parameters())
+        rows = {k: own[k].detach()[: v.shape[0]].cpu() for k, v in
+                want.items() if k in own}
+        loaded["equal"] = all(
+            torch.equal(rows[k], torch.from_numpy(v).to(rows[k].dtype))
+            for k, v in want.items() if k in own)
+        loaded["grown"] = own["encoder.text_embed.0.weight"].shape[0]
+        loaded["dtype"] = str(next(iter(own.values())).dtype)
+        return out
+
+    argv = ["--config", os.path.join(STASH, "config.yaml"), "--device",
+            device, "--log-level", "WARNING"]
+    for s in (f"train_data_dir={data}", "valid_data_dir=",
+              f"token_list={os.path.join(d, 'tokens.txt')}",
+              f"exp_dir={os.path.join(d, 'exp')}",
+              f"batcher.bucket_frames=[{WARM_BUCKET}]",
+              f"batcher.batch_bins={WARM_ROWS * WARM_BUCKET * 80}",
+              "trainer.max_epoch=1",
+              f"trainer.num_iters_per_epoch={WARM_ITERS}",
+              f"trainer.log_interval={WARM_ITERS}",
+              "trainer.keep_nbest_models=1",
+              "trainer.average_nbest_at_end=false",
+              "trainer.steps_per_dispatch=1",
+              f"trainer.init_params_dir={STASH}",
+              "trainer.init_params_grow_vocab=true"):
+        argv += ["--set", s]
+    trainer_mod.warm_start_params = watched_warm_start
+    try:
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        trainer, state = train_main(argv)
+        train_s = time.perf_counter() - t0
+        warm = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+    finally:
+        trainer_mod.warm_start_params = warm_start_params
+    losses = [r["loss"] for r in trainer.step_log]
+    log(f"  bin.train warm-started from the stash: {len(losses)} bf16 steps "
+        f"in {train_s:.2f} s, losses {[round(x, 5) for x in losses]}; the "
+        f"text table grown to {loaded.get('grown')} rows, parameters "
+        f"{loaded.get('dtype')}; K1 {warm[0]}, K2 {warm[1]} launches in this "
+        f"process [{label}]")
+    check(loaded.get("equal") is True, "the warm-started parameters equal "
+          "the stash's cast values before the first step")
+    check(len(merged) > len(tokens) and loaded["grown"] == len(merged),
+          "the token list extends the stash's; the text table has a row a "
+          "token")
+    check(len(losses) == WARM_ITERS and all(np.isfinite(losses)),
+          f"{WARM_ITERS} finite warm-started losses")
+    blocks = cfg.model.encoder.num_blocks + cfg.model.decoder.num_blocks
+    check(warm == (blocks * WARM_ITERS, blocks * WARM_ITERS),
+          f"K1/K2 launched once a block a step ({warm})")
+    log(f"  phase trained: {time.perf_counter() - t_phase:.2f} s")
+    return (edit_launches + warm[0], warm[1]), k1_err
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
 
@@ -7172,6 +7577,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from a3t_tpu_torch.compat import zstd
     from a3t_tpu_torch.data import native_loader
     from a3t_tpu_torch.device import card_label, cuda_ms, wall_time
     from a3t_tpu_torch.ops import banded_attention as ba
@@ -7189,26 +7595,34 @@ def main() -> int:
             f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {label}")
 
     with Phase("build"):
-        # the trainer's native WAV loader (host C++) builds beside nvcc
-        loader_build = {}
+        # the host C++ libraries (the trainer's native WAV loader and the
+        # orbax reader's zstd decoder) build beside nvcc
+        host_builds = {"native/loader": native_loader.build,
+                       "native/zstd_decode": zstd.build}
+        built = {}
 
-        def build_loader():
+        def build_host(name):
             t0 = time.perf_counter()
             try:
-                loader_build["path"] = native_loader.build()
+                built[name] = (host_builds[name](), None)
             except Exception as e:  # re-raised below, in this thread
-                loader_build["error"] = e
-            loader_build["seconds"] = time.perf_counter() - t0
+                built[name] = (None, e)
+            built[name] += (time.perf_counter() - t0,)
 
-        loader_thread = threading.Thread(target=build_loader)
-        loader_thread.start()
+        host_threads = [threading.Thread(target=build_host, args=(name,))
+                        for name in host_builds]
+        for t in host_threads:
+            t.start()
         libraries = {**fa.LIBRARIES, **ba.LIBRARIES, **fl.LIBRARIES}
         paths = native.build_all(libraries)
-        loader_thread.join()
-        if "error" in loader_build:
-            raise loader_build["error"]
-        log(f"  native/loader built in {loader_build['seconds']:.2f} s: "
-            f"{os.path.relpath(loader_build['path'])}")
+        for t in host_threads:
+            t.join()
+        for name in host_builds:
+            path, error, seconds = built[name]
+            if error is not None:
+                raise error
+            log(f"  {name} built in {seconds:.2f} s: "
+                f"{os.path.relpath(path)}")
         fa._entry()
         fa._entry_bwd()
         fl._entry("fft")
@@ -7273,6 +7687,13 @@ def main() -> int:
                 longformer_mesh_phase(torch, np, label, root)
         return 0
 
+    if sys.argv[1:] == ["--trained"]:
+        # the trained phase alone
+        with tempfile.TemporaryDirectory(prefix="a3t_trained_") as root:
+            with Phase("trained"):
+                trained_phase(torch, np, fa, label, root)
+        return 0
+
     if sys.argv[1:] == ["--model-options"]:
         # the model-options phase alone, on a trainer corpus of its own
         with tempfile.TemporaryDirectory(prefix="a3t_options_") as root:
@@ -7331,6 +7752,10 @@ def main() -> int:
             cli_fwd, cli_bwd = serve_cli_phase(torch, np, fa, cuda_ms, label,
                                                exp_a, valid, root)
 
+        with Phase("trained"):
+            (trained_fwd, trained_bwd), trained_err = trained_phase(
+                torch, np, fa, label, root)
+
         with Phase("speaker-fs2"):
             (spk_fwd, spk_bwd), fs2_errs = speaker_fs2_phase(
                 torch, np, fa, label, root,
@@ -7370,10 +7795,11 @@ def main() -> int:
             sp, sp_errs, (rank_errs, head_errs, rank_ms) = \
                 seq_parallel_phase(torch, np, fa, cuda_ms, label, root,
                                    os.path.join(root, "data", "train"),
-                                   valid)
+                                   valid, sets=MESH_DEPTH, together=True)
 
         with Phase("longformer-mesh"):
-            lfm = longformer_mesh_phase(torch, np, label, root)
+            lfm = longformer_mesh_phase(torch, np, label, root,
+                                        sets=LF_MESH_DEPTH, together=True)
     # every rank's own count, over every run of the phase
     dp_fwd = sum(k1 for ranks in dp.values() for k1, _ in ranks)
     dp_bwd = sum(k2 for ranks in dp.values() for _, k2 in ranks)
@@ -7389,9 +7815,10 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + spk_fwd + side_fwd + opt_fwd + prep_fwd + mo_launches[0]
-        + dp_fwd + tp_fwd + sp_fwd,
+        + cli_fwd + trained_fwd + spk_fwd + side_fwd + opt_fwd + prep_fwd
+        + mo_launches[0] + dp_fwd + tp_fwd + sp_fwd,
         "launches_serve_cli": cli_fwd,
+        "launches_trained": trained_fwd,
         "launches_speaker_fs2": spk_fwd,
         "launches_side_train": side_fwd,
         "launches_train_options": opt_fwd,
@@ -7414,6 +7841,7 @@ def main() -> int:
         "max_abs_err_tts_shapes": side_errs[0],
         "max_abs_err_speech_only_shapes": opt_errs[0],
         "max_abs_err_prep_chain_shapes": prep_errs[0],
+        "max_abs_err_trained": trained_err,
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -7425,10 +7853,11 @@ def main() -> int:
         "source": "a3t_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
-        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + spk_bwd
-        + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd + tp_bwd
-        + sp_bwd,
+        "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + trained_bwd
+        + spk_bwd + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd
+        + tp_bwd + sp_bwd,
         "launches_serve_cli": cli_bwd,
+        "launches_trained": trained_bwd,
         "launches_speaker_fs2": spk_bwd,
         "launches_side_train": side_bwd,
         "launches_train_options": opt_bwd,

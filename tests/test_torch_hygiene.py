@@ -1,8 +1,10 @@
 """The port stands alone: a3t_tpu_torch/, chip_smoke.py and chip_ab.py
 import no JAX stack, nothing of a3t_tpu and no yaml (the card's machine
 makes no yaml promise; the port reads its configs with
-tasks/yaml_subset.py), the kernels build without PyTorch's headers, and the
-entry points run on CUDA unless the caller asks for the CPU."""
+tasks/yaml_subset.py), nor tensorstore, zstandard or ml_dtypes, nor load a
+system zstd library (the port reads orbax checkpoints with its own
+decoder), the kernels build without PyTorch's headers, and the entry
+points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -15,7 +17,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "a3t_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "a3t_tpu",
-             "yaml"}
+             "yaml", "tensorstore", "zstandard", "ml_dtypes"}
 
 
 def _sources():
@@ -70,6 +72,21 @@ def test_import_loads_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True, timeout=120)
+
+
+def test_no_system_zstd_library():
+    """The orbax reader decodes with a3t_tpu_torch/native/zstd_decode.cc:
+    no port source names a system zstd library."""
+    files = _sources()
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith((".cc", ".cu", ".cuh", ".h"))]
+    assert os.path.join(PKG, "native", "zstd_decode.cc") in files
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        for name in ("libzstd", "zstd.h", "find_library"):
+            assert name not in text, (os.path.relpath(path, ROOT), name)
 
 
 def test_kernel_sources_use_no_torch_headers():

@@ -30,8 +30,9 @@ convolutions exchange their halos, BatchNorm reduces over the data and
 seq axes, and every dropout keeps the rank's rows of one process's mask.
 Under ``remat`` the ranks of a seq group replay those collectives in the
 same order.  The longformer kind takes both axes: its rank's heads, and
-its frame block with a band halo of c x dilation frames from each
-neighbour (``models/windowed_attention.py``).
+its frame block, any part of the frames, with the whole chunks of c x
+dilation frames that cover it and a halo chunk of keys on each side from
+the neighbour blocks (``models/windowed_attention.py``).
 
 Mixed precision follows flax's promotion: LayerNorms keep the float32
 stream, the attention projections, feed-forwards and conv module run in the

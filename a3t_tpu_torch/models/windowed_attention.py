@@ -25,8 +25,8 @@ a speech query attend every d-th frame of a d-times wider band: frame
 p * d + r of batch row bi goes to row bi * d + r at position p, the d phase
 sequences run through the same path with the text keys repeated d times
 (``repeat_interleave``, ``jnp.repeat``), and the output is put back in frame
-order.  ``n_frames`` must be a multiple of window/2 x dilation (the
-batcher's bucket rule).
+order.  ``n_frames`` (on the seq axis the whole sequence's frames) must be
+a multiple of window/2 x dilation (the batcher's bucket rule).
 
 On a ``shard`` of the model axis (``parallel/tensor.py``) the module runs
 its rank's H / tp heads from ``head0``: q, k and v hold their rows,
@@ -37,17 +37,22 @@ process's mask.
 
 On a rank of the mesh's seq axis (``seq``, ``parallel/sequence.py``) the
 module holds its frame block and the whole text, and ``mask`` is the whole
-sequence's key mask.  The speech queries take c x d frames from each
-neighbour block (``parallel/sequence.py::halo_pad`` over the frames alone,
-zeros at the global edges), which is
-c positions of each phase, and run on the rank's query chunks with that
-halo (``chunks`` of the banded kernels; the chunked path bands over the
-halo'd tensors with the structural edges of the whole sequence, and keeps
-its chunks' rows of one process's dropout mask).  The text queries attend
-every key, so the speech keys and values are all-gathered and the local
-text appended; their dropout mask is the whole tensor's, the same on every
-rank.  A rank's block must be a multiple of c x d frames
-(:func:`block_rule`; JAX asks this of the whole sequence only).
+sequence's key mask.  The block may be any part of the frames, as JAX's
+GSPMD takes it: the speech queries run on the whole chunks of c x d frames
+that cover the block (:func:`cover`), with one halo chunk of keys and
+values on each side, which is c positions of each phase.  The rows outside
+the block come from the neighbour blocks through one
+``parallel/sequence.py::halo_pad`` of q, k and v over the frames alone
+(zeros at the global edges; nearer blocks than the halo are whole in it),
+and the rank keeps its own rows: the others get a zero output gradient,
+so they add nothing to dq, to the band keys' dk/dv or to the text keys'.
+The chunks are placed in one process's call (``chunks`` of the banded
+kernels; the chunked path bands over the halo'd tensors with the
+structural edges of the whole sequence and keeps its chunks' rows of one
+process's dropout mask), so two ranks that compute one chunk draw the
+same bits.  The text queries attend every key, so the speech keys and
+values are all-gathered and the local text appended; their dropout mask
+is the whole tensor's, the same on every rank.
 """
 
 from __future__ import annotations
@@ -95,15 +100,17 @@ def band_valid(nc: int, c: int, device, chunk0: int = 0,
     return valid
 
 
-def block_rule(seq, c: int, dilation: int) -> None:
-    """Raise unless a seq rank's frame block splits into whole chunks of
-    c x dilation frames, the band halo's unit."""
-    if seq is not None and seq.block % (c * dilation):
-        raise ValueError(
-            f"longformer attention on the seq axis needs each rank's frame "
-            f"block ({seq.frames} frames / {seq.size} ranks = {seq.block}) "
-            f"to be a multiple of half-window {c} x dilation {dilation}; "
-            "adjust BatcherConfig.bucket_frames or mesh.sequence_parallel")
+def cover(seq, unit: int) -> tuple:
+    """(lo, hi, halo): the whole chunks of ``unit`` frames that cover seq
+    rank ``seq.rank``'s block, frames [lo, hi), and the halo rows that
+    every rank of the seq group pads its block with (a collective, so the
+    same on every rank) for one more chunk on each side of its cover."""
+    blk = seq.block
+    ends = [(s * blk // unit * unit, -(-(s + 1) * blk // unit) * unit)
+            for s in range(seq.size)]
+    halo = unit + max(max(s * blk - lo, hi - (s + 1) * blk)
+                      for s, (lo, hi) in enumerate(ends))
+    return (*ends[seq.rank], halo)
 
 
 class WindowedSelfAttention(nn.Module):
@@ -179,9 +186,10 @@ class WindowedSelfAttention(nn.Module):
         ``mask`` is the whole sequence's."""
         b, t, d_model = x.shape
         c, dl = self.window // 2, self.dilation
-        block_rule(seq, c, dl)
-        if n_frames % (c * dl) != 0:
-            raise ValueError(f"n_frames {n_frames} must be a multiple of "
+        cd = c * dl
+        frames = n_frames if seq is None else seq.frames
+        if frames % cd != 0:
+            raise ValueError(f"n_frames {frames} must be a multiple of "
                              f"half-window {c} x dilation {dl}")
         x = copy_to_model(x, self.tp)
 
@@ -197,23 +205,29 @@ class WindowedSelfAttention(nn.Module):
         sp, tx = slice(0, n_frames), slice(n_frames, t)
         if seq is None:
             spm, txm, key_mask = mask[:, sp], mask[:, tx], mask
-            k_sp, v_sp, chunks = k[:, sp], v[:, sp], None
+            q_sp, k_sp, v_sp, chunks = q[:, sp], k[:, sp], v[:, sp], None
+            lo, hi = 0, n_frames
         else:
-            # the speech keys, values and mask with c x dl halo frames from
-            # each neighbour block (zeros at the global edges; the backward
-            # returns each halo row's gradient to its owner)
-            halo = c * dl
-            edge = mask.new_zeros(b, halo)
+            # the covering chunks' queries, with a chunk of keys and values
+            # on each side, out of one halo exchange of q, k and v (zeros
+            # past the global edges; the backward returns each halo row's
+            # gradient to its owner)
+            lo, hi, halo = cover(seq, cd)
+            at = halo - (seq.offset - lo)  # frame lo in the padded block
+            qkv = halo_pad(torch.cat([q[:, sp], k[:, sp], v[:, sp]], -1),
+                           halo, seq.speech(), 1)
+            q_sp = qkv[:, at:at + hi - lo, :, :self.d_k]
+            k_sp, v_sp = qkv[:, at - cd:at + hi - lo + cd].split(
+                self.d_k, -1)[1:]
+            edge = mask.new_zeros(b, cd)
             spm = torch.cat([edge, mask[:, :seq.frames], edge], 1)[
-                :, seq.offset:seq.offset + seq.block + 2 * halo]
+                :, lo:hi + 2 * cd]
             txm = mask[:, seq.frames:]
             # text queries attend the whole sequence's keys
             key_mask = mask if t > n_frames else \
                 mask[:, seq.offset:seq.offset + seq.block]
-            k_sp, v_sp = (halo_pad(y[:, sp], halo, seq.speech(), 1)
-                          for y in (k, v))
-            chunks = (seq.offset // halo, seq.frames // halo)
-        nf_p = n_frames // dl
+            chunks = (lo // cd, seq.frames // cd)
+        nf_p = (hi - lo) // dl
 
         def to_phases(y):  # (B, F, H, d_k) -> (B * dl, H, F / dl, d_k)
             f = y.shape[1]
@@ -221,7 +235,7 @@ class WindowedSelfAttention(nn.Module):
                 0, 2, 3, 1, 4).reshape(b * dl, self.h, f // dl, self.d_k)
 
         # frame p * dl + r of row bi -> row bi * dl + r, position p
-        q_sp, k_sp, v_sp = (to_phases(y) for y in (q[:, sp], k_sp, v_sp))
+        q_sp, k_sp, v_sp = (to_phases(y) for y in (q_sp, k_sp, v_sp))
         spm = spm.reshape(b, -1, dl).transpose(1, 2).reshape(b * dl, -1)
         k_tx, v_tx = (y[:, tx].transpose(1, 2).repeat_interleave(dl, dim=0)
                       for y in (k, v))
@@ -244,8 +258,11 @@ class WindowedSelfAttention(nn.Module):
         else:
             out_sp = self._chunked(q_sp, k_sp, v_sp, spm, k_tx, v_tx, txm_p,
                                    generator, chunks)
+        # back to frame order, the rank's own rows of its cover
         out_sp = out_sp.reshape(b, dl, self.h, nf_p, self.d_k).permute(
-            0, 2, 3, 1, 4).reshape(b, self.h, n_frames, self.d_k)
+            0, 2, 3, 1, 4).reshape(b, self.h, hi - lo, self.d_k)
+        if seq is not None:
+            out_sp = out_sp.narrow(2, seq.offset - lo, n_frames)
 
         # text queries: full attention over every key, in float32
         if seq is not None and t > n_frames:

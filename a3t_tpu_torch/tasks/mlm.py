@@ -40,8 +40,9 @@ checkpoints; chained dispatch falls back to one step per call, as JAX's
 does on a mesh.  Rank 0 alone writes ``config.yaml``, ``tokens.txt``, the
 checkpoints, the plots and the tensorboard and wandb logs; the plots'
 forward runs whole on every rank of data rank 0.  The longformer takes
-both axes; on the seq axis every frame bucket must give each rank a block
-of whole chunks of half-window x dilation frames, which the build checks.
+both axes at every frame block JAX takes: JAX's two rules, each frame
+bucket a multiple of half-window x dilation (checked when the task is
+built) and of sp (checked at each step).
 """
 
 from __future__ import annotations
@@ -68,8 +69,6 @@ from a3t_tpu_torch.parallel.mesh import (barrier, data_rank, make_mesh,
                                          rank, rank_device, world)
 from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
 from a3t_tpu_torch.models.mlm import A3TMLMModel, build_model
-from a3t_tpu_torch.models.windowed_attention import block_rule
-from a3t_tpu_torch.parallel.sequence import SeqLayout
 from a3t_tpu_torch.tasks.config import (A3TTaskConfig, _build, load_config,
                                         save_config)
 from a3t_tpu_torch.text import TokenIDConverter, build_token_list
@@ -106,8 +105,7 @@ def check_supported(cfg: A3TTaskConfig) -> int:
         if stack is not None:
             stack.check_supported(tp)
     # longformer buckets must be multiples of the half-window (the
-    # pad_to_longformer_att_window invariant, collate_fn.py:241-247), and
-    # on the seq axis give each rank a block of whole chunks
+    # pad_to_longformer_att_window invariant, collate_fn.py:241-247)
     enc = cfg.model.encoder
     if enc.selfattention_layer_type == "longformer":
         c, dl = enc.attention_window // 2, max(enc.attention_dilation, 1)
@@ -116,9 +114,6 @@ def check_supported(cfg: A3TTaskConfig) -> int:
             raise ValueError(
                 f"bucket_frames {bad} not multiples of half-window x "
                 f"dilation {c * dl} (required by longformer attention)")
-        if sp > 1:
-            for frames in cfg.batcher.bucket_frames:
-                block_rule(SeqLayout(int(frames), 0, 0, sp), c, dl)
     return make_mesh(m.data_parallel, tp, sp)
 
 

@@ -320,9 +320,9 @@ Phases, each printing its elapsed seconds:
 21. tensor-parallel: the mesh's model axis (tp = 2: each rank one of the
    two heads and half of every feed-forward's units) on the trainer's
    corpus and the 24 kHz yaml at full width (in the whole smoke at 2 + 2
-   blocks, MESH_DEPTH, with the bf16 runs beside the fp32 ones and Bb
-   also beside the NCCL refusal; alone at full depth, each run with the
-   card to itself)
+   blocks, MESH_DEPTH, with the references Q and Qb, B and Bb started
+   together and Bb also beside the NCCL refusal; alone at full depth, each
+   run with the card to itself)
    with its dropout rates, in
    deterministic mode, batches cut in rows only to 16 rows (8 at 512
    frames).  (a) Two ranks on the one card over gloo (bin.launch, bin.train,
@@ -344,7 +344,7 @@ Phases, each printing its elapsed seconds:
 22. seq-parallel: the mesh's seq axis (sp = 2: each rank one half of
    every row's frames and the whole text, context parallelism) on the
    trainer's corpus and the 24 kHz yaml at full width (in the whole smoke
-   at 2 + 2 blocks, MESH_DEPTH, with Q beside Qb and B beside Bb; alone at
+   at 2 + 2 blocks, MESH_DEPTH, with Q, Qb, B and Bb started together; alone at
    full depth, each run with the card to itself) with its dropout
    rates, in deterministic mode, every batch 16 rows of the 512-frame
    bucket.  (a) Two ranks on the one card over gloo (bin.launch,
@@ -366,9 +366,14 @@ Phases, each printing its elapsed seconds:
    the two ranks' dk and dv summed against the square call's; the times
    beside the square call's.  (d) K3, K4 and K5 on the frame blocks of 2
    and 4 seq ranks (with their halo chunks) and on head 1 of the (4, 2,
-   8192, 192) call, fp32 and bf16, dropout 0.2: keep bits, out, lse and dq
-   equal to those rows of the whole call's, dk and dv summed over the
-   ranks against it, each against its plain version, the times.
+   8192, 192) call, and on rank blocks that are not whole chunks, each
+   rank on the chunks that cover its block: the 8 ranks of the (4, 2,
+   1024, 192) call (128-row blocks, c = 256) and the 4 ranks of its
+   dilation-2 phase call (256-frame blocks against c x d = 512), fp32 and
+   bf16, dropout 0.2: keep bits, out, lse and dq of a rank's own rows
+   equal to those rows of the whole call's (dq 0 on a cover's other
+   rows), dk and dv summed over the ranks against it, each against its
+   plain version, the times.
 23. longformer-mesh: configs/a3t_longformer_16k.yaml at full width on
    the seq and model axes (the whole smoke at 1 + 1 blocks, LF_MESH_DEPTH;
    --longformer-mesh alone at the yaml's 4 + 2), as ranks on the one card
@@ -378,8 +383,12 @@ Phases, each printing its elapsed seconds:
    (one chunk a rank: ranks 1 and 2 train with both halos real) and at
    tp = 2: losses within 1e-5, the parameters by JAX's cross-mesh rule,
    BatchNorm within 1e-4 of spread.  (f) bf16, 2 steps, sp = 2 (losses
-   within 1e-3) and tp = 2 (1e-2).  Every rank launches K3, K4 and K5
-   once a block a train step, at its place.
+   within 1e-3) and tp = 2 (1e-2).  (g) Rank blocks that are not whole
+   chunks, fp32, 2 steps, each against one process of its own: sp = 8
+   (128-frame blocks against c = 256, two ranks a chunk) and sp = 4 with
+   attention_dilation 2 (256-frame blocks against c x d = 512), to (e)'s
+   limits.  Every rank launches K3, K4 and K5 once a block a train step,
+   at its place (under sp the chunks that cover its block).
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -6131,7 +6140,9 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
     bin.train, the ranks' group patched to gloo) against one process, fp32 at the yaml's dropout, on
     batches of at most 16 rows; the two-rank run's mid-epoch checkpoint
     resumed by one process; NCCL refusing two ranks on one card; (b) the
-    same in bf16 for TP_BF16_ITERS steps; (c) :func:`tp_kernel_rows`.  On
+    same in bf16 for TP_BF16_ITERS steps; (c) :func:`tp_kernel_rows`.
+    ``together`` (the whole smoke, at a cut depth) starts Q, Qb, Bb and B
+    at once, and X beside Bb.  On
     the CPU (a rehearsal, ``sets`` at a toy width) the checks that need a
     card, NCCL's and (c), are left out.  Returns ({run: [(K1, K2) per
     rank]}, (c)'s errors)."""
@@ -6182,16 +6193,20 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
         json.dump({"out": os.path.join(d, "C"), "exp": exp("C"),
                    "argv": argv("C")}, f)
     # the one-process references Q (fp32) and Qb (bf16); ``together`` (the
-    # whole smoke, at a cut depth) runs them side by side, and Q's step
-    # times are then read with Qb on the card and the host
-    t0 = time.perf_counter()
-    _dp_stage([lambda: _dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d,
-                               env),
-               lambda: _dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d,
-                               env)], together, 400)
-    log(f"  runs Q and Qb (one process each, fp32 and bf16, "
-        f"{'side by side' if together else 'one after the other'}): "
-        f"{time.perf_counter() - t0:.2f} s")
+    # whole smoke, at a cut depth) starts them beside B and Bb and waits
+    # for them with Bb, and Q's step times are then read with the other
+    # runs on the card and the host
+    refs = [lambda: _dp_run("Q", rank_cmd("Q", *profile) + argv("Q"), d,
+                            env),
+            lambda: _dp_run("Qb", rank_cmd("Qb") + argv("Qb", *bf16), d,
+                            env)]
+    ref_runs = [start() for start in refs] if together else []
+    if not together:
+        t0 = time.perf_counter()
+        _dp_stage(refs, False, 400)
+        log(f"  runs Q and Qb (one process each, fp32 and bf16, one after "
+            f"the other): {time.perf_counter() - t0:.2f} s")
+
     def run_bb():
         return _dp_run("Bb", launch(TP) + rank_cmd("Bb", "--gloo")
                        + argv("Bb", *bf16, *tp2), d, env)
@@ -6206,7 +6221,7 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
         d, env)], 400)
     log(f"  run B (tp = {TP}: two ranks on the card over gloo) and run C "
         f"(its rank 0 alone, resuming B at step {DP_SAVE})"
-        f"{', beside run Bb' if together else ''}: "
+        f"{', beside runs Bb, Q and Qb' if together else ''}: "
         f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     if device != "cpu":
@@ -6224,8 +6239,9 @@ def tensor_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
             f"refusal {'printed' if said else 'MISSING'}")
         check(rc != 0 and said, "bin.train refuses NCCL for two ranks of "
               "one card, naming the reason")
-    _dp_wait([bb_run or run_bb()], 400)
-    log(f"  run X and run Bb (bf16, tp = {TP}): "
+    _dp_wait([bb_run or run_bb()] + ref_runs, 400)
+    log(f"  run X and run Bb (bf16, tp = {TP})"
+        f"{' and the rest of Q and Qb' if together else ''}: "
         f"{time.perf_counter() - t0:.2f} s")
 
     (q,), (c,), (qb,) = load("Q"), load("C"), load("Qb")
@@ -6424,6 +6440,21 @@ RANK_WINDOW = 512
 RANK_RATE, RANK_SEED = 0.2, 24601
 RANK_CASES = (("encoder", 64, (8192, 8192, 8192, 6656), True),
               ("pre-encoder", 0, (8192, 7424, 6144, 1800), False))
+# (d) on rank blocks that are not whole chunks (each rank computes the
+# chunks that cover its block and keeps its rows): the yaml's 1024-frame
+# bucket as the (4, 2, 1024, 192) call, on 8 seq ranks (128-row blocks
+# against c = 256, two ranks a chunk) and, at dilation 2, on 4 (256-frame
+# blocks against c x d = 512: 128 positions of each phase of the (8, 2,
+# 512, 192) phase call); (dilation, sp)
+COVER_SHAPE = (4, 2, 1024, 192)
+COVER_LAYOUTS = ((1, 8), (2, 4))
+# the encoder's case (64 text keys, the last utterance 3 chunks of 64
+# short) and the pre-encoder's (speech only; row 3 is padding past frame
+# 200, so that ranks 2-7 of 8 hold padding alone there and their query rows
+# see no valid key, while their covering chunk's first rows read row 3's
+# real keys)
+COVER_CASES = (("encoder", 64, (1024, 1024, 1024, 832)),
+               ("pre-encoder", 0, (1024, 928, 768, 200)))
 
 
 def _halo_block(torch, x, s, sp, c, dim=2):
@@ -6484,38 +6515,69 @@ def _k3_keep_bits(torch, ba, b, h, t, d, window, tt, seed, rate, dt,
         torch.ones(b, h, nc, c, tt, dtype=torch.bool, device=dev)], -1)
 
 
+def _cover(t: int, sp: int, s: int, c: int) -> tuple:
+    """The whole chunks of c rows, [lo, hi), that cover seq rank s of sp's
+    block of t rows, as the windowed module takes them."""
+    from a3t_tpu_torch.models.windowed_attention import cover
+    from a3t_tpu_torch.parallel.sequence import SeqLayout
+
+    return cover(SeqLayout(t, 0, s, sp), c)[:2]
+
+
+def _phases(torch, x, dl: int, dim: int):
+    """``x`` with its frames along ``dim`` as the dilation's phase rows:
+    frame p * dl + r of batch row bi -> row bi * dl + r, position p (the
+    windowed module's ``to_phases``)."""
+    if dl == 1:
+        return x
+    shape = tuple(x.shape)
+    y = x.reshape(*shape[:dim], shape[dim] // dl, dl, *shape[dim + 1:])
+    return y.movedim(dim + 1, 1).reshape(shape[0] * dl, *shape[1:dim],
+                                         shape[dim] // dl, *shape[dim + 1:])
+
+
 def _keep_bits_check(torch, ba):
-    """K3's keep bits of every seq rank's block (1 x 2 x 1024, c = 256, 64
-    text keys, sp = 4: a chunk a rank, both halos real inside) and of head
-    1 alone, against those rows of the whole call's plain rule, bit for
-    bit, in fp32 and bf16."""
-    b, h, t, d, window, tt = 1, 2, 1024, 192, 512, 64
-    c, nc, sp = window // 2, t // (window // 2), 4
+    """K3's keep bits of every seq rank's call, against those rows of the
+    whole call's plain rule, bit for bit, in fp32 and bf16, 64 text keys,
+    c = 256: the blocks of 4 ranks of (1, 2, 1024, 192) (a chunk a rank,
+    both halos real inside), the covering chunks of 8 ranks of it (128-row
+    blocks, two ranks a chunk), those of 4 ranks of the phase call (2, 2,
+    512, 192) of 1024 frames at dilation 2 (256-frame blocks), and head 1
+    alone."""
+    h, d, window, tt = 2, 192, 512, 64
+    c = window // 2
     dev = torch.device("cuda")
-    whole_spm = torch.ones(b, t, dtype=torch.int32, device=dev)
-    want = torch.cat([
-        ba.band_keep(b, h, nc, c, RANK_SEED, RANK_RATE, device=dev)
-        & ba.band_mask(whole_spm, c)[:, None, :, None, :],
-        ba.text_keep(b, h, nc, c, tt, RANK_SEED, RANK_RATE, device=dev)], -1)
+    # (batch rows, positions, ranks)
     for dt in (torch.float32, torch.bfloat16):
         n_diff = n_bits = 0
-        nl = nc // sp
-        for s in range(sp):
-            got = _k3_keep_bits(torch, ba, b, h, t // sp, d, window, tt,
-                                RANK_SEED, RANK_RATE, dt,
-                                chunks=(s * nl, nc))
-            n_diff += int((got != want[:, :, s * nl:(s + 1) * nl]).sum())
-            n_bits += got.numel()
-        got = _k3_keep_bits(torch, ba, b, 1, t, d, window, tt, RANK_SEED,
-                            RANK_RATE, dt, head0=1, heads=2)
-        n_diff += int((got != want[:, 1:]).sum())
-        n_bits += got.numel()
-        log(f"  K3 keep bits of {sp} seq ranks' blocks of ({b}, {h}, {t}, "
-            f"{d}) and of head 1 alone, {str(dt)[6:]} rate {RANK_RATE}: "
-            f"{n_diff} of {n_bits} differ from those rows of the whole "
-            "call's")
-        check(n_diff == 0, f"K3's rank-block and head0 = 1 keep bits "
-              f"({str(dt)[6:]})")
+        for b, t, sp in ((1, 1024, 4), (1, 1024, 8), (2, 512, 4)):
+            nc = t // c
+            want = torch.cat([
+                ba.band_keep(b, h, nc, c, RANK_SEED, RANK_RATE, device=dev)
+                & ba.band_mask(torch.ones(b, t, dtype=torch.int32,
+                                          device=dev), c)[:, None, :, None],
+                ba.text_keep(b, h, nc, c, tt, RANK_SEED, RANK_RATE,
+                             device=dev)], -1)
+            for s in range(sp):
+                lo, hi = _cover(t, sp, s, c)
+                got = _k3_keep_bits(torch, ba, b, h, hi - lo, d, window, tt,
+                                    RANK_SEED, RANK_RATE, dt,
+                                    chunks=(lo // c, nc))
+                n_diff += int((got != want[:, :, lo // c:hi // c]).sum())
+                n_bits += got.numel()
+            if sp == 4 and b == 1:
+                got = _k3_keep_bits(torch, ba, b, 1, t, d, window, tt,
+                                    RANK_SEED, RANK_RATE, dt, head0=1,
+                                    heads=2)
+                n_diff += int((got != want[:, 1:]).sum())
+                n_bits += got.numel()
+        log(f"  K3 keep bits of the blocks of 4 and the covering chunks of 8 "
+            f"seq ranks of (1, {h}, 1024, {d}), of the covering chunks of 4 "
+            f"ranks of its dilation-2 phase call (2, {h}, 512, {d}) and of "
+            f"head 1 alone, {str(dt)[6:]} rate {RANK_RATE}: {n_diff} of "
+            f"{n_bits} differ from those rows of the whole call's")
+        check(n_diff == 0, f"K3's rank-block, covering-chunk and head0 = 1 "
+              f"keep bits ({str(dt)[6:]})")
 
 
 def _both(torch, got, want, rows) -> float:
@@ -6717,6 +6779,172 @@ def banded_rank_rows(torch, ba, cuda_ms, label):
     return worst_sp, worst_tp, times
 
 
+def banded_cover_rows(torch, ba, cuda_ms, label):
+    """(d) K3, K4 and K5 on rank blocks that are not whole chunks of c x
+    dilation: for each COVER_LAYOUTS layout of the COVER_SHAPE frames (its
+    phase call at dilation 2) and each COVER_CASES case, fp32 and bf16,
+    dropout 0.2, each rank calls the kernels on the chunks that cover its
+    block with a halo chunk on each side (``chunks`` from the first
+    covering chunk), its output gradient zero off its own rows, as the
+    windowed module does: out, lse and dq of its own rows equal those rows
+    of the whole call's, its dq is 0 on the other rows, the ranks' dk and
+    dv, each halo row added to its owner's, and K4's text gradients summed
+    over the ranks equal the whole call's, phantom halo rows get zeros;
+    each result also against its plain version on the rank's inputs; the
+    bf16 encoder case's times of rank 1's cover beside the whole call's.
+    Returns ({kernel: max abs err}, {kernel: {layout: (rank ms, whole
+    ms)}})."""
+    g = torch.Generator().manual_seed(RANK_SEED + 1)
+    b, h, f, d = COVER_SHAPE
+    window, c = RANK_WINDOW, RANK_WINDOW // 2
+    pad = torch.nn.functional.pad
+    worst = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    times = {kern: {} for kern in worst}
+    for dl, sp in COVER_LAYOUTS:
+        t = f // dl  # positions of each phase
+        nc, blk = t // c, t // sp
+        where = (f"{sp} seq ranks of ({b}, {h}, {f}, {d}), {f // sp}-frame "
+                 f"blocks against c x d = {c * dl}" + (
+                     f" (phase call ({b * dl}, {h}, {t}, {d}))" if dl > 1
+                     else ""))
+        for name, tt, lengths in COVER_CASES:
+            for dt, tol in ((torch.float32, TOL_BWD_F32),
+                            (torch.bfloat16, TOL_BWD_BF16)):
+                dname = str(dt)[6:]
+                q, k, v, kt, vt, go, txm, spm = _banded_inputs(
+                    torch, g, b, h, f, d, tt, dt, lengths)
+                if tt == 0:
+                    kt = torch.zeros(b, h, ba.EMPTY_TEXT, d,
+                                     device=q.device, dtype=dt)
+                    vt = torch.zeros_like(kt)
+                    txm = torch.zeros(b, ba.EMPTY_TEXT, dtype=torch.int32,
+                                      device=q.device)
+                q, k, v, go = (_phases(torch, x, dl, 2).contiguous()
+                               for x in (q, k, v, go))
+                spm = _phases(torch, spm, dl, 1).contiguous()
+                kt, vt, txm = (x.repeat_interleave(dl, 0).contiguous()
+                               for x in (kt, vt, txm))
+                fwd = (window, RANK_SEED, RANK_RATE)
+                out, lse = ba.banded_attention_fwd(q, k, v, kt, vt, txm, spm,
+                                                   *fwd)
+                delta = (go.float() * out.float()).sum(-1)
+                bwd = (RANK_SEED, RANK_RATE, go, lse, delta)
+                dq, dkt, dvt = ba.banded_attention_bwd_dq(
+                    q, k, v, kt, vt, txm, spm, window, *bwd)
+                dk, dv = ba.banded_attention_bwd_dkv(q, k, v, spm, window,
+                                                     *bwd)
+                masked = _masked_rows(torch, ba, txm, spm, c)
+                kp, vp = (pad(x, (0, 0, c, c)) for x in (k, v))
+                mp = pad(spm, (c, c))
+                sums = [torch.zeros(b * dl, h, t + 2 * c, d, device=q.device)
+                        for _ in range(2)]
+                tsum = [torch.zeros_like(dkt), torch.zeros_like(dvt)]
+                errs = {"out": 0.0, "lse": 0.0, "dq": 0.0, "plain": 0.0}
+                off_rows = 0.0
+                for s in range(sp):
+                    lo, hi = _cover(t, sp, s, c)
+                    own, r = slice(s * blk - lo, s * blk - lo + blk), \
+                        slice(s * blk, (s + 1) * blk)
+                    qs = q[:, :, lo:hi].contiguous()
+                    ks, vs = (x[:, :, lo:hi + 2 * c].contiguous()
+                              for x in (kp, vp))
+                    ms = mp[:, lo:hi + 2 * c].contiguous()
+                    gs = torch.zeros_like(qs)
+                    gs[:, :, own] = go[:, :, r]
+                    at = dict(chunks=(lo // c, nc))
+                    o, l_ = ba.banded_attention_fwd(qs, ks, vs, kt, vt, txm,
+                                                    ms, *fwd, **at)
+                    dl_ = (gs.float() * o.float()).sum(-1)
+                    bw = (RANK_SEED, RANK_RATE, gs, l_, dl_)
+                    got = ba.banded_attention_bwd_dq(
+                        qs, ks, vs, kt, vt, txm, ms, window, *bw, **at) \
+                        + ba.banded_attention_bwd_dkv(qs, ks, vs, ms, window,
+                                                      *bw, **at)
+                    ref = ba.banded_attention_reference(
+                        qs, ks, vs, kt, vt, txm, ms, *fwd, **at)
+                    want = ba.banded_attention_bwd_dq_reference(
+                        qs, ks, vs, kt, vt, txm, ms, window, *bw, **at) \
+                        + ba.banded_attention_bwd_dkv_reference(
+                            qs, ks, vs, ms, window, *bw, **at)
+                    valid = ~masked[:, r]
+                    errs["out"] = max(errs["out"], _both(
+                        torch, o[:, :, own], out[:, :, r], valid))
+                    errs["lse"] = max(errs["lse"], (
+                        l_[:, :, own] - lse[:, :, r]).abs().max().item())
+                    errs["dq"] = max(errs["dq"], _both(
+                        torch, got[0][:, :, own], dq[:, :, r], valid))
+                    off = got[0].float().abs()
+                    off[:, :, own] = 0
+                    off_rows = max(off_rows, float(off.max()))
+                    cov = ~masked[:, lo:hi]
+                    errs["plain"] = max(
+                        errs["plain"], _both(torch, o, ref[0], cov),
+                        _both(torch, got[0], want[0], cov),
+                        *[_both(torch, a, w_, ms > 0)
+                          for a, w_ in zip(got[3:], want[3:])],
+                        *[_rel0(a, w_) for a, w_ in zip(got[1:3], want[1:3])])
+                    for kern, pairs in (("K3", [(o, ref[0])]),
+                                        ("K4", zip(got[:3], want[:3])),
+                                        ("K5", zip(got[3:], want[3:]))):
+                        worst[kern] = max(
+                            [worst[kern]]
+                            + [(a.float() - w_.float()).abs().max().item()
+                               for a, w_ in pairs])
+                    for acc, x in zip(sums, got[3:]):
+                        acc[:, :, lo:hi + 2 * c] += x.float()
+                    tsum[0] += got[1]
+                    tsum[1] += got[2]
+                    if s == 1 and name == "encoder" and dt == torch.bfloat16:
+                        t_rank = [cuda_ms(lambda: ba.banded_attention_fwd(
+                            qs, ks, vs, kt, vt, txm, ms, *fwd, **at)),
+                            cuda_ms(lambda: ba.banded_attention_bwd_dq(
+                                qs, ks, vs, kt, vt, txm, ms, window, *bw,
+                                **at)),
+                            cuda_ms(lambda: ba.banded_attention_bwd_dkv(
+                                qs, ks, vs, ms, window, *bw, **at))]
+                        t_whole = [cuda_ms(lambda: ba.banded_attention_fwd(
+                            q, k, v, kt, vt, txm, spm, *fwd)),
+                            cuda_ms(lambda: ba.banded_attention_bwd_dq(
+                                q, k, v, kt, vt, txm, spm, window, *bwd)),
+                            cuda_ms(lambda: ba.banded_attention_bwd_dkv(
+                                q, k, v, spm, window, *bwd))]
+                        for i, kern in enumerate(worst):
+                            key = f"dilation {dl}, sp {sp}"
+                            times[kern][key] = (t_rank[i], t_whole[i])
+                            log(f"  {kern} bf16 at rate {RANK_RATE}, {where}: "
+                                f"{t_rank[i]:.4f} ms on rank 1's covering "
+                                f"chunk ({b * dl}, {h}, {hi - lo} + 2 x {c} "
+                                f"halo rows, {d}; {blk} rows its own), "
+                                f"{t_whole[i]:.4f} ms for the whole call "
+                                f"({t_whole[i] / sp:.4f} ms a rank's share) "
+                                f"[{label}]")
+                    del qs, gs, ks, vs, ms, o, l_, dl_, bw, got, ref, want
+                phantom = max(float(x[:, :, :c].abs().max())
+                              + float(x[:, :, -c:].abs().max()) for x in sums)
+                summed = [_both(torch, sums[0][:, :, c:-c], dk, spm > 0),
+                          _both(torch, sums[1][:, :, c:-c], dv, spm > 0),
+                          _rel0(tsum[0], dkt), _rel0(tsum[1], dvt)]
+                log(f"  K3/K4/K5 {name} {dname} on the covering chunks of "
+                    f"{where}, rate {RANK_RATE}: max|rank - whole rows|/"
+                    f"max|whole| out {errs['out']:.3g}, dq {errs['dq']:.3g}, "
+                    f"max|lse diff| {errs['lse']:.3g}, max |dq| off the "
+                    f"rank's rows {off_rows:.3g}; the ranks' halo rows "
+                    f"returned and summed: dk {summed[0]:.3g}, dv "
+                    f"{summed[1]:.3g}, text dk {summed[2]:.3g}, dv "
+                    f"{summed[3]:.3g}; phantom halo rows max |dk| + |dv| "
+                    f"{phantom:.3g}; against the plain versions "
+                    f"{errs['plain']:.3g} (tol {tol:g})")
+                check(max(errs["out"], errs["dq"], errs["plain"], *summed)
+                      <= tol and errs["lse"] <= TOL_F32 and off_rows == 0.0
+                      and phantom == 0.0,
+                      f"K3/K4/K5 {name} {dname} on the covering chunks of "
+                      f"{where}")
+                del q, k, v, kt, vt, go, out, lse, delta, dq, dkt, dvt, dk
+                del dv, kp, vp, mp, sums, tsum, bwd
+                torch.cuda.empty_cache()
+    return worst, times
+
+
 def _sp_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
                     tol_loss=TOL_SP_LOSS, bn=True):
     """dp x sp x tp ranks (rank order) against one process ``q`` on the same
@@ -6808,9 +7036,11 @@ def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
     at the yaml's dropout, every batch 16 rows of the 512-frame bucket; the
     two-rank run's mid-epoch checkpoint resumed by one process; (b) the
     same in bf16 for SP_BF16_ITERS steps; (c) :func:`sp_kernel_rows`; (d)
-    :func:`banded_rank_rows`, K3-K5 on the rank blocks and on one head.
-    ``together`` (the whole smoke, at a cut depth) runs Q beside Qb and B
-    beside Bb.  On the CPU (a rehearsal, ``sets`` at a toy width) (c) and
+    :func:`banded_rank_rows`, K3-K5 on the rank blocks and on one head,
+    and :func:`banded_cover_rows`, on the chunks that cover rank blocks
+    that are not whole chunks.
+    ``together`` (the whole smoke, at a cut depth) starts Q, Qb, B and Bb
+    at once.  On the CPU (a rehearsal, ``sets`` at a toy width) (c) and
     (d) are left out.  Returns ({run: [(K1, K2) per rank]}, (c)'s errors,
     (d)'s errors and times)."""
     from a3t_tpu_torch.tasks.config import load_config
@@ -6849,12 +7079,13 @@ def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
                            weights_only=False) for r in range(world)]
 
     # (c) and (d) first: the kernels' checks fail fast, before the runs
-    errs, banded = {}, ({}, {}, {})
+    errs, banded = {}, ({},) * 5
     if device != "cpu":
         from a3t_tpu_torch.ops import banded_attention as ba
 
         errs = sp_kernel_rows(torch, fa, cuda_ms, label)
-        banded = banded_rank_rows(torch, ba, cuda_ms, label)
+        banded = banded_rank_rows(torch, ba, cuda_ms, label) \
+            + banded_cover_rows(torch, ba, cuda_ms, label)
         torch.cuda.empty_cache()  # the ranks' processes share the card
     profile = ("--profile-step", str(DP_ITERS - 1))
     then = os.path.join(d, "then_C.json")
@@ -6871,16 +7102,26 @@ def seq_parallel_phase(torch, np, fa, cuda_ms, label, root, train, valid,
         + argv("B", *sp2, f"trainer.save_interval_steps={DP_SAVE}"), d, env),
         lambda: _dp_run("Bb", launch(SP) + rank_cmd("Bb", "--gloo")
                         + argv("Bb", *bf16, *sp2), d, env)]
-    how = "side by side" if together else "one after the other"
-    t0 = time.perf_counter()
-    _dp_stage(runs_q, together, 400)
-    log(f"  runs Q and Qb (one process each, fp32 and bf16, {how}): "
-        f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    _dp_stage(runs_b, together, 400)
-    log(f"  run B (sp = {SP}: two ranks on the card over gloo, fp32; then "
-        f"run C, its rank 0 alone, resuming B at step {DP_SAVE}) and run Bb "
-        f"(bf16, sp = {SP}), {how}: {time.perf_counter() - t0:.2f} s")
+    # ``together`` (the whole smoke, at a cut depth) starts all four at
+    # once, the one-process references beside the ranks
+    if together:
+        t0 = time.perf_counter()
+        _dp_stage(runs_q + runs_b, True, 400)
+        log(f"  runs Q and Qb (one process each, fp32 and bf16), B (sp = "
+            f"{SP}: two ranks on the card over gloo, fp32; then run C, its "
+            f"rank 0 alone, resuming B at step {DP_SAVE}) and Bb (bf16, sp = "
+            f"{SP}), side by side: {time.perf_counter() - t0:.2f} s")
+    else:
+        t0 = time.perf_counter()
+        _dp_stage(runs_q, False, 400)
+        log(f"  runs Q and Qb (one process each, fp32 and bf16, one after "
+            f"the other): {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        _dp_stage(runs_b, False, 400)
+        log(f"  run B (sp = {SP}: two ranks on the card over gloo, fp32; "
+            f"then run C, its rank 0 alone, resuming B at step {DP_SAVE}) "
+            f"and run Bb (bf16, sp = {SP}), one after the other: "
+            f"{time.perf_counter() - t0:.2f} s")
 
     (q,), (c,), (qb,) = load("Q"), load("C"), load("Qb")
     b, bb = load("B", SP), load("Bb", SP)
@@ -6927,6 +7168,11 @@ LF_MESH_DEPTH = ("model.encoder.num_blocks=1",
 # (e)'s second seq run: one chunk of c = 256 a rank, so that the ranks
 # between the edges train with both halos real
 LF_MESH_SP4 = 4
+# (g): rank blocks that are not whole chunks, fp32, LF_MESH_G_ITERS steps:
+# (tag, sp, dilation): 128-frame blocks against c = 256 at sp = 8, and
+# 256-frame blocks against c x d = 512 at sp = 4 with dilation 2
+LF_MESH_G_ITERS = 2
+LF_MESH_G = (("S8g", 8, 1), ("S4gd", 4, 2))
 # --data-parallel-cards: the yaml's 8192-frame bucket and batch_bins
 # (3,000,000 bins over 80 mel bins: 4 rows), utterances of 300-480 phones
 # (~3,400-5,400 frames; the segment embedding holds 500 positions)
@@ -6961,8 +7207,8 @@ def _lf_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
     process ``q`` on the same global batches: the losses within
     ``tol_loss`` at each step and equal on every rank; K3, K4 and K5
     launched once a block a train step in every rank's process, each at
-    the rank's place (under sp its query chunks with the halos, under tp
-    its head of two); the collectives a step (calls and bytes); the
+    the rank's place (under sp the chunks that cover its block, with the
+    halos, under tp its head of two); the collectives a step (calls and bytes); the
     gathered models equal on every rank bit for bit and, with ``params``,
     the parameters by JAX's cross-mesh rule and the postnet's BatchNorm
     statistics beside one process's; each rank's step times and peak
@@ -6994,10 +7240,10 @@ def _lf_against_one(torch, np, q, ranks, sp, tp, cfg, what, note, label,
         places = {p[1:] for p in x["bands"]}
         want = set()
         for f in frames:
+            # the rank's first covering chunk of c x dilation frames
             c = enc.attention_window // 2 * enc.attention_dilation
-            nl = f // sp // c
             want.add((heads // tp, (r % tp) * heads // tp, heads,
-                      (s_rank * nl, f // c) if sp > 1 else None,
+                      (s_rank * (f // sp) // c, f // c) if sp > 1 else None,
                       2 * (enc.attention_window // 2) if sp > 1 else 0))
         check({p[0] for p in x["bands"]} == {"K3", "K4", "K5"}
               and places == want,
@@ -7061,10 +7307,12 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda", sets=(),
     1024-frame bucket of a generated 16 kHz corpus: (e) fp32, DP_ITERS
     steps, at sp = SP, at sp = LF_MESH_SP4 (one chunk a rank, so that
     ranks 1 and 2 hold both halos real) and at tp = TP; (f) bf16,
-    LF_MESH_BF16_ITERS steps, at sp = SP and tp = TP.  The runs of a dtype
-    start together on the card; ``together`` (the whole smoke, at a cut
-    depth) starts both dtypes' runs at once.  Returns {run: [(K3, K4, K5)
-    per rank]}."""
+    LF_MESH_BF16_ITERS steps, at sp = SP and tp = TP; (g) fp32,
+    LF_MESH_G_ITERS steps, rank blocks that are not whole chunks
+    (LF_MESH_G: sp = 8, and sp = 4 at dilation 2), each against one
+    process of its own dilation.  The runs of a part start together on
+    the card; ``together`` (the whole smoke, at a cut depth) starts (e)'s
+    and (f)'s at once.  Returns {run: [(K3, K4, K5) per rank]}."""
     from a3t_tpu_torch.tasks.config import load_config
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -7081,15 +7329,27 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda", sets=(),
     fp32 = ("model.encoder.compute_dtype=float32",)
     bf16 = (f"trainer.num_iters_per_epoch={LF_MESH_BF16_ITERS}",
             f"trainer.log_interval={LF_MESH_BF16_ITERS}")
-    # tag: (ranks, sets, the dtypes it runs in)
-    axes = {"S": (SP, (f"mesh.sequence_parallel={SP}",), "fb"),
-            "S4": (LF_MESH_SP4, (f"mesh.sequence_parallel={LF_MESH_SP4}",),
-                   "f"),
-            "T": (TP, (f"mesh.tensor_parallel={TP}",), "fb")}
+    short = (f"trainer.num_iters_per_epoch={LF_MESH_G_ITERS}",
+             f"trainer.log_interval={LF_MESH_G_ITERS}")
 
-    def argv(tag, *more):
-        return _lf_argv(train, os.path.join(d, f"exp_{tag}"), device, *rows,
-                        *more)
+    def seq(n):
+        return (f"mesh.sequence_parallel={n}",)
+
+    def dil(n):
+        return (f"model.encoder.attention_dilation={n}",)
+
+    # each stage's runs, (tag, ranks, sets), start together on the card
+    e = [("Qf", 1, fp32), ("Sf", SP, fp32 + seq(SP)),
+         ("S4f", LF_MESH_SP4, fp32 + seq(LF_MESH_SP4)),
+         ("Tf", TP, fp32 + (f"mesh.tensor_parallel={TP}",))]
+    f = [("Qb", 1, bf16), ("Sb", SP, bf16 + seq(SP)),
+         ("Tb", TP, bf16 + (f"mesh.tensor_parallel={TP}",))]
+    g = [run for tag, n, dl in LF_MESH_G for run in (
+        (f"Q{tag[2:]}", 1, fp32 + short + dil(dl)),
+        (tag, n, fp32 + short + dil(dl) + seq(n)))]
+    stages = (("(e) fp32", e), ("(f) bf16", f), ("(g) fp32", g))
+    if together:
+        stages = (("(e) fp32 and (f) bf16", e + f), stages[2])
 
     def rank_cmd(tag, *opts):
         return RANK_MAIN + ["--dp-rank", os.path.join(d, tag), *opts, "--"]
@@ -7100,34 +7360,26 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda", sets=(),
                 ",".join(["localhost"] * n), "--port", str(_free_port()),
                 "--"]
 
-    def start(dt, more):
-        return ([_dp_run(f"Q{dt}", rank_cmd(f"Q{dt}") + argv(f"Q{dt}", *more),
-                         d, env)]
-                + [_dp_run(f"{ax}{dt}", launch(n) + rank_cmd(
-                    f"{ax}{dt}", "--gloo") + argv(f"{ax}{dt}", *more, *m),
-                    d, env) for ax, (n, m, dts) in axes.items()
-                   if dt in dts])
+    def start(tag, n, more):
+        argv = _lf_argv(train, os.path.join(d, f"exp_{tag}"), device, *rows,
+                        *more)
+        if n == 1:
+            return _dp_run(tag, rank_cmd(tag) + argv, d, env)
+        return _dp_run(tag, launch(n) + rank_cmd(tag, "--gloo") + argv, d,
+                       env)
 
-    def named(dt):
-        return (f"Q{dt} (one process), "
-                + ", ".join(f"{ax}{dt} ({'tp' if ax == 'T' else 'sp'} = {n})"
-                            for ax, (n, _, dts) in axes.items() if dt in dts)
-                + f", {'fp32' if dt == 'f' else 'bf16'}")
-
-    dtypes = (("f", fp32), ("b", bf16))
-    for stage in ((dtypes,) if together else ((x,) for x in dtypes)):
+    for what, stage in stages:
         t0 = time.perf_counter()
-        _dp_wait([run for dt, more in stage for run in start(dt, more)], 600)
-        log(f"  runs {'; '.join(named(dt) for dt, _ in stage)}, together "
-            f"on the card: {time.perf_counter() - t0:.2f} s")
+        _dp_wait([start(*run) for run in stage], 600)
+        log(f"  runs {what}: " + ", ".join(
+            f"{tag} ({n} rank{'s' * (n > 1)})" for tag, n, _ in stage)
+            + f", together on the card: {time.perf_counter() - t0:.2f} s")
 
     def load(tag, world=1):
         return [torch.load(os.path.join(d, f"{tag}_r{r}.pt"),
                            weights_only=False) for r in range(world)]
 
-    runs = {f"Q{dt}": load(f"Q{dt}") for dt in "fb"}
-    runs.update({f"{ax}{dt}": load(f"{ax}{dt}", n)
-                 for ax, (n, _, dts) in axes.items() for dt in dts})
+    runs = {tag: load(tag, n) for tag, n, _ in e + f + g}
     note = ("the ranks on one card, the collectives through the host over "
             "gloo, beside the other runs: not a speed figure")
     cfg_f = load_config(CONFIG_16K, [*rows, *fp32])
@@ -7145,6 +7397,13 @@ def longformer_mesh_phase(torch, np, label, root, device="cuda", sets=(),
     _lf_against_one(torch, np, runs["Qb"][0], runs["Tb"], 1, TP, cfg_b,
                     f"(f) bf16 tp = {TP}", note, label, TOL_TP_LOSS_BF16,
                     params=False)
+    for tag, n, dl in LF_MESH_G:
+        _lf_against_one(torch, np, runs[f"Q{tag[2:]}"][0], runs[tag], n, 1,
+                        load_config(CONFIG_16K, [*rows, *fp32, *short,
+                                                 *dil(dl)]),
+                        f"(g) fp32 sp = {n}, dilation {dl}, "
+                        f"{LF_MESH_BUCKET // n}-frame blocks", note, label,
+                        TOL_SP_LOSS)
     return {name: [x["banded"] for x in ranks]
             for name, ranks in runs.items()}
 
@@ -7792,10 +8051,11 @@ def main() -> int:
                 together=True)
 
         with Phase("seq-parallel"):
-            sp, sp_errs, (rank_errs, head_errs, rank_ms) = \
-                seq_parallel_phase(torch, np, fa, cuda_ms, label, root,
-                                   os.path.join(root, "data", "train"),
-                                   valid, sets=MESH_DEPTH, together=True)
+            sp, sp_errs, (rank_errs, head_errs, rank_ms, cover_errs,
+                          cover_ms) = seq_parallel_phase(
+                torch, np, fa, cuda_ms, label, root,
+                os.path.join(root, "data", "train"), valid, sets=MESH_DEPTH,
+                together=True)
 
         with Phase("longformer-mesh"):
             lfm = longformer_mesh_phase(torch, np, label, root,
@@ -7914,6 +8174,8 @@ def main() -> int:
             "launches_longformer_mesh_ranks": {
                 tag: [x[i] for x in ranks] for tag, ranks in lfm.items()},
             "max_abs_err_rank_blocks": rank_errs[kern],
+            "max_abs_err_rank_covers": cover_errs[kern],
+            "ms_rank_cover_whole_bf16": cover_ms[kern],
             "max_abs_err_head0_1": head_errs[kern],
             "ms_rank_block_head_whole_bf16": rank_ms[kern],
             **{k: row[k] for k in (

@@ -575,14 +575,20 @@ def test_epoch_factory_rows_follow_the_unsharded_plan(corpus, records):
 
 def test_refusals(corpus, tmp_path):
     base = _config(corpus, str(tmp_path / "exp"))
-    # the longformer on the seq axis: each rank's frame block in whole
-    # chunks of half-window x dilation, checked before the mesh is laid out
+    # the longformer on the seq axis: JAX's rules alone, its buckets
+    # multiples of half-window x dilation, checked before the mesh is laid
+    # out; a rank's block of part of a chunk (128 frames / 8 ranks = 16
+    # against c = 32) goes through to the mesh, which one process does not
+    # cover
     lf = copy.deepcopy(base)
     lf["model"]["encoder"] = {**STACK, "selfattention_layer_type":
                               "longformer", "attention_window": 64}
-    with pytest.raises(ValueError, match=r"frame block \(128 frames / 8 "
-                       r"ranks = 16\) to be a multiple of half-window 32 x "
-                       "dilation 1"):
+    with pytest.raises(ValueError, match="sequence_parallel=8"):
+        MLMTask.build(config_from_dict({**lf, "mesh": {
+            "sequence_parallel": 8}}), device="cpu")
+    lf["model"]["encoder"]["attention_window"] = 512
+    with pytest.raises(ValueError, match=r"bucket_frames \[128\] not "
+                       "multiples of half-window x dilation 256"):
         MLMTask.build(config_from_dict({**lf, "mesh": {
             "sequence_parallel": 8}}), device="cpu")
     # one process covers no mesh of two

@@ -481,15 +481,15 @@ def test_refusals(runs):
         "mesh.tensor_parallel=1 does not cover" in got["dp x sp x tp"]
     assert "sequence_parallel=3 x mesh.tensor_parallel=1 does not divide" \
         in got["sp 3"]
-    # the longformer builds on both axes; on the seq axis every bucket
-    # must give each rank whole chunks of half-window x dilation
-    for axis in ("sequence_parallel", "tensor_parallel"):
-        assert got[f"longformer {axis}"] is None, got[f"longformer {axis}"]
-    assert got["longformer block"] == (
-        "ValueError: longformer attention on the seq axis needs each "
-        "rank's frame block (128 frames / 2 ranks = 64) to be a multiple of "
-        "half-window 128 x dilation 1; adjust BatcherConfig.bucket_frames "
-        "or mesh.sequence_parallel")
+    # the longformer builds on both axes, also where a rank's block is
+    # part of a chunk; its buckets must be multiples of the half-window x
+    # dilation (JAX's message, a3t_tpu/tasks/mlm.py:343-347)
+    for case in ("longformer sequence_parallel",
+                 "longformer tensor_parallel", "longformer block"):
+        assert got[case] is None, got[case]
+    assert got["longformer bucket"] == (
+        "ValueError: bucket_frames [128] not multiples of half-window x "
+        "dilation 256 (required by longformer attention)")
     assert got["fs2"].startswith("NotImplementedError") and \
         "one device" in got["fs2"]
     assert got["chained"].startswith("NotImplementedError")

@@ -92,9 +92,10 @@ def sp_step(workdir: str, tag: str, sp: int = 1, tp: int = 1,
 def refusals(workdir: str):
     """What a group of two refuses: a frame bucket that does not split
     over the seq axis, a mesh that does not cover the group, a longformer
-    whose frame buckets give a rank part of a chunk, FastSpeech2 and
-    chained dispatch; the messages, by case (None where the build goes
-    through: the longformer on the seq and model axes)."""
+    whose frame buckets are not multiples of its half-window, FastSpeech2
+    and chained dispatch; the messages, by case (None where the build goes
+    through: the longformer on the seq and model axes, also where a rank's
+    block is part of a chunk)."""
     from a3t_tpu_torch.dsp import LogMelConfig, LogMelFrontend
     from a3t_tpu_torch.models import build_model
     from a3t_tpu_torch.parallel import make_mesh
@@ -125,13 +126,17 @@ def refusals(workdir: str):
         record(f"longformer {axis}", lambda: MLMTask.build(
             config_from_dict(lf), device="cpu"))
     # half-window 128: the 256-frame bucket is 128 frames a rank, the
-    # 128-frame bucket 64
-    lf = dict(setup["task"], model={"encoder": {
-        "selfattention_layer_type": "longformer", "attention_window": 256,
-        "attention_dim": 32, "attention_heads": 2, "linear_units": 32,
-        "num_blocks": 1}}, mesh={"sequence_parallel": 2})
-    record("longformer block", lambda: MLMTask.build(config_from_dict(lf),
-                                                     device="cpu"))
+    # 128-frame bucket 64, part of a chunk; half-window 256: the 128-frame
+    # bucket is not a multiple of it
+    for case, window in (("longformer block", 256),
+                         ("longformer bucket", 512)):
+        lf = dict(setup["task"], model={"encoder": {
+            "selfattention_layer_type": "longformer",
+            "attention_window": window, "attention_dim": 32,
+            "attention_heads": 2, "linear_units": 32, "num_blocks": 1}},
+            mesh={"sequence_parallel": 2})
+        record(case, lambda: MLMTask.build(config_from_dict(lf),
+                                           device="cpu"))
     make_mesh(None, 1, 2)
     record("fs2", lambda: FS2Task.build(load_fs2_config(
         setup["fs2_config"], [f"exp_dir={workdir}/fs2"]), device="cpu"))

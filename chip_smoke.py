@@ -15,6 +15,7 @@
     python3 chip_smoke.py --tensor-parallel   # the build and phase 21 alone
     python3 chip_smoke.py --seq-parallel   # the build and phase 22 alone
     python3 chip_smoke.py --longformer-mesh   # the build and phase 23 alone
+    python3 chip_smoke.py --soak   # the build and phase 24 alone
 
 Phases, each printing its elapsed seconds:
 
@@ -389,6 +390,36 @@ Phases, each printing its elapsed seconds:
    attention_dilation 2 (256-frame blocks against c x d = 512), to (e)'s
    limits.  Every rank launches K3, K4 and K5 once a block a train step,
    at its place (under sp the chunks that cover its block).
+24. soak: the soak recipe (a3t_tpu_torch/recipes/soak/); in the whole
+   smoke (a) runs before data-parallel beside (b), and (b) goes on beside
+   the mesh phases until phase soak-recipe, before longformer-mesh.  (a)
+   The JAX package's trained speaker-conditioned stash
+   artifacts/spemb_params (16 kHz, d = 384, 4 + 4 blocks, bf16; its
+   parameters with a fresh model's BatchNorm statistics as an experiment's
+   epoch_16.pt), artifacts/xvector as the work directory's exp_xvector and
+   artifacts/vocoder through curve_eval --min-phones 18 --max-phones 23
+   --spemb-source speaker (the protocol of MCD_r05.json's
+   length_composition_control_conditioned) on stage 1's eval splits at 16
+   speakers: each split's n, mean MCD and vocoder ceiling beside MCD_r05's
+   (a reference, not a gate), per utterance the edit's host ms, its
+   forward's and vocoder's device ms and the MCD scoring's host s, the
+   stash's load; K1 once a block an edit, K1 against its plain version on
+   the first request's inputs (bf16; fp32 below) with the bound scaled by
+   the output, that request in fp32 on the card against the port's CPU run
+   of it (mel 1e-4, wav 1e-3 of their largest values).
+   (b) python -m a3t_tpu_torch.recipes.soak.run's stages 1-7 with --spemb
+   at stage 4's production width in a process of its own (RECIPE_MAIN), the
+   corpus and the steps cut (SOAK_RECIPE):
+   every stage's files, finite losses, each stage's host seconds and
+   K1/K2 launches, stage 4's device ms a step, K1 (out, lse) and K2 (dq,
+   dk, dv, dbias) on the inputs of stage 4's first call of each query
+   shape against their plain versions (bf16; K1's bound scaled by the
+   output, K2's relative to the largest plain gradient), the aligner's
+   boundary error, the MCD report and the demo's spans.
+   The whole smoke scores a prefix of SOAK_SMOKE_UTTS utterances a split
+   in (a) and stops (b) after stage 5 (SOAK_SMOKE_STOP: stage 6's
+   FastSpeech2 launches no fused kernel, and stage 7 needs its model);
+   --soak alone runs both in full.
 
 It prints the kernel table and the card's name and power limit on lines of
 their own, and ends with one JSON line ``{"ok": true, "device": {...}}``.
@@ -5481,7 +5512,7 @@ def _dp_run(name, cmd, log_dir, env):
     return name, proc, f
 
 
-def _dp_wait(runs, timeout):
+def _dp_wait(runs, timeout, what="the data-parallel runs"):
     """Wait for every run; fail with the end of the log of each run that
     did not exit 0 (a run past ``timeout`` is killed)."""
     import subprocess
@@ -5500,7 +5531,7 @@ def _dp_wait(runs, timeout):
             with open(f.name) as g:
                 tail = g.read()[-4000:]
             log(f"  run {name} exited {rc}; its log ends:\n{tail}")
-    check(not bad, f"the data-parallel runs {bad} exit 0")
+    check(not bad, f"{what} {bad} exit 0")
 
 
 def _dp_stage(starts, together, timeout):
@@ -7820,6 +7851,579 @@ def trained_phase(torch, np, fa, label, root, device="cuda"):
     return (edit_launches + warm[0], warm[1]), k1_err
 
 
+# --- soak: the soak recipe (a3t_tpu_torch/recipes/soak/) on the card: (a)
+# the trained speaker-conditioned stash through curve_eval's protocol behind
+# MCD_r05.json's length_composition_control_conditioned; (b) the recipe's
+# seven stages at stage 4's production width in a process of its own
+
+SPEMB_STASH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "artifacts", "spemb_params")
+XVECTOR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "artifacts", "xvector")
+# the 12k run's eval splits (recipes/soak/launch_spemb.sh:15-22: 16
+# speakers; stage 1's seeds, 48 utterances each) and the control's filter
+# and cap (recipes/soak/post_train.sh: ctrl_long_spemb.json)
+SOAK_SPEAKERS = 16
+SOAK_PHONES = (18, 23)
+SOAK_EVAL_UTTS = 24
+# the whole smoke's cuts (--soak alone takes neither): (a) scores a prefix
+# of each split, and (b) stops before stage 6's 50 FastSpeech2 steps, which
+# launch no fused kernel (stage 7 reads stage 6's model)
+SOAK_SMOKE_UTTS = 4
+SOAK_SMOKE_STOP = 5
+# MCD_r05.json's length_composition_control_conditioned: (n, mean MCD,
+# vocoder ceiling) per split, dB; a reference, not a gate
+MCD_R05 = {"seen": (14, 6.42, 6.13), "unseen": (24, 7.32, 6.51)}
+SOAK_EPOCH = 16  # MCD_r05's checkpoint's name (the stash's epoch is not)
+# (b): the launcher's flags (launch_spemb.sh) with only the corpus and the
+# steps cut
+SOAK_RECIPE = ["--n-utts", "160", "--n-speakers", "4", "--align-utts", "40",
+               "--align-mixtures", "1", "--epochs", "1",
+               "--iters-per-epoch", "8", "--xvector-steps", "20",
+               "--fs2-epochs", "1", "--eval-utts", "2", "--spemb",
+               "--mlm-prob-factor", "1.0", "--warmup-steps", "1000",
+               "--init-params", STASH, "--vocoder", VOCODER_DIR]
+# the recipe's main in a process of its own (soak_recipe_main)
+RECIPE_MAIN = [sys.executable, "-c", "import sys, chip_smoke; "
+               "sys.exit(chip_smoke.soak_recipe_main(sys.argv[1:]))"]
+SOAK_STAGES = ("stage1_data", "stage2_align", "stage3_pack", "stage4_train",
+               "stage5_eval", "stage6_fs2", "stage7_edit_demo")
+
+
+def soak_recipe_main(argv) -> int:
+    """``--out PATH -- <recipe flags>``: python -m
+    a3t_tpu_torch.recipes.soak.run's main on those flags, in this process;
+    then PATH (JSON) holds each stage's host seconds, its K1/K2 launches in
+    this process, the step logs of the trainers of stages 4 and 6 (each
+    step's batch, frames, loss, device ms and host s), and K1 and K2 on
+    the inputs of stage 4's first call of each query shape against their
+    plain versions."""
+    out, argv = argv[1], argv[argv.index("--") + 1:]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from a3t_tpu_torch.bin import train as bin_train
+    from a3t_tpu_torch.ops import fused_attention as fa
+    from a3t_tpu_torch.recipes.soak import run
+    from a3t_tpu_torch.tasks.fs2 import FS2Task
+
+    launches, steps = {}, {}
+    stage, inputs = [0], {}
+    real = {"K1": fa.fused_attention_fwd, "K2": fa.fused_attention_bwd}
+
+    def counted(n, fn):
+        def wrapped(*a, **kw):
+            k1, k2 = fa.LAUNCHES, fa.LAUNCHES_BWD
+            stage[0] = n
+            try:
+                return fn(*a, **kw)
+            finally:
+                stage[0] = 0
+                launches[n] = (fa.LAUNCHES - k1, fa.LAUNCHES_BWD - k2)
+        return wrapped
+
+    def captured(kernel):
+        # stage 4's first call of each query shape, its inputs kept
+        def wrapped(*a):
+            key = (kernel, tuple(a[0].shape))
+            if stage[0] == 4 and key not in inputs:
+                inputs[key] = tuple(t.detach().clone() if
+                                    isinstance(t, torch.Tensor) else t
+                                    for t in a)
+            return real[kernel](*a)
+        return wrapped
+
+    def kept(n, fn):
+        def wrapped(*a, **kw):
+            trainer, state = fn(*a, **kw)
+            steps[n] = [{k: r[k] for k in (
+                "epoch", "iteration", "batch", "frames", "loss", "device_ms",
+                "host_s", "iter_wait_s", "steps") if k in r}
+                for r in trainer.step_log]
+            return trainer, state
+        return wrapped
+
+    for n, name in enumerate(SOAK_STAGES, 1):
+        setattr(run, name, counted(n, getattr(run, name)))
+    bin_train.main = kept(4, bin_train.main)
+    FS2Task.run = staticmethod(kept(6, FS2Task.run))  # the bound classmethod
+    fa.fused_attention_fwd = captured("K1")
+    fa.fused_attention_bwd = captured("K2")
+    try:
+        seconds = run.main(argv)
+    finally:
+        fa.fused_attention_fwd, fa.fused_attention_bwd = real["K1"], \
+            real["K2"]
+    # K1 and K2 on stage 4's own inputs against their plain versions, after
+    # the stages' counts were read
+    compared = []
+    for (kernel, shape), a in sorted(inputs.items()):
+        row = {"kernel": kernel, "shape": list(shape),
+               "dtype": str(a[0].dtype)[6:], "rate": a[6]}
+        if kernel == "K1":
+            got = real["K1"](*a)
+            want = fa.fused_attention_reference(*a)
+            row["out"] = (got[0].float() - want[0].float()).abs().max().item()
+            row["lse"] = (got[1] - want[1]).abs().max().item()
+            row["scale"] = max(1.0, want[0].float().abs().max().item())
+        else:
+            got = real["K2"](*a)
+            want = fa.fused_attention_bwd_reference(*a)
+            row["grads"] = [_rel_err(g, w) for g, w in zip(got, want)]
+            row["dtypes"] = all(g.dtype == w.dtype for g, w in zip(got, want))
+        compared.append(row)
+        del got, want
+    with open(out, "w") as f:
+        json.dump({"seconds": seconds, "launches": launches, "steps": steps,
+                   "compared": compared}, f)
+    return 0
+
+
+def soak_stash_part(torch, np, fa, label, root, device="cuda",
+                    eval_utts=SOAK_EVAL_UTTS):
+    """(a): artifacts/spemb_params (its parameters, with a fresh model's
+    BatchNorm statistics, as an experiment's epoch_16.pt), artifacts/xvector
+    as the work directory's exp_xvector and artifacts/vocoder, on stage 1's
+    eval splits at 16 speakers, through curve_eval --min-phones 18
+    --max-phones 23 --spemb-source speaker --eval-utts ``eval_utts`` (24,
+    the control's cap; fewer scores a prefix of each split).  Returns (K1
+    launches, K1's fp32 error)."""
+    import dataclasses
+    import shutil
+
+    from a3t_tpu_torch.bin import mcd_gate
+    from a3t_tpu_torch.compat.orbax import restore_portable
+    from a3t_tpu_torch.data.fileio import read_2column_text
+    from a3t_tpu_torch.data.dataset import A3TDataset
+    from a3t_tpu_torch.eval.mcd import middle_third_mask_str as protocol_mask
+    from a3t_tpu_torch.inference import FileAlignmentSource, SpeechEditor
+    from a3t_tpu_torch.models import attention
+    from a3t_tpu_torch.recipes.soak import curve_eval
+    from a3t_tpu_torch.recipes.soak import run as soak_run
+    from a3t_tpu_torch.tasks.config import load_config
+    from a3t_tpu_torch.tasks.mlm import MLMTask
+    from a3t_tpu_torch.text import TokenIDConverter
+    from a3t_tpu_torch.train import vocoder as vocoder_mod
+    from a3t_tpu_torch.train.checkpoint import load_params, warm_start_params
+
+    for path in (SPEMB_STASH, XVECTOR_DIR, VOCODER_DIR):
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"{path} is not in this copy: phase soak "
+                                    "reads it")
+    log(f"  inputs: {SPEMB_STASH} ({_dir_bytes(SPEMB_STASH)} bytes), "
+        f"{XVECTOR_DIR} ({_dir_bytes(XVECTOR_DIR)} bytes), {VOCODER_DIR}")
+    w = os.path.join(root, "soak_stash")
+    exp = os.path.join(w, "exp_spemb")
+    os.makedirs(os.path.join(exp, "checkpoints"))
+
+    # the stash's load: its decode, then the model of its config
+    t0 = time.perf_counter()
+    tree = restore_portable(SPEMB_STASH)
+    read_s = time.perf_counter() - t0
+    cfg = load_config(os.path.join(SPEMB_STASH, "config.yaml"))
+    with open(os.path.join(SPEMB_STASH, "tokens.txt")) as f:
+        tokens = [t.strip() for t in f if t.strip()]
+    enc = cfg.model.encoder
+    check(cfg.frontend.fs == 16000 and enc.attention_dim == 384
+          and enc.num_blocks == cfg.model.decoder.num_blocks == 4
+          and enc.compute_dtype == "bfloat16" and cfg.model.spemb_dim == 192
+          and tree["params"]["text_embed"]["embedding"].shape[0]
+          == len(tokens), "the stash's config: 16 kHz, d = 384, 4 + 4 "
+          "blocks, bf16, spemb_dim 192, a text row a token")
+    t0 = time.perf_counter()
+    model = warm_start_params(MLMTask.build_model(cfg, len(tokens), "cpu"),
+                              SPEMB_STASH)
+    build_s = time.perf_counter() - t0
+    torch.save({"model": model.state_dict()},
+               os.path.join(exp, "checkpoints", f"epoch_{SOAK_EPOCH}.pt"))
+    del model
+    for name in ("config.yaml", "tokens.txt"):
+        shutil.copy(os.path.join(SPEMB_STASH, name), exp)
+    os.symlink(XVECTOR_DIR, os.path.join(w, "exp_xvector"))
+    t0 = time.perf_counter()
+    seen, unseen = (os.path.join(w, "data", s)
+                    for s in ("eval_seen", "eval_unseen"))
+    soak_run.generate_eval_splits(SOAK_SPEAKERS, seen, unseen)
+    log(f"  the stash's load: restore_portable {read_s:.3f} s "
+        f"({_dir_bytes(SPEMB_STASH) / 1e6 / read_s:.1f} MB/s), the model "
+        f"built and warm-started on the host {build_s:.2f} s; eval splits "
+        f"(16 speakers, 48 + 48 utterances) {time.perf_counter() - t0:.2f} s "
+        f"[{label}]")
+
+    # per utterance: the edit's host ms, its forward's and both vocoder
+    # calls' device ms (CUDA events), the two MCD scores' host s
+    rec = {"edit": [], "forward": [], "vocoder": [], "mcd": [],
+           "load": []}
+    real = {"edit": SpeechEditor.edit,
+            "build": MLMTask.build_model_from_dir,
+            "voc": vocoder_mod.load_vocoder,
+            "mcd": mcd_gate.mcd_between_waveforms,
+            "fa": attention.fused_attention}
+    captured = {}
+
+    def device_timed(key, fn):
+        def wrapped(*a, **kw):
+            if device == "cpu":
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                rec[key].append((time.perf_counter() - t) * 1e3)
+                return out
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            ev[1].synchronize()
+            rec[key].append(ev[0].elapsed_time(ev[1]))
+            return out
+        return wrapped
+
+    def edit(self, *a, **kw):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real["edit"](self, *a, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        rec["edit"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def build(*a, **kw):
+        t = time.perf_counter()
+        model, mcfg, conv = real["build"](*a, **kw)
+        rec["load"].append(time.perf_counter() - t)
+        model.forward = device_timed("forward", model.forward)
+        return model, mcfg, conv
+
+    def load_vocoder(*a, **kw):
+        return device_timed("vocoder", real["voc"](*a, **kw))
+
+    def mcd(*a, **kw):
+        t = time.perf_counter()
+        out = real["mcd"](*a, **kw)
+        rec["mcd"].append(time.perf_counter() - t)
+        return out
+
+    def capture(*a, **kw):
+        captured.setdefault(a[0].dtype, a)  # (q, k, v, bias, mask)
+        return real["fa"](*a, **kw)
+
+    out_json = os.path.join(w, "ctrl_long_spemb.json")
+    argv = ["--workdir", w, "--exp-name", "exp_spemb", "--epoch",
+            str(SOAK_EPOCH), "--vocoder", VOCODER_DIR, "--eval-utts",
+            str(eval_utts), "--min-phones", str(SOAK_PHONES[0]),
+            "--max-phones", str(SOAK_PHONES[1]), "--spemb-source",
+            "speaker", "--device", device, "--out", out_json]
+    SpeechEditor.edit = edit
+    MLMTask.build_model_from_dir = build
+    vocoder_mod.load_vocoder = load_vocoder
+    mcd_gate.mcd_between_waveforms = mcd
+    attention.fused_attention = capture
+    try:
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        report = curve_eval.main(argv)
+        gate_s = time.perf_counter() - t0
+        k1 = fa.LAUNCHES
+    finally:
+        SpeechEditor.edit = real["edit"]
+        MLMTask.build_model_from_dir = real["build"]
+        vocoder_mod.load_vocoder = real["voc"]
+        mcd_gate.mcd_between_waveforms = real["mcd"]
+        attention.fused_attention = real["fa"]
+    n = {s: report[s]["n"] for s in ("seen", "unseen")}
+    total = n["seen"] + n["unseen"]
+    log(f"  curve_eval {' '.join(argv[:-2])} ...: {gate_s:.2f} s, the "
+        f"model's load (epoch_{SOAK_EPOCH}.pt) {rec['load'][0]:.2f} s; K1 "
+        f"{k1} launches [{label}]")
+    for split in ("seen", "unseen"):
+        r, ref = report[split], MCD_R05[split]
+        log(f"  {split}: n {r['n']}, mean MCD {r['mean_mcd']:.4f} dB, "
+            f"vocoder ceiling {r['vocoder_ceiling_mcd']:.4f} dB; MCD_r05.json "
+            f"(a reference, not a gate): n {ref[0]}, {ref[1]} dB, ceiling "
+            f"{ref[2]} dB [{label}]")
+    texts = {s: read_2column_text(os.path.join(w, "data", f"eval_{s}",
+                                               "text"))
+             for s in ("seen", "unseen")}
+    i = 0
+    for split in ("seen", "unseen"):
+        r = report[split]
+        for uid in r["per_utt"]:
+            voc, mcd = rec["vocoder"][2 * i: 2 * i + 2], rec["mcd"][2 * i:
+                                                                   2 * i + 2]
+            log(f"    {split} {uid} ({len(texts[split][uid].split())} "
+                f"phones): MCD {r['per_utt'][uid]:.4f}, ceiling "
+                f"{r['per_utt_vocoder'][uid]:.4f} dB; edit "
+                f"{rec['edit'][i]:.2f} ms on the host, device: forward "
+                f"{rec['forward'][i]:.2f} ms, vocoder {voc[0]:.2f} + "
+                f"{voc[1]:.2f} ms; MCD scoring {sum(mcd):.3f} s on the host "
+                f"[{label}]")
+            i += 1
+    med = {k: float(np.median(v)) for k, v in rec.items() if v}
+    log(f"  per utterance, medians over {total}: edit {med['edit']:.2f} ms "
+        f"(host), forward {med['forward']:.2f} ms and vocoder "
+        f"{med['vocoder']:.2f} ms a call (device), MCD scoring "
+        f"{2 * med['mcd']:.3f} s (host, two scores) [{label}]")
+    check(n == {s: min(eval_utts, sum(
+        SOAK_PHONES[0] <= len(t.split()) <= SOAK_PHONES[1]
+        for t in texts[s].values())) for s in n} and all(n.values()),
+          "curve_eval scored every utterance of 18-23 phones up to the cap")
+    check(len(rec["edit"]) == total and len(rec["mcd"]) == 2 * total,
+          "an edit and two MCD scores an utterance")
+    check(all(np.isfinite(report[s][k]) for s in n
+              for k in ("mean_mcd", "vocoder_ceiling_mcd")),
+          "finite mean MCDs and ceilings")
+    blocks = cfg.model.encoder.num_blocks + cfg.model.decoder.num_blocks
+    check(k1 == blocks * total, f"K1 once a block an edit ({k1})")
+
+    # K1 on the first request's own inputs, the trained weights (bf16, the
+    # stash's compute dtype); the bound scaled by the output as in trained
+    q, k, v, bias, mask = captured[torch.bfloat16]
+    out, lse = fa.fused_attention_fwd(q, k, v, bias, mask)
+    want_out, want_lse = fa.fused_attention_reference(q, k, v, bias, mask)
+    e = (out.float() - want_out.float()).abs().max().item()
+    el = (lse - want_lse).abs().max().item()
+    scale = max(1.0, want_out.float().abs().max().item())
+    log(f"  K1 at the first request {tuple(q.shape)} bfloat16: max|out-"
+        f"plain| {e:.3g}, max|lse-plain| {el:.3g} (tol {TOL_BF16:g} x "
+        f"{scale:.3g}, the largest |out|) [{label}]")
+    check(e <= TOL_BF16 * scale and el <= TOL_BF16,
+          "K1 at the soak request, bf16")
+
+    # that request in fp32 on the card against the port's CPU run of it
+    split_dir = os.path.join(w, "data", "eval_seen")
+    uid = next(iter(report["seen"]["per_utt"]))
+    text = texts["seen"][uid]
+    spk = read_2column_text(os.path.join(split_dir, "utt2spk"))[uid]
+    with np.load(os.path.join(XVECTOR_DIR, "spk2xvector.npz")) as f:
+        spemb = np.asarray(f[spk], np.float32)
+    wav = A3TDataset(split_dir, TokenIDConverter(tokens))[uid]["audio"]
+    align = FileAlignmentSource(split_dir)(uid)
+    fcfg = dataclasses.replace(cfg.model, encoder=dataclasses.replace(
+        enc, compute_dtype="float32"), decoder=dataclasses.replace(
+        cfg.model.decoder, compute_dtype="float32"))
+    state = load_params(os.path.join(exp, "checkpoints",
+                                     f"epoch_{SOAK_EPOCH}.pt"))
+    hop = cfg.frontend.hop_length
+    n_pad = -(-(1 + len(wav) // hop + 64) // 64) * 64
+    noise = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, n_pad * hop)).astype(np.float32))
+    lexicon = {p.upper(): [p] for t in texts["seen"].values()
+               for p in t.split()}
+    results = {}
+    captured.clear()
+    attention.fused_attention = capture
+    try:
+        for dev in (device, "cpu"):
+            m = MLMTask.build_model(dataclasses.replace(cfg, model=fcfg),
+                                    len(tokens), dev)
+            m.load_state_dict(state, strict=True)
+            vocode = real["voc"](VOCODER_DIR, device=dev)
+            ed = SpeechEditor(
+                m.eval(), cfg.frontend, TokenIDConverter(tokens),
+                lexicon=lexicon, device=dev,
+                vocoder=lambda mel, vocode=vocode, dev=dev: vocode(
+                    mel, z=noise[:, : -(-mel.shape[1] // 64) * 64 * hop].to(
+                        dev)))
+            results[dev] = ed.edit(wav, align, text, protocol_mask(text),
+                                   mask_reconstruct=True, spemb=spemb)
+            del m
+    finally:
+        attention.fused_attention = real["fa"]
+    card, cpu = results[device], results["cpu"]
+    mel_err = float(np.abs(card.mel_edited - cpu.mel_edited).max()
+                    / np.abs(cpu.mel_edited).max())
+    wav_err = float(np.abs(card.prediction - cpu.prediction).max()
+                    / np.abs(cpu.prediction).max())
+    log(f"  fp32 soak request {uid}, card against the CPU: mel {mel_err:.3g} "
+        f"of its largest magnitude (tol {TOL_TRAINED_MEL:g}), wav "
+        f"{wav_err:.3g} of its largest sample (tol {TOL_TRAINED_WAV:g}) "
+        f"[{label}]")
+    check(card.new_span_boundary == cpu.new_span_boundary
+          and mel_err <= TOL_TRAINED_MEL and wav_err <= TOL_TRAINED_WAV,
+          "the card's fp32 soak request equals the CPU's")
+    q, k, v, bias, mask = captured[torch.float32]
+    if q.device.type != "cpu":
+        out, lse = fa.fused_attention_fwd(q, k, v, bias, mask)
+        want_out, want_lse = fa.fused_attention_reference(q, k, v, bias,
+                                                          mask)
+        k1_err = (out - want_out).abs().max().item()
+        el = (lse - want_lse).abs().max().item()
+        scale = max(1.0, want_out.abs().max().item())
+        log(f"  K1 at the fp32 request {tuple(q.shape)}: max|out-plain| "
+            f"{k1_err:.3g}, max|lse-plain| {el:.3g} (tol {TOL_F32:g} x "
+            f"{scale:.3g}) [{label}]")
+        check(k1_err <= TOL_F32 * scale and el <= TOL_F32,
+              "K1 at the soak request, fp32")
+    else:
+        k1_err = 0.0
+    return k1, k1_err
+
+
+def soak_recipe_start(root, device="cuda", stop=7):
+    """(b)'s run: the recipe's stages 1 to ``stop`` in a process of its
+    own."""
+    w = os.path.join(root, "soak_recipe")
+    os.makedirs(w)
+    cmd = RECIPE_MAIN + ["--out", os.path.join(w, "counts.json"), "--",
+                         "--workdir", w, "--stage", "1", "--stop-stage",
+                         str(stop),
+                         *SOAK_RECIPE, "--device", device]
+    log(f"  (b) python -m a3t_tpu_torch.recipes.soak.run "
+        f"{' '.join(cmd[cmd.index('--workdir'):])}")
+    return _dp_run("soak_recipe", cmd, root, dict(os.environ)), \
+        time.perf_counter()
+
+
+def soak_recipe_finish(np, label, root, run, stop=7, timeout=900):
+    """Wait for (b), run to stage ``stop``; check every stage's files,
+    finite losses, the launches, and K1 and K2 on stage 4's own inputs
+    against their plain versions; print each stage's host seconds, stage
+    4's step ms, the aligner's boundary error, the MCD report and the
+    demo's spans.  Returns the run's (K1, K2) launches."""
+    (name, proc, f), t0 = run
+    _dp_wait([(name, proc, f)], timeout, "(b) the recipe's run")
+    w = os.path.join(root, "soak_recipe")
+    with open(os.path.join(w, "counts.json")) as g:
+        counts = json.load(g)
+    seconds = {int(k): v for k, v in counts["seconds"].items()}
+    launches = {int(k): v for k, v in counts["launches"].items()}
+    steps = {int(k): v for k, v in counts["steps"].items()}
+    check(sorted(seconds) == list(range(1, stop + 1)),
+          f"the recipe ran stages 1-{stop}")
+    log(f"  (b) the recipe's stages in {sum(seconds.values()):.2f} s (its "
+        f"process started {time.perf_counter() - t0:.2f} s ago); host s a "
+        "stage: " + ", ".join(f"{n} {seconds[n]:.2f}"
+                              for n in sorted(seconds))
+        + f"; K1/K2 launches a stage: {launches} [{label}]")
+    for rel in ("data/train/wav.scp", "data/train/text", "data/train/utt2spk",
+                "data/train/mfa_start", "data/train/mfa_end",
+                "data/train/mfa_start.oracle", "data/train/mfa_end.oracle",
+                "data/train/utt2xvector.npz", "data/eval_seen/text",
+                "data/eval_seen/utt2xvector.npz", "data/eval_unseen/text",
+                "aligner.bin", "aligner_eval.json", "records/index.npz",
+                "records/meta.json", "records/shard_00000.bin",
+                "records/tokens.txt", "records/utt2xvector.npz",
+                "exp_xvector/xvector.npz", "exp_xvector/xvector.json",
+                "exp_xvector/spk2xvector.npz", "exp_launch.yaml",
+                "exp/config.yaml", "exp/tokens.txt",
+                "exp/checkpoints/epoch_1.pt", "exp/checkpoints/LATEST",
+                "soak_mcd.json") + ((
+                "exp_fs2/config.yaml", "exp_fs2/checkpoints/epoch_1.pt",
+                "demo/demo.json") if stop == 7 else ()):
+        check(os.path.isfile(os.path.join(w, rel)), f"(b) wrote {rel}")
+    check(any(n.startswith("ave_") for n in os.listdir(
+        os.path.join(w, "exp", "checkpoints"))), "(b) wrote an ave_ file")
+    with open(os.path.join(w, "aligner_eval.json")) as g:
+        al = json.load(g)
+    log(f"  (b) stage 2: {al['n_boundaries']} boundaries against the "
+        f"oracle: median {al['median_ms']:.2f} ms, mean {al['mean_ms']:.2f}, "
+        f"p90 {al['p90_ms']:.2f}, {al['within_20ms_pct']:.1f}% within 20 ms "
+        f"[{label}]")
+    check(al["n_boundaries"] > 0 and np.isfinite(al["median_ms"]),
+          "(b) the aligner's boundary error is finite")
+    for n, what in ((4, "A3T, bf16 at d = 384, 4 + 4 blocks"),
+                    (6, "FastSpeech2, adim 256, 4 + 4 transformer blocks")):
+        if n > stop:
+            continue
+        rows = steps[n]
+        losses = [r["loss"] for r in rows]
+        ms = [r["device_ms"] for r in rows if "device_ms" in r]
+        shapes = sorted({(r["batch"], r["frames"]) for r in rows})
+        log(f"  (b) stage {n} ({what}): {len(rows)} steps, batches "
+            f"{shapes}, device ms a step median "
+            f"{float(np.median(ms)) if ms else float('nan'):.2f} "
+            f"(min {min(ms) if ms else float('nan'):.2f}), losses "
+            f"{[round(x, 4) for x in losses[:4]]}...{round(losses[-1], 4)} "
+            f"[{label}]")
+        check(rows and all(np.isfinite(losses)),
+              f"(b) stage {n}: finite losses")
+    check(len(steps[4]) == 8 and (stop < 6 or len(steps[6]) == 50),
+          "(b) 8 steps of stage 4, 50 of stage 6 (its iterations an epoch)")
+    # K1 and K2 on the inputs of stage 4's first call of each query shape
+    for r in counts["compared"]:
+        what = (f"(b) {r['kernel']} at stage 4's {tuple(r['shape'])} "
+                f"{r['dtype']} rate={r['rate']}")
+        if r["kernel"] == "K1":
+            log(f"  {what}: max|out-plain| {r['out']:.3g}, max|lse-plain| "
+                f"{r['lse']:.3g} (tol {TOL_BF16:g} x {r['scale']:.3g}, the "
+                f"largest |out|) [{label}]")
+            check(r["out"] <= TOL_BF16 * r["scale"] and r["lse"] <= TOL_BF16,
+                  what)
+        else:
+            log(f"  {what}: max|grad-plain|/max|plain| dq {r['grads'][0]:.3g}"
+                f", dk {r['grads'][1]:.3g}, dv {r['grads'][2]:.3g}, dbias "
+                f"{r['grads'][3]:.3g} (tol {TOL_BWD_BF16:g}) [{label}]")
+            check(r["dtypes"] and max(r["grads"]) <= TOL_BWD_BF16, what)
+    check(all(r["dtype"] == "bfloat16" for r in counts["compared"])
+          and {r["shape"][0] for r in counts["compared"]
+               if r["kernel"] == "K2"} == {r["batch"] for r in steps[4]}
+          and {r["shape"][0] for r in counts["compared"]
+               if r["kernel"] == "K1"} >= {r["batch"] for r in steps[4]},
+          "(b) K1 and K2 compared at every batch size of stage 4, in bf16")
+    with open(os.path.join(w, "soak_mcd.json")) as g:
+        mcd = json.load(g)
+    for split in ("seen", "unseen"):
+        r = mcd[split]
+        log(f"  (b) stage 5 {split}: n {r['n']}, mean MCD "
+            f"{r['mean_mcd']:.4f} dB, vocoder ceiling "
+            f"{r['vocoder_ceiling_mcd']:.4f} dB (8 training steps) [{label}]")
+        check(r["n"] == 2 and np.isfinite(r["mean_mcd"])
+              and np.isfinite(r["vocoder_ceiling_mcd"]),
+              f"(b) stage 5 {split}: 2 finite scores")
+    blocks = 8  # 4 + 4 conformer blocks
+    check(launches[4][1] == blocks * 8 and launches[4][0] >= blocks * 8,
+          f"(b) stage 4: K2 once a block a step, K1 as often and in "
+          f"validation ({launches[4]})")
+    check(launches[5] == [blocks * 5, 0],
+          f"(b) stage 5: K1 once a block in each of 4 scored edits and the "
+          f"demo ({launches[5]})")
+    if stop < 7:
+        return (sum(v[0] for v in launches.values()),
+                sum(v[1] for v in launches.values()))
+    with open(os.path.join(w, "demo", "demo.json")) as g:
+        demo = json.load(g)
+    log(f"  (b) stage 7: {demo['uid']} spans {demo['old_span_frames']} -> "
+        f"{demo['new_span_frames']}, x-vector used {demo['spemb_used']}, "
+        f"prompt TTS {demo['prompt_out_sec']} s [{label}]")
+    for rel in (f"{demo['uid']}_replaced.wav", f"{demo['uid']}_prompt.wav"):
+        check(os.path.isfile(os.path.join(w, "demo", rel)),
+              f"(b) wrote demo/{rel}")
+    check(demo["spemb_used"] is True, "(b) stage 7 conditioned on x-vectors")
+    check(launches[6] == [0, 0],
+          f"(b) stage 6: the transformer FastSpeech2 (selfattn) runs no "
+          f"fused kernel, as in JAX ({launches[6]})")
+    check(launches[7] == [2 * blocks, 0],
+          f"(b) stage 7: K1 once a block in the edit and the prompt TTS "
+          f"({launches[7]})")
+    return (sum(v[0] for v in launches.values()),
+            sum(v[1] for v in launches.values()))
+
+
+@contextlib.contextmanager
+def _ended_on_failure(run):
+    """Kill (b)'s process when anything raises before it was waited for."""
+    try:
+        yield
+    except BaseException:
+        proc = run[0][1]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        raise
+
+
+def soak_phase(torch, np, fa, label, root, device="cuda"):
+    """(a), then (b), each with the card to itself (``--soak``).  Returns
+    ((K1, K2) launches of (a) and (b), K1's fp32 error in (a))."""
+    t_phase = time.perf_counter()
+    k1_a, k1_err = soak_stash_part(torch, np, fa, label, root, device)
+    log(f"  (a) {time.perf_counter() - t_phase:.2f} s [{label}]")
+    run = soak_recipe_start(root, device)
+    k1_b, k2_b = soak_recipe_finish(np, label, root, run)
+    log(f"  phase soak: {time.perf_counter() - t_phase:.2f} s [{label}]")
+    return (k1_a + k1_b, k2_b), k1_err
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _tree_leaves(v)]
@@ -7953,6 +8557,13 @@ def main() -> int:
                 trained_phase(torch, np, fa, label, root)
         return 0
 
+    if sys.argv[1:] == ["--soak"]:
+        # the soak phase alone: (a) on every utterance, then (b)
+        with tempfile.TemporaryDirectory(prefix="a3t_soak_") as root:
+            with Phase("soak"):
+                soak_phase(torch, np, fa, label, root)
+        return 0
+
     if sys.argv[1:] == ["--model-options"]:
         # the model-options phase alone, on a trainer corpus of its own
         with tempfile.TemporaryDirectory(prefix="a3t_options_") as root:
@@ -8039,23 +8650,38 @@ def main() -> int:
                 torch, np, fa, ba, cuda_ms, wall_time, label, root,
                 os.path.join(root, "data", "train"), valid)
 
-        with Phase("data-parallel"):
-            dp = data_parallel_phase(torch, np, label, root,
-                                     os.path.join(root, "data", "train"),
-                                     valid, sets=MESH_DEPTH, together=True)
+        # (b) runs beside (a) and then beside the mesh phases, whose step
+        # times in the whole smoke are no speed figures (ranks over gloo)
+        with Phase("soak"):
+            soak_run = soak_recipe_start(root, stop=SOAK_SMOKE_STOP)
+            with _ended_on_failure(soak_run):
+                soak_fwd, soak_err = soak_stash_part(
+                    torch, np, fa, label, root, eval_utts=SOAK_SMOKE_UTTS)
 
-        with Phase("tensor-parallel"):
-            tp, tp_errs = tensor_parallel_phase(
-                torch, np, fa, cuda_ms, label, root,
-                os.path.join(root, "data", "train"), valid, sets=MESH_DEPTH,
-                together=True)
+        with _ended_on_failure(soak_run):
+            with Phase("data-parallel"):
+                dp = data_parallel_phase(
+                    torch, np, label, root,
+                    os.path.join(root, "data", "train"), valid,
+                    sets=MESH_DEPTH, together=True)
 
-        with Phase("seq-parallel"):
-            sp, sp_errs, (rank_errs, head_errs, rank_ms, cover_errs,
-                          cover_ms) = seq_parallel_phase(
-                torch, np, fa, cuda_ms, label, root,
-                os.path.join(root, "data", "train"), valid, sets=MESH_DEPTH,
-                together=True)
+            with Phase("tensor-parallel"):
+                tp, tp_errs = tensor_parallel_phase(
+                    torch, np, fa, cuda_ms, label, root,
+                    os.path.join(root, "data", "train"), valid,
+                    sets=MESH_DEPTH, together=True)
+
+            with Phase("seq-parallel"):
+                sp, sp_errs, (rank_errs, head_errs, rank_ms, cover_errs,
+                              cover_ms) = seq_parallel_phase(
+                    torch, np, fa, cuda_ms, label, root,
+                    os.path.join(root, "data", "train"), valid,
+                    sets=MESH_DEPTH, together=True)
+
+        with Phase("soak-recipe"):
+            soak_b = soak_recipe_finish(np, label, root, soak_run,
+                                        stop=SOAK_SMOKE_STOP)
+        soak_fwd, soak_bwd = soak_fwd + soak_b[0], soak_b[1]
 
         with Phase("longformer-mesh"):
             lfm = longformer_mesh_phase(torch, np, label, root,
@@ -8075,10 +8701,11 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:92",
         "note": "redesigned PR 8",
         "launches": serve_launches + train_fwd + bf16_fwd + trainer_fwd
-        + cli_fwd + trained_fwd + spk_fwd + side_fwd + opt_fwd + prep_fwd
-        + mo_launches[0] + dp_fwd + tp_fwd + sp_fwd,
+        + cli_fwd + trained_fwd + soak_fwd + spk_fwd + side_fwd + opt_fwd
+        + prep_fwd + mo_launches[0] + dp_fwd + tp_fwd + sp_fwd,
         "launches_serve_cli": cli_fwd,
         "launches_trained": trained_fwd,
+        "launches_soak": soak_fwd,
         "launches_speaker_fs2": spk_fwd,
         "launches_side_train": side_fwd,
         "launches_train_options": opt_fwd,
@@ -8102,6 +8729,7 @@ def main() -> int:
         "max_abs_err_speech_only_shapes": opt_errs[0],
         "max_abs_err_prep_chain_shapes": prep_errs[0],
         "max_abs_err_trained": trained_err,
+        "max_abs_err_soak": soak_err,
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -8114,10 +8742,11 @@ def main() -> int:
         "replaces": "a3t_tpu/ops/fused_attention.py:135",
         "note": "redesigned PR 8",
         "launches": train_bwd + bf16_bwd + trainer_bwd + cli_bwd + trained_bwd
-        + spk_bwd + side_bwd + opt_bwd + prep_bwd + mo_launches[1] + dp_bwd
-        + tp_bwd + sp_bwd,
+        + soak_bwd + spk_bwd + side_bwd + opt_bwd + prep_bwd + mo_launches[1]
+        + dp_bwd + tp_bwd + sp_bwd,
         "launches_serve_cli": cli_bwd,
         "launches_trained": trained_bwd,
+        "launches_soak": soak_bwd,
         "launches_speaker_fs2": spk_bwd,
         "launches_side_train": side_bwd,
         "launches_train_options": opt_bwd,
